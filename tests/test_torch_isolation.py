@@ -1,0 +1,92 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+- A fresh interpreter imports every module of tpu_pbrt_torch and renders
+  a tiny scene on the CPU; afterwards no `jax*` and no `tpu_pbrt.` module
+  may be loaded.
+- A scan of the port's sources finds no import that names either.
+- With no GPU, the entry points' default device (CUDA) raises instead of
+  falling back to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tpu_pbrt_torch
+from tpu_pbrt_torch.config import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(tpu_pbrt_torch.__file__))
+
+_CHILD = r'''
+import importlib, pkgutil, sys
+import tpu_pbrt_torch
+for m in pkgutil.walk_packages(tpu_pbrt_torch.__path__, "tpu_pbrt_torch."):
+    importlib.import_module(m.name)
+from tpu_pbrt_torch import parse_string
+api = parse_string("""
+Integrator "path" "integer maxdepth" [2]
+Sampler "zerotwosequence" "integer pixelsamples" [1]
+Film "image" "integer xresolution" [4] "integer yresolution" [4]
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]
+Material "matte"
+Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
+WorldEnd
+""", render=True, device="cpu")
+assert api.result.image.shape == (4, 4, 3) and api.result.image.max() > 0
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib", "tpu_pbrt.")) or n == "tpu_pbrt")
+print("FOREIGN", bad)
+'''
+
+
+def test_port_imports_and_renders_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
+
+
+def _imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_no_source_names_jax_or_the_reference():
+    seen = 0
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            seen += 1
+            for name in _imported_names(os.path.join(dirpath, fn)):
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "tpu_pbrt"), f"{fn} imports {name}"
+    assert seen > 20
+
+
+def test_default_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpu_pbrt_torch.parse_string("", device=None)
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,123 @@
+"""Cameras: host construction + batched ray generation (port of
+tpu_pbrt/cameras/__init__.py, the perspective camera).
+
+The projective chain (screen window -> raster -> camera) is built on the
+host exactly as pbrt's ProjectiveCamera constructor (and the reference)
+does; ray generation is one vectorized pass over a batch of film points,
+with the thin-lens model when lensradius > 0. Point transforms are
+written out term by term in the reference's summation order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_pbrt_torch.core import transform as xf
+from tpu_pbrt_torch.core.sampling import concentric_sample_disk
+from tpu_pbrt_torch.core.vecmath import normalize
+from tpu_pbrt_torch.utils.error import Error, PbrtError
+
+CAM_PERSPECTIVE = 0
+
+
+class CompiledCamera(NamedTuple):
+    cam_type: int
+    raster_to_camera: torch.Tensor  # (4,4) f32
+    camera_to_world: torch.Tensor  # (4,4) f32
+    lens_radius: float
+    focal_distance: float
+    shutter_open: float
+    shutter_close: float
+    full_res: tuple  # (x, y)
+
+
+def _screen_window(aspect: float, params) -> tuple:
+    sw = params.find_float("screenwindow")
+    if aspect > 1.0:
+        screen = [-aspect, aspect, -1.0, 1.0]
+    else:
+        screen = [-1.0, 1.0, -1.0 / aspect, 1.0 / aspect]
+    if sw is not None:
+        if len(sw) == 4:
+            screen = [sw[0], sw[1], sw[2], sw[3]]
+        else:
+            Error('"screenwindow" should have four values')
+    return screen
+
+
+def make_camera(name: str, params, cam_to_world: xf.Transform, full_res,
+                shutter=(0.0, 1.0), device="cpu") -> CompiledCamera:
+    """api.cpp MakeCamera for the perspective camera."""
+    if name != "perspective":
+        raise PbrtError(
+            f'Camera "{name}" is not ported to tpu_pbrt_torch yet (ported: "perspective")'
+        )
+    res_x, res_y = full_res
+    aspect = params.find_one_float("frameaspectratio", res_x / res_y)
+    lens_radius = params.find_one_float("lensradius", 0.0)
+    focal = params.find_one_float("focaldistance", 1e6)
+    fov = params.find_one_float("fov", 90.0)
+    halffov = params.find_one_float("halffov", -1.0)
+    if halffov > 0:
+        fov = 2.0 * halffov
+    screen = _screen_window(aspect, params)
+    cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    x0, x1, y0, y1 = screen
+    screen_to_raster = (
+        xf.scale(res_x, res_y, 1.0)
+        * xf.scale(1.0 / (x1 - x0), 1.0 / (y0 - y1), 1.0)
+        * xf.translate([-x0, -y1, 0.0])
+    )
+    raster_to_camera = cam_to_screen.inverse() * screen_to_raster.inverse()
+    return CompiledCamera(
+        cam_type=CAM_PERSPECTIVE,
+        raster_to_camera=torch.from_numpy(
+            np.asarray(raster_to_camera.m, np.float32)).to(device),
+        camera_to_world=torch.from_numpy(
+            np.asarray(cam_to_world.m, np.float32)).to(device),
+        lens_radius=float(np.float32(lens_radius)),
+        focal_distance=float(np.float32(focal)),
+        shutter_open=shutter[0],
+        shutter_close=shutter[1],
+        full_res=(res_x, res_y),
+    )
+
+
+def _xform_point(m, p):
+    r = [((p[..., 0] * m[i, 0] + p[..., 1] * m[i, 1]) + p[..., 2] * m[i, 2]) + m[i, 3]
+         for i in range(3)]
+    w = ((p[..., 0] * m[3, 0] + p[..., 1] * m[3, 1]) + p[..., 2] * m[3, 2]) + m[3, 3]
+    w = torch.where(w == 0.0, torch.ones_like(w), w)
+    return torch.stack(r, dim=-1) / w[..., None]
+
+
+def _xform_vector(m, v):
+    return torch.stack(
+        [(v[..., 0] * m[i, 0] + v[..., 1] * m[i, 1]) + v[..., 2] * m[i, 2] for i in range(3)],
+        dim=-1,
+    )
+
+
+def generate_rays(cam: CompiledCamera, p_film, u_lens):
+    """Batched Camera::GenerateRay. p_film: (...,2) raster-space sample
+    points; u_lens: (...,2) in [0,1). Returns world (o, d, weight)."""
+    p_raster = torch.cat([p_film, torch.zeros_like(p_film[..., :1])], dim=-1)
+    p_cam = _xform_point(cam.raster_to_camera, p_raster)
+    o = torch.zeros_like(p_cam)
+    d = normalize(p_cam)
+    if cam.lens_radius > 0.0:
+        # thin-lens depth of field (ProjectiveCamera lens code)
+        lx, ly = concentric_sample_disk(u_lens[..., 0], u_lens[..., 1])
+        p_lens = cam.lens_radius * torch.stack([lx, ly], dim=-1)
+        dz = d[..., 2]
+        ft = cam.focal_distance / torch.where(dz == 0.0, torch.ones_like(dz), dz)
+        p_focus = o + ft[..., None] * d
+        o = torch.cat([p_lens, torch.zeros_like(p_lens[..., :1])], dim=-1)
+        d = normalize(p_focus - o)
+    o_w = _xform_point(cam.camera_to_world, o)
+    d_w = normalize(_xform_vector(cam.camera_to_world, d))
+    weight = torch.ones(p_film.shape[:-1], dtype=torch.float32, device=p_film.device)
+    return o_w, d_w, weight

@@ -1,0 +1,205 @@
+"""Film: filter-weighted sample accumulation (port of tpu_pbrt/core/film.py).
+
+The film state is three tensors (rgb, weight, splat) on the render
+device; a batch of samples lands by scatter-adds. Unlike the reference's
+functional updates, the deposits here add into the state IN PLACE (the
+state is the render's own accumulator, and an (H, W, 3) copy per chunk
+buys nothing).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tpu_pbrt_torch.core.filters import FilterSpec
+from tpu_pbrt_torch.core.spectrum import luminance
+from tpu_pbrt_torch.utils.error import Error, Warning
+
+
+class FilmState(NamedTuple):
+    rgb: torch.Tensor  # (H, W, 3) filter-weighted radiance sums
+    weight: torch.Tensor  # (H, W) filter weight sums
+    splat: torch.Tensor  # (H, W, 3) unweighted splats
+
+
+def nonfinite_mask(L) -> torch.Tensor:
+    """Rows of a (..., 3) radiance batch carrying any NaN/Inf component."""
+    return (~torch.isfinite(L)).any(dim=-1)
+
+
+class Film:
+    def __init__(
+        self,
+        resolution=(1280, 720),
+        crop_window=(0.0, 1.0, 0.0, 1.0),
+        filt: Optional[FilterSpec] = None,
+        diagonal_mm: float = 35.0,
+        filename: str = "pbrt.exr",
+        scale: float = 1.0,
+        max_sample_luminance: float = float("inf"),
+    ):
+        self.full_resolution = (int(resolution[0]), int(resolution[1]))
+        self.filter = filt or FilterSpec("box", 0.5, 0.5, 0.0, 0.0)
+        self.diagonal = diagonal_mm * 0.001
+        self.filename = filename
+        self.scale = scale
+        self.max_sample_luminance = max_sample_luminance
+        x0, x1, y0, y1 = crop_window
+        rx, ry = self.full_resolution
+        self.cropped_pixel_bounds = (
+            int(math.ceil(rx * x0)),
+            int(math.ceil(rx * x1)),
+            int(math.ceil(ry * y0)),
+            int(math.ceil(ry * y1)),
+        )
+        if (
+            self.cropped_pixel_bounds[1] <= self.cropped_pixel_bounds[0]
+            or self.cropped_pixel_bounds[3] <= self.cropped_pixel_bounds[2]
+        ):
+            Error("Degenerate crop window")
+
+    def sample_bounds(self):
+        """Film::GetSampleBounds."""
+        fx, fy = self.filter.xwidth, self.filter.ywidth
+        x0, x1, y0, y1 = self.cropped_pixel_bounds
+        return (
+            int(math.floor(x0 + 0.5 - fx)),
+            int(math.ceil(x1 - 0.5 + fx)),
+            int(math.floor(y0 + 0.5 - fy)),
+            int(math.ceil(y1 - 0.5 + fy)),
+        )
+
+    def init_state(self, device="cpu") -> FilmState:
+        rx, ry = self.full_resolution
+        return FilmState(
+            rgb=torch.zeros((ry, rx, 3), dtype=torch.float32, device=device),
+            weight=torch.zeros((ry, rx), dtype=torch.float32, device=device),
+            splat=torch.zeros((ry, rx, 3), dtype=torch.float32, device=device),
+        )
+
+    def _prep(self, L, ray_weight):
+        """pbrt AddSample's radiance clean-up: zero NaN/Inf rows, clamp to
+        maxsampleluminance, apply the camera ray weight."""
+        L = L.to(torch.float32)
+        L = torch.where(nonfinite_mask(L)[..., None], torch.zeros_like(L), L)
+        if np.isfinite(self.max_sample_luminance):
+            y = luminance(L)
+            s = torch.where(
+                y > self.max_sample_luminance,
+                self.max_sample_luminance / torch.clamp(y, min=1e-20),
+                torch.ones_like(y),
+            )
+            L = L * s[..., None]
+        if ray_weight is not None:
+            L = L * ray_weight.to(torch.float32)[..., None]
+        return L
+
+    def add_samples(self, state: FilmState, p_film, L, ray_weight=None) -> FilmState:
+        """FilmTile::AddSample over a batch. p_film: (R,2) raster coords,
+        L: (R,3). Static filter footprint of masked scatter-adds."""
+        f = self.filter
+        L = self._prep(L, ray_weight)
+        dx = p_film[..., 0] - 0.5
+        dy = p_film[..., 1] - 0.5
+        x0f = torch.ceil(dx - f.xwidth)
+        y0f = torch.ceil(dy - f.ywidth)
+        x0 = x0f.to(torch.int64)
+        y0 = y0f.to(torch.int64)
+        nx = int(math.floor(2 * f.xwidth)) + 1
+        ny = int(math.floor(2 * f.ywidth)) + 1
+        rx, ryres = self.full_resolution
+        cx0, cx1, cy0, cy1 = self.cropped_pixel_bounds
+        for oy in range(ny):
+            for ox in range(nx):
+                px = x0 + ox
+                py = y0 + oy
+                fw = f.evaluate((x0f + ox) - dx, (y0f + oy) - dy)
+                inb = (px >= cx0) & (px < cx1) & (py >= cy0) & (py < cy1)
+                fw = torch.where(inb, fw, torch.zeros_like(fw))
+                pxc = px.clamp(0, rx - 1)
+                pyc = py.clamp(0, ryres - 1)
+                state.rgb.index_put_((pyc, pxc), fw[..., None] * L, accumulate=True)
+                state.weight.index_put_((pyc, pxc), fw, accumulate=True)
+        return state
+
+    def pixel_deposit_ok(self) -> bool:
+        """Gate for add_samples_pixel: box(0.5) filter over the full frame."""
+        f = self.filter
+        rx, ry = self.full_resolution
+        return (
+            f.name == "box" and f.xwidth == 0.5 and f.ywidth == 0.5
+            and self.cropped_pixel_bounds == (0, rx, 0, ry)
+        )
+
+    def add_samples_pixel(self, state: FilmState, px, py, L, mask,
+                          ray_weight=None) -> FilmState:
+        """add_samples for the box(0.5)/full-frame case with known integer
+        pixel coordinates: each masked sample deposits into its own pixel
+        with weight 1 (a jitter of exactly 0.0 deposits into its own pixel
+        only, as the reference's aligned and pixel deposits do)."""
+        L = self._prep(L, ray_weight)
+        rx, ryres = self.full_resolution
+        pxc = px.long().clamp(0, rx - 1)
+        pyc = py.long().clamp(0, ryres - 1)
+        state.rgb.index_put_(
+            (pyc, pxc), torch.where(mask[..., None], L, torch.zeros_like(L)), accumulate=True
+        )
+        state.weight.index_put_(
+            (pyc, pxc), mask.to(torch.float32), accumulate=True
+        )
+        return state
+
+    def develop(self, state: FilmState, splat_scale: float = 1.0) -> np.ndarray:
+        """Film::WriteImage math: rgb/filterWeightSum + splatScale*splat,
+        then `scale`. Returns the cropped (h, w, 3) float32 image."""
+        rgb = state.rgb.detach().cpu().numpy().astype(np.float64)
+        w = state.weight.detach().cpu().numpy().astype(np.float64)
+        splat = state.splat.detach().cpu().numpy().astype(np.float64)
+        img = rgb / np.maximum(w, 1e-20)[..., None]
+        img = np.where(w[..., None] > 0, img, 0.0)
+        img = img + splat_scale * splat
+        img = img * self.scale
+        x0, x1, y0, y1 = self.cropped_pixel_bounds
+        return img[y0:y1, x0:x1].astype(np.float32)
+
+
+def make_film(name: str, params, filt: FilterSpec, options=None) -> Film:
+    """api.cpp MakeFilm -> CreateFilm."""
+    if name != "image":
+        Warning(f'Film "{name}" unknown; using "image".')
+    xres = params.find_one_int("xresolution", 1280)
+    yres = params.find_one_int("yresolution", 720)
+    if options is not None and getattr(options, "quick_render", False):
+        xres = max(1, xres // 4)
+        yres = max(1, yres // 4)
+    crop = (0.0, 1.0, 0.0, 1.0)
+    cr = params.find_float("cropwindow")
+    if cr is not None and len(cr) == 4:
+        crop = (
+            min(cr[0], cr[1]), max(cr[0], cr[1]),
+            min(cr[2], cr[3]), max(cr[2], cr[3]),
+        )
+    elif cr is not None:
+        Error(f"{len(cr)} values supplied for \"cropwindow\". Expected 4.")
+    if options is not None and getattr(options, "crop_window", None):
+        c = options.crop_window
+        crop = (c[0], c[1], c[2], c[3])
+    filename = params.find_one_string("filename", "")
+    if options is not None and getattr(options, "image_file", ""):
+        filename = options.image_file
+    if not filename:
+        filename = "pbrt.exr"
+    return Film(
+        resolution=(xres, yres),
+        crop_window=crop,
+        filt=filt,
+        diagonal_mm=params.find_one_float("diagonal", 35.0),
+        filename=filename,
+        scale=params.find_one_float("scale", 1.0),
+        max_sample_luminance=params.find_one_float("maxsampleluminance", float("inf")),
+    )
+

@@ -1,0 +1,122 @@
+"""Where a killeroo render's time goes on the GPU.
+
+    python -m tpu_pbrt_torch.profile_render [--res 128] [--spp 64] [--out DIR]
+
+Compiles `scenes.make_killeroo_like` at its full mesh, renders it once to
+warm up, then renders it again under `torch.profiler` (CPU + CUDA
+activity) and prints:
+
+- the render's wall time, rays traced and Mray/s (with the profiler on);
+- the device's busy share: the summed time of the CUDA kernels and
+  copies over the wall time (one stream, so they do not overlap);
+- the device time by group (the two hand-written kernels, sorts,
+  gathers and scatters, elementwise work, copies) and the top kernels;
+- the traversal's host reads per wave from the render's stats.
+
+With `--out DIR` it also writes the Chrome trace there. The script needs
+a CUDA device; it does not fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+#: kernel-name patterns -> group, first match wins
+GROUPS = (
+    ("flush (hand-written)", r"flush_blocks_kernel|seed_kernel|finalize_kernel"),
+    ("expand (hand-written)", r"expand_kernel"),
+    ("sort", r"radix|Sort|sort"),
+    ("gather/scatter/index", r"index|gather|scatter|Index|Scatter|Gather|take"),
+    ("reduce/scan", r"reduce|Reduce|scan|Scan|cumsum"),
+    ("copy", r"Memcpy|Memset|copy|Copy"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+)
+
+
+def _group(name: str) -> str:
+    for g, pat in GROUPS:
+        if re.search(pat, name):
+            return g
+    return "other"
+
+
+def _card() -> str:
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout else "unknown"
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--res", type=int, default=128)
+    ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--out", default="", help="directory for the Chrome trace")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: no CUDA device visible")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
+
+    scene, integ = compile_api(make_killeroo_like(res=args.res, spp=args.spp, device="cuda"))
+    integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
+    reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = integ.render(scene)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+
+    by_name = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            rec = by_name[ev.name]
+            rec[0] += ev.time_range.elapsed_us()
+            rec[1] += 1
+    dev_us = sum(v[0] for v in by_name.values())
+    groups = defaultdict(float)
+    for name, (us, _) in by_name.items():
+        groups[_group(name)] += us
+
+    print(f"card: {_card()}")
+    print(f"render {args.res}x{args.res} {args.spp} spp (profiler on): {wall:.3f} s, "
+          f"{res.rays_traced} rays, {res.rays_traced / wall / 1e6:.4f} Mray/s")
+    print(f"stats: {json.dumps(res.stats)}")
+    print(f"launches: {json.dumps(launches)}")
+    if dev_us == 0:
+        print("device time: not measured (the profiler recorded no CUDA activity)")
+        return 1
+    print(f"device busy: {dev_us / 1e6:.3f} s of {wall:.3f} s wall = {dev_us / 1e6 / wall:.3f}; "
+          f"idle share {1 - dev_us / 1e6 / wall:.3f}")
+    print("device time by group:")
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:24s} {us / 1e3:10.2f} ms  {us / dev_us:6.3f}")
+    print("top kernels by device time:")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / 1e3:10.2f} ms  {n:7d} x  {name[:110]}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(args.out, f"render_{args.res}_{args.spp}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"trace: {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,97 @@
+"""Scene tables between numpy and the port's device tables.
+
+`upload` turns the compiler's numpy tables into the tensors the renderer
+reads. `tables_from_numpy` does the same for the JAX package's compiled
+scene tables (`CompiledScene.dev` after the caller has converted every
+leaf to numpy): it picks the tables this package reads and returns them
+in the port's layout, so a test can drive the port on exactly the
+reference's tables — the counterpart of carrying a model's weights
+across. This module imports neither framework of the reference; the
+caller does the conversion to numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
+
+#: per-material and per-light columns the port reads
+MAT_KEYS = ("type", "kd", "sigma", "eta")
+LIGHT_KEYS = ("type", "p", "L", "tri", "twosided", "area", "tri_v")
+#: top-level tables the port reads (when present)
+DEV_KEYS = (
+    "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",
+    "world_center", "world_radius", "n_lights", "tri_sh16", "tri_verts9T",
+)
+
+
+def _tensor(a, device):
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def upload(tab: dict, device) -> dict:
+    """Numpy tables (as compile_scene builds them) -> device tables:
+    arrays become tensors, "tstream" becomes a TreeletPack, nested dicts
+    recurse."""
+    out = {}
+    for k, v in tab.items():
+        if k == "tstream":
+            out[k] = pack_from_numpy(v, device)
+        elif isinstance(v, dict):
+            out[k] = upload(v, device)
+        else:
+            out[k] = _tensor(v, device)
+    return out
+
+
+def pack_tables(tp) -> dict:
+    """The reference's TreeletPack (numpy leaves) -> the table dict that
+    treelet.pack_from_numpy uploads."""
+    return {
+        "top_bmin": tp.top.child_bmin,
+        "top_bmax": tp.top.child_bmax,
+        "top_idx": tp.top.child_idx,
+        "featT": tp.featT,
+        "center": tp.center,
+        "offset": tp.offset,
+        "count": tp.count,
+    }
+
+
+def treelet_pack_from_numpy(tp, device) -> TreeletPack:
+    """The reference's TreeletPack (numpy leaves) -> the port's TreeletPack."""
+    return pack_from_numpy(pack_tables(tp), device)
+
+
+def tables_from_numpy(dev_np: dict, device) -> dict:
+    """The JAX package's compiled tables (numpy leaves) -> the port's
+    device tables, holding exactly the keys compile_scene produces."""
+    tab = {k: dev_np[k] for k in DEV_KEYS if k in dev_np}
+    tab["mat"] = {k: dev_np["mat"][k] for k in MAT_KEYS}
+    tab["light"] = {k: dev_np["light"][k] for k in LIGHT_KEYS}
+    if "tstream" in dev_np:
+        tab["tstream"] = pack_tables(dev_np["tstream"])
+    if "bfeat" in dev_np:
+        tab["bfeat"] = {"feat": dev_np["bfeat"]["feat"], "center": dev_np["bfeat"]["center"]}
+    return upload(tab, device)
+
+
+def flat_tables(dev: dict, prefix: str = "") -> dict:
+    """Device tables -> {dotted name: numpy array}, for comparisons."""
+    out = {}
+    for k, v in dev.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, TreeletPack):
+            parts = {
+                "top.child_bmin": v.top.child_bmin, "top.child_bmax": v.top.child_bmax,
+                "top.child_idx": v.top.child_idx, "featT": v.featT, "center": v.center,
+                "offset": v.offset, "count": v.count,
+            }
+            out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in parts.items()})
+        elif isinstance(v, dict):
+            out.update(flat_tables(v, name + "."))
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out

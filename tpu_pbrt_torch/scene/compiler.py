@@ -1,0 +1,445 @@
+"""Scene compiler: parsed scene records -> flat tensors on the render device.
+
+Port of tpu_pbrt/scene/compiler.py::compile_scene, reduced to the
+directive set this slice renders:
+
+- shapes: "trianglemesh" (world-space triangle soup, shading normals, uvs);
+- materials: "matte" with constant Kd / sigma;
+- lights: "diffuse" area lights (one row per emissive triangle, as pbrt
+  makes one DiffuseAreaLight per Triangle) and "point" lights, with the
+  spatial (default), power or uniform light-pick strategy;
+- camera "perspective", pixel filter "box", film "image", sampler
+  "zerotwosequence" (or "random"), integrator "path", accelerator "bvh".
+
+Anything else raises PbrtError naming what is not ported yet; nothing is
+silently substituted. The host-side work (BVH build, leaf ordering,
+light rows, the treelet pack, the spatial light distribution) is the
+reference's numpy code, so the uploaded tables are bit-identical to the
+reference's (tests/test_torch_scene.py pins that through
+scene/bridge.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpu_pbrt_torch.accel.build import build_bvh, triangle_bounds
+from tpu_pbrt_torch.cameras import make_camera
+from tpu_pbrt_torch.config import cfg, resolve_device
+from tpu_pbrt_torch.core.bxdf import MAT_MATTE
+from tpu_pbrt_torch.core.film import Film, make_film
+from tpu_pbrt_torch.core.filters import make_filter
+from tpu_pbrt_torch.core.lights_dev import LIGHT_AREA, LIGHT_POINT, SpatialLightDistribution
+from tpu_pbrt_torch.core.sampling import Distribution1D, normalize_sampler_name
+from tpu_pbrt_torch.core.spectrum import luminance
+from tpu_pbrt_torch.utils.error import Error, PbrtError, Warning
+
+
+@dataclass
+class SamplerSpec:
+    name: str
+    spp: int
+    params: Any
+
+
+@dataclass
+class CompiledScene:
+    """Host handle + the device tables every kernel consumes."""
+
+    dev: Dict[str, Any]
+    film: Film
+    camera: Any  # CompiledCamera
+    sampler: SamplerSpec
+    integrator_name: str
+    integrator_params: Any
+    n_tris: int
+    n_lights: int
+    world_min: np.ndarray
+    world_max: np.ndarray
+    world_center: np.ndarray
+    world_radius: float
+    device: torch.device
+    light_distribution_name: str = "spatial"
+    light_distr: Optional[Distribution1D] = None
+    spatial_distr: Any = None
+    has_null_materials: bool = False
+
+
+def _not_ported(what: str):
+    raise PbrtError(f"{what} is not ported to tpu_pbrt_torch yet")
+
+
+def _rgb(v) -> np.ndarray:
+    a = np.asarray(v, np.float64).reshape(-1)
+    if a.size == 1:
+        return np.full(3, float(a[0]))
+    return a[:3]
+
+
+def _const(node, default, what):
+    """A material parameter that must be a constant (textures are not
+    ported): the reference's _fold_const for plain values and const nodes."""
+    if node is None:
+        return default
+    if isinstance(node, tuple):
+        if node[0] in ("const", "constf"):
+            return node[1]
+        _not_ported(f"texture {node[0]!r} on {what}")
+    return node
+
+
+def _tess_mesh(params):
+    idx = params.find_int("indices")
+    P = params.find_point3("P")
+    if idx is None or P is None:
+        Error("Vertex indices and positions \"P\" must be provided with triangle mesh.")
+    idx = np.asarray(idx, np.int64).reshape(-1, 3)
+    P = np.asarray(P, np.float64).reshape(-1, 3)
+    N = params.find_normal("N")
+    uv = params.find_point2("uv")
+    if uv is None:
+        uv = params.find_point2("st")
+        if uv is None:
+            fuv = params.find_float("uv")
+            if fuv is None:
+                fuv = params.find_float("st")
+            uv = np.asarray(fuv, np.float64).reshape(-1, 2) if fuv is not None else None
+    verts = P[idx]
+    normals = np.asarray(N, np.float64).reshape(-1, 3)[idx] if N is not None else None
+    uvs = np.asarray(uv, np.float64).reshape(-1, 2)[idx] if uv is not None else None
+    return verts, normals, uvs
+
+
+def _geometric_normals(verts: np.ndarray) -> np.ndarray:
+    e1 = verts[:, 1] - verts[:, 0]
+    e2 = verts[:, 2] - verts[:, 0]
+    n = np.cross(e1, e2)
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = n / np.maximum(ln, 1e-20)
+    return np.repeat(n[:, None, :], 3, axis=1)
+
+
+def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
+    """MaterialRecords -> SoA table (type, kd, sigma, eta) of the matte rows."""
+    m = len(mat_records)
+    tab = {
+        "type": np.zeros(m, np.int32),
+        "kd": np.zeros((m, 3), np.float32),
+        "eta": np.ones((m, 3), np.float32),
+        "sigma": np.zeros(m, np.float32),
+    }
+    for i, rec in enumerate(mat_records):
+        if rec.type != "matte":
+            _not_ported(f'Material "{rec.type}" (ported: "matte")')
+        if rec.params.get("bumpmap") is not None:
+            _not_ported("bump mapping")
+        tab["type"][i] = MAT_MATTE
+        tab["kd"][i] = _rgb(_const(rec.params.get("Kd"), 0.5, "matte Kd"))
+        tab["sigma"][i] = float(
+            np.asarray(_const(rec.params.get("sigma"), 0.0, "matte sigma"), np.float64)
+            .reshape(-1).mean()
+        )
+    return tab
+
+
+def _check_directives(api, ro):
+    if ro.integrator_name not in ("path", "tpupath"):
+        _not_ported(f'Integrator "{ro.integrator_name}" (ported: "path")')
+    if ro.film_name != "image":
+        _not_ported(f'Film "{ro.film_name}" (ported: "image")')
+    if ro.accelerator_name != "bvh":
+        _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
+    normalize_sampler_name(ro.sampler_name)
+    if ro.instance_uses:
+        _not_ported("ObjectInstance")
+    if ro.named_media or ro.camera_medium:
+        _not_ported("participating media")
+    if api.render_options.camera_to_world.is_animated():
+        _not_ported("an animated camera transform (motion blur)")
+
+
+def compile_scene(api, device=None) -> CompiledScene:
+    """Compile the API's world into tables on `device` (default: the API's
+    device, which defaults to CUDA; see config.resolve_device)."""
+    device = resolve_device(device) if device is not None else getattr(
+        api, "device", None) or resolve_device(None)
+    ro = api.render_options
+    opts = api.options
+    _check_directives(api, ro)
+
+    # -- film / filter / camera / sampler --------------------------------
+    filt = make_filter(ro.filter_name, ro.filter_params)
+    film = make_film(ro.film_name, ro.film_params, filt, opts)
+    shutter = (
+        ro.camera_params.find_one_float("shutteropen", 0.0),
+        ro.camera_params.find_one_float("shutterclose", 1.0),
+    )
+    camera = make_camera(
+        ro.camera_name, ro.camera_params, ro.camera_to_world[0],
+        film.full_resolution, shutter, device=device,
+    )
+    spp = ro.sampler_params.find_one_int("pixelsamples", 16)
+    if getattr(opts, "quick_render", False):
+        spp = max(1, spp // 4)
+    sampler = SamplerSpec(ro.sampler_name, spp, ro.sampler_params)
+
+    # -- gather shapes ----------------------------------------------------
+    all_verts, all_normals, all_uvs = [], [], []
+    all_mat, all_light = [], []
+    mat_records: List = []
+    mat_index: Dict[int, int] = {}
+    light_rows: List[dict] = []
+
+    def mat_id_for(mrec):
+        if mrec is None:
+            _not_ported('Material "none" (null interfaces)')
+        key = id(mrec)
+        if key not in mat_index:
+            mat_index[key] = len(mat_records)
+            mat_records.append(mrec)
+        return mat_index[key]
+
+    for rec in ro.shapes:
+        if rec.type != "trianglemesh":
+            _not_ported(f'Shape "{rec.type}" (ported: "trianglemesh")')
+        verts, normals, uvs = _tess_mesh(rec.params)
+        o2w = rec.object_to_world[0]
+        if not np.allclose(o2w.m, rec.object_to_world[1].m):
+            _not_ported("animated shape transforms (motion blur)")
+        wverts = o2w.apply_point(verts.reshape(-1, 3)).reshape(-1, 3, 3)
+        if normals is not None:
+            wn = o2w.apply_normal(normals.reshape(-1, 3)).reshape(-1, 3, 3)
+            ln = np.linalg.norm(wn, axis=-1, keepdims=True)
+            wn = wn / np.maximum(ln, 1e-20)
+        else:
+            wn = _geometric_normals(wverts)
+        if rec.reverse_orientation ^ o2w.swaps_handedness():
+            wn = -wn
+        if uvs is None:
+            uvs = np.zeros((len(wverts), 3, 2))
+            uvs[:, 1, 0] = 1.0
+            uvs[:, 2] = [1.0, 1.0]
+        mid = mat_id_for(rec.material)
+        n_t = len(wverts)
+        base = sum(len(v) for v in all_verts)
+        all_verts.append(wverts)
+        all_normals.append(wn)
+        all_uvs.append(uvs)
+        all_mat.append(np.full(n_t, mid, np.int32))
+        lids = np.full(n_t, -1, np.int32)
+        if rec.area_light is not None:
+            if rec.area_light_name != "diffuse":
+                _not_ported(f'AreaLightSource "{rec.area_light_name}" (ported: "diffuse")')
+            L = _rgb(rec.area_light.find_one_spectrum("L", np.array([1.0, 1.0, 1.0])))
+            sc = _rgb(rec.area_light.find_one_spectrum("scale", np.array([1.0, 1.0, 1.0])))
+            two = rec.area_light.find_one_bool("twosided", False)
+            e1 = wverts[:, 1] - wverts[:, 0]
+            e2 = wverts[:, 2] - wverts[:, 0]
+            areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+            for k in range(n_t):
+                lids[k] = len(light_rows)
+                light_rows.append(dict(
+                    type=LIGHT_AREA, p=np.zeros(3), L=L * sc, tri=base + k,
+                    twosided=int(two), area=float(areas[k]),
+                ))
+        all_light.append(lids)
+
+    if not all_verts:
+        _not_ported("a scene without geometry")
+    verts = np.concatenate(all_verts).astype(np.float64)
+    normals = np.concatenate(all_normals).astype(np.float32)
+    uvs = np.concatenate(all_uvs).astype(np.float32)
+    mat_ids = np.concatenate(all_mat)
+    light_ids = np.concatenate(all_light)
+
+    # -- world bounds ------------------------------------------------------
+    finite = np.abs(verts).max(axis=(1, 2)) < 1e29
+    if finite.any():
+        wmin = verts[finite].min(axis=(0, 1))
+        wmax = verts[finite].max(axis=(0, 1))
+    else:
+        wmin = np.full(3, -1.0)
+        wmax = np.full(3, 1.0)
+    wcenter = 0.5 * (wmin + wmax)
+    wradius = float(np.linalg.norm(wmax - wcenter)) + 1e-6
+
+    # -- BVH and leaf order -------------------------------------------------
+    bmin, bmax = triangle_bounds(verts)
+    bvh = build_bvh(bmin, bmax, method=ro.accelerator_params.find_one_string(
+        "splitmethod", "auto"))
+    order = bvh.prim_order
+    verts = verts[order]
+    normals = normals[order]
+    uvs = uvs[order]
+    mat_ids = mat_ids[order]
+    light_ids = light_ids[order]
+    inv_order = np.empty_like(order)
+    inv_order[order] = np.arange(len(order))
+    for row in light_rows:
+        row["tri"] = int(inv_order[row["tri"]])
+
+    # -- non-area lights ---------------------------------------------------
+    for lrec in ro.lights:
+        if lrec.type != "point":
+            _not_ported(f'LightSource "{lrec.type}" (ported: "point")')
+        p = lrec.params
+        sc = _rgb(p.find_one_spectrum("scale", np.array([1.0, 1.0, 1.0])))
+        I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
+        pos = lrec.light_to_world.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
+        light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, tri=-1, twosided=0, area=0.0))
+
+    n_lights = len(light_rows)
+    if n_lights == 0:
+        Warning("No light sources defined in scene; rendering a black image.")
+        light_rows.append(dict(type=LIGHT_POINT, p=np.zeros(3), L=np.zeros(3), tri=-1,
+                               twosided=0, area=0.0))
+    lt = {
+        "type": np.array([r["type"] for r in light_rows], np.int32),
+        "p": np.array([r["p"] for r in light_rows], np.float32),
+        "L": np.array([r["L"] for r in light_rows], np.float32),
+        "tri": np.array([r["tri"] for r in light_rows], np.int32),
+        "twosided": np.array([r["twosided"] for r in light_rows], np.int32),
+        "area": np.array([r["area"] for r in light_rows], np.float32),
+    }
+    # per-light triangle vertices (area rows; zeros elsewhere)
+    lt_tri = np.asarray([r["tri"] for r in light_rows], np.int64)
+    lv = np.asarray(verts, np.float32)[np.clip(lt_tri, 0, len(verts) - 1)]
+    lv[lt_tri < 0] = 0.0
+    lt["tri_v"] = lv
+
+    # power-weighted pick distribution (lightdistrib.cpp PowerLightDistribution)
+    power = np.zeros(max(n_lights, 1))
+    for i, r in enumerate(light_rows[: max(n_lights, 1)]):
+        lum_v = float(luminance(np.asarray(r["L"], np.float64)))
+        if r["type"] == LIGHT_AREA:
+            power[i] = lum_v * r["area"] * np.pi * (2.0 if r["twosided"] else 1.0)
+        else:
+            power[i] = lum_v * 4 * np.pi
+    light_distr = Distribution1D.build(
+        power if power.sum() > 0 else np.ones_like(power), device
+    )
+
+    # -- spatial light distribution: dense per-voxel CDFs, importance at the
+    # voxel centers (the reference's simplification of pbrt's lazy hash)
+    spatial_distr = None
+    strategy = ro.integrator_params.find_one_string("lightsamplestrategy", "spatial")
+    if strategy not in ("spatial", "power", "uniform"):
+        _not_ported(f'lightsamplestrategy "{strategy}"')
+    if n_lights > 1 and strategy == "spatial" and n_lights <= 4096:
+        sd = spatial_tables(light_rows, verts, wmin, wmax, power)
+        spatial_distr = SpatialLightDistribution(
+            cdf=torch.from_numpy(sd["cdf"]).to(device),
+            mean_pmf=torch.from_numpy(sd["mean_pmf"]).to(device),
+            lo=torch.from_numpy(sd["lo"]).to(device),
+            inv_cs=torch.from_numpy(sd["inv_cs"]).to(device),
+            res=sd["res"],
+        )
+
+    mtab = lower_materials(mat_records)
+
+    # -- device upload -------------------------------------------------------
+    from tpu_pbrt_torch.accel.wide import pad_tri_verts
+
+    tab = {
+        "tri_verts": pad_tri_verts(verts),
+        "tri_normals": normals,
+        "tri_uvs": uvs,
+        "tri_mat": mat_ids.astype(np.int32),
+        "tri_light": light_ids.astype(np.int32),
+        "mat": mtab,
+        "light": lt,
+        "world_center": np.asarray(wcenter, np.float32),
+        "world_radius": np.float32(wradius),
+        "n_lights": np.int32(n_lights),
+    }
+    if len(mtab["type"]) >= 4096 or n_lights >= 4095:
+        _not_ported("scenes past the 4096-material / 4095-light shading-row packing")
+    # (16, T) lane-major shading rows [n0 n1 n2 | uv0 uv1 uv2 | mat*4096 + light+1]
+    pack = (
+        np.asarray(mat_ids, np.int64) * 4096 + np.asarray(light_ids, np.int64) + 1
+    ).astype(np.float32)[:, None]
+    tab["tri_sh16"] = np.concatenate(
+        [normals.reshape(len(normals), 9), uvs.reshape(len(uvs), 6), pack], axis=1
+    ).T.copy()
+
+    from tpu_pbrt_torch.accel.mxu import BRUTE_MAX_TRIS, tri_feature_weights
+
+    if len(verts) <= BRUTE_MAX_TRIS:
+        tab["bfeat"] = {
+            "feat": tri_feature_weights(verts, wcenter),
+            "center": np.asarray(wcenter, np.float32),
+        }
+    else:
+        from tpu_pbrt_torch.accel.stream import STREAM_LEAF_TRIS
+        from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy
+
+        leaf_tris = int(cfg.leaf_tris if cfg.leaf_tris is not None else STREAM_LEAF_TRIS)
+        tab["tstream"] = build_treelet_pack_numpy(verts, bvh, leaf_tris=leaf_tris)
+        T9 = tab["tri_verts"].shape[0]
+        tab["tri_verts9T"] = tab["tri_verts"].reshape(T9, 9).T.copy()
+
+    from tpu_pbrt_torch.scene.bridge import upload
+
+    return CompiledScene(
+        dev=upload(tab, device),
+        film=film,
+        camera=camera,
+        sampler=sampler,
+        integrator_name=ro.integrator_name,
+        integrator_params=ro.integrator_params,
+        n_tris=len(verts),
+        n_lights=n_lights,
+        world_min=wmin,
+        world_max=wmax,
+        world_center=wcenter,
+        world_radius=wradius,
+        device=device,
+        light_distribution_name=strategy,
+        light_distr=light_distr,
+        spatial_distr=spatial_distr,
+    )
+
+
+def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
+    """SpatialLightDistribution tables (numpy), the reference's build for
+    point and area rows."""
+    res = (8, 8, 8)
+    lo_g = wmin - 1e-3
+    hi_g = wmax + 1e-3
+    cs_g = np.maximum((hi_g - lo_g) / np.asarray(res), 1e-6)
+    gx, gy, gz = res
+    ii, jj, kk = np.meshgrid(np.arange(gx), np.arange(gy), np.arange(gz), indexing="ij")
+    centers = lo_g + (np.stack([ii, jj, kk], -1).reshape(-1, 3, order="F") + 0.5) * cs_g
+    V = centers.shape[0]
+    L = len(light_rows)
+    imp = np.zeros((V, L), np.float64)
+    for i, r in enumerate(light_rows):
+        if r["type"] == LIGHT_POINT:
+            lum_v = float(luminance(np.asarray(r["L"], np.float64)))
+            d2 = np.maximum(((centers - r["p"]) ** 2).sum(-1), 1e-6)
+            imp[:, i] = lum_v / d2
+    area_rows = [i for i, r in enumerate(light_rows) if r["type"] == LIGHT_AREA]
+    if area_rows:
+        tri_ids = np.asarray([light_rows[i]["tri"] for i in area_rows])
+        cent = np.asarray(verts, np.float64).mean(axis=1)[tri_ids]
+        lum_a = np.asarray(
+            [float(luminance(np.asarray(light_rows[i]["L"], np.float64))) for i in area_rows]
+        )
+        area_a = np.asarray([light_rows[i]["area"] for i in area_rows])
+        d2 = np.maximum(((centers[:, None, :] - cent[None, :, :]) ** 2).sum(-1), 1e-6)
+        imp[:, area_rows] = lum_a * area_a / d2
+    row_sum = imp.sum(-1, keepdims=True)
+    imp = np.where(row_sum > 0, imp / np.maximum(row_sum, 1e-30), 1.0 / L)
+    cdf = np.cumsum(imp, -1).astype(np.float32)
+    cdf[:, -1] = 1.0
+    return {
+        "cdf": cdf,
+        "mean_pmf": imp.mean(0).astype(np.float32),
+        "lo": np.asarray(lo_g, np.float32),
+        "inv_cs": np.asarray(1.0 / cs_g, np.float32),
+        "res": res,
+    }

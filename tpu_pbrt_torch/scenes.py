@@ -1,0 +1,154 @@
+"""Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box and the
+killeroo-class mesh).
+
+Same scene text and the same procedural mesh as the reference, driven
+through the port's API, so both packages compile identical worlds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpu_pbrt_torch.scene.api import Options, PbrtAPI, parse_string, pbrt_init
+from tpu_pbrt_torch.scene.paramset import ParamSet
+
+
+def cornell_box_text(res=256, spp=16, integrator="path", maxdepth=5, filename="",
+                     sampler="zerotwosequence"):
+    """The Cornell box: area light + Lambertian walls and blocks."""
+    return f'''
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}]
+Sampler "{sampler}" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" ["{filename}"]
+LookAt 0.5 0.5 -1.4  0.5 0.5 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+# floor (normal +y)
+Material "matte" "rgb Kd" [0.73 0.73 0.73]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0 0 0  0 0 1  1 0 1  1 0 0]
+# ceiling (normal -y)
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0 1 0  1 1 0  1 1 1  0 1 1]
+# back wall (normal -z)
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0 0 1  0 1 1  1 1 1  1 0 1]
+# left wall, red (normal +x)
+Material "matte" "rgb Kd" [0.65 0.05 0.05]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0 0 0  0 1 0  0 1 1  0 0 1]
+# right wall, green (normal -x)
+Material "matte" "rgb Kd" [0.12 0.45 0.15]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [1 0 0  1 0 1  1 1 1  1 1 0]
+# short block
+Material "matte" "rgb Kd" [0.73 0.73 0.73]
+AttributeBegin
+Translate 0.65 0.15 0.3
+Rotate -18 0 1 0
+Scale 0.15 0.15 0.15
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3  4 6 5 4 7 6  0 4 1 1 4 5  2 6 3 3 6 7  1 5 2 2 5 6  0 3 7 0 7 4]
+  "point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1  -1 1 -1  1 1 -1  1 1 1  -1 1 1]
+AttributeEnd
+# tall block
+AttributeBegin
+Translate 0.3 0.3 0.65
+Rotate 15 0 1 0
+Scale 0.15 0.3 0.15
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3  4 6 5 4 7 6  0 4 1 1 4 5  2 6 3 3 6 7  1 5 2 2 5 6  0 3 7 0 7 4]
+  "point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1  -1 1 -1  1 1 -1  1 1 1  -1 1 1]
+AttributeEnd
+# light (faces -y, just below ceiling)
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [15 11 5]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0.35 0.998 0.35  0.65 0.998 0.35  0.65 0.998 0.65  0.35 0.998 0.65]
+AttributeEnd
+WorldEnd
+'''
+
+
+def make_cornell(res=256, spp=16, integrator="path", maxdepth=5, options=None,
+                 sampler="zerotwosequence", device=None) -> PbrtAPI:
+    """Parse the Cornell box up to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    text = cornell_box_text(res, spp, integrator, maxdepth, sampler=sampler)
+    parse_string(text.rsplit("WorldEnd", 1)[0], api, render=False)
+    return api
+
+
+def _displaced_sphere(n_theta=180, n_phi=360, seed=7):
+    """Procedural blobby mesh, ~(n_theta-1)*n_phi*2 triangles, with shading
+    normals — a killeroo-class triangle count with curvature everywhere."""
+    rng = np.random.default_rng(seed)
+    amps = rng.uniform(0.02, 0.08, size=6)
+    freqs = rng.integers(2, 9, size=(6, 2))
+    th = np.linspace(1e-3, np.pi - 1e-3, n_theta)
+    ph = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    r = np.ones_like(T)
+    for a, (f1, f2) in zip(amps, freqs):
+        r = r + a * np.sin(f1 * T) * np.cos(f2 * P)
+    x = r * np.sin(T) * np.cos(P)
+    y = r * np.cos(T)
+    z = r * np.sin(T) * np.sin(P)
+    V = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    i = np.arange(n_theta - 1)[:, None]
+    j = np.arange(n_phi)[None, :]
+    a = i * n_phi + j
+    b = (i + 1) * n_phi + j
+    c = (i + 1) * n_phi + (j + 1) % n_phi
+    e = i * n_phi + (j + 1) % n_phi
+    F = np.stack([np.stack([a, b, c], -1), np.stack([a, c, e], -1)], axis=2)
+    F = F.reshape(-1, 3).astype(np.int64)
+    fn = np.cross(V[F[:, 1]] - V[F[:, 0]], V[F[:, 2]] - V[F[:, 0]])
+    N = np.zeros_like(V)
+    for k in range(3):
+        np.add.at(N, F[:, k], fn)
+    N /= np.maximum(np.linalg.norm(N, axis=-1, keepdims=True), 1e-20)
+    return V, F, N
+
+
+def make_killeroo_like(res=512, spp=64, integrator="path", maxdepth=5,
+                       n_theta=180, n_phi=360, options=None, device=None) -> PbrtAPI:
+    """killeroo-simple stand-in: one ~128k-triangle matte mesh over a ground
+    plane, one area light + point fill, path integrator. Parsed up to
+    (not including) WorldEnd; compile with scene.compiler.compile_scene."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    parse_string(
+        f'''
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.2 -3.4  0 0.3 0  0 1 0
+Camera "perspective" "float fov" [38]
+WorldBegin
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [18 17 15]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 2.98 -1  1 2.98 -1  1 2.98 1  -1 2.98 1]
+AttributeEnd
+LightSource "point" "rgb I" [4 4 5] "point from" [2.5 2 -2.5]
+Material "matte" "rgb Kd" [0.82 0.78 0.75]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-6 -0.72 -6  -6 -0.72 6  6 -0.72 6  6 -0.72 -6]
+Material "matte" "rgb Kd" [0.35 0.30 0.25]
+''',
+        api,
+        render=False,
+    )
+    V, F, N = _displaced_sphere(n_theta, n_phi)
+    ps = ParamSet()
+    ps.add("integer indices", F.reshape(-1).tolist())
+    ps.add("point P", V.reshape(-1).tolist())
+    ps.add("normal N", N.reshape(-1).tolist())
+    api.shape("trianglemesh", ps)
+    return api
+
+
+def compile_api(api: PbrtAPI):
+    """Compile the world accumulated so far (WorldEnd's compile step without
+    the render or the state reset) -> (CompiledScene, integrator)."""
+    from tpu_pbrt_torch.integrators import make_integrator
+    from tpu_pbrt_torch.scene.compiler import compile_scene
+
+    scene = compile_scene(api)
+    integ = make_integrator(
+        api.render_options.integrator_name, api.render_options.integrator_params, scene,
+        api.options,
+    )
+    return scene, integ
