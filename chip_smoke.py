@@ -10,8 +10,12 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. check  — run each kernel against its plain PyTorch version on the
      card, on inputs captured from a real traversal of the killeroo
      scene's first 2^20-ray camera wave (flush at CH=512, F=16; expand
-     at S=2^17 in closest-hit and any-hit mode) plus a synthetic
-     F=64 (motion feature) flush; print the times;
+     at S=2^17 in closest-hit and any-hit mode), a synthetic F=64
+     (motion feature) flush, and the seeded exact-tie flush chunk of
+     kernels/fixtures.py at L=512 (prim must match exactly); print each
+     kernel's device time per call (torch.profiler, summed over its
+     kernels), the wrapper's host time per call, the plain version's and
+     the library call's device time, and the bound;
   3. render — the port's main path: make_killeroo_like() at its full
      mesh, 128x128, 256 spp, maxdepth 5, through compile_scene and
      PathIntegrator.render on the card; the kernel launch counters are
@@ -63,20 +67,58 @@ def card_line() -> str:
         return "nvidia-smi: not available"
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+def device_time_ms(fn, reps: int, warmup: int = 2):
+    """Device time per call of `fn`: the CUDA kernels (and copies) that
+    `reps` calls launch, summed by name from a torch.profiler trace, over
+    `reps`. Returns (ms per call, {kernel name: ms per call}). The host's
+    work around the launches is not in it (see host_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
+    total = sum(by_name.values())
+    if total <= 0:
+        raise SmokeFailure("the profiler recorded no device time")
+    return total, by_name
+
+
+def host_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Wall time per call on the host: what the caller waits for before it
+    can enqueue the next operation (the launches themselves run on)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    t1.record()
+    t1 = time.perf_counter()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return (t1 - t0) / reps * 1e3
+
+
+def _by_kernel(parts) -> str:
+    """'name ms' per kernel, the longest first; a C++ name is cut to the
+    function and its template arguments."""
+    import re
+
+    def short(name):
+        m = re.search(r"(\w+(?:<[^>]*>)?)\(", name.replace("(anonymous namespace)::", ""))
+        return m.group(1) if m else name[:48]
+
+    return ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
 # -- phase 1 -------------------------------------------------------------------
@@ -208,10 +250,33 @@ def _compare_flush(a, b, label):
     return err
 
 
-def _flush_bound(args):
-    """Least time for one flush chunk: FP32 FMAs of the live blocks vs the
-    bytes it must move (the distinct treelets' feature blocks once, the
-    block tables, the slots' ray columns, the (R,) winners in and out)."""
+def _flush_bound(args, count):
+    """Least time for one flush chunk: the FP32 FMAs that its data needs
+    (each filled slot of a live block against its treelet's count[tid]
+    real triangles, not the zero padding up to L) vs the bytes it must
+    move (those triangles' features once per distinct treelet, the block
+    tables, the filled slots' ray columns, the (R,) winners in and out)."""
+    feat, meta, rows, rayF, t_row, _ = args
+    _, F, _ = feat.shape
+    live = meta[:, 5] > 0
+    tids = meta[:, 0].long()
+    count = count.to(tids.device).long()
+    n_filled = ((rows >= 0) & live[:, None]).sum(dim=1)
+    flops = 2.0 * F * 4 * float((count[tids] * n_filled).sum())
+    tris = float(count[tids[live].unique()].sum())  # distinct treelets, real triangles
+    R = rayF.shape[1]
+    nbytes = (tris * F * 4 * 4 + meta.numel() * 4 + rows.numel() * 4
+              + float(n_filled.sum()) * (6 if F == 16 else 7) * 4 + 16 * R)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flush_bound_padded(args):
+    """The padded figure, kept to compare with earlier records: FP32 FMAs of
+    every slot of the live blocks against all L triangle slots, zero
+    padding included, vs the bytes (the distinct treelets' whole feature
+    blocks once, the block tables, the slots' ray columns, the (R,)
+    winners in and out)."""
     feat, meta, rows, rayF, t_row, _ = args
     _, F, four_l = feat.shape
     live = meta[:, 5] > 0
@@ -237,6 +302,26 @@ def _expand_bound(args):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _check_tie_fixture(flush_chunk, flush_chunk_plain):
+    """The seeded exact-tie chunk (kernels/fixtures.py) at the main path's
+    treelet size L = 512: t as _compare_flush holds it, and prim EXACTLY
+    equal — these are exact ties, decided by block order and then the
+    lowest local index, so no near-tie leniency applies."""
+    import torch
+
+    from tpu_pbrt_torch.kernels.fixtures import flush_inputs
+
+    for F in (16, 64):
+        args = tuple(torch.from_numpy(x).cuda() for x in flush_inputs(F, L=512))
+        a, b = flush_chunk(*args), flush_chunk_plain(*args)
+        _compare_flush(a, b, f"tie fixture F={F} L=512")
+        same = torch.equal(a[1], b[1])
+        log(f"[check] tie fixture F={F} L=512: prim exact: {same} "
+            f"(duplicate triangle -> 2: {int((a[1][:8] == 2).sum())}/8)")
+        if not same:
+            raise SmokeFailure(f"tie fixture F={F}: prim differs from the plain version")
+
+
 def phase_check(scene, integ):
     import torch
 
@@ -248,30 +333,42 @@ def phase_check(scene, integ):
     log(f"[check] captured kernel inputs from a {cap['flush'][3].shape[1]}-ray camera wave "
         f"in {time.perf_counter() - t0:.2f} s")
     out = {}
+    _check_tie_fixture(flush_chunk, flush_chunk_plain)
 
     # flush, F = 16 (the main path)
     fa = cap["flush"]
     CH = fa[1].shape[0]
     err16 = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"flush F=16 CH={CH}")
-    ms = cuda_time_ms(lambda: flush_chunk(*fa), reps=20)
-    plain_ms = cuda_time_ms(lambda: flush_chunk_plain(*fa), reps=3, warmup=1)
+    ms, parts = device_time_ms(lambda: flush_chunk(*fa), reps=20)
+    h_ms = host_ms(lambda: flush_chunk(*fa), reps=20)
+    plain_ms, _ = device_time_ms(lambda: flush_chunk_plain(*fa), reps=3, warmup=1)
     tids = fa[1][:, 0].long()
     n_live = int((fa[1][:, 5] > 0).sum())
     phiT = torch.randn(fa[1].shape[0], 128, 16, device=fa[0].device)
     featg = fa[0][tids].contiguous()
-    lib_ms = cuda_time_ms(lambda: torch.bmm(phiT, featg), reps=10)
-    bound, by = _flush_bound(fa)
-    log(f"[check] flush F=16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm contraction "
-        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); live blocks {n_live}")
-    out["flush_chunk"] = dict(max_abs_err=err16, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by, library_ms=lib_ms)
+    lib_ms, lib_parts = device_time_ms(lambda: torch.bmm(phiT, featg), reps=10)
+    del phiT, featg
+    count = scene.dev["tstream"].count
+    bound, by = _flush_bound(fa, count)
+    padded, _ = _flush_bound_padded(fa)
+    log(f"[check] flush F=16: kernel {ms:.4f} ms device ({_by_kernel(parts)}), host {h_ms:.4f} ms "
+        f"per call, plain {plain_ms:.4f} ms, torch.bmm contraction {lib_ms:.4f} ms "
+        f"({_by_kernel(lib_parts)}), bound {bound:.4f} ms ({by}; {padded:.4f} with the zero "
+        f"padding); live blocks {n_live}")
+    out["flush_chunk"] = dict(max_abs_err=err16, ms=ms, host_ms=h_ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by, bound_padded_ms=padded,
+                              library_ms=lib_ms)
 
     # flush, F = 64 (motion features; off the render path)
     t1 = time.perf_counter()
     fm = _motion_table(scene, fa)
     err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm), f"flush F=64 CH={CH}")
-    ms64 = cuda_time_ms(lambda: flush_chunk(*fm), reps=10)
-    log(f"[check] flush F=64: kernel {ms64:.4f} ms (table built in {time.perf_counter() - t1:.1f} s)")
+    ms64, parts64 = device_time_ms(lambda: flush_chunk(*fm), reps=10)
+    bound64, by64 = _flush_bound(fm, count)
+    padded64, _ = _flush_bound_padded(fm)
+    log(f"[check] flush F=64: kernel {ms64:.4f} ms device ({_by_kernel(parts64)}), bound "
+        f"{bound64:.4f} ms ({by64}; {padded64:.4f} with the zero padding) "
+        f"(table built in {time.perf_counter() - t1:.1f} s)")
     out["flush_chunk"]["max_abs_err"] = max(err16, err64)
     del fm
 
@@ -285,11 +382,13 @@ def phase_check(scene, integ):
         if not same:
             raise SmokeFailure(f"{key}: kernel disagrees with its plain version")
     ea = cap["expand"]
-    ms = cuda_time_ms(lambda: expand(*ea), reps=50)
-    plain_ms = cuda_time_ms(lambda: expand_plain(*ea), reps=10)
+    ms, _ = device_time_ms(lambda: expand(*ea), reps=50)
+    h_ms = host_ms(lambda: expand(*ea), reps=50)
+    plain_ms, _ = device_time_ms(lambda: expand_plain(*ea), reps=10)
     bound, by = _expand_bound(ea)
-    log(f"[check] expand: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    out["expand"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    log(f"[check] expand: kernel {ms:.4f} ms device, host {h_ms:.4f} ms per call, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    out["expand"] = dict(max_abs_err=0.0, ms=ms, host_ms=h_ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, library_ms=None)
     del cap
     torch.cuda.empty_cache()

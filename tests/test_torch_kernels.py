@@ -22,10 +22,10 @@ import torch
 from tpu_pbrt.accel import fusedwave
 from tpu_pbrt.accel import stream as jstream
 from tpu_pbrt_torch.accel import stream as tstream
-from tpu_pbrt_torch.accel.mxu import tri_feature_weights_motion, tri_feature_weights_raw
 from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy
 from tpu_pbrt_torch.accel import build as tbuild
 from tpu_pbrt_torch.kernels.expand import expand, expand_plain
+from tpu_pbrt_torch.kernels.fixtures import flush_inputs
 from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
 I32_MAX = 2**31 - 1
@@ -50,79 +50,14 @@ def _ulp_diff(a, b):
     return np.where((a == b), 0, d)
 
 
-def _flush_inputs(F: int, seed: int = 3):
-    """C=4 treelets of L=64 triangles, CH=6 blocks (one dead, -1 slots),
-    R=300 rays. Treelet 3 is a copy of treelet 1 (same features and
-    center, other prim offset) and triangle 5 of treelet 0 repeats
-    triangle 2: both force exact t ties."""
-    rng = np.random.default_rng(seed)
-    C, L, R, CH = 4, 64, 300, 6
-    centers = rng.uniform(-1.0, 1.0, (C, 3)).astype(np.float32)
-    v0 = (centers[:, None, None, :] + rng.uniform(-0.6, 0.6, (C, L, 3, 3))).astype(np.float32)
-    v0[0, 5] = v0[0, 2]
-    v0[3] = v0[1]
-    centers[3] = centers[1]
-    if F == 16:
-        W = tri_feature_weights_raw(v0.reshape(C * L, 3, 3),
-                                    np.repeat(centers, L, axis=0)[:, None, :])
-        W = W.reshape(C, L, 16, 4)
-    else:
-        v1 = (v0 + rng.uniform(-0.05, 0.05, v0.shape)).astype(np.float32)
-        v1[0, 5] = v1[0, 2]
-        v1[3] = v1[1]
-        W = tri_feature_weights_motion(
-            v0.reshape(C * L, 3, 3), v1.reshape(C * L, 3, 3),
-            np.repeat(centers, L, axis=0)[:, None, :], raw=True,
-        ).reshape(C, L, 64, 4)
-    featT = np.ascontiguousarray(W.transpose(0, 3, 1, 2).reshape(C, 4 * L, F).transpose(0, 2, 1))
-    offset = np.array([0, 64, 128, 700], np.int32)
-
-    # rays aimed at triangle centroids from outside: rays 0..7 at the
-    # duplicated triangle (0, 2), rays 8..47 at treelet 1 (= treelet 3)
-    cent = v0.mean(axis=2)  # (C, L, 3)
-    nrm = np.cross(v0[..., 1, :] - v0[..., 0, :], v0[..., 2, :] - v0[..., 0, :])
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    tgt = cent.reshape(-1, 3)[rng.integers(0, C * L, R)]
-    o = (tgt + rng.normal(size=(R, 3)) * 2.0).astype(np.float32)
-    d = tgt - o + rng.normal(size=(R, 3)).astype(np.float32) * 0.01
-    # the tie rays start just off their target triangle, facing it
-    k1 = rng.integers(0, L, 40)
-    tgt[:8], tgt[8:48] = cent[0, 2], cent[1, k1]
-    n_t = np.concatenate([np.repeat(nrm[0, 2][None], 8, 0), nrm[1, k1]])
-    o[:48] = tgt[:48] + 1e-3 * n_t
-    d[:48] = -n_t
-    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-    t_row = np.where(rng.uniform(size=R) < 0.7, np.inf,
-                     rng.uniform(0.5, 6.0, R)).astype(np.float32)
-    t_row[:48] = np.inf
-    prim = np.where(np.isinf(t_row), -1, rng.integers(0, 900, R)).astype(np.int32)
-    time = rng.uniform(0.0, 1.0, R).astype(np.float32)
-    rayF = np.stack([*o.T, *d.T, t_row, time]).astype(np.float32)
-
-    tids = np.array([0, 1, 2, 3, 1, 0], np.int32)
-    live = np.array([1, 1, 1, 1, 0, 1], np.int32)
-    rid = np.full((CH, 128), -1, np.int32)
-    for b in range(CH):
-        pool = rng.permutation(np.arange(48, R))
-        n = rng.integers(40, 81)
-        rid[b, :n] = pool[:n]
-    rid[0, 100:108] = np.arange(8)
-    rid[1, 81:121] = np.arange(8, 48)
-    rid[3, 81:121] = np.arange(8, 48)  # same rays, identical treelet: ties
-    rid[4, 81:121] = np.arange(8, 48)  # the dead block must not count
-    rid = np.stack([rng.permutation(r) for r in rid]).astype(np.int32)
-    cbits = centers.view(np.int32)
-    meta = np.zeros((CH, 8), np.int32)
-    meta[:, 0] = tids
-    meta[:, 1] = offset[tids]
-    meta[:, 2:5] = cbits[tids]
-    meta[:, 5] = live
-    return featT, meta, rid, rayF, t_row, prim
-
-
-@pytest.mark.parametrize("F", [16, 64])
-def test_flush_plain_matches_fused_flush_interpret(F):
-    featT, meta, rid, rayF, t_row, prim = _flush_inputs(F)
+# L = 512 is the main path's treelet size: the duplicated triangles 2 and
+# L-3 then lie in different warps' (and thread blocks') triangle ranges
+@pytest.mark.parametrize("F,L", [
+    pytest.param(16, 64, id="16"), pytest.param(64, 64, id="64"),
+    pytest.param(16, 512, id="16-L512"), pytest.param(64, 512, id="64-L512"),
+])
+def test_flush_plain_matches_fused_flush_interpret(F, L):
+    featT, meta, rid, rayF, t_row, prim = flush_inputs(F, L)
     tj, pj = fusedwave.fused_flush_chunk(
         jnp.asarray(featT), jnp.asarray(meta), jnp.asarray(rid), jnp.asarray(rayF),
         jnp.asarray(t_row), jnp.asarray(prim), interpret=True,
@@ -143,15 +78,15 @@ def test_flush_plain_matches_fused_flush_interpret(F):
     assert flips.sum() <= int(0.001 * len(prim))
     for p in (pj, pt):
         # the duplicated triangle resolves to its lowest local index ...
-        assert (p[:8] == 2).sum() >= 4 and not (p == 5).any()
-        # ... and the duplicated treelet to the earlier block (offset 64)
+        assert (p[:8] == 2).sum() >= 4 and not (p == L - 3).any()
+        # ... and the duplicated treelet to the earlier block (offset L)
         tie = p[8:48]
-        assert ((tie >= 64) & (tie < 128)).sum() >= 20
-        assert not ((tie >= 700) & (tie < 764)).any()
+        assert ((tie >= L) & (tie < 2 * L)).sum() >= 20
+        assert not ((tie >= 11 * L) & (tie < 12 * L)).any()
 
 
 def test_flush_wrapper_checks_inputs():
-    featT, meta, rid, rayF, t_row, prim = _flush_inputs(16)
+    featT, meta, rid, rayF, t_row, prim = flush_inputs(16)
     args = [torch.from_numpy(x) for x in (featT, meta, rid, rayF, t_row, prim)]
     with pytest.raises(TypeError):
         flush_chunk(args[0].double(), *args[1:])

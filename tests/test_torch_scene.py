@@ -113,3 +113,17 @@ def test_supported_directives_render():
     api = parse_string(_BASE.format(**_OK), render=True, device="cpu")
     assert api.result.image.shape == (8, 8, 3)
     assert np.isfinite(api.result.image).all() and api.result.image.max() > 0
+
+
+def test_cornell_defaults_match_reference():
+    """make_cornell and cornell_box_text default to the reference's
+    integrator; the port has no `directlighting` yet, so compiling the
+    default Cornell box names it as not ported."""
+    import inspect
+
+    for fn in ("make_cornell", "cornell_box_text"):
+        ours = inspect.signature(getattr(tscenes, fn)).parameters
+        ref = inspect.signature(getattr(jscenes, fn)).parameters
+        assert ours["integrator"].default == ref["integrator"].default == "directlighting", fn
+    with pytest.raises(PbrtError, match="directlighting.*not ported"):
+        tscenes.compile_api(tscenes.make_cornell(res=8, spp=1, device="cpu"))

@@ -55,6 +55,10 @@ def _check(feat_table, meta, rid_rows, rayF, t_row, prim):
         raise ValueError("flush_chunk: meta must be (CH, 8) and rid_rows (CH, 128)")
     if rayF.shape[0] != 8 or t_row.shape != (R,) or prim.shape != (R,):
         raise ValueError("flush_chunk: rayF must be (8, R) with t_row, prim (R,)")
+    CH = meta.shape[0]
+    if dev.type == "cuda" and (four_l % 16 or CH * (four_l // 4) >= 2**32 - 1):
+        raise ValueError(f"flush_chunk: the CUDA kernel needs L = {four_l // 4} a multiple of 4 "
+                         f"(16-byte rows) and CH * L < 2^32 - 1 (CH = {CH})")
 
 
 def flush_chunk(feat_table, meta, rid_rows, rayF, t_row, prim):
@@ -64,27 +68,26 @@ def flush_chunk(feat_table, meta, rid_rows, rayF, t_row, prim):
         return flush_chunk_plain(feat_table, meta, rid_rows, rayF, t_row, prim)
     if rayF.device.type != "cuda":
         raise ValueError(f"flush_chunk: unsupported device {rayF.device}")
+    CH = meta.shape[0]
+    _, F, four_l = feat_table.shape
     from tpu_pbrt_torch.kernels.build import check, load
 
     lib = load("flush")
     fn = lib.flush_chunk_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
-    CH = meta.shape[0]
-    _, F, four_l = feat_table.shape
     R = rayF.shape[1]
     t_out = torch.empty_like(t_row)
     p_out = torch.empty_like(prim)
     keys = torch.empty((R,), dtype=torch.int64, device=rayF.device)
-    karg = torch.empty((CH, BLOCK), dtype=torch.int32, device=rayF.device)
     with torch.cuda.device(rayF.device):
         stream = torch.cuda.current_stream(rayF.device).cuda_stream
         err = fn(
             feat_table.data_ptr(), meta.data_ptr(), rid_rows.data_ptr(),
             rayF.data_ptr(), t_row.data_ptr(), prim.data_ptr(),
-            t_out.data_ptr(), p_out.data_ptr(), keys.data_ptr(), karg.data_ptr(),
+            t_out.data_ptr(), p_out.data_ptr(), keys.data_ptr(),
             CH, F, four_l // 4, R, _NEG_EDGE, _ONE_EDGE, stream,
         )
     if err:

@@ -13,7 +13,7 @@ from tpu_pbrt_torch.scene.api import Options, PbrtAPI, parse_string, pbrt_init
 from tpu_pbrt_torch.scene.paramset import ParamSet
 
 
-def cornell_box_text(res=256, spp=16, integrator="path", maxdepth=5, filename="",
+def cornell_box_text(res=256, spp=16, integrator="directlighting", maxdepth=5, filename="",
                      sampler="zerotwosequence"):
     """The Cornell box: area light + Lambertian walls and blocks."""
     return f'''
@@ -63,7 +63,7 @@ WorldEnd
 '''
 
 
-def make_cornell(res=256, spp=16, integrator="path", maxdepth=5, options=None,
+def make_cornell(res=256, spp=16, integrator="directlighting", maxdepth=5, options=None,
                  sampler="zerotwosequence", device=None) -> PbrtAPI:
     """Parse the Cornell box up to (not including) WorldEnd."""
     api = pbrt_init(options or Options(quiet=True), device=device)
