@@ -8,21 +8,37 @@ Phases, each fatal on failure (exit code 1, no result line):
      sm_90a, all sources in parallel) and print the build seconds and
      the ptxas register / shared-memory report;
   2. check  — run each kernel against its plain PyTorch version on the
-     card, on inputs captured from a real traversal of the killeroo
-     scene's first 2^20-ray camera wave (flush at CH=512, F=16; expand
-     at S=2^17 in closest-hit and any-hit mode), a synthetic F=64
-     (motion feature) flush, and the seeded exact-tie flush chunk of
+     card, on inputs captured from two real traversals of the killeroo
+     scene: the persistent pool's 2^19-ray fused camera+shadow wave (the
+     main path's shape: wave 1 of the middle chunk, the first wave whose
+     shadow half carries rays with a finite t_max; flush F=16; expand at
+     S=2^17 with 10 entry-distance key bits, closest-hit), and the fixed
+     batch's first 2^20-ray camera wave
+     (flush F=16; expand in closest-hit and any-hit mode); a synthetic
+     F=64 (motion feature) flush, and the seeded exact-tie flush chunk of
      kernels/fixtures.py at L=512 (prim must match exactly); print each
      kernel's device time per call (torch.profiler, summed over its
      kernels), the wrapper's host time per call, the plain version's and
      the library call's device time, and the bound;
   3. render — the port's main path: make_killeroo_like() at its full
      mesh, 128x128, 256 spp, maxdepth 5, through compile_scene and
-     PathIntegrator.render on the card; the kernel launch counters are
-     zeroed just before and read just after; the image must be finite
-     and within per-pixel MSE 1e-4 of refimg/killeroo_cpu_128x128_256spp.npz;
-  4. summary — one {"kernels": [...]} line, the card's name and power
-     limit (nvidia-smi), and as the last line
+     PathIntegrator.render on the card, through the persistent pool
+     (chunks of 2^20 work items, 2^18 slots); the kernel launch counters
+     are zeroed just before and read just after; the image must be finite
+     and within per-pixel MSE 1e-4 of refimg/killeroo_cpu_128x128_256spp.npz.
+     Then the same render through the fixed batch (TORCH_PBRT_REGEN=0's
+     path), its launches counted the same way, which must trace the same
+     rays; and both paths at 64x64, 16 spp, whose images must agree
+     within rtol 1e-4 / atol 1e-5 with equal rays;
+  4. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+     --quick` in subprocesses on the card with a checkpoint every chunk:
+     one uninterrupted render (the image must be written and finite), one
+     killed after its first checkpoint and then resumed, whose image and
+     final film must equal the uninterrupted one bit for bit;
+  5. summary — one {"kernels": [...]} line (times and bounds at the pool
+     wave, the fixed wave's under "at_fixed_wave"; launches of the pool
+     and of the fixed path), the card's name and power limit
+     (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX or of the JAX package, and it fails without a
@@ -142,26 +158,17 @@ def phase_build() -> None:
 
 # -- phase 2 -------------------------------------------------------------------
 
-def _capture_wave_inputs(scene, integ):
-    """Trace the first camera wave of the render (closest hit), recording
-    the inputs of its first flush chunk and of its first expand step
-    after that flush (a popped slab of mixed nodes). The any-hit expand
-    input is that same slab with any_hit set and the wave's final hits
-    on every other ray as the prim row, so the kernel's done-ray cull
-    sees real data."""
+def _hook_kernels(cap, want, past=None):
+    """Wrap the stream tracer's two kernel seams: `want()` says whether
+    the current call belongs to the traversal being captured; it records
+    that traversal's first flush chunk and its first expand step after
+    that flush (a popped slab of mixed nodes). With `past` given, the run
+    is ended by raising _Captured once the expand is recorded or `past()`
+    says the traversal is over. Returns the restore call."""
     import torch
 
     from tpu_pbrt_torch.accel import stream
 
-    dev = scene.dev
-    plan = integ.prepare_chunks(scene)
-    chunk = plan["chunk"]
-    x0, x1, y0, _ = plan["bounds"]
-    k = torch.arange(chunk, dtype=torch.int32, device=scene.device)
-    _, _, _, _, _, o, d, _ = integ.work_to_rays(
-        scene.camera, plan["spp"], x0, y0, x1 - x0, plan["npix"], 0, 0, k
-    )
-    cap = {}
     real_expand, real_flush = stream.expand, stream.flush_chunk
     n_flush = [0]
 
@@ -169,22 +176,60 @@ def _capture_wave_inputs(scene, integ):
         return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
     def expand_hook(*args):
-        if "expand" not in cap and n_flush[0] > 0:
+        if past is not None and past():
+            raise _Captured
+        if want() and n_flush[0] > 0 and "expand" not in cap:
             cap["expand"] = clone(args)
+            if past is not None:
+                raise _Captured
         return real_expand(*args)
 
     def flush_hook(*args):
-        n_flush[0] += 1
-        if "flush" not in cap:  # the wave's first chunk: CH = min(512, block capacity)
-            cap["flush"] = clone(args)
+        if past is not None and past():
+            raise _Captured
+        if want():
+            n_flush[0] += 1
+            if "flush" not in cap:  # the wave's first chunk: CH = min(512, block capacity)
+                cap["flush"] = clone(args)
         return real_flush(*args)
 
     stream.expand, stream.flush_chunk = expand_hook, flush_hook
+
+    def restore():
+        stream.expand, stream.flush_chunk = real_expand, real_flush
+
+    return restore
+
+
+class _Captured(Exception):
+    """Raised from a kernel hook once its inputs are recorded, to stop
+    the traversal it interrupts."""
+
+
+def _capture_wave_inputs(scene, integ):
+    """Trace the fixed batch's first camera wave of the render (closest
+    hit), recording the inputs of its first flush chunk and of its first
+    expand step after that flush. The any-hit expand input is that same
+    slab with any_hit set and the wave's final hits on every other ray
+    as the prim row, so the kernel's done-ray cull sees real data."""
+    import torch
+
+    from tpu_pbrt_torch.accel import stream
+
+    dev = scene.dev
+    plan = integ.prepare_chunks(scene)
+    x0, x1, y0, _ = plan.bounds
+    k = torch.arange(plan.chunk, dtype=torch.int32, device=scene.device)
+    _, _, _, _, _, o, d, _ = integ.work_to_rays(
+        scene.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, k
+    )
+    cap = {}
+    restore = _hook_kernels(cap, lambda: True)
     try:
         hit = stream.stream_intersect(dev["tstream"], dev["tri_verts"], o, d, float("inf"),
                                       tv9T=dev["tri_verts9T"])
     finally:
-        stream.expand, stream.flush_chunk = real_expand, real_flush
+        restore()
     missing = {"flush", "expand"} - set(cap)
     if missing:
         raise SmokeFailure(f"could not capture kernel inputs for {sorted(missing)}")
@@ -193,7 +238,36 @@ def _capture_wave_inputs(scene, integ):
     rid = torch.arange(hit.prim.shape[0], device=hit.prim.device)
     prim = torch.where(rid % 2 == 0, hit.prim, torch.full_like(hit.prim, -1)).contiguous()
     cap["expand_anyhit"] = ea[:3] + (prim,) + ea[4:7] + (True,)
-    return cap, o, d
+    return cap
+
+
+def _capture_pool_wave(scene, integ, wave: int = 1):
+    """Drain the render's middle chunk through the persistent pool up to
+    its wave `wave` (0-based; wave 0's shadow half is empty, wave 1 is the
+    first fused wave whose shadow rays carry a finite t_max) and record
+    that wave's first flush chunk and first expand step after it. The
+    chunks are pixel-major, so chunk 0 holds the top rows of the frame,
+    mostly background: its early waves carry almost no shadow rays."""
+    from tpu_pbrt_torch.accel import stream
+
+    plan = integ.prepare_chunks(scene)
+    if not plan.use_regen:
+        raise SmokeFailure("the render plan does not take the persistent pool")
+    cap = {"chunk": plan.n_chunks // 2}
+    stream.WAVES.reset()
+    restore = _hook_kernels(cap, lambda: stream.WAVES.waves == wave,
+                            past=lambda: stream.WAVES.waves > wave)
+    try:
+        integ.pool_chunk(scene.dev, scene.film.init_state(scene.device),
+                         *plan.start(cap["chunk"]), plan.chunk, plan.pool)
+    except _Captured:
+        pass
+    finally:
+        restore()
+    missing = {"flush", "expand"} - set(cap)
+    if missing:
+        raise SmokeFailure(f"could not capture pool-wave kernel inputs for {sorted(missing)}")
+    return cap, plan
 
 
 def _motion_table(scene, flush_args):
@@ -322,23 +396,16 @@ def _check_tie_fixture(flush_chunk, flush_chunk_plain):
             raise SmokeFailure(f"tie fixture F={F}: prim differs from the plain version")
 
 
-def phase_check(scene, integ):
+def _flush_numbers(fa, count, label):
+    """Hold one captured flush chunk against the plain version, then time
+    the kernel (device and host), the plain version and torch.bmm of the
+    contraction alone, beside the bounds."""
     import torch
 
-    from tpu_pbrt_torch.kernels.expand import expand, expand_plain
     from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
-    t0 = time.perf_counter()
-    cap, _, _ = _capture_wave_inputs(scene, integ)
-    log(f"[check] captured kernel inputs from a {cap['flush'][3].shape[1]}-ray camera wave "
-        f"in {time.perf_counter() - t0:.2f} s")
-    out = {}
-    _check_tie_fixture(flush_chunk, flush_chunk_plain)
-
-    # flush, F = 16 (the main path)
-    fa = cap["flush"]
     CH = fa[1].shape[0]
-    err16 = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"flush F=16 CH={CH}")
+    err = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"{label}: flush F=16 CH={CH}")
     ms, parts = device_time_ms(lambda: flush_chunk(*fa), reps=20)
     h_ms = host_ms(lambda: flush_chunk(*fa), reps=20)
     plain_ms, _ = device_time_ms(lambda: flush_chunk_plain(*fa), reps=3, warmup=1)
@@ -348,48 +415,102 @@ def phase_check(scene, integ):
     featg = fa[0][tids].contiguous()
     lib_ms, lib_parts = device_time_ms(lambda: torch.bmm(phiT, featg), reps=10)
     del phiT, featg
-    count = scene.dev["tstream"].count
     bound, by = _flush_bound(fa, count)
     padded, _ = _flush_bound_padded(fa)
-    log(f"[check] flush F=16: kernel {ms:.4f} ms device ({_by_kernel(parts)}), host {h_ms:.4f} ms "
-        f"per call, plain {plain_ms:.4f} ms, torch.bmm contraction {lib_ms:.4f} ms "
+    log(f"[check] {label}: flush F=16: kernel {ms:.4f} ms device ({_by_kernel(parts)}), host "
+        f"{h_ms:.4f} ms per call, plain {plain_ms:.4f} ms, torch.bmm contraction {lib_ms:.4f} ms "
         f"({_by_kernel(lib_parts)}), bound {bound:.4f} ms ({by}; {padded:.4f} with the zero "
         f"padding); live blocks {n_live}")
-    out["flush_chunk"] = dict(max_abs_err=err16, ms=ms, host_ms=h_ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by, bound_padded_ms=padded,
-                              library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=ms, host_ms=h_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, bound_padded_ms=padded, library_ms=lib_ms)
+
+
+def _expand_numbers(ea, label):
+    """Hold one captured expand step against the plain version (bit
+    exact), then time it."""
+    import torch
+
+    from tpu_pbrt_torch.accel.stream import _tn_bits
+    from tpu_pbrt_torch.kernels.expand import expand, expand_plain
+
+    a, b = expand(*ea), expand_plain(*ea)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    S, R = ea[0].shape[0], ea[2].shape[1]
+    log(f"[check] {label}: expand S {S}, R {R}, key bits tb {ea[6]} (_tn_bits {_tn_bits(R)}), "
+        f"any_hit {ea[7]}, live pairs {int(a[2].sum())}, exact: {same}")
+    if not same:
+        raise SmokeFailure(f"{label}: expand disagrees with its plain version")
+    ms, _ = device_time_ms(lambda: expand(*ea), reps=50)
+    h_ms = host_ms(lambda: expand(*ea), reps=50)
+    plain_ms, _ = device_time_ms(lambda: expand_plain(*ea), reps=10)
+    bound, by = _expand_bound(ea)
+    log(f"[check] {label}: expand: kernel {ms:.4f} ms device, host {h_ms:.4f} ms per call, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=0.0, ms=ms, host_ms=h_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def phase_check(scene, integ):
+    """Both kernels at the main path's shapes (the pool's fused wave: the
+    top-level numbers) and at the fixed batch's camera wave (under
+    "at_fixed_wave"), plus the F=64 flush, the any-hit expand and the tie
+    fixture."""
+    import torch
+
+    from tpu_pbrt_torch.accel.stream import flush_geometry
+    from tpu_pbrt_torch.kernels.expand import expand, expand_plain
+    from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
+
+    count = scene.dev["tstream"].count
+    _check_tie_fixture(flush_chunk, flush_chunk_plain)
+
+    t0 = time.perf_counter()
+    pcap, plan = _capture_pool_wave(scene, integ)
+    R = pcap["flush"][3].shape[1]
+    geo = flush_geometry(R, scene.dev["tstream"].n_treelets)
+    # the flush's rayF row 6 is the t_max row: > 0 for a live ray
+    n_shadow = int((pcap["flush"][3][6, plan.pool:] > 0).sum())
+    log(f"[check] pool wave: captured wave 1 of chunk {pcap['chunk']} of {plan.n_chunks} "
+        f"(pool {plan.pool} slots, {R} rays: camera + shadow; {n_shadow} shadow rays live) "
+        f"in {time.perf_counter() - t0:.2f} s; flush geometry {geo}")
+    if R != 2 * plan.pool or n_shadow == 0:
+        raise SmokeFailure(f"pool wave: expected a 2x{plan.pool}-ray wave with live shadow "
+                           f"rays, got {R} rays, {n_shadow} shadow rays live")
+    out = {"flush_chunk": _flush_numbers(pcap["flush"], count, "pool wave"),
+           "expand": _expand_numbers(pcap["expand"], "pool wave")}
+    del pcap
+
+    t0 = time.perf_counter()
+    cap = _capture_wave_inputs(scene, integ)
+    log(f"[check] fixed wave: captured kernel inputs from a {cap['flush'][3].shape[1]}-ray "
+        f"camera wave in {time.perf_counter() - t0:.2f} s")
+    fixed = {"flush_chunk": _flush_numbers(cap["flush"], count, "fixed wave")}
 
     # flush, F = 64 (motion features; off the render path)
+    fa = cap["flush"]
     t1 = time.perf_counter()
     fm = _motion_table(scene, fa)
-    err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm), f"flush F=64 CH={CH}")
+    err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm),
+                           f"flush F=64 CH={fa[1].shape[0]}")
     ms64, parts64 = device_time_ms(lambda: flush_chunk(*fm), reps=10)
     bound64, by64 = _flush_bound(fm, count)
     padded64, _ = _flush_bound_padded(fm)
     log(f"[check] flush F=64: kernel {ms64:.4f} ms device ({_by_kernel(parts64)}), bound "
         f"{bound64:.4f} ms ({by64}; {padded64:.4f} with the zero padding) "
         f"(table built in {time.perf_counter() - t1:.1f} s)")
-    out["flush_chunk"]["max_abs_err"] = max(err16, err64)
+    out["flush_chunk"]["max_abs_err"] = max(out["flush_chunk"]["max_abs_err"],
+                                            fixed["flush_chunk"]["max_abs_err"], err64)
     del fm
 
-    # expand, closest-hit and any-hit (S = slab = 2^17 at R = 2^20)
-    for key in ("expand", "expand_anyhit"):
-        ea = cap[key]
-        a, b = expand(*ea), expand_plain(*ea)
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        S = ea[0].shape[0]
-        log(f"[check] {key}: S {S}, any_hit {ea[7]}, live pairs {int(a[2].sum())}, exact: {same}")
-        if not same:
-            raise SmokeFailure(f"{key}: kernel disagrees with its plain version")
-    ea = cap["expand"]
-    ms, _ = device_time_ms(lambda: expand(*ea), reps=50)
-    h_ms = host_ms(lambda: expand(*ea), reps=50)
-    plain_ms, _ = device_time_ms(lambda: expand_plain(*ea), reps=10)
-    bound, by = _expand_bound(ea)
-    log(f"[check] expand: kernel {ms:.4f} ms device, host {h_ms:.4f} ms per call, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    out["expand"] = dict(max_abs_err=0.0, ms=ms, host_ms=h_ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, library_ms=None)
+    # expand at R = 2^20, closest-hit (timed) and any-hit (exactness only:
+    # the render path traces closest-hit waves only)
+    fixed["expand"] = _expand_numbers(cap["expand"], "fixed wave")
+    ea = cap["expand_anyhit"]
+    if not all(torch.equal(x, y) for x, y in zip(expand(*ea), expand_plain(*ea))):
+        raise SmokeFailure("any-hit expand disagrees with its plain version")
+    log("[check] fixed wave: any-hit expand exact: True")
+    for k in out:
+        out[k]["at_fixed_wave"] = fixed[k]
     del cap
     torch.cuda.empty_cache()
     return out
@@ -397,30 +518,142 @@ def phase_check(scene, integ):
 
 # -- phase 3 -------------------------------------------------------------------
 
-def phase_render(scene, integ):
-    import numpy as np
-
+def _render_counted(integ, scene, regen: bool):
+    """One render through the pool (regen) or the fixed batch, with the
+    kernel launch counters zeroed just before and read just after."""
+    from tpu_pbrt_torch.config import cfg
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
 
-    reset_launches()
-    res = integ.render(scene)
-    launches = dict(LAUNCHES)
+    saved = cfg.regen
+    cfg.regen = regen
+    try:
+        reset_launches()
+        res = integ.render(scene)
+        launches = dict(LAUNCHES)
+    finally:
+        cfg.regen = saved
+    if bool(res.stats.get("regen")) != regen:
+        raise SmokeFailure(f"render: asked for regen={regen}, stats say {res.stats.get('regen')}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SmokeFailure(f"render (regen={regen}): kernel {name} was never launched")
+    return res, launches
+
+
+def _log_render(label, res, launches):
+    st = res.stats
+    log(f"[render] {label}: {res.seconds:.3f} s, {res.rays_traced} rays, "
+        f"{res.mray_per_sec:.4f} Mray/s, chunks {st['chunks']}, traversal waves {st['waves']}, "
+        f"host reads per wave {st['host_reads_per_wave_mean']:.2f} (traversal) + "
+        f"{st['loop_host_reads_per_wave']:.2f} (loop), launches {json.dumps(launches)}")
+    log(f"[render] {label}: stats {json.dumps(st)}")
+
+
+def phase_render(scene, integ):
+    """The main path (the pool at 128x128x256, MSE bar against the
+    reference image), the fixed batch on the same scene (same rays), and
+    both at 64x64x16 (images within the reference's pool tolerance)."""
+    import numpy as np
+
+    from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
+
+    res, launches = _render_counted(integ, scene, regen=True)
     img = res.image
     ref = np.load(REF_IMAGE)["image"]
     if img.shape != ref.shape or not np.isfinite(img).all():
         raise SmokeFailure(f"render: image shape {img.shape} / finite {np.isfinite(img).all()}")
     mse = float(np.mean((img.astype(np.float64) - ref) ** 2))
-    log(f"[render] 128x128 256 spp maxdepth 5: {res.seconds:.3f} s, {res.rays_traced} rays, "
-        f"{res.mray_per_sec:.4f} Mray/s, image mean {img.mean():.6f} (ref {ref.mean():.6f}), "
-        f"MSE vs ref {mse:.3e} (bar {MSE_BAR:g})")
-    log(f"[render] stats {json.dumps(res.stats)}")
-    log(f"[render] kernel launches {json.dumps(launches)}")
+    _log_render("pool 128x128 256 spp maxdepth 5", res, launches)
+    log(f"[render] pool: image mean {img.mean():.6f} (ref {ref.mean():.6f}), MSE vs ref "
+        f"{mse:.3e} (bar {MSE_BAR:g}), pool {res.stats['pool']}, waves {res.stats['n_waves']}, "
+        f"occupancy {res.stats['mean_wave_occupancy']:.4f}")
     if mse > MSE_BAR:
         raise SmokeFailure(f"render: MSE {mse:.3e} > {MSE_BAR:g}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise SmokeFailure(f"render: kernel {name} was never launched on the main path")
-    return launches
+
+    fres, flaunches = _render_counted(integ, scene, regen=False)
+    fmse = float(np.mean((fres.image.astype(np.float64) - ref) ** 2))
+    _log_render("fixed 128x128 256 spp maxdepth 5", fres, flaunches)
+    log(f"[render] fixed: MSE vs ref {fmse:.3e}; pool/fixed Mray/s "
+        f"{res.mray_per_sec / max(fres.mray_per_sec, 1e-9):.3f}")
+    if fres.rays_traced != res.rays_traced or fmse > MSE_BAR:
+        raise SmokeFailure(f"render: fixed batch traced {fres.rays_traced} rays (pool "
+                           f"{res.rays_traced}), MSE {fmse:.3e}")
+
+    t0 = time.perf_counter()
+    small, sinteg = compile_api(make_killeroo_like(res=64, spp=16, maxdepth=5, device="cuda"))
+    sp, _ = _render_counted(sinteg, small, regen=True)
+    sf, _ = _render_counted(sinteg, small, regen=False)
+    diff = float(np.max(np.abs(sp.image - sf.image)))
+    log(f"[render] 64x64 16 spp: pool {sp.rays_traced} rays, fixed {sf.rays_traced} rays, "
+        f"max |pool - fixed| {diff:.3e} ({time.perf_counter() - t0:.1f} s with the compile)")
+    if sp.rays_traced != sf.rays_traced or not np.allclose(sp.image, sf.image, rtol=1e-4,
+                                                           atol=1e-5):
+        raise SmokeFailure("render: the pool and the fixed batch disagree at 64x64x16")
+    return launches, flaunches
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+def phase_cli(device: str = "cuda") -> None:
+    """The CLI on the Cornell box in subprocesses: an uninterrupted
+    render, and one killed after its first checkpoint then resumed, which
+    must end bit-identical to the first."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_pbrt_torch.parallel.checkpoint import load_checkpoint
+    from tpu_pbrt_torch.utils.imageio import read_exr
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        def cmd(name):
+            return [sys.executable, "-m", "tpu_pbrt_torch.main",
+                    os.path.join(HERE, "scenes", "cornell-path.pbrt"), "--quick", "--quiet",
+                    "--device", device, "--spp-chunk", "2048", "--checkpoint-every", "1",
+                    "-o", os.path.join(tmp, f"{name}.exr"),
+                    "--checkpoint", os.path.join(tmp, f"{name}.npz")]
+
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd("a"), cwd=HERE, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise SmokeFailure(f"cli: exit {r.returncode}: {r.stderr[-2000:]}")
+        img = read_exr(os.path.join(tmp, "a.exr"))
+        full, n_chunks, rays, _ = load_checkpoint(os.path.join(tmp, "a.npz"))
+        log(f"[cli] uninterrupted: {time.perf_counter() - t0:.1f} s, image {img.shape} mean "
+            f"{img.mean():.5f}, {n_chunks} chunks, {rays} rays")
+        if img.shape != (64, 64, 3) or not np.isfinite(img).all() or not img.mean() > 0:
+            raise SmokeFailure("cli: the written image is not a finite 64x64 render")
+
+        t0 = time.perf_counter()
+        ck = os.path.join(tmp, "b.npz")
+        proc = subprocess.Popen(cmd("b"), cwd=HERE, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE)
+        try:
+            while not os.path.exists(ck) and proc.poll() is None:
+                time.sleep(0.002)
+            proc.kill()
+        finally:
+            proc.wait(timeout=60)
+        cursor = load_checkpoint(ck)[1]
+        log(f"[cli] killed after its first checkpoint: cursor {cursor} of {n_chunks} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not 1 <= cursor < n_chunks or os.path.exists(os.path.join(tmp, "b.exr")):
+            raise SmokeFailure(f"cli: the second render was not stopped mid-way (cursor {cursor})")
+        r = subprocess.run(cmd("b"), cwd=HERE, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise SmokeFailure(f"cli resume: exit {r.returncode}: {r.stderr[-2000:]}")
+        resumed, n2, rays2, _ = load_checkpoint(ck)
+        same_film = all(np.array_equal(x.numpy(), y.numpy()) for x, y in zip(full, resumed))
+        with open(os.path.join(tmp, "a.exr"), "rb") as fa, open(os.path.join(tmp, "b.exr"), "rb") as fb:
+            same_img = fa.read() == fb.read()
+        log(f"[cli] resumed: cursor {n2}, {rays2} rays; film bit-identical {same_film}, "
+            f"image file identical {same_img}")
+        if not (same_film and same_img and n2 == n_chunks and rays2 == rays):
+            raise SmokeFailure("cli: the resumed render differs from the uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -450,14 +683,15 @@ def main() -> int:
             f"treelets of {scene.dev['tstream'].leaf_tris}, compiled in {time.perf_counter() - t1:.2f} s")
 
         kt = phase_check(scene, integ)
-        launches = phase_render(scene, integ)
+        launches, flaunches = phase_render(scene, integ)
+        phase_cli()
         kernels = [
             dict(name="flush_chunk", route="cuda", source="tpu_pbrt_torch/csrc/flush.cu",
                  replaces="tpu_pbrt/accel/fusedwave.py:211", launches=launches["flush_chunk"],
-                 **kt["flush_chunk"]),
+                 launches_fixed=flaunches["flush_chunk"], **kt["flush_chunk"]),
             dict(name="expand", route="cuda", source="tpu_pbrt_torch/csrc/expand.cu",
                  replaces="tpu_pbrt/accel/fusedwave.py:348", launches=launches["expand"],
-                 **kt["expand"]),
+                 launches_fixed=flaunches["expand"], **kt["expand"]),
         ]
         log(f"[done] total {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": kernels}))

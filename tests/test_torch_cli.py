@@ -1,0 +1,95 @@
+"""The port's command line (tpu_pbrt_torch/main.py) on the CPU.
+
+- `main([scene, "--quick", "--device", "cpu", "-o", out.pfm, ...])`
+  returns 0 and writes the render's developed image: the PFM holds float32,
+  so the file read back must equal `RenderResult.image` bit for bit;
+- each of the reference's flags that the port does not run exits 2 and
+  says "not ported";
+- `--spp-chunk N` sets the chunk, and with it the checkpoint's resume
+  fingerprint: the one the reference writes under TPU_PBRT_CHUNK=N (the
+  reference's CLI parses --spp-chunk without reading it);
+- a malformed scene exits 1 and names file:line;
+- without `--device` and without a GPU it exits 1 (no silent CPU
+  fallback).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_pbrt.parallel import checkpoint as jck
+from tpu_pbrt_torch import main as cli
+from tpu_pbrt_torch.integrators.common import WavefrontIntegrator
+from tpu_pbrt_torch.parallel import checkpoint as tck
+from tpu_pbrt_torch.scene import api
+from tpu_pbrt_torch.utils.imageio import read_pfm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORNELL = os.path.join(ROOT, "scenes", "cornell-path.pbrt")
+
+
+def test_cli_renders_and_writes_the_image(tmp_path, monkeypatch):
+    results = []
+    real = api.render_file
+
+    def render_file(*a, **kw):
+        results.append(real(*a, **kw))
+        return results[-1]
+
+    monkeypatch.setattr(api, "render_file", render_file)
+    out = str(tmp_path / "cornell.pfm")
+    # --quick: 64x64 at 8 spp; the crop window keeps the CPU render short
+    rc = cli.main([CORNELL, "--quick", "--device", "cpu", "-o", out, "--quiet",
+                   "--cropwindow", "0.25", "0.5", "0.25", "0.5"])
+    assert rc == 0 and len(results) == 1
+    res = results[0]
+    assert res.image.shape == (16, 16, 3) and res.image.max() > 0
+    assert np.array_equal(read_pfm(out), res.image)
+    assert res.stats["regen"]  # the pool is the CLI's render path too
+
+
+def test_spp_chunk_sets_the_chunk_and_the_fingerprint(tmp_path, monkeypatch):
+    plans = []
+    real = WavefrontIntegrator.prepare_chunks
+
+    def prepare_chunks(self, *a, **kw):
+        plans.append(real(self, *a, **kw))
+        return plans[-1]
+
+    monkeypatch.setattr(WavefrontIntegrator, "prepare_chunks", prepare_chunks)
+    ck = str(tmp_path / "ck.npz")
+    rc = cli.main([CORNELL, "--quick", "--device", "cpu", "--quiet", "--spp-chunk", "512",
+                   "--checkpoint", ck, "--cropwindow", "0.25", "0.5", "0.25", "0.5"])
+    assert rc == 0 and len(plans) == 1
+    plan = plans[0]
+    assert (plan.chunk, plan.n_chunks) == (512, 4)  # 16x16 pixels at 8 spp
+    fp = plan.fingerprint
+    assert fp.startswith("chunk=512;")
+    assert fp == jck.render_fingerprint(chunk=512, spp=plan.spp, total=plan.total,
+                                        scene=plan.scene)
+    assert tck.load_checkpoint(ck, fp)[1] == 4
+    with pytest.raises(ValueError, match="different render configuration"):
+        tck.load_checkpoint(ck, fp.replace("chunk=512", "chunk=131072"))
+
+
+@pytest.mark.parametrize("flag", ["--serve", "--mesh=8", "--multihost", "--trace=t.json",
+                                  "--metrics-path=m.prom", "--faults=dispatch:fail@chunk=1"])
+def test_unported_flag_exits_2(flag, capsys):
+    assert cli.main([CORNELL, flag, "--device", "cpu"]) == 2
+    assert "is not ported" in capsys.readouterr().err
+
+
+def test_malformed_scene_exits_1_with_file_and_line(tmp_path, capsys):
+    bad = tmp_path / "bad.pbrt"
+    bad.write_text('Film "image"\nWorldBegin\nBogusDirective 1 2\nWorldEnd\n')
+    assert cli.main([str(bad), "--device", "cpu", "--quiet"]) == 1
+    assert "bad.pbrt:3" in capsys.readouterr().err
+
+
+def test_default_device_without_gpu_exits_1(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    assert cli.main([CORNELL, "--quick"]) == 1
+    assert "device='cpu'" in capsys.readouterr().err

@@ -1,7 +1,9 @@
 """The whole slice on the CPU: the small killeroo (528 mesh triangles, so
-the stream tracer, cut into 64-triangle treelets) rendered by the port
+the stream tracer, cut into 64-triangle treelets) rendered by the port's
+fixed-batch loop (TORCH_PBRT_REGEN=0, the fused camera+shadow layout)
 against the JAX package's render of the same scene with the fixed-batch
-loop (TPU_PBRT_REGEN=0).
+loop (TPU_PBRT_REGEN=0). The persistent pool, the default render path,
+is held against the JAX pool render in tests/test_torch_pool.py.
 
 The JAX render takes longer here than this file's budget, so its image
 is read from tests/torch_golden/killeroo_small.npz, written by
@@ -29,6 +31,7 @@ SMALL = dict(res=16, spp=4, n_theta=12, n_phi=24, maxdepth=5)
 def test_small_killeroo_matches_jax_render(monkeypatch):
     ref = np.load(GOLDEN)
     monkeypatch.setattr(tcfg, "leaf_tris", 64)
+    monkeypatch.setattr(tcfg, "regen", False)
     scene, integ = compile_api(make_killeroo_like(**SMALL, device="cpu"))
     assert scene.n_tris == int(ref["n_tris"])
     assert scene.dev["tstream"].n_treelets == int(ref["n_treelets"])
@@ -46,11 +49,13 @@ def test_render_result_counts_rays_per_wave(monkeypatch):
     """rays_traced counts one ray per live lane per bounce plus one shadow
     ray per NEE sample, as the reference does: at maxdepth 0 the camera
     vertex neither samples a light nor continues, so a render traces
-    exactly one ray per camera sample (one closest-hit wave, and a shadow
-    wave in which no ray is live)."""
+    exactly one ray per camera sample. The fixed batch traces the fused
+    layout, so that is ONE 2R wave (camera rays + an all-dead shadow
+    half): no shadow ray is left pending, so no second wave runs."""
     monkeypatch.setattr(tcfg, "leaf_tris", 64)
+    monkeypatch.setattr(tcfg, "regen", False)
     kw = {**SMALL, "res": 8, "spp": 1, "maxdepth": 0}
     scene, integ = compile_api(make_killeroo_like(**kw, device="cpu"))
     res = integ.render(scene)
     assert res.rays_traced == 8 * 8
-    assert res.stats["waves"] == 2 and res.stats["chunks"] == 1
+    assert res.stats["waves"] == 1 and res.stats["chunks"] == 1

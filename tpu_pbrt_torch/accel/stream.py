@@ -61,22 +61,27 @@ _I32_MAX = 2**31 - 1
 class WaveTally:
     """Host-side counts over the waves traced since the last `reset()`:
     waves, loop iterations (expand steps + flushes), the largest
-    iteration count of one wave, and host reads (the loop's counter reads
-    and each flush's block count). The render loop resets and reads it."""
+    iteration count of one wave, the traversal's host reads (the loop's
+    counter reads and each flush's block count) and the integrator
+    loop's own host reads (one per bounce or pool wave, `add_loop_read`).
+    The render loop resets and reads it."""
 
-    __slots__ = ("waves", "iters", "iters_max", "host_reads")
+    __slots__ = ("waves", "iters", "iters_max", "host_reads", "loop_reads")
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.waves = self.iters = self.iters_max = self.host_reads = 0
+        self.waves = self.iters = self.iters_max = self.host_reads = self.loop_reads = 0
 
     def add(self, iters: int, host_reads: int) -> None:
         self.waves += 1
         self.iters += iters
         self.iters_max = max(self.iters_max, iters)
         self.host_reads += host_reads
+
+    def add_loop_read(self) -> None:
+        self.loop_reads += 1
 
 
 #: the process's wave tally (counts only: constant size however many waves)
@@ -110,6 +115,15 @@ def _sizes(R: int):
     w = R + max(int(24 * slab * head), slab // 2)
     lb = max(int(12 * slab * head), 9 * slab)
     return slab, w, lb
+
+
+def flush_geometry(R: int, n_treelets: int) -> dict:
+    """Flush-phase shape for a wave of R rays: worklist sizes and the
+    per-flush block capacity (the reference's flush_geometry)."""
+    slab, w, lb = _sizes(R)
+    b_cap = lb // BLOCK + n_treelets + 2
+    return {"slab": slab, "worklist": w, "leaf_buffer": lb,
+            "blocks_per_flush": b_cap, "chunk": min(CHUNK, b_cap)}
 
 
 def _ray_bits(R: int) -> int:
@@ -405,6 +419,17 @@ def stream_intersect(tp: TreeletPack, tri_verts, o, d, t_max, tv9T=None) -> Hit:
     Returns Hit with global leaf-order triangle ids and the hit vertices."""
     s = _traverse(tp, o, d, _t_max_rows(o, t_max), False)
     return _finalize_hits(tri_verts, o, d, s.rayF[6], s.prim, tv9T=tv9T)
+
+
+def stream_intersect_split(tp: TreeletPack, tri_verts, o, d, t_max, n_finalize: int,
+                           tv9T=None):
+    """Fused-wave closest hit: traverse ALL rays, but build the full Hit
+    only for the first n_finalize; the tail (the integrator's queued
+    shadow rays) returns its bare prim ids (R - n_finalize,)."""
+    s = _traverse(tp, o, d, _t_max_rows(o, t_max), False)
+    n = n_finalize
+    hit = _finalize_hits(tri_verts, o[:n], d[:n], s.rayF[6][:n], s.prim[:n], tv9T=tv9T)
+    return hit, s.prim[n:]
 
 
 def stream_intersect_p(tp: TreeletPack, o, d, t_max):

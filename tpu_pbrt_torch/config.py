@@ -8,7 +8,18 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
 - TORCH_PBRT_SLAB: cap on pairs popped per traversal expand step;
 - TORCH_PBRT_HEADROOM: worklist headroom scale (the stream tracer's
   buffers; below 1 a wave may drop pairs, which `n_drop` counts);
-- TORCH_PBRT_CHUNK: camera rays per render dispatch.
+- TORCH_PBRT_CHUNK: camera rays per render dispatch;
+- TORCH_PBRT_REGEN: the persistent pool (compaction + regeneration) for
+  the path integrator, on by default; 0 renders the fixed batch;
+- TORCH_PBRT_POOL: pool slots (0: a quarter of the chunk, at least
+  min(chunk, 4096));
+- TORCH_PBRT_DEPOSIT_SEG: width of the pool's segmented film deposit
+  (0: pool/4 once the pool holds 256 slots; >= pool or < 0: full width);
+- TORCH_PBRT_TELEMETRY: the pool's wave counters (on by default; 0
+  carries none).
+
+These are the reference's TPU_PBRT_CHUNK/_REGEN/_POOL/_DEPOSIT_SEG/
+_TELEMETRY under the port's prefix.
 
 There is no switch between the hand-written kernels and their plain
 versions: a CUDA tensor always goes through the kernel, a CPU tensor
@@ -28,13 +39,25 @@ def _int(name: str, default: Optional[int]) -> Optional[int]:
     return default if v in (None, "") else int(v)
 
 
+def _flag(name: str, default: bool) -> bool:
+    """Explicit spellings only: unset, empty or unrecognised keeps the
+    default (the reference's rule, so `KNOB=` never flips a switch)."""
+    v = os.environ.get(name, "").strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    return default
+
+
 def _float(name: str, default: float) -> float:
     v = os.environ.get(name)
     return default if v in (None, "") else float(v)
 
 
 class Config:
-    __slots__ = ("leaf_tris", "slab", "headroom", "chunk")
+    __slots__ = ("leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
+                 "telemetry")
 
     def _load(self) -> "Config":
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
@@ -45,6 +68,14 @@ class Config:
         self.headroom: float = _float("TORCH_PBRT_HEADROOM", 1.0)
         #: camera rays per dispatch (None -> device default)
         self.chunk: Optional[int] = _int("TORCH_PBRT_CHUNK", None)
+        #: persistent pool (compaction + regeneration) for `path`
+        self.regen: bool = _flag("TORCH_PBRT_REGEN", True)
+        #: pool slots (0 -> chunk/4 heuristic)
+        self.pool: int = _int("TORCH_PBRT_POOL", 0)
+        #: segmented pool deposit width (0 -> auto)
+        self.deposit_seg: int = _int("TORCH_PBRT_DEPOSIT_SEG", 0)
+        #: the pool's wave counters (obs/counters.py)
+        self.telemetry: bool = _flag("TORCH_PBRT_TELEMETRY", True)
         return self
 
 

@@ -31,6 +31,12 @@ def nonfinite_mask(L) -> torch.Tensor:
     return (~torch.isfinite(L)).any(dim=-1)
 
 
+def merge_film(a: FilmState, b: FilmState) -> FilmState:
+    """Sum two film accumulators (film accumulation is associative: the
+    per-device contributions of a split render merge this way)."""
+    return FilmState(a.rgb + b.rgb, a.weight + b.weight, a.splat + b.splat)
+
+
 class Film:
     def __init__(
         self,
@@ -126,6 +132,32 @@ class Film:
                 state.weight.index_put_((pyc, pxc), fw, accumulate=True)
         return state
 
+    def aligned_chunk_pixels(self, chunk: int, spp: int) -> int:
+        """Gate for add_samples_aligned: the pixels per chunk when the
+        fast path applies (box(0.5) filter, full-frame crop, whole-pixel
+        chunks tiling the frame exactly), else 0."""
+        rx, ry = self.full_resolution
+        if not self.pixel_deposit_ok() or spp <= 0 or chunk % spp:
+            return 0
+        npc = chunk // spp
+        return npc if (rx * ry) % npc == 0 else 0
+
+    def add_samples_aligned(self, state: FilmState, start_pix: int, spp: int, L,
+                            ray_weight=None) -> FilmState:
+        """add_samples for a chunk of `chunk // spp` consecutive pixels
+        with spp consecutive samples each (the render loop's layout): the
+        per-pixel sums are one reshape + sum and the film update two
+        contiguous slice-adds, no scatter. The caller must have checked
+        aligned_chunk_pixels() != 0. Shares add_samples_pixel's deviation
+        for a jitter of exactly 0.0 (own pixel only)."""
+        L = self._prep(L, ray_weight)
+        npc = L.shape[0] // spp
+        rx, ry = self.full_resolution
+        rgb = state.rgb.view(rx * ry, 3)
+        rgb[start_pix:start_pix + npc] += L.reshape(npc, spp, 3).sum(dim=1)
+        state.weight.view(rx * ry)[start_pix:start_pix + npc] += float(spp)
+        return state
+
     def pixel_deposit_ok(self) -> bool:
         """Gate for add_samples_pixel: box(0.5) filter over the full frame."""
         f = self.filter
@@ -165,6 +197,15 @@ class Film:
         img = img * self.scale
         x0, x1, y0, y1 = self.cropped_pixel_bounds
         return img[y0:y1, x0:x1].astype(np.float32)
+
+    def write_image(self, state: FilmState, splat_scale: float = 1.0, filename: str = ""):
+        """Film::WriteImage: develop and write to `filename` (default: the
+        film's), the format chosen by the extension (utils/imageio.py)."""
+        from tpu_pbrt_torch.utils import imageio
+
+        img = self.develop(state, splat_scale)
+        imageio.write_image(filename or self.filename, img)
+        return img
 
 
 def make_film(name: str, params, filt: FilterSpec, options=None) -> Film:

@@ -1,12 +1,15 @@
 """Shared wavefront-integrator machinery (port of tpu_pbrt/integrators/common.py).
 
 - Scene::Intersect / IntersectP dispatch to the stream tracer (or the
-  brute feature product for scenes of at most BRUTE_MAX_TRIS triangles);
-- the single-segment visibility test of the path integrator's NEE;
+  brute feature product for scenes of at most BRUTE_MAX_TRIS triangles),
+  and the fused camera+shadow closest hit of the 2R wave layout;
 - SurfaceInteraction construction from a Hit;
-- the fixed-batch render loop: the image x spp work domain is cut into
-  chunks of camera rays; each chunk generates its rays, runs the
-  integrator's `li` to completion and deposits into the film.
+- the chunk plan and the render loop on one device: the image x spp
+  work domain is cut into chunks of camera rays; each chunk drains
+  through the integrator's persistent pool (`pool_chunk`) or runs its
+  fixed batch (`li`) to completion, and deposits into the film; the loop
+  checkpoints at a cadence, resumes from a checkpoint, stops at a time
+  box, and writes the image.
 
 Every sampler dimension is a pure function of (px, py, s, dimension
 salt), so the port draws the reference's sample streams.
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -67,21 +70,17 @@ def scene_intersect(dev, o, d, t_max) -> Hit:
     )
 
 
-def scene_intersect_p(dev, o, d, t_max):
-    """Scene::IntersectP — shadow-ray predicate."""
+def scene_intersect_fused(dev, o, d, t_max, n_cam: int):
+    """Fused camera+shadow closest hit: the full Hit for the first n_cam
+    rays, bare prim ids for the tail (queued shadow rays only need
+    prim >= 0)."""
     if "tstream" in dev:
-        from tpu_pbrt_torch.accel.stream import stream_intersect_p
+        from tpu_pbrt_torch.accel.stream import stream_intersect_split
 
-        return stream_intersect_p(dev["tstream"], o, d, t_max)
-    return scene_intersect(dev, o, d, t_max).prim >= 0
-
-
-def unoccluded_tr(dev, o, d, dist):
-    """VisibilityTester::Unoccluded for one segment (no null interfaces,
-    no media): is the light sample visible? The segment stops at 0.999 of
-    the light distance, as the reference's."""
-    remaining = torch.broadcast_to(dist, o.shape[:-1]) * 0.999
-    return ~scene_intersect_p(dev, o, d, remaining)
+        return stream_intersect_split(dev["tstream"], dev["tri_verts"], o, d, t_max, n_cam,
+                                      tv9T=dev.get("tri_verts9T"))
+    hit = scene_intersect(dev, o, d, t_max)
+    return Hit(*(None if a is None else a[:n_cam] for a in hit)), hit.prim[n_cam:]
 
 
 @dataclass
@@ -92,6 +91,7 @@ class RenderResult:
     rays_traced: int
     mray_per_sec: float
     spp: int
+    completed_fraction: float = 1.0
     stats: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -153,8 +153,58 @@ def textured_mat(dev, mid) -> bxdf.MatParams:
     return bxdf.gather_mat(dev["mat"], mid)
 
 
+@dataclass
+class ChunkPlan:
+    """The chunked decomposition of one render's work domain on one
+    device, and the dispatch of one chunk (the reference's ChunkPlan
+    without the mesh and the jit cache).
+
+    ``dispatch(state, c)`` renders chunk ``c`` into the film accumulator
+    ``state`` (in place) and returns its accounting: ``(rays, live lane
+    waves, waves, truncated, counters)`` through the pool, ``(rays,
+    nonfinite count or None)`` through the fixed batch. The (film state,
+    chunk cursor, rays, counters) a caller carries between dispatches is
+    exactly the checkpoint's payload."""
+
+    scene: Any
+    film: Any
+    chunk: int
+    n_chunks: int
+    spp: int
+    total: int
+    npix: int
+    bounds: tuple  # film sample bounds (x0, x1, y0, y1)
+    pool: int
+    use_regen: bool
+    fingerprint: str
+    #: which flush/expand program the stream tracer runs: "fused" (the
+    #: hand-written kernels, on CUDA) or "plain" (their plain versions,
+    #: on the CPU; the reference calls this mode "jnp")
+    tracer: str
+    _dispatch: Callable = field(repr=False, default=None)
+
+    def start(self, c: int):
+        """Chunk c's first work item as (pixel, sample): int32-safe."""
+        return divmod(c * self.chunk, self.spp)
+
+    def dispatch(self, state, c: int):
+        return self._dispatch(state, c)
+
+
+def _fixed_batch_nonfinite(valid, L):
+    """The film firewall's scrub count for a fixed-batch chunk (valid work
+    items whose radiance is NaN/Inf), or None with telemetry killed."""
+    from tpu_pbrt_torch.obs.counters import enabled
+
+    if not enabled():
+        return None
+    from tpu_pbrt_torch.core.film import nonfinite_mask
+
+    return (nonfinite_mask(L) & valid).sum(dtype=torch.int32)
+
+
 class WavefrontIntegrator:
-    """Base class: the fixed-batch chunked render loop."""
+    """Base class: the chunk plan and the render loop."""
 
     def __init__(self, params, scene, options):
         self.params = params
@@ -176,14 +226,22 @@ class WavefrontIntegrator:
     def u2d(self, px, py, s, salt):
         return sample_2d(self.skind, self.spp, px, py, s, salt)
 
+    def _regen_enabled(self) -> bool:
+        """Whether this integrator renders through the persistent pool
+        (PathIntegrator overrides; everything else keeps the fixed batch)."""
+        return False
+
     def film_jitter(self, px, py, s):
         """In-pixel film sample offset of sample s of pixel (px, py): the
-        per-pixel scrambled (0,2)-sequence."""
+        per-pixel scrambled (0,2)-sequence (a pure function of the work
+        item, so the pool recomputes it at deposit time)."""
         return sobol_2d(s, hash_u32(px, py, 0x11), hash_u32(px, py, 0x22))
 
     def work_to_rays(self, cam, spp, x0, y0, w, npix, start_pix, start_s, k):
         """Flat work offsets k (R,) -> camera rays. The range start is
-        carried as (start_pix, start_s) so the arithmetic stays in int32."""
+        carried as (start_pix, start_s) so the arithmetic stays in int32.
+        Shared by the fixed batch and the pool's regeneration, so both
+        derive the same (px, py, s) and sample streams for a work item."""
         s_tot = start_s + k
         pix = start_pix + torch.div(s_tot, spp, rounding_mode="floor")
         s = s_tot % spp
@@ -204,82 +262,212 @@ class WavefrontIntegrator:
     def li(self, dev, o, d, px, py, s):
         raise NotImplementedError
 
-    def prepare_chunks(self, scene=None, chunk=None) -> dict:
+    def pool_chunk(self, dev, fs, start_pix, start_s, n_work, pool, film=None, cam=None):
+        raise NotImplementedError
+
+    def prepare_chunks(self, scene=None, chunk: Optional[int] = None) -> ChunkPlan:
         """The chunk decomposition of the work domain (pixel-major, spp
-        consecutive samples per pixel)."""
+        consecutive samples per pixel) and its dispatch. The chunk is, in
+        order: the `chunk` argument, the options' spp_chunk, the
+        TORCH_PBRT_CHUNK knob, or the device default; the pool holds a
+        quarter of it, at least min(chunk, 4096) slots, unless
+        TORCH_PBRT_POOL sets it."""
+        from tpu_pbrt_torch.parallel.checkpoint import render_fingerprint
+
         scene = scene or self.scene
-        film = scene.film
+        film, cam = scene.film, scene.camera
         x0, x1, y0, y1 = film.sample_bounds()
         w = x1 - x0
         npix = w * (y1 - y0)
         spp = scene.sampler.spp
         total = npix * spp
         if chunk is None:
+            chunk = int(getattr(self.options, "spp_chunk", 0) or 0) or None
+        if chunk is None:
             default = GPU_CHUNK if scene.device.type == "cuda" else CPU_CHUNK
             chunk = int(cfg.chunk if cfg.chunk is not None else default)
         chunk = max(min(int(chunk), max(1024, total)), 1)
-        return {
-            "chunk": chunk, "n_chunks": (total + chunk - 1) // chunk,
-            "spp": spp, "total": total, "npix": npix, "bounds": (x0, x1, y0, y1),
-        }
+        use_regen = self._regen_enabled()
+        pool = 0
+        if use_regen:
+            pool = int(cfg.pool)
+            if pool <= 0:
+                pool = max(chunk // 4, min(chunk, 4096))
+            pool = min(pool, chunk)
+        plan = ChunkPlan(
+            scene=scene, film=film, chunk=chunk,
+            n_chunks=(total + chunk - 1) // chunk, spp=spp, total=total, npix=npix,
+            bounds=(x0, x1, y0, y1), pool=pool, use_regen=use_regen,
+            fingerprint=render_fingerprint(chunk=chunk, spp=spp, total=total, scene=scene),
+            tracer="fused" if scene.device.type == "cuda" else "plain",
+        )
+        if use_regen:
 
-    def render(self, scene=None, chunk=None) -> RenderResult:
-        """SamplerIntegrator::Render: every chunk of camera rays through
-        `li`, deposited into the film; returns the developed image, the
-        rays traced and the wall time (synchronized with the device)."""
+            def dispatch(state, c):
+                start_pix, start_s = plan.start(c)
+                _, nrays, live, waves, trunc, ctr = self.pool_chunk(
+                    scene.dev, state, start_pix, start_s, chunk, pool, film=film, cam=cam)
+                return nrays, live, waves, trunc, ctr
+
+        else:
+            # pixel-major chunks that tile the frame exactly take the
+            # film's scatter-free aligned deposit
+            aligned = film.aligned_chunk_pixels(chunk, spp) > 0
+            box_fast = film.pixel_deposit_ok()
+            k = torch.arange(chunk, dtype=torch.int32, device=scene.device)
+
+            def dispatch(state, c):
+                start_pix, start_s = plan.start(c)
+                valid, px, py, s, p_film, o, d, wt = self.work_to_rays(
+                    cam, spp, x0, y0, w, npix, start_pix, start_s, k)
+                L, nrays = self.li(scene.dev, o, d, px, py, s)
+                nrays = torch.where(valid, nrays, torch.zeros_like(nrays)).sum()
+                nf = _fixed_batch_nonfinite(valid, L)
+                if aligned:
+                    film.add_samples_aligned(state, start_pix, spp, L, wt)
+                elif box_fast:
+                    film.add_samples_pixel(state, px, py, L, valid, wt)
+                else:
+                    p_film = torch.where(valid[..., None], p_film, torch.full_like(p_film, -1e6))
+                    film.add_samples(state, p_film, L, wt)
+                return nrays, nf
+
+        plan._dispatch = dispatch
+        return plan
+
+    def render(self, scene=None, chunk: Optional[int] = None, checkpoint_path=None,
+               checkpoint_every: int = 0, max_seconds: float = 0.0) -> RenderResult:
+        """SamplerIntegrator::Render on one device: every chunk through
+        the pool (or the fixed batch), deposited into the film.
+
+        Checkpoint/resume: a checkpoint is the film state plus the chunk
+        cursor (chunks are pure functions of their work range and the
+        film sums associatively), so a resumed render is bit-identical to
+        an uninterrupted one. It is read from and written to
+        `checkpoint_path` (default: the options' checkpoint_path) every
+        `checkpoint_every` chunks and at the end. max_seconds > 0 stops
+        at the first chunk boundary past the budget and returns a partial
+        render with completed_fraction < 1 (pixel-major, so the trailing
+        pixels are unsampled). Writes the image when the film names a
+        file. The wall time ends in a device synchronize."""
         from tpu_pbrt_torch.accel import stream
+        from tpu_pbrt_torch.obs import counters as obs_counters
+        from tpu_pbrt_torch.parallel.checkpoint import (
+            checkpoint_exists,
+            load_checkpoint,
+            save_checkpoint,
+        )
+        from tpu_pbrt_torch.utils.error import Warning as _W
 
-        scene = scene or self.scene
         plan = self.prepare_chunks(scene, chunk)
-        film, cam, dev, device = scene.film, scene.camera, scene.dev, scene.device
-        chunk, spp, npix = plan["chunk"], plan["spp"], plan["npix"]
-        x0, _, y0, _ = plan["bounds"]
-        w = plan["bounds"][1] - x0
-        state = film.init_state(device)
-        box_fast = film.pixel_deposit_ok()
+        scene, film, device = plan.scene, plan.film, plan.scene.device
+        ckpt_path = checkpoint_path or getattr(self.options, "checkpoint_path", None)
+        checkpoint_every = checkpoint_every or getattr(self.options, "checkpoint_every", 0)
+        first_chunk, prev_rays, prev_ctr = 0, 0, {}
+        if ckpt_path and checkpoint_exists(ckpt_path):
+            state, first_chunk, prev_rays, prev_ctr = load_checkpoint(
+                ckpt_path, plan.fingerprint, device=device)
+        else:
+            state = film.init_state(device)
+        ray_counts, occ_counts, ctr_counts, nf_counts = [], [], [], []
+
+        def rays_so_far() -> int:
+            return prev_rays + (int(torch.stack(ray_counts).sum()) if ray_counts else 0)
+
+        def ctr_snapshot() -> Dict[str, Any]:
+            """Cumulative host counters: the resumed snapshot + every chunk
+            so far (one device read each)."""
+            snap = obs_counters.merge_host(prev_ctr, obs_counters.to_host(ctr_counts))
+            if nf_counts:
+                snap = obs_counters.merge_host(
+                    snap, {"nonfinite_deposits": int(torch.stack(nf_counts).sum())})
+            return snap
+
         prev_det = torch.are_deterministic_algorithms_enabled()
         prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
         if device.type == "cuda":
             # the film's scatter-adds accumulate in a fixed order
             torch.use_deterministic_algorithms(True, warn_only=True)
         stream.WAVES.reset()
-        rays = torch.zeros((), dtype=torch.int64, device=device)
+        c = first_chunk
         try:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            k = torch.arange(chunk, dtype=torch.int32, device=device)
-            for c in range(plan["n_chunks"]):
-                start_pix, start_s = divmod(c * chunk, spp)
-                valid, px, py, s, p_film, o, d, wt = self.work_to_rays(
-                    cam, spp, x0, y0, w, npix, start_pix, start_s, k
-                )
-                L, nrays = self.li(dev, o, d, px, py, s)
-                rays += torch.where(valid, nrays, torch.zeros_like(nrays)).sum()
-                if box_fast:
-                    film.add_samples_pixel(state, px, py, L, valid, wt)
-                else:
-                    p_film = torch.where(valid[..., None], p_film,
-                                         torch.full_like(p_film, -1e6))
-                    film.add_samples(state, p_film, L, wt)
+            while c < plan.n_chunks:
+                aux = plan.dispatch(state, c)
+                c += 1
+                ray_counts.append(aux[0])
+                if plan.use_regen:
+                    occ_counts.append(aux[1:4])
+                    if aux[4] is not None:
+                        ctr_counts.append(aux[4])
+                elif aux[1] is not None:
+                    nf_counts.append(aux[1])
+                if ckpt_path and checkpoint_every and c % checkpoint_every == 0:
+                    save_checkpoint(ckpt_path, state, c, rays_so_far(),
+                                    fingerprint=plan.fingerprint, counters=ctr_snapshot())
+                if max_seconds > 0 and time.perf_counter() - t0 > max_seconds:
+                    break
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             secs = time.perf_counter() - t0
         finally:
             torch.use_deterministic_algorithms(prev_det, warn_only=prev_warn)
-        img = film.develop(state)
-        n_rays = int(rays)
+        completed_fraction = c / max(plan.n_chunks, 1)
+        rays = rays_so_far()
+        ctr_total = ctr_snapshot()
+        if ckpt_path:
+            save_checkpoint(ckpt_path, state, c, rays, fingerprint=plan.fingerprint,
+                            counters=ctr_total)
+        # pbrt film.cpp splatScale: splats divide by the samples taken
+        splat_scale = 1.0 / max(plan.spp * completed_fraction, 1e-9)
+        img = film.develop(state, splat_scale=splat_scale)
+        if film.filename:
+            try:
+                film.write_image(state, splat_scale=splat_scale)
+            except OSError as e:
+                _W(f"could not write image {film.filename}: {e}")
+
         waves = stream.WAVES
         per_wave = max(waves.waves, 1)
-        stats = {
-            "chunks": plan["n_chunks"],
-            "chunk": chunk,
+        stats: Dict[str, Any] = {
+            "chunks": plan.n_chunks,
+            "chunk": plan.chunk,
             "waves": waves.waves,
             "iters_per_wave_mean": waves.iters / per_wave,
             "iters_per_wave_max": waves.iters_max,
             "host_reads_per_wave_mean": waves.host_reads / per_wave,
+            "loop_host_reads_per_wave": waves.loop_reads / per_wave,
         }
+        if "tstream" in scene.dev:
+            stats["tracer_mode"] = plan.tracer
+        wave_counts = []
+        if plan.use_regen and occ_counts:
+            live_t = int(torch.stack([lv for lv, _, _ in occ_counts]).sum())
+            wave_counts = [int(wv) for _, wv, _ in occ_counts]
+            trunc_t = sum(int(t) for _, _, t in occ_counts)
+            if trunc_t:
+                _W(f"persistent wavefront truncated {trunc_t} chunk drain(s) at the "
+                   "max_waves safety bound; the image is missing samples (raise "
+                   "TORCH_PBRT_POOL or report a bug)")
+                stats["truncated_chunks"] = trunc_t
+            stats |= {
+                # fraction of pool slots holding a live path at trace time,
+                # averaged over every wave
+                "mean_wave_occupancy": live_t / max(sum(wave_counts) * plan.pool, 1),
+                "n_waves": sum(wave_counts),
+                "pool": plan.pool,
+                "regen": True,
+            }
+        if obs_counters.enabled() and ctr_total:
+            stats["telemetry"] = {
+                "counters": ctr_total,
+                "wave_spread": obs_counters.spread_stats([sum(wave_counts)] if wave_counts else []),
+            }
         return RenderResult(
-            image=img, film_state=state, seconds=secs, rays_traced=n_rays,
-            mray_per_sec=n_rays / max(secs, 1e-9) / 1e6, spp=spp, stats=stats,
+            image=img, film_state=state, seconds=secs, rays_traced=rays,
+            mray_per_sec=rays / max(secs, 1e-9) / 1e6, spp=plan.spp,
+            completed_fraction=completed_fraction, stats=stats,
         )
+

@@ -1,16 +1,29 @@
 """PathIntegrator — the wavefront bounce loop (port of tpu_pbrt/integrators/path.py).
 
-pbrt-v3 PathIntegrator::Li as a wavefront: the whole ray batch advances
-one bounce per loop iteration under a live mask: emission with forward
-MIS (the continuation ray carries its BSDF pdf), NEE with MIS and a
-shadow ray traced right away (`_bounce_wave(fused=False)`, the
-reference's split trace), the BSDF-sampled continuation, and Russian
-roulette after depth 3 with the eta^2 correction. The loop runs on the
-host and stops when every lane is dead (one host read per bounce).
+pbrt-v3 PathIntegrator::Li as a wavefront: a batch of lanes advances one
+bounce per `_bounce_wave`: emission with forward MIS (the continuation
+ray carries its BSDF pdf), NEE with MIS, the BSDF-sampled continuation,
+and Russian roulette after depth 3 with the eta^2 correction.
 
-The reference's persistent pool (`pool_chunk`: compaction, camera-ray
-regeneration and the fused camera+shadow wave) is not ported yet; it
-draws the same sample streams and therefore estimates the same image.
+Two loops share that wave, as in the reference:
+
+- the fixed batch (`li`): every camera ray of a chunk advances in
+  lockstep until all lanes are dead;
+- the persistent pool (`pool_chunk`, the default render path): a
+  resident pool of path slots is compacted every wave (one packed-int32
+  sort moves live lanes to the front), its free tail is refilled with
+  fresh camera rays from the chunk's work counter, and terminated lanes
+  deposit into the film. Every sampler dimension is a pure function of
+  (px, py, s, dimension), so a regenerated lane draws exactly the
+  stream the fixed batch would have: the two estimate the same image.
+
+Both trace the reference's fused layout: each wave traces [continuation
+rays; the previous bounce's shadow rays] as one 2R closest-hit batch, and
+the NEE contribution lands one wave later. (The reference's split layout,
+a separate shadow wave per bounce walking null interfaces, serves scenes
+the port's compiler rejects, so it is not ported.) The reference's
+lax.while_loops are host loops here, with one host read per wave for
+their exit tests.
 """
 
 from __future__ import annotations
@@ -19,8 +32,10 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_pbrt_torch.accel import stream
 from tpu_pbrt_torch.core import bxdf
 from tpu_pbrt_torch.core import lights_dev as ld
+from tpu_pbrt_torch.core.film import nonfinite_mask
 from tpu_pbrt_torch.core.sampling import power_heuristic, uniform_float
 from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_local, to_world
 from tpu_pbrt_torch.integrators.common import (
@@ -32,24 +47,32 @@ from tpu_pbrt_torch.integrators.common import (
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
     make_interaction,
-    scene_intersect,
-    unoccluded_tr,
+    scene_intersect_fused,
 )
+from tpu_pbrt_torch.obs import counters as obs_counters
+
+#: compaction packs (free_flag << 30) | lane into one int32 sort key
+_POOL_LANE_BITS = 30
 
 
 class LaneSt(NamedTuple):
-    """Per-lane path state carried between bounces."""
+    """Per-lane path state carried between bounces (fixed batch: lanes in
+    lockstep; pool: lanes at mixed depths)."""
 
     o: torch.Tensor
     d: torch.Tensor
     L: torch.Tensor
     beta: torch.Tensor
     alive: torch.Tensor
-    depth: torch.Tensor  # real bounces taken
+    depth: torch.Tensor  # real bounces taken; the pool's per-lane salt base
     prev_pdf: torch.Tensor
     specular: torch.Tensor
     eta_scale: torch.Tensor
     prev_p: torch.Tensor
+    sh_o: torch.Tensor  # pending shadow ray (fused layout)
+    sh_d: torch.Tensor
+    sh_dist: torch.Tensor  # < 0: no pending shadow
+    ld_pend: torch.Tensor  # beta-weighted NEE awaiting the shadow's visibility
 
 
 def fresh_lanes(o, d) -> LaneSt:
@@ -68,6 +91,10 @@ def fresh_lanes(o, d) -> LaneSt:
         specular=torch.ones(shape, dtype=torch.bool, **kw),
         eta_scale=torch.ones(shape, dtype=torch.float32, **kw),
         prev_p=o,
+        sh_o=o,
+        sh_d=d,
+        sh_dist=torch.full(shape, -1.0, dtype=torch.float32, **kw),
+        ld_pend=torch.zeros(shape + (3,), dtype=torch.float32, **kw),
     )
 
 
@@ -79,9 +106,29 @@ class PathIntegrator(WavefrontIntegrator):
         self.max_depth = params.find_one_int("maxdepth", 5)
         self.rr_threshold = params.find_one_float("rrthreshold", 1.0)
 
-    def _bounce_wave(self, dev, px, py, s, salt: int, st: LaneSt, nrays):
-        """Advance every lane one bounce (the reference's fused=False wave).
-        Returns (LaneSt, nrays + this wave's per-lane traced-ray counts)."""
+    def _regen_enabled(self) -> bool:
+        """The persistent pool is on by default wherever its
+        precondition holds: a sampler whose dimension salts work per lane
+        (not halton). (The reference also requires the fused layout, which
+        every scene the port compiles takes.)"""
+        from tpu_pbrt_torch.config import cfg
+
+        return cfg.regen and self.skind != "halton"
+
+    # -- one wavefront step ------------------------------------------------
+    def _bounce_wave(self, dev, px, py, s, salt, st: LaneSt, nrays, ctr=None):
+        """Advance every lane one bounce: trace the continuation rays and
+        the pending shadow rays as one 2R wave, settling the previous
+        bounce's NEE; add emission with forward MIS, queue NEE's shadow ray
+        and sample the BSDF continuation, apply Russian roulette.
+
+        `salt` is the sampler-dimension base: the loop iteration *
+        DIMS_PER_BOUNCE (an int) in the fixed batch, the per-lane depth *
+        DIMS_PER_BOUNCE (a tensor) in the pool; both give a live lane the
+        same value. `ctr` is the optional wave-counter block
+        (obs/counters.py). Returns (LaneSt, nrays + this wave's per-lane
+        traced-ray counts, ctr)."""
+        nrays_in = nrays
         o, d, L, beta, alive = st.o, st.d, st.L, st.beta, st.alive
         depth, prev_pdf, specular = st.depth, st.prev_pdf, st.specular
         eta_scale, prev_p = st.eta_scale, st.prev_p
@@ -89,7 +136,14 @@ class PathIntegrator(WavefrontIntegrator):
         # dead lanes trace with t_max < 0: never seeded into the traversal
         t_max = torch.where(alive, torch.full_like(o[..., 0], float("inf")),
                             torch.full_like(o[..., 0], -1.0))
-        hit = scene_intersect(dev, o, d, t_max)
+        hit, sh_prim = scene_intersect_fused(
+            dev, torch.cat([o, st.sh_o]), torch.cat([d, st.sh_d]),
+            torch.cat([t_max, st.sh_dist]), n_cam=o.shape[0],
+        )
+        # settle the previous bounce's NEE with its visibility
+        vis_prev = (st.sh_dist > 0.0) & (sh_prim < 0)
+        L = L + torch.where(vis_prev[..., None], st.ld_pend, torch.zeros_like(st.ld_pend))
+        nrays = nrays + (st.sh_dist > 0.0).to(torch.int32)
         nrays = nrays + alive.to(torch.int32)
         it = make_interaction(dev, hit, o, d)
         it.valid = it.valid & alive
@@ -128,9 +182,14 @@ class PathIntegrator(WavefrontIntegrator):
         w_l = torch.where(ls.is_delta, torch.ones_like(ls.pdf),
                           power_heuristic(1.0, ls.pdf, 1.0, bsdf_pdf))
         Ld = f * ls.li * (w_l / torch.clamp(ls.pdf, min=1e-20))[..., None]
-        visible = unoccluded_tr(dev, o_sh, ls.wi, sh_dist)
-        nrays = nrays + do_nee.to(torch.int32)
-        L = L + torch.where((do_nee & visible)[..., None], beta * Ld, torch.zeros_like(Ld))
+        # queue the shadow ray for the NEXT wave, stopping at 0.999 of the
+        # light distance (VisibilityTester::Unoccluded's margin); its
+        # contribution uses this bounce's beta
+        pend = (
+            o_sh, ls.wi,
+            torch.where(do_nee, sh_dist * 0.999, torch.full_like(sh_dist, -1.0)),
+            torch.where(do_nee[..., None], beta * Ld, torch.zeros_like(Ld)),
+        )
 
         # ---- continuation: BSDF sample --------------------------------
         ul = self.u1d(px, py, s, salt + DIM_BSDF_LOBE)
@@ -168,19 +227,172 @@ class PathIntegrator(WavefrontIntegrator):
                                     torch.ones_like(q))
         beta = beta * survive_scale[..., None]
         alive = alive & ~kill
-        return LaneSt(o, d, L, beta, alive, depth, prev_pdf, specular, eta_scale,
-                      prev_p), nrays
 
+        ctr = obs_counters.bounce_update(ctr, alive=st.alive, rays_before=nrays_in,
+                                         rays_after=nrays)
+        return LaneSt(o, d, L, beta, alive, depth, prev_pdf, specular, eta_scale,
+                      prev_p, *pend), nrays, ctr
+
+    # -- fixed-batch loop (TORCH_PBRT_REGEN=0) -------------------------------
     def li(self, dev, o, d, px, py, s):
         """Radiance of the camera rays (o, d) of work items (px, py, s):
-        bounce waves until every lane is dead or maxdepth + 1 waves ran.
-        Returns (L (R, 3), per-lane traced-ray counts (R,))."""
+        bounce waves until every lane is dead and every pending shadow ray
+        has settled, at most maxdepth + 1 waves + 1 to settle the last
+        shadow rays. Returns (L (R, 3), per-lane traced-ray counts (R,))."""
         lane = fresh_lanes(o, d)
         nrays = torch.zeros(o.shape[:-1], dtype=torch.int32, device=o.device)
-        for bounce in range(self.max_depth + 1):
-            if not bool(lane.alive.any()):
+        for bounce in range(self.max_depth + 2):
+            live = lane.alive.any() | (lane.sh_dist > 0.0).any()
+            stream.WAVES.add_loop_read()
+            if not bool(live):  # the loop test: one host read per wave
                 break
-            lane, nrays = self._bounce_wave(
+            lane, nrays, _ = self._bounce_wave(
                 dev, px, py, s, bounce * DIMS_PER_BOUNCE, lane, nrays
             )
         return lane.L, nrays
+
+    # -- persistent wavefront: compaction + regeneration --------------------
+    def pool_chunk(self, dev, fs, start_pix: int, start_s: int, n_work: int, pool: int,
+                   film=None, cam=None):
+        """Drain work items [start, start + n_work) through a resident pool
+        of `pool` path slots, one bounce per wave, depositing into the film
+        state `fs` in place.
+
+        Per wave: (1) COMPACT: one packed-int32 sort of (free << 30) | lane
+        moves active lanes to a contiguous prefix, and every pool array is
+        gathered by the recovered lane index; (2) REGENERATE: the free
+        tail takes fresh camera rays from the chunk's work counter; (3) one
+        `_bounce_wave`; (4) DEPOSIT: lanes that finished
+        (dead, no pending shadow) add their L to the film and release
+        their slot; while no more than `seg` lanes finish, one more sort
+        moves them to a prefix and only that window is scattered. The
+        exit test and the deposit's choice read three scalars in ONE host
+        transfer per wave.
+
+        Returns (fs, rays_traced, live_lane_waves, n_waves, truncated,
+        counters): mean wave occupancy = live_lane_waves / (n_waves *
+        pool); truncated is 1 if the max_waves safety bound stopped the
+        drain with work outstanding (render() warns); counters is the
+        WaveCounters block (None with telemetry killed)."""
+        from tpu_pbrt_torch.config import cfg
+
+        assert pool < (1 << _POOL_LANE_BITS)
+        film = film if film is not None else self.scene.film
+        cam = cam if cam is not None else self.scene.camera
+        x0, x1, y0, y1 = film.sample_bounds()
+        w = x1 - x0
+        npix = w * (y1 - y0)
+        spp = self.spp
+        seg = int(cfg.deposit_seg)
+        if seg == 0:
+            seg = pool // 4 if pool >= 256 else pool
+        if seg < 0 or seg > pool:
+            seg = pool
+        seg = max(seg, 1)
+        # worst case: every refill round runs every lane to max_depth,
+        # plus the shadow-settle wave (a safety bound only)
+        max_waves = (n_work // pool + 2) * (self.max_depth + 2) + 8
+        device = fs.rgb.device
+        i32 = dict(dtype=torch.int32, device=device)
+        lane_idx = torch.arange(pool, **i32)
+        free_bit = 1 << _POOL_LANE_BITS
+        lane_mask = free_bit - 1
+
+        zero3 = torch.zeros((pool, 3), dtype=torch.float32, device=device)
+        unit_d = torch.tensor([0.0, 0.0, 1.0], device=device).expand(pool, 3).contiguous()
+        lane = fresh_lanes(zero3, unit_d)._replace(
+            alive=torch.zeros((pool,), dtype=torch.bool, device=device))
+        px = torch.zeros((pool,), **i32)
+        py = torch.zeros((pool,), **i32)
+        s = torch.zeros((pool,), **i32)
+        wt = torch.zeros((pool,), dtype=torch.float32, device=device)
+        has_work = torch.zeros((pool,), dtype=torch.bool, device=device)
+        cursor = torch.zeros((), **i32)  # work items consumed so far
+        nrays = torch.zeros((), dtype=torch.int64, device=device)
+        live = torch.zeros((), dtype=torch.int64, device=device)
+        ctr = obs_counters.maybe_zeros(device)
+        waves = 0
+        cursor_h, any_work = 0, False
+        while (cursor_h < n_work or any_work) and waves < max_waves:
+            # ---- compaction: ONE packed-i32 sort (keys are unique) -------
+            key = torch.where(has_work, lane_idx, lane_idx + free_bit)
+            perm = (torch.sort(key).values & lane_mask).long()
+            lane = LaneSt(*(a[perm] for a in lane))
+            px, py, s, wt = px[perm], py[perm], s[perm], wt[perm]
+            active = has_work[perm]
+            n_live = active.sum(dtype=torch.int32)
+
+            # ---- regeneration from the work counter ----------------------
+            widx = cursor + (lane_idx - n_live)
+            can = (~active) & (widx < n_work)
+            valid, pxn, pyn, sn, _, o_n, d_n, wt_n = self.work_to_rays(
+                cam, spp, x0, y0, w, npix, start_pix, start_s,
+                torch.where(can, widx, torch.zeros_like(widx)),
+            )
+            can = can & valid
+            lane = LaneSt(*(
+                torch.where(can.reshape((pool,) + (1,) * (new.dim() - 1)), new, old)
+                for new, old in zip(fresh_lanes(o_n, d_n), lane)
+            ))
+            px = torch.where(can, pxn, px)
+            py = torch.where(can, pyn, py)
+            s = torch.where(can, sn, s)
+            wt = torch.where(can, wt_n, wt)
+            # the counter also consumes work items past the frame (the
+            # final chunk's tail), which `valid` kept out of the pool
+            consumed = torch.minimum(torch.clamp(n_work - cursor, min=0), pool - n_live)
+            has_work = active | can
+            live = live + lane.alive.sum()
+            alive_pre = lane.alive
+
+            # ---- one bounce wave ---------------------------------------
+            lane, nray_d, ctr = self._bounce_wave(
+                dev, px, py, s, lane.depth * DIMS_PER_BOUNCE, lane,
+                torch.zeros((pool,), **i32), ctr=ctr,
+            )
+
+            # ---- scatter-on-terminate film deposit ----------------------
+            done = has_work & ~lane.alive & ~(lane.sh_dist > 0.0)
+            n_done = done.sum(dtype=torch.int32)
+            ctr = obs_counters.pool_update(
+                ctr,
+                regenerated=can.sum(dtype=torch.int32),
+                terminated=(alive_pre & ~lane.alive).sum(dtype=torch.int32),
+                deposits=n_done,
+                compacted=(active & (perm != lane_idx)).sum(dtype=torch.int32),
+                nonfinite=(done & nonfinite_mask(lane.L)).sum(dtype=torch.int32),
+            )
+            cursor = cursor + consumed
+            has_work_next = has_work & ~done
+            nrays = nrays + nray_d.sum()
+            waves += 1
+            # the wave's one host read: the deposit's width and the exit test
+            n_done_h, cursor_h, any_work = torch.stack(
+                [n_done, cursor, has_work_next.any().to(torch.int32)]).tolist()
+            stream.WAVES.add_loop_read()
+            if n_done_h:
+                self._pool_deposit(film, fs, px, py, s, lane.L, wt, done,
+                                   seg if n_done_h <= seg < pool else pool, lane_idx)
+            has_work = has_work_next
+        truncated = int(cursor_h < n_work or bool(any_work))
+        return fs, nrays, live, waves, truncated, ctr
+
+    def _pool_deposit(self, film, fs, px, py, s, L, wt, done, seg: int, lane_idx):
+        """Deposit the lanes marked `done`. With seg < pool (at most seg of
+        them) one packed-i32 sort moves them to a prefix, stable on lane
+        index so they land in the full-width scatter's relative order,
+        and only that seg-wide window is scattered."""
+        if seg < done.shape[0]:
+            free_bit = 1 << _POOL_LANE_BITS
+            dkey = torch.where(done, lane_idx, lane_idx + free_bit)
+            dperm = (torch.sort(dkey).values[:seg] & (free_bit - 1)).long()
+            px, py, s, L, wt, done = px[dperm], py[dperm], s[dperm], L[dperm], wt[dperm], done[dperm]
+        if film.pixel_deposit_ok():
+            film.add_samples_pixel(fs, px, py, L, done, wt)
+            return
+        # general filter footprint: the film jitter is a pure function of
+        # the work item, recomputed here instead of carried
+        fx, fy = self.film_jitter(px, py, s)
+        p_film = torch.stack([px.to(torch.float32) + fx, py.to(torch.float32) + fy], dim=-1)
+        film.add_samples(fs, torch.where(done[..., None], p_film, torch.full_like(p_film, -1e6)),
+                         L, wt)

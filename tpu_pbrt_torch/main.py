@@ -1,0 +1,102 @@
+"""Command-line entry point of the port (port of tpu_pbrt/main.py).
+
+    python -m tpu_pbrt_torch.main scene.pbrt [-o out.exr] [--quick] [--device cpu]
+        [--checkpoint ck.npz --checkpoint-every N] [--spp-chunk N] ...
+
+pbrt-v3's flags (--outfile, --quick, --quiet, --verbose, --cropwindow,
+--nthreads) and the reference's runtime tier (--spp-chunk, --checkpoint,
+--checkpoint-every). The render runs on CUDA unless `--device cpu` asks
+for the CPU (the counterpart of the reference's JAX_PLATFORMS=cpu); with
+no GPU and no such request it exits with code 1. `--spp-chunk N` sets
+the camera samples per render chunk (the reference parses it without
+reading it). The reference's --serve, --mesh, --multihost, --trace,
+--metrics-path and --faults are accepted and refused with exit code 2:
+they are not ported yet. A scene error exits with code 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+#: reference flags the port does not run yet: (flag, takes a value)
+_NOT_PORTED = (
+    ("--serve", False),
+    ("--mesh", True),
+    ("--multihost", False),
+    ("--trace", True),
+    ("--metrics-path", True),
+    ("--faults", True),
+)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu-pbrt-torch",
+        description="physically based renderer (pbrt-v3 scene compatible), PyTorch/CUDA port",
+    )
+    p.add_argument("scenes", nargs="*", help=".pbrt scene file(s) to render")
+    p.add_argument("--outfile", "-o", default="", help="output image filename (overrides scene Film)")
+    p.add_argument("--quick", action="store_true", help="reduce samples/resolution for a fast preview")
+    p.add_argument("--quiet", action="store_true", help="suppress progress/warning messages")
+    p.add_argument("--verbose", "-v", action="store_true", help="verbose logging")
+    p.add_argument(
+        "--cropwindow", nargs=4, type=float, metavar=("X0", "X1", "Y0", "Y1"),
+        help="render only this fraction of the image",
+    )
+    p.add_argument("--nthreads", type=int, default=0, help="host threads for scene compile (0 = all)")
+    p.add_argument("--spp-chunk", type=int, default=0,
+                   help="camera samples per render chunk (0 = the device default)")
+    p.add_argument("--checkpoint", default="",
+                   help="checkpoint file: resume from it if present, write to it while rendering")
+    p.add_argument("--checkpoint-every", type=int, default=16, help="chunks between checkpoint writes")
+    p.add_argument("--device", default=None,
+                   help="torch device to render on: cuda (the default) or cpu")
+    for flag, takes_value in _NOT_PORTED:
+        if takes_value:
+            p.add_argument(flag, default=None, help="not ported (exits 2)")
+        else:
+            p.add_argument(flag, action="store_true", help="not ported (exits 2)")
+    return p
+
+
+def main(argv=None) -> int:
+    from tpu_pbrt_torch.config import resolve_device
+    from tpu_pbrt_torch.scene.api import Options, render_file
+    from tpu_pbrt_torch.utils.error import PbrtError
+
+    args = build_arg_parser().parse_args(argv)
+    for flag, _ in _NOT_PORTED:
+        if getattr(args, flag.lstrip("-").replace("-", "_")):
+            print(f"tpu-pbrt-torch: {flag} is not ported to tpu_pbrt_torch yet", file=sys.stderr)
+            return 2
+    if not args.scenes:
+        print("tpu-pbrt-torch: no scene files", file=sys.stderr)
+        return 1
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"tpu-pbrt-torch: {e} (on the command line: --device cpu)", file=sys.stderr)
+        return 1
+    opts = Options(
+        n_threads=args.nthreads,
+        quick_render=args.quick,
+        quiet=args.quiet,
+        verbose=args.verbose,
+        image_file=args.outfile,
+        crop_window=tuple(args.cropwindow) if args.cropwindow else None,
+        spp_chunk=args.spp_chunk,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+    )
+    for scene in args.scenes:
+        try:
+            render_file(scene, opts, device=device)
+        except PbrtError as e:
+            print(f"tpu-pbrt-torch: {e}", file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

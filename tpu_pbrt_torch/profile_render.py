@@ -1,17 +1,20 @@
 """Where a killeroo render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--res 128] [--spp 64] [--out DIR]
+    python -m tpu_pbrt_torch.profile_render [--res 128] [--spp 64] [--no-regen] [--out DIR]
 
 Compiles `scenes.make_killeroo_like` at its full mesh, renders it once to
 warm up, then renders it again under `torch.profiler` (CPU + CUDA
-activity) and prints:
+activity), through the persistent pool (the default render path) or,
+with `--no-regen`, through the fixed batch, and prints:
 
 - the render's wall time, rays traced and Mray/s (with the profiler on);
 - the device's busy share: the summed time of the CUDA kernels and
-  copies over the wall time (one stream, so they do not overlap);
+  copies over the wall time (one stream, so they do not overlap), and
+  how many of them the render launched;
 - the device time by group (the two hand-written kernels, sorts,
   gathers and scatters, elementwise work, copies) and the top kernels;
-- the traversal's host reads per wave from the render's stats.
+- the host reads per wave from the render's stats: the traversal's and
+  the render loop's (one per pool wave or fixed-batch bounce).
 
 With `--out DIR` it also writes the Chrome trace there. The script needs
 a CUDA device; it does not fall back to the CPU.
@@ -61,6 +64,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--no-regen", action="store_true",
+                    help="profile the fixed batch instead of the persistent pool")
     ap.add_argument("--out", default="", help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -68,9 +73,11 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_pbrt_torch.config import cfg
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
     from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
 
+    cfg.regen = not args.no_regen
     scene, integ = compile_api(make_killeroo_like(res=args.res, spp=args.spp, device="cuda"))
     integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
     reset_launches()
@@ -94,16 +101,24 @@ def main() -> int:
     for name, (us, _) in by_name.items():
         groups[_group(name)] += us
 
+    st = res.stats
     print(f"card: {_card()}")
-    print(f"render {args.res}x{args.res} {args.spp} spp (profiler on): {wall:.3f} s, "
-          f"{res.rays_traced} rays, {res.rays_traced / wall / 1e6:.4f} Mray/s")
-    print(f"stats: {json.dumps(res.stats)}")
+    print(f"render {args.res}x{args.res} {args.spp} spp, "
+          f"{'pool of ' + str(st['pool']) if st.get('regen') else 'fixed batch'} "
+          f"(profiler on): {wall:.3f} s, {res.rays_traced} rays, "
+          f"{res.rays_traced / wall / 1e6:.4f} Mray/s")
+    print(f"traversal waves {st['waves']}, host reads per wave {st['host_reads_per_wave_mean']:.2f} "
+          f"(traversal) + {st['loop_host_reads_per_wave']:.2f} (loop)")
+    print(f"stats: {json.dumps(st)}")
     print(f"launches: {json.dumps(launches)}")
     if dev_us == 0:
         print("device time: not measured (the profiler recorded no CUDA activity)")
         return 1
+    n_ops = sum(v[1] for v in by_name.values())
     print(f"device busy: {dev_us / 1e6:.3f} s of {wall:.3f} s wall = {dev_us / 1e6 / wall:.3f}; "
           f"idle share {1 - dev_us / 1e6 / wall:.3f}")
+    print(f"device operations (kernels and copies): {n_ops}, {n_ops / max(st['waves'], 1):.0f} "
+          f"per traversal wave, {wall / max(n_ops, 1) * 1e6:.1f} us of wall time each")
     print("device time by group:")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:24s} {us / 1e3:10.2f} ms  {us / dev_us:6.3f}")
@@ -112,7 +127,8 @@ def main() -> int:
         print(f"  {us / 1e3:10.2f} ms  {n:7d} x  {name[:110]}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        path = os.path.join(args.out, f"render_{args.res}_{args.spp}.trace.json")
+        mode = "fixed" if args.no_regen else "pool"
+        path = os.path.join(args.out, f"render_{args.res}_{args.spp}_{mode}.trace.json")
         prof.export_chrome_trace(path)
         print(f"trace: {path}")
     return 0

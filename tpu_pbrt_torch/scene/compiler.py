@@ -66,7 +66,6 @@ class CompiledScene:
     light_distribution_name: str = "spatial"
     light_distr: Optional[Distribution1D] = None
     spatial_distr: Any = None
-    has_null_materials: bool = False
 
 
 def _not_ported(what: str):
