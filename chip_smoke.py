@@ -30,14 +30,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      path), its launches counted the same way, which must trace the same
      rays; and both paths at 64x64, 16 spp, whose images must agree
      within rtol 1e-4 / atol 1e-5 with equal rays;
-  4. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  4. crown  — the crown-class path: make_crown_like() at its full
+     geometry (1,153,682 triangles in 3,279 treelets under a 1,079-node
+     top tree; glass, two metal-GGX pieces, a matte ground, the HDR sky
+     as an infinite light) at 512x512:
+     [scene] its sizes and compile seconds, and the 64x128 sky (not the
+     constant fallback map);
+     [check] both kernels against their plain versions on the pool's
+     wave 1 of the middle chunk (2^19 rays: the packed flush key) and on
+     the fixed batch's first 2^20-ray camera wave of the middle chunk
+     (the unpacked 2-array sort), EXACT: t 0 ulp, no prim flip; the
+     expand bit-exact in closest-hit and any-hit mode; times and bounds
+     as in phase 2;
+     [branch] that camera wave's rays traced as one 2^20-ray wave
+     (unpacked key) and as two 2^19-ray waves (packed key): the same
+     (t, prim) bits, no pair dropped;
+     [render] the pool at 64x64, 64 spp, maxdepth 5 against the JAX
+     package's CPU render tests/torch_golden/crown_cpu_64x64_64spp.npz
+     (MSE bar 1e-4, finite, no pair dropped), the fixed batch at the same
+     size (the same rays; images within rtol 1e-4 / atol 1e-5), and the
+     512x512 crown at CROWN_SPP (16) through the pool, its kernel launches
+     counted as in phase 3;
+  5. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
-  5. summary — one {"kernels": [...]} line (times and bounds at the pool
+  6. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
-     and of the fixed path), the card's name and power limit
+     and of the fixed path; the crown's under "crown"), the card's name
+     and power limit
      (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -56,7 +78,10 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_IMAGE = os.path.join(HERE, "refimg", "killeroo_cpu_128x128_256spp.npz")
+CROWN_REF = os.path.join(HERE, "tests", "torch_golden", "crown_cpu_64x64_64spp.npz")
 MSE_BAR = 1e-4
+#: spp of the 512x512 crown render (the bench's 256 would not fit the time box)
+CROWN_SPP = 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -206,12 +231,13 @@ class _Captured(Exception):
     the traversal it interrupts."""
 
 
-def _capture_wave_inputs(scene, integ):
-    """Trace the fixed batch's first camera wave of the render (closest
-    hit), recording the inputs of its first flush chunk and of its first
-    expand step after that flush. The any-hit expand input is that same
-    slab with any_hit set and the wave's final hits on every other ray
-    as the prim row, so the kernel's done-ray cull sees real data."""
+def _capture_wave_inputs(scene, integ, chunk: int = 0):
+    """Trace the fixed batch's first camera wave of chunk `chunk` of the
+    render (closest hit), recording the inputs of its first flush chunk
+    and of its first expand step after that flush. The any-hit expand
+    input is that same slab with any_hit set and the wave's final hits on
+    every other ray as the prim row, so the kernel's done-ray cull sees
+    real data."""
     import torch
 
     from tpu_pbrt_torch.accel import stream
@@ -221,9 +247,9 @@ def _capture_wave_inputs(scene, integ):
     x0, x1, y0, _ = plan.bounds
     k = torch.arange(plan.chunk, dtype=torch.int32, device=scene.device)
     _, _, _, _, _, o, d, _ = integ.work_to_rays(
-        scene.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, k
+        scene.camera, plan.spp, x0, y0, x1 - x0, plan.npix, *plan.start(chunk), k
     )
-    cap = {}
+    cap = {"rays": (o, d)}
     restore = _hook_kernels(cap, lambda: True)
     try:
         hit = stream.stream_intersect(dev["tstream"], dev["tri_verts"], o, d, float("inf"),
@@ -301,9 +327,10 @@ def _motion_table(scene, flush_args):
     return (torch.from_numpy(featT).to(rayF.device), meta, rows, rayF, t_row, prim)
 
 
-def _compare_flush(a, b, label):
+def _compare_flush(a, b, label, exact=False):
     """t to 2 ulp; prim exact except at near-ties (t within 1e-6
-    relative), which must stay under 0.1% of the rays."""
+    relative), which must stay under 0.1% of the rays. With `exact`, t
+    to 0 ulp and no prim flip at all."""
     import numpy as np
 
     tk, pk = a[0].cpu().numpy(), a[1].cpu().numpy()
@@ -321,6 +348,8 @@ def _compare_flush(a, b, label):
         f"max |dt| {err:.3e}, prim flips {int(flips.sum())} (all near-ties: {bool((near | ~flips).all())})")
     if ulp.max() > 2 or not (near | ~flips).all() or flips.sum() > 0.001 * len(pk):
         raise SmokeFailure(f"{label}: kernel disagrees with its plain version")
+    if exact and (ulp.max() > 0 or flips.any()):
+        raise SmokeFailure(f"{label}: kernel not exact against its plain version")
     return err
 
 
@@ -396,7 +425,7 @@ def _check_tie_fixture(flush_chunk, flush_chunk_plain):
             raise SmokeFailure(f"tie fixture F={F}: prim differs from the plain version")
 
 
-def _flush_numbers(fa, count, label):
+def _flush_numbers(fa, count, label, exact=False):
     """Hold one captured flush chunk against the plain version, then time
     the kernel (device and host), the plain version and torch.bmm of the
     contraction alone, beside the bounds."""
@@ -405,7 +434,8 @@ def _flush_numbers(fa, count, label):
     from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
     CH = fa[1].shape[0]
-    err = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"{label}: flush F=16 CH={CH}")
+    err = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"{label}: flush F=16 CH={CH}",
+                         exact=exact)
     ms, parts = device_time_ms(lambda: flush_chunk(*fa), reps=20)
     h_ms = host_ms(lambda: flush_chunk(*fa), reps=20)
     plain_ms, _ = device_time_ms(lambda: flush_chunk_plain(*fa), reps=3, warmup=1)
@@ -450,70 +480,91 @@ def _expand_numbers(ea, label):
                 bound_by=by, library_ms=None)
 
 
-def phase_check(scene, integ):
-    """Both kernels at the main path's shapes (the pool's fused wave: the
-    top-level numbers) and at the fixed batch's camera wave (under
-    "at_fixed_wave"), plus the F=64 flush, the any-hit expand and the tie
-    fixture."""
+def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packed=True,
+                 extra=None):
+    """Both kernels at a scene's pool wave (the top-level numbers; its flush
+    key must pack) and at its fixed batch's first camera wave of chunk
+    `fixed_chunk` (under "at_fixed_wave"; its key packed iff
+    `fixed_packed`), and the any-hit expand on that wave's slab.
+    `extra(flush_args)` runs on the fixed wave's flush capture and returns
+    an error folded into max_abs_err. Returns (numbers, the camera wave's
+    rays)."""
     import torch
 
-    from tpu_pbrt_torch.accel.stream import flush_geometry
+    from tpu_pbrt_torch.accel.stream import _ray_bits, flush_geometry
     from tpu_pbrt_torch.kernels.expand import expand, expand_plain
-    from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
-    count = scene.dev["tstream"].count
-    _check_tie_fixture(flush_chunk, flush_chunk_plain)
+    tp = scene.dev["tstream"]
+
+    def packed(R):
+        return tp.n_treelets < (1 << (31 - _ray_bits(R)))
 
     t0 = time.perf_counter()
     pcap, plan = _capture_pool_wave(scene, integ)
     R = pcap["flush"][3].shape[1]
-    geo = flush_geometry(R, scene.dev["tstream"].n_treelets)
     # the flush's rayF row 6 is the t_max row: > 0 for a live ray
     n_shadow = int((pcap["flush"][3][6, plan.pool:] > 0).sum())
-    log(f"[check] pool wave: captured wave 1 of chunk {pcap['chunk']} of {plan.n_chunks} "
-        f"(pool {plan.pool} slots, {R} rays: camera + shadow; {n_shadow} shadow rays live) "
-        f"in {time.perf_counter() - t0:.2f} s; flush geometry {geo}")
-    if R != 2 * plan.pool or n_shadow == 0:
-        raise SmokeFailure(f"pool wave: expected a 2x{plan.pool}-ray wave with live shadow "
-                           f"rays, got {R} rays, {n_shadow} shadow rays live")
-    out = {"flush_chunk": _flush_numbers(pcap["flush"], count, "pool wave"),
-           "expand": _expand_numbers(pcap["expand"], "pool wave")}
+    log(f"[check] {label}pool wave: captured wave 1 of chunk {pcap['chunk']} of "
+        f"{plan.n_chunks} (pool {plan.pool} slots, {R} rays: camera + shadow; {n_shadow} "
+        f"shadow rays live; flush key packed: {packed(R)}) in {time.perf_counter() - t0:.2f} s; "
+        f"flush geometry {flush_geometry(R, tp.n_treelets)}")
+    if R != 2 * plan.pool or n_shadow == 0 or not packed(R):
+        raise SmokeFailure(f"{label}pool wave: expected a packed 2x{plan.pool}-ray wave with "
+                           f"live shadow rays, got {R} rays, {n_shadow} shadow rays live")
+    out = {"flush_chunk": _flush_numbers(pcap["flush"], tp.count, f"{label}pool wave", exact),
+           "expand": _expand_numbers(pcap["expand"], f"{label}pool wave")}
     del pcap
 
     t0 = time.perf_counter()
-    cap = _capture_wave_inputs(scene, integ)
-    log(f"[check] fixed wave: captured kernel inputs from a {cap['flush'][3].shape[1]}-ray "
-        f"camera wave in {time.perf_counter() - t0:.2f} s")
-    fixed = {"flush_chunk": _flush_numbers(cap["flush"], count, "fixed wave")}
-
-    # flush, F = 64 (motion features; off the render path)
-    fa = cap["flush"]
-    t1 = time.perf_counter()
-    fm = _motion_table(scene, fa)
-    err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm),
-                           f"flush F=64 CH={fa[1].shape[0]}")
-    ms64, parts64 = device_time_ms(lambda: flush_chunk(*fm), reps=10)
-    bound64, by64 = _flush_bound(fm, count)
-    padded64, _ = _flush_bound_padded(fm)
-    log(f"[check] flush F=64: kernel {ms64:.4f} ms device ({_by_kernel(parts64)}), bound "
-        f"{bound64:.4f} ms ({by64}; {padded64:.4f} with the zero padding) "
-        f"(table built in {time.perf_counter() - t1:.1f} s)")
-    out["flush_chunk"]["max_abs_err"] = max(out["flush_chunk"]["max_abs_err"],
-                                            fixed["flush_chunk"]["max_abs_err"], err64)
-    del fm
-
-    # expand at R = 2^20, closest-hit (timed) and any-hit (exactness only:
-    # the render path traces closest-hit waves only)
-    fixed["expand"] = _expand_numbers(cap["expand"], "fixed wave")
+    cap = _capture_wave_inputs(scene, integ, fixed_chunk)
+    R = cap["flush"][3].shape[1]
+    log(f"[check] {label}fixed wave: captured kernel inputs from chunk {fixed_chunk}'s {R}-ray "
+        f"camera wave in {time.perf_counter() - t0:.2f} s; flush key packed: {packed(R)}; "
+        f"flush geometry {flush_geometry(R, tp.n_treelets)}")
+    if packed(R) != fixed_packed:
+        raise SmokeFailure(f"{label}fixed wave: expected a {'packed' if fixed_packed else 'unpacked'}"
+                           " flush key")
+    fixed = {"flush_chunk": _flush_numbers(cap["flush"], tp.count, f"{label}fixed wave", exact)}
+    if extra is not None:
+        out["flush_chunk"]["max_abs_err"] = max(out["flush_chunk"]["max_abs_err"],
+                                                extra(cap["flush"]))
+    # expand closest-hit (timed) and any-hit (exactness only: the render
+    # path traces closest-hit waves only)
+    fixed["expand"] = _expand_numbers(cap["expand"], f"{label}fixed wave")
     ea = cap["expand_anyhit"]
     if not all(torch.equal(x, y) for x, y in zip(expand(*ea), expand_plain(*ea))):
-        raise SmokeFailure("any-hit expand disagrees with its plain version")
-    log("[check] fixed wave: any-hit expand exact: True")
+        raise SmokeFailure(f"{label}any-hit expand disagrees with its plain version")
+    log(f"[check] {label}fixed wave: any-hit expand exact: True")
     for k in out:
         out[k]["at_fixed_wave"] = fixed[k]
+        out[k]["max_abs_err"] = max(out[k]["max_abs_err"], fixed[k]["max_abs_err"])
+    rays = cap["rays"]
     del cap
     torch.cuda.empty_cache()
-    return out
+    return out, rays
+
+
+def phase_check(scene, integ):
+    """Both kernels at the main path's shapes (_check_waves), plus the tie
+    fixture and the F=64 (motion feature) flush on the fixed wave's chunk."""
+    from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
+
+    _check_tie_fixture(flush_chunk, flush_chunk_plain)
+
+    def flush_f64(fa):
+        t1 = time.perf_counter()
+        fm = _motion_table(scene, fa)
+        err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm),
+                               f"flush F=64 CH={fa[1].shape[0]}")
+        ms64, parts64 = device_time_ms(lambda: flush_chunk(*fm), reps=10)
+        bound64, by64 = _flush_bound(fm, scene.dev["tstream"].count)
+        padded64, _ = _flush_bound_padded(fm)
+        log(f"[check] flush F=64: kernel {ms64:.4f} ms device ({_by_kernel(parts64)}), bound "
+            f"{bound64:.4f} ms ({by64}; {padded64:.4f} with the zero padding) "
+            f"(table built in {time.perf_counter() - t1:.1f} s)")
+        return err64
+
+    return _check_waves(scene, integ, extra=flush_f64)[0]
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -594,6 +645,133 @@ def phase_render(scene, integ):
 
 # -- phase 4 -------------------------------------------------------------------
 
+def crown_scene():
+    """The crown at 512x512 (CROWN_SPP) on the card, with its sizes."""
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.scenes import compile_api, crown_sky, make_crown_like
+
+    t0 = time.perf_counter()
+    scene, integ = compile_api(make_crown_like(res=512, spp=CROWN_SPP, maxdepth=5, device="cuda"))
+    secs = time.perf_counter() - t0
+    tp = scene.dev["tstream"]
+    log(f"[scene] crown: {scene.n_tris} triangles, {tp.n_treelets} treelets of {tp.leaf_tris}, "
+        f"{tp.top.child_bmin.shape[0]} top-tree nodes, featT {tuple(tp.featT.shape)} "
+        f"{tp.featT.numel() * 4 / 1e6:.1f} MB, {scene.n_lights} light(s), compiled in {secs:.2f} s")
+    env = scene.dev.get("envmap")
+    sky = torch.from_numpy(crown_sky()).to(env.device) if env is not None else None
+    if env is None or tuple(env.shape) != (64, 128, 3) or not torch.equal(env, sky):
+        raise SmokeFailure("crown: the environment map is not the 64x128 sky "
+                           f"(got {None if env is None else tuple(env.shape)})")
+    mats = np.unique(scene.dev["mat"]["type"].cpu().numpy()).tolist()
+    log(f"[scene] crown: envmap 64x128 sky, max {float(env.max()):.2f} (the sun), "
+        f"mean {float(env.mean()):.4f}; materials {mats}")
+    return scene, integ
+
+
+def phase_crown_check(scene, integ):
+    """Both kernels, exact, at the crown's pool wave (2^19 rays, packed
+    flush key) and its middle chunk's first fixed-batch camera wave (2^20
+    rays, unpacked key: chunk 0 holds the frame's top rows, nearly all
+    sky, whose one flush comes after the last expand step); returns
+    (numbers, the camera wave's rays)."""
+    n_chunks = integ.prepare_chunks(scene).n_chunks
+    return _check_waves(scene, integ, "crown ", fixed_chunk=n_chunks // 2, exact=True,
+                        fixed_packed=False)
+
+
+def phase_branch(scene, rays):
+    """The camera wave's rays as one 2^20-ray wave (the flush's unpacked
+    stable sort) and as two 2^19-ray waves (the packed key): per-ray
+    (t, prim) bit-identical, no pair dropped."""
+    import torch
+
+    from tpu_pbrt_torch.accel import stream
+
+    tp = scene.dev["tstream"]
+    o, d = rays
+    R = o.shape[0]
+    t_max = torch.full((R,), float("inf"), device=o.device)
+    t0 = time.perf_counter()
+    whole = stream._traverse(tp, o, d, t_max, False)
+    t_w, p_w, drop_w = whole.rayF[6].clone(), whole.prim.clone(), int(whole.n_drop)
+    del whole
+    t1 = time.perf_counter()
+    h = R // 2
+    t_h, p_h, drop_h = [], [], 0
+    for sl in (slice(0, h), slice(h, R)):
+        part = stream._traverse(tp, o[sl].contiguous(), d[sl].contiguous(), t_max[sl], False)
+        t_h.append(part.rayF[6].clone())
+        p_h.append(part.prim.clone())
+        drop_h += int(part.n_drop)
+        del part
+    t2 = time.perf_counter()
+    t_h, p_h = torch.cat(t_h), torch.cat(p_h)
+    same_t = torch.equal(t_w.view(torch.int32), t_h.view(torch.int32))
+    same_p = torch.equal(p_w, p_h)
+    log(f"[branch] {R} rays, {tp.n_treelets} treelets: one wave of {R} (unpacked key) "
+        f"{t1 - t0:.2f} s vs two of {h} (packed) {t2 - t1:.2f} s; hits {int((p_w >= 0).sum())}; "
+        f"t bit-identical {same_t}, prim identical {same_p} "
+        f"({int((p_w != p_h).sum())} differ); dropped {drop_w} / {drop_h}")
+    if not (same_t and same_p) or drop_w or drop_h:
+        raise SmokeFailure("branch: the unpacked and packed flush keys disagree")
+
+
+def phase_crown_render(scene, integ):
+    """The crown against the JAX CPU reference at 64x64x64 (pool: MSE bar;
+    fixed batch: the same rays, images within the pool tolerance), then
+    the 512x512 crown through the pool. Returns the launches of the 512
+    render and of the two 64x64 renders."""
+    import numpy as np
+
+    from tpu_pbrt_torch.scenes import compile_api, make_crown_like
+
+    ref = np.load(CROWN_REF)
+    t0 = time.perf_counter()
+    small, sinteg = compile_api(make_crown_like(res=64, spp=int(ref["spp"]),
+                                                maxdepth=int(ref["maxdepth"]), device="cuda"))
+    log(f"[render] crown 64x64: compiled in {time.perf_counter() - t0:.2f} s")
+    sp, sp_l = _render_counted(sinteg, small, regen=True)
+    img, want = sp.image, ref["image"]
+    if img.shape != want.shape or not np.isfinite(img).all():
+        raise SmokeFailure(f"crown: image shape {img.shape} / finite {np.isfinite(img).all()}")
+    mse = float(np.mean((img.astype(np.float64) - want) ** 2))
+    _log_render(f"crown pool 64x64 {int(ref['spp'])} spp", sp, sp_l)
+    ref_rays = int(ref["rays_traced"])
+    log(f"[render] crown pool: image mean {img.mean():.6f} (JAX CPU {want.mean():.6f}), MSE "
+        f"{mse:.3e} (bar {MSE_BAR:g}), max |diff| {np.abs(img - want).max():.3e}; rays "
+        f"{sp.rays_traced} (JAX CPU {ref_rays}, {sp.rays_traced - ref_rays} more), waves "
+        f"{sp.stats['n_waves']} (JAX CPU {int(ref['n_waves'])}), dropped {sp.stats['n_drop']}")
+    if mse > MSE_BAR or sp.stats["n_drop"]:
+        raise SmokeFailure(f"crown: MSE {mse:.3e} > {MSE_BAR:g} or {sp.stats['n_drop']} "
+                           "pairs dropped")
+    sf, sf_l = _render_counted(sinteg, small, regen=False)
+    _log_render(f"crown fixed 64x64 {int(ref['spp'])} spp", sf, sf_l)
+    diff = np.abs(sp.image - sf.image)
+    close = np.isclose(sp.image, sf.image, rtol=1e-4, atol=1e-5)
+    log(f"[render] crown pool vs fixed: rays {sp.rays_traced} / {sf.rays_traced}, max |diff| "
+        f"{diff.max():.3e}, pixel channels outside rtol 1e-4 / atol 1e-5: {int((~close).sum())}, "
+        f"dropped {sf.stats['n_drop']}")
+    if sp.rays_traced != sf.rays_traced or not close.all() or sf.stats["n_drop"]:
+        raise SmokeFailure("crown: the pool and the fixed batch disagree at 64x64")
+    del small, sinteg
+
+    res, launches = _render_counted(integ, scene, regen=True)
+    _log_render(f"crown pool 512x512 {CROWN_SPP} spp", res, launches)
+    img = res.image
+    st = res.stats
+    log(f"[render] crown 512x512: {res.mray_per_sec:.4f} Mray/s, waves {st['n_waves']}, "
+        f"occupancy {st['mean_wave_occupancy']:.4f}, host reads per wave "
+        f"{st['host_reads_per_wave_mean']:.2f} + {st['loop_host_reads_per_wave']:.2f}, "
+        f"dropped {st['n_drop']}, image mean {img.mean():.6f}")
+    if not np.isfinite(img).all() or not img.mean() > 1e-6 or res.stats["n_drop"]:
+        raise SmokeFailure("crown 512x512: the image is not a finite lit render, or pairs dropped")
+    return launches, sp_l, sf_l, res
+
+
+# -- phase 5 -------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -657,9 +835,10 @@ def phase_cli(device: str = "cuda") -> None:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) or not os.path.exists(REF_IMAGE):
-        print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/ and refimg/ "
-              "must sit beside this script)", file=sys.stderr)
+    if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
+            and os.path.exists(CROWN_REF)):
+        print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
+              "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     import torch
@@ -684,14 +863,32 @@ def main() -> int:
 
         kt = phase_check(scene, integ)
         launches, flaunches = phase_render(scene, integ)
+        del scene, integ
+        torch.cuda.empty_cache()
+
+        cscene, cinteg = crown_scene()
+        ct, rays = phase_crown_check(cscene, cinteg)
+        phase_branch(cscene, rays)
+        del rays
+        claunches, c64_pool, c64_fixed, cres = phase_crown_render(cscene, cinteg)
+        del cscene, cinteg
+        torch.cuda.empty_cache()
         phase_cli()
+
+        def kernel(name, source, replaces):
+            crown = dict(ct[name], launches=claunches[name], launches_64_pool=c64_pool[name],
+                         launches_64_fixed=c64_fixed[name], spp=CROWN_SPP,
+                         mray_per_sec=cres.mray_per_sec)
+            k = dict(name=name, route="cuda", source=source, replaces=replaces,
+                     launches=launches[name], launches_fixed=flaunches[name], **kt[name],
+                     crown=crown)
+            k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"])
+            return k
+
         kernels = [
-            dict(name="flush_chunk", route="cuda", source="tpu_pbrt_torch/csrc/flush.cu",
-                 replaces="tpu_pbrt/accel/fusedwave.py:211", launches=launches["flush_chunk"],
-                 launches_fixed=flaunches["flush_chunk"], **kt["flush_chunk"]),
-            dict(name="expand", route="cuda", source="tpu_pbrt_torch/csrc/expand.cu",
-                 replaces="tpu_pbrt/accel/fusedwave.py:348", launches=launches["expand"],
-                 launches_fixed=flaunches["expand"], **kt["expand"]),
+            kernel("flush_chunk", "tpu_pbrt_torch/csrc/flush.cu",
+                   "tpu_pbrt/accel/fusedwave.py:211"),
+            kernel("expand", "tpu_pbrt_torch/csrc/expand.cu", "tpu_pbrt/accel/fusedwave.py:348"),
         ]
         log(f"[done] total {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": kernels}))

@@ -125,7 +125,7 @@ def _mat_tables(rng, m=3):
         "sigma": sigma, "opacity": np.ones((m, 3), np.float32),
         "remap": np.ones(m, np.int32),
     }
-    tmat = {k: jmat[k] for k in ("type", "kd", "sigma", "eta")}
+    tmat = dict(jmat)  # the port's table has the reference's constant columns
     return ({k: jnp.asarray(v) for k, v in jmat.items()},
             {k: _t(v) for k, v in tmat.items()})
 

@@ -90,3 +90,13 @@ def test_default_device_without_gpu_raises():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpu_pbrt_torch.parse_string("", device=None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_names_neither_jax_nor_the_reference():
+    """The GPU smoke script drives the port alone: no import of jax, jaxlib
+    or the JAX package anywhere in it (function-level imports included)."""
+    names = list(_imported_names(os.path.join(ROOT, "chip_smoke.py")))
+    assert "torch" in names and any(n.startswith("tpu_pbrt_torch") for n in names)
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_pbrt"), \
+            f"chip_smoke.py imports {name}"

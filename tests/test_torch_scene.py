@@ -1,13 +1,20 @@
 """The port's scene compiler against the reference's, through the bridge.
 
 Both packages compile the same small killeroo (528 mesh triangles + 4, so
-it takes the stream-tracer path, cut into 64-triangle treelets). The
-port's own compile_scene tables must equal the bridge's conversion of the
-reference's tables exactly: integers bit-equal, floats bit-equal — both
-sides run the same numpy host code (BVH build, leaf order, treelet cut,
-feature weights, light rows). Directives the port does not implement must
-raise PbrtError instead of being substituted.
+it takes the stream-tracer path, cut into 64-triangle treelets) and the
+same small crown (tests/torch_golden/make_golden.py's `crown_small_text`:
+glass, metal, anisotropic metal and matte on 1,682 triangles under the
+crown's sky as an infinite light). The port's own compile_scene tables
+must equal the bridge's conversion of the reference's tables exactly:
+integers bit-equal, floats bit-equal — both sides run the same numpy host
+code (BVH build, leaf order, treelet cut, feature weights, material rows,
+light rows, the environment map and its 2D distribution, the light-pick
+distributions). Directives the port does not implement must raise
+PbrtError instead of being substituted.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -16,13 +23,18 @@ import jax
 
 from tpu_pbrt import config as jconfig
 from tpu_pbrt import scenes as jscenes
+from tpu_pbrt.scene.api import Options as JOptions
+from tpu_pbrt.scene.api import parse_string as jparse_string
+from tpu_pbrt.scene.api import pbrt_init as jpbrt_init
 from tpu_pbrt.scene.compiler import compile_scene as jcompile
 from tpu_pbrt_torch import scenes as tscenes
 from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.scene.bridge import flat_tables, tables_from_numpy
 from tpu_pbrt_torch.scene.compiler import compile_scene as tcompile
-from tpu_pbrt_torch.scene.api import parse_string
+from tpu_pbrt_torch.scene.api import Options as TOptions
+from tpu_pbrt_torch.scene.api import parse_string, pbrt_init
 from tpu_pbrt_torch.utils.error import PbrtError
+from tpu_pbrt_torch.utils.imageio import write_image
 
 SMALL = dict(res=16, spp=4, n_theta=12, n_phi=24)
 
@@ -100,7 +112,7 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mat", "plastic"), ("shape", "sphere"), ("light", "spot"),
+    ("mat", "uber"), ("shape", "sphere"), ("light", "spot"),
     ("sampler", "halton"), ("integ", "bdpt"),
 ])
 def test_unported_directives_raise(field, value):
@@ -127,3 +139,136 @@ def test_cornell_defaults_match_reference():
         assert ours["integrator"].default == ref["integrator"].default == "directlighting", fn
     with pytest.raises(PbrtError, match="directlighting.*not ported"):
         tscenes.compile_api(tscenes.make_cornell(res=8, spp=1, device="cpu"))
+
+
+def _compile_both(text_of, leaf_tris=None, tmp=None):
+    """Compile the scene text (text_of(tmp dir)) with both packages."""
+    mp = pytest.MonkeyPatch()
+    if leaf_tris:
+        mp.setenv("TPU_PBRT_LEAF_TRIS", str(leaf_tris))
+        mp.setattr(tcfg, "leaf_tris", leaf_tris)
+    jconfig.reload()
+    try:
+        text = text_of(tmp)
+        sj = jcompile(jparse_string(text, jpbrt_init(JOptions(quiet=True))))
+        st = tcompile(parse_string(text, pbrt_init(TOptions(quiet=True), device="cpu")))
+    finally:
+        mp.undo()
+        jconfig.reload()
+    return sj, st
+
+
+def _assert_tables_equal(sj, st):
+    dev_np = jax.tree.map(np.asarray, sj.dev)
+    ref = flat_tables(tables_from_numpy(dev_np, "cpu"))
+    got = flat_tables(st.dev)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(_bits(got[k]), _bits(ref[k]), err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def crown_scenes(tmp_path_factory):
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "torch_golden"))
+    try:
+        from make_golden import crown_small_sky, crown_small_text
+    finally:
+        sys.path.pop(0)
+
+    def text_of(tmp):
+        env = os.path.join(tmp, "sky.pfm")
+        write_image(env, crown_small_sky())
+        return crown_small_text(env)
+
+    return _compile_both(text_of, leaf_tris=64, tmp=str(tmp_path_factory.mktemp("crown")))
+
+
+def test_small_crown_tables_equal_bridge(crown_scenes):
+    sj, st = crown_scenes
+    assert st.n_tris == sj.n_tris == 1682 and "tstream" in st.dev
+    assert st.has_envmap and sj.has_envmap
+    assert sorted(np.asarray(st.dev["mat"]["type"]).tolist()) == [1, 3, 3, 4]
+    assert st.dev["envmap"].shape == (16, 32, 3)
+    _assert_tables_equal(sj, st)
+    # one light (the environment): the power distribution picks it
+    assert st.spatial_distr is None and sj.spatial_distr is None
+    for f in ("func", "cdf", "func_int"):
+        np.testing.assert_array_equal(_bits(getattr(st.light_distr, f).numpy()),
+                                      _bits(np.asarray(getattr(sj.light_distr, f))), err_msg=f)
+
+
+_ENV_POINT = """
+Integrator "path" "integer maxdepth" [2]
+Sampler "zerotwosequence" "integer pixelsamples" [2]
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "point" "rgb I" [3 3 3] "point from" [0 0 -2]
+AttributeBegin
+Rotate 90 1 0 0
+LightSource "infinite" "rgb L" [0.5 0.6 0.7]
+AttributeEnd
+Material "plastic" "rgb Kd" [0.3 0.2 0.1] "float roughness" [0.2] "bool remaproughness" "false"
+Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
+Material "mirror"
+Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 1  1 -1 1  0 1 1]
+"""
+
+
+def test_environment_row_in_the_light_distributions():
+    """A point light and a rotated constant environment: the spatial
+    distribution (where the environment's importance is its power share
+    in every voxel), the power distribution and every table (the 4x8
+    constant map, its rotation) are the reference's."""
+    sj, st = _compile_both(lambda _: _ENV_POINT)
+    _assert_tables_equal(sj, st)
+    assert st.dev["envmap"].shape == (4, 8, 3) and st.n_lights == 2
+    sdj, sdt = sj.spatial_distr, st.spatial_distr
+    assert sdt is not None and sdt.res == sdj.res
+    for f in ("cdf", "mean_pmf", "lo", "inv_cs"):
+        np.testing.assert_array_equal(_bits(getattr(sdt, f).numpy()),
+                                      _bits(np.asarray(getattr(sdj, f))), err_msg=f)
+    for f in ("func", "cdf", "func_int"):
+        np.testing.assert_array_equal(_bits(getattr(st.light_distr, f).numpy()),
+                                      _bits(np.asarray(getattr(sj.light_distr, f))), err_msg=f)
+
+
+_TEXTURED = 'Texture "t" "spectrum" "checkerboard"\nMaterial "plastic" "texture Kd" "t"'
+_MIX = ('MakeNamedMaterial "a" "string type" "matte"\n'
+        'MakeNamedMaterial "b" "string type" "glass"\n'
+        'Material "mix" "string namedmaterial1" "a" "string namedmaterial2" "b"')
+
+
+@pytest.mark.parametrize("directive", [
+    'Material "uber"', 'Material "substrate"', 'Material "translucent"',
+    'Material "disney"', 'Material "hair"', 'Material "fourier" "string bsdffile" "x.bsdf"',
+    'Material "subsurface"', _MIX, _TEXTURED,
+    'LightSource "spot" "rgb I" [1 1 1]', 'LightSource "distant" "rgb L" [1 1 1]',
+], ids=["uber", "substrate", "translucent", "disney", "hair", "fourier", "subsurface", "mix",
+        "textured_plastic_kd", "spot", "distant"])
+def test_unported_materials_and_lights_raise(directive):
+    text = f"""
+Integrator "path" "integer maxdepth" [2]
+Sampler "zerotwosequence" "integer pixelsamples" [1]
+Film "image" "integer xresolution" [4] "integer yresolution" [4]
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]
+{directive}
+Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
+WorldEnd
+"""
+    with pytest.raises(PbrtError, match="not ported"):
+        parse_string(text, render=True, device="cpu")
+
+
+def test_crown_materials_render():
+    """plastic, metal, glass and mirror under an environment compile and
+    render on the CPU."""
+    api = parse_string(_ENV_POINT + "WorldEnd\n", render=True, device="cpu")
+    assert api.result.image.shape == (8, 8, 3)
+    assert np.isfinite(api.result.image).all() and api.result.image.max() > 0
+

@@ -90,3 +90,52 @@ def test_stream_traverse_stats_match_reference(case, any_hit):
     assert st == sj  # (n_exp, n_tl, n_drop, iters)
     assert st[2] == 0
     assert st[3] > 2  # several expand steps and flushes
+
+
+@pytest.fixture(scope="module")
+def fine_pack():
+    """A ~10k-triangle blob cut into 8-triangle treelets: 1,261 of them,
+    more than a 2^21-ray wave's packed flush key can carry (2^(31-21))."""
+    from tpu_pbrt_torch.accel.build import build_bvh, triangle_bounds
+    from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy, pack_from_numpy
+    from tpu_pbrt_torch.scenes import _displaced_sphere
+
+    V, F, _ = _displaced_sphere(36, 144)
+    tris = V[F].astype(np.float64)
+    bvh = build_bvh(*triangle_bounds(tris), method="sah")
+    tris = tris[bvh.prim_order]
+    return pack_from_numpy(build_treelet_pack_numpy(tris, bvh, leaf_tris=8), "cpu")
+
+
+def test_unpacked_flush_key_matches_packed(fine_pack):
+    """The flush sorts (treelet, ray) pairs by ONE packed int32 key while
+    C < 2^(31 - ray bits), else by treelet id alone in a stable sort that
+    carries the ray ids: the same 300 live rays traced in a 2^21-ray wave
+    (unpacked) and a 2^19-ray wave (packed), every other lane dead, must
+    find the same (t, prim), with no pair dropped."""
+    tp = fine_pack
+    C = tp.n_treelets
+    assert C >= 1 << (31 - 21) and C < 1 << (31 - 19)
+    rng = np.random.default_rng(77)
+    k = 300
+    o = rng.normal(size=(k, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.8, 0.8, (k, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    out = []
+    for R in (1 << 21, 1 << 19):
+        oo = torch.zeros((R, 3))
+        dd = torch.zeros((R, 3))
+        dd[:, 2] = 1.0
+        oo[:k] = torch.from_numpy(o.astype(np.float32))
+        dd[:k] = torch.from_numpy(d.astype(np.float32))
+        t_max = torch.full((R,), -1.0)
+        t_max[:k] = float("inf")
+        s = tstream._traverse(tp, oo, dd, t_max, False)
+        assert int(s.n_drop) == 0
+        out.append((s.rayF[6][:k].clone(), s.prim[:k].clone(), s.prim[k:]))
+    (t_u, p_u, rest_u), (t_p, p_p, rest_p) = out
+    assert (p_u >= 0).sum() > k // 2  # the test bites
+    assert bool((rest_u < 0).all()) and bool((rest_p < 0).all())
+    np.testing.assert_array_equal(p_u.numpy(), p_p.numpy())
+    np.testing.assert_array_equal(t_u.numpy().view(np.uint32), t_p.numpy().view(np.uint32))

@@ -1,9 +1,9 @@
-"""Write the JAX package's renders of the small killeroo that the port's
+"""Write the JAX package's renders of the small scenes that the port's
 tests hold it against.
 
-The scene is `tpu_pbrt.scenes.make_killeroo_like(**SMALL)` (528 mesh
-triangles + the ground quad and the light quad, so it takes the stream
-tracer) cut into 64-triangle treelets, rendered on the CPU twice:
+The small killeroo is `tpu_pbrt.scenes.make_killeroo_like(**SMALL)` (528
+mesh triangles + the ground quad and the light quad, so it takes the
+stream tracer) cut into 64-triangle treelets, rendered on the CPU twice:
 
 - `killeroo_small.npz` (tests/test_torch_render.py): the fixed-batch loop
   (TPU_PBRT_REGEN=0), which traces the fused camera+shadow layout;
@@ -11,12 +11,24 @@ tracer) cut into 64-triangle treelets, rendered on the CPU twice:
   pool (`PathIntegrator.pool_chunk`, TPU_PBRT_REGEN=1) with 256 slots
   (TPU_PBRT_POOL=256), with its wave count and telemetry counters.
 
+The small crown is `crown_small_text` below: every directive
+`make_crown_like` uses (the infinite light with a lat-long sky of the
+same formula at 16x32, a glass mesh with per-vertex normals, a metal mesh
+with `roughness`, one with `uroughness`/`vroughness`, a matte ground) on
+1,682 triangles in 64-triangle treelets, 16x16 pixels, 4 spp, maxdepth 5.
+The tests build it from the same text. Rendered the same two ways:
+
+- `crown_small.npz` (tests/test_torch_envlight.py): the fixed batch;
+- `crown_small_pool.npz` (tests/test_torch_envlight.py): the pool with
+  256 slots, with its waves and counters.
+
 The JAX renders alone take longer here than the port's test budget
 allows (most of it compiling), so the tests read these files instead.
 
 Run from the repository root:
 
-    JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py [fixed|pool|all]
+    JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py \
+        [fixed|pool|crown|crown_pool|all]
 
 It rewrites the named golden(s) (default: all) and records the commit of
 the JAX package it rendered with.
@@ -35,6 +47,99 @@ POOL = 256
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "killeroo_small.npz")
 OUT_POOL = os.path.join(HERE, "killeroo_small_pool.npz")
+OUT_CROWN = os.path.join(HERE, "crown_small.npz")
+OUT_CROWN_POOL = os.path.join(HERE, "crown_small_pool.npz")
+TARGETS = ("fixed", "pool", "crown", "crown_pool")
+
+
+def crown_small_sky():
+    """The crown's sky formula (the reference's `_crown_envmap_path`) at
+    16x32: an (h, w, 3) f32 lat-long map."""
+    import numpy as np
+
+    h, w = 16, 32
+    th = np.linspace(0, np.pi, h)[:, None]
+    ph = np.linspace(0, 2 * np.pi, w)[None, :]
+    sky = np.stack(
+        [
+            0.35 + 0.25 * np.cos(th) * np.ones_like(ph),
+            0.45 + 0.30 * np.cos(th) * np.ones_like(ph),
+            0.75 + 0.25 * np.cos(th) * np.ones_like(ph),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    d2 = (th - 0.45 * np.pi) ** 2 + (ph - 0.3 * np.pi) ** 2
+    sun = np.exp(-d2 / 0.004)[..., None] * np.asarray([60.0, 50.0, 35.0])
+    return (sky + sun).astype(np.float32)
+
+
+def _blob(n_theta, n_phi, seed):
+    """A displaced sphere with smooth vertex normals (the scenes'
+    `_displaced_sphere`, written out here so the scene text does not
+    depend on either package)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    amps = rng.uniform(0.02, 0.08, size=6)
+    freqs = rng.integers(2, 9, size=(6, 2))
+    th = np.linspace(1e-3, np.pi - 1e-3, n_theta)
+    ph = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    r = np.ones_like(T)
+    for a, (f1, f2) in zip(amps, freqs):
+        r = r + a * np.sin(f1 * T) * np.cos(f2 * P)
+    V = np.stack([r * np.sin(T) * np.cos(P), r * np.cos(T), r * np.sin(T) * np.sin(P)],
+                 axis=-1).reshape(-1, 3)
+    i = np.arange(n_theta - 1)[:, None]
+    j = np.arange(n_phi)[None, :]
+    a, b = i * n_phi + j, (i + 1) * n_phi + j
+    c, e = (i + 1) * n_phi + (j + 1) % n_phi, i * n_phi + (j + 1) % n_phi
+    F = np.stack([np.stack([a, b, c], -1), np.stack([a, c, e], -1)], axis=2).reshape(-1, 3)
+    fn = np.cross(V[F[:, 1]] - V[F[:, 0]], V[F[:, 2]] - V[F[:, 0]])
+    N = np.zeros_like(V)
+    for k in range(3):
+        np.add.at(N, F[:, k], fn)
+    N /= np.maximum(np.linalg.norm(N, axis=-1, keepdims=True), 1e-20)
+    return V, F, N
+
+
+def _mesh_text(V, F, N) -> str:
+    nums = lambda a: " ".join(repr(float(x)) for x in a.reshape(-1))  # noqa: E731
+    idx = " ".join(str(int(x)) for x in F.reshape(-1))
+    return (f'Shape "trianglemesh" "integer indices" [{idx}]'
+            f' "point P" [{nums(V)}] "normal N" [{nums(N)}]\n')
+
+
+def crown_small_text(env_path: str) -> str:
+    """The small crown-class scene up to (not including) WorldEnd: the
+    crown's camera, film and light setup with a 960-triangle glass blob
+    and two 360-triangle metal blobs (1,682 triangles with the ground)."""
+    return f"""
+Integrator "path" "integer maxdepth" [5]
+Sampler "zerotwosequence" "integer pixelsamples" [4]
+PixelFilter "box"
+Film "image" "integer xresolution" [16] "integer yresolution" [16] "string filename" [""]
+LookAt 0 1.4 -3.6  0 0.4 0  0 1 0
+Camera "perspective" "float fov" [39]
+WorldBegin
+LightSource "infinite" "string mapname" ["{env_path}"]
+Material "matte" "rgb Kd" [0.45 0.42 0.38]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-8 -0.75 -8  -8 -0.75 8  8 -0.75 8  8 -0.75 -8]
+Material "glass" "float eta" [1.5] "rgb Kr" [1 1 1] "rgb Kt" [1 1 1]
+{_mesh_text(*_blob(16, 32, 7))}
+AttributeBegin
+Material "metal" "float roughness" [0.05]
+Translate -1.7 -0.15 0.4
+Scale 0.55 0.55 0.55
+{_mesh_text(*_blob(10, 20, 11))}
+AttributeEnd
+AttributeBegin
+Material "metal" "float roughness" [0.18] "float uroughness" [0.3] "float vroughness" [0.05]
+Translate 1.7 -0.1 0.6
+Scale 0.6 0.6 0.6
+{_mesh_text(*_blob(10, 20, 23))}
+AttributeEnd
+"""
 
 
 def _commit(root: str) -> str:
@@ -48,7 +153,7 @@ def _commit(root: str) -> str:
     return head + ("+dirty" if dirty else "")
 
 
-def _render(regen: bool):
+def _render(regen: bool, crown: bool = False):
     os.environ["TPU_PBRT_REGEN"] = "1" if regen else "0"
     os.environ["TPU_PBRT_POOL"] = str(POOL) if regen else "0"
     os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
@@ -56,48 +161,62 @@ def _render(regen: bool):
     from tpu_pbrt.scenes import compile_api, make_killeroo_like
 
     config.reload()
-    scene, integ = compile_api(make_killeroo_like(**SMALL))
-    assert "tstream" in scene.dev, "the small killeroo must take the stream tracer"
+    if crown:
+        import tempfile
+
+        from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+        from tpu_pbrt.utils.imageio import write_image
+
+        with tempfile.TemporaryDirectory() as tmp:
+            env = os.path.join(tmp, "sky.pfm")
+            write_image(env, crown_small_sky())
+            api = parse_string(crown_small_text(env), pbrt_init(Options(quiet=True)))
+            scene, integ = compile_api(api)
+    else:
+        scene, integ = compile_api(make_killeroo_like(**SMALL))
+    assert "tstream" in scene.dev, "the small scenes must take the stream tracer"
     return scene, integ.render(scene)
 
 
-def main() -> None:
-    which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("fixed", "pool", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [fixed|pool|all]")
-    root = os.path.dirname(os.path.dirname(HERE))
-    sys.path.insert(0, root)
+def _write(path, scene, res, commit, pool: bool):
     import numpy as np
 
-    commit = _commit(root)
-    if which in ("fixed", "all"):
-        scene, res = _render(regen=False)
-        np.savez_compressed(
-            OUT,
-            image=np.asarray(res.image, np.float32),
-            rays_traced=np.int64(res.rays_traced),
-            n_tris=np.int64(scene.n_tris),
-            n_treelets=np.int64(scene.dev["tstream"].n_treelets),
-            jax_commit=np.array(commit),
-        )
-        print(f"wrote {OUT}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}")
-    if which in ("pool", "all"):
-        scene, res = _render(regen=True)
+    extra = {}
+    if pool:
         assert res.stats["pool"] == POOL and res.stats["regen"]
-        np.savez_compressed(
-            OUT_POOL,
-            image=np.asarray(res.image, np.float32),
-            rays_traced=np.int64(res.rays_traced),
+        extra = dict(
             n_waves=np.int64(res.stats["n_waves"]),
             pool=np.int64(res.stats["pool"]),
             mean_wave_occupancy=np.float64(res.stats["mean_wave_occupancy"]),
             counters=np.array(json.dumps(res.stats["telemetry"]["counters"], sort_keys=True)),
-            n_tris=np.int64(scene.n_tris),
-            n_treelets=np.int64(scene.dev["tstream"].n_treelets),
-            jax_commit=np.array(commit),
         )
-        print(f"wrote {OUT_POOL}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}, "
-              f"waves {res.stats['n_waves']}, counters {res.stats['telemetry']['counters']}")
+    np.savez_compressed(
+        path,
+        image=np.asarray(res.image, np.float32),
+        rays_traced=np.int64(res.rays_traced),
+        n_tris=np.int64(scene.n_tris),
+        n_treelets=np.int64(scene.dev["tstream"].n_treelets),
+        jax_commit=np.array(commit),
+        **extra,
+    )
+    print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}"
+          + (f", waves {res.stats['n_waves']}, counters {res.stats['telemetry']['counters']}"
+             if pool else ""))
+
+
+def main() -> None:
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in TARGETS + ("all",):
+        raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(TARGETS)}|all]")
+    root = os.path.dirname(os.path.dirname(HERE))
+    sys.path.insert(0, root)
+
+    commit = _commit(root)
+    for target, path in zip(TARGETS, (OUT, OUT_POOL, OUT_CROWN, OUT_CROWN_POOL)):
+        if which in (target, "all"):
+            pool = target.endswith("pool")
+            scene, res = _render(regen=pool, crown=target.startswith("crown"))
+            _write(path, scene, res, commit, pool)
 
 
 if __name__ == "__main__":

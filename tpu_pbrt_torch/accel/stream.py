@@ -64,21 +64,25 @@ class WaveTally:
     iteration count of one wave, the traversal's host reads (the loop's
     counter reads and each flush's block count) and the integrator
     loop's own host reads (one per bounce or pool wave, `add_loop_read`).
-    The render loop resets and reads it."""
+    `drops` sums the waves' n_drop (pairs lost to worklist capacity) on
+    the device, so counting them costs no host read. The render loop
+    resets and reads it."""
 
-    __slots__ = ("waves", "iters", "iters_max", "host_reads", "loop_reads")
+    __slots__ = ("waves", "iters", "iters_max", "host_reads", "loop_reads", "drops")
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
         self.waves = self.iters = self.iters_max = self.host_reads = self.loop_reads = 0
+        self.drops = 0
 
-    def add(self, iters: int, host_reads: int) -> None:
+    def add(self, iters: int, host_reads: int, n_drop=0) -> None:
         self.waves += 1
         self.iters += iters
         self.iters_max = max(self.iters_max, iters)
         self.host_reads += host_reads
+        self.drops = self.drops + n_drop
 
     def add_loop_read(self) -> None:
         self.loop_reads += 1
@@ -364,7 +368,7 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
             reads += 1  # the flush's block count
         else:
             s = _expand(tp, box48, cid, s, n_stk, n_lf, slab, w, lb, any_hit)
-    WAVES.add(s.iters, reads)
+    WAVES.add(s.iters, reads, s.n_drop)
     return s
 
 

@@ -13,10 +13,20 @@ time, which ends in a device synchronize. Then, unless BENCH_SKIP_MSE=1,
 it renders the 128x128 256-spp scene and takes the per-pixel MSE against
 refimg/killeroo_cpu_128x128_256spp.npz (bar 1e-4).
 
+Then, unless BENCH_SKIP_CROWN=1, the crown-class leg (the reference
+bench's crown row): `scenes.make_crown_like` at its full geometry
+(1,153,682 triangles: glass, two metal-GGX pieces, a matte ground, the
+HDR sky as an infinite light) at CROWN_RES (default 512) and CROWN_SPP
+(default 256), warmed up for 5 s, then rendered boxed to MEASURE_S; it
+adds crown_mray_per_sec, crown_completed_fraction, crown_rays_traced and
+crown_image_mean to the same line. A crown failure is not caught: the
+bench exits non-zero without printing a line.
+
 Prints one JSON line with the reference's keys (metric, value, unit,
-mse, tracer_mode, ...) and the render's stats. Env knobs as in the
-reference: BENCH_SPP (default 256), BENCH_RES (default 512),
-BENCH_SKIP_MSE. It needs a CUDA device and does not fall back to the CPU.
+mse, tracer_mode, crown_*, ...) and the render's stats. Env knobs as in
+the reference: BENCH_SPP (default 256), BENCH_RES (default 512),
+BENCH_SKIP_MSE, CROWN_RES, CROWN_SPP, BENCH_SKIP_CROWN. It needs a CUDA
+device and does not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -55,6 +65,34 @@ def compute_mse(device) -> float:
     scene, integ = compile_api(make_killeroo_like(res=MSE_RES, spp=MSE_SPP, device=device))
     img = integ.render(scene).image
     return float(np.mean((img.astype(np.float64) - ref) ** 2))
+
+
+def crown_leg(device) -> dict:
+    """The crown-class row: compile, a 5 s warm-up, the boxed render."""
+    from tpu_pbrt_torch.scenes import compile_api, make_crown_like
+
+    res = int(os.environ.get("CROWN_RES", "512"))
+    spp = int(os.environ.get("CROWN_SPP", "256"))
+    t0 = time.perf_counter()
+    scene, integ = compile_api(make_crown_like(res=res, spp=spp, device=device))
+    compile_s = time.perf_counter() - t0
+    integ.render(scene, max_seconds=5.0)
+    cres = integ.render(scene, max_seconds=MEASURE_S)
+    mean = float(np.mean(cres.image))
+    if not (np.isfinite(cres.image).all() and mean > 1e-6):
+        raise RuntimeError(f"crown: the image is not a finite, lit render (mean {mean})")
+    return {
+        "crown_mray_per_sec": cres.mray_per_sec,
+        "crown_completed_fraction": cres.completed_fraction,
+        "crown_rays_traced": cres.rays_traced,
+        "crown_image_mean": mean,
+        "crown_res": res,
+        "crown_spp": spp,
+        "crown_seconds": cres.seconds,
+        "crown_scene_compile_seconds": compile_s,
+        "crown_n_drop": cres.stats["n_drop"],
+        "crown_stats": cres.stats,
+    }
 
 
 def main() -> int:
@@ -102,6 +140,8 @@ def main() -> int:
             2 * stats["pool"], scene.dev["tstream"].n_treelets)["blocks_per_flush"]
     if not img_mean > 1e-6:
         line["error"] = "image is black: tracer broken"
+    if not os.environ.get("BENCH_SKIP_CROWN"):
+        line.update(crown_leg(device))
     if not os.environ.get("BENCH_SKIP_MSE"):
         line["mse"] = compute_mse(device)
         line["mse_target"] = MSE_TARGET

@@ -2,9 +2,11 @@
 
 Lights are rows of a tagged-union SoA table; area lights are one row per
 emissive triangle (pbrt's one DiffuseAreaLight per Triangle). This slice
-ports the point and area-triangle rows, the spatial (per-voxel) light
-pick distribution, emission of hit area lights and its MIS pdf. The
-scene compiler rejects every other light type.
+ports the point, area-triangle and infinite (HDR environment map) rows:
+Sample_Li of each, the environment's Le and its 2D-CDF pdf, emission of
+hit area lights and its MIS pdf, and the power and spatial (per-voxel)
+light-pick distributions, in which the environment's row is position-
+independent. The scene compiler rejects every other light type.
 """
 
 from __future__ import annotations
@@ -14,11 +16,19 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpu_pbrt_torch.core.sampling import uniform_sample_triangle
-from tpu_pbrt_torch.core.vecmath import cross, dot
+from tpu_pbrt_torch.core.vecmath import (
+    cross,
+    dot,
+    normalize,
+    spherical_direction,
+    spherical_phi,
+    spherical_theta,
+)
 
 # light type enum (the reference's values)
 LIGHT_POINT = 0
 LIGHT_AREA = 3
+LIGHT_INFINITE = 4
 
 
 class LightSample(NamedTuple):
@@ -33,6 +43,59 @@ class LightSample(NamedTuple):
 def _take(table, idx):
     """table[idx] with idx clamped to the table (the reference's clamp)."""
     return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
+def _env_uv(dev, d_world):
+    """(phi, theta) of world directions in the environment's light frame."""
+    wl = normalize(d_world @ dev["env_w2l"].T)
+    return spherical_phi(wl), spherical_theta(wl)
+
+
+def env_lookup(dev, d_world):
+    """InfiniteAreaLight::Le for world directions: a bilinear lookup in the
+    lat-long map, wrapping in phi (floor-mod) and clamping in theta."""
+    env = dev["envmap"]
+    h, w = env.shape[:2]
+    phi, theta = _env_uv(dev, d_world)
+    x = phi * (0.5 / torch.pi) * w - 0.5
+    y = theta / torch.pi * h - 0.5
+    # f32 -> int saturates like XLA's convert (NaN of a masked lane -> 0)
+    x0 = torch.nan_to_num(torch.floor(x), nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+    y0 = torch.nan_to_num(torch.floor(y), nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+    fx = (x - x0.to(torch.float32))[..., None]
+    fy = (y - y0.to(torch.float32))[..., None]
+    x0w = torch.remainder(x0, w)
+    x1w = torch.remainder(x0 + 1, w)
+    y0c = y0.clamp(0, h - 1)
+    y1c = (y0 + 1).clamp(0, h - 1)
+    c00 = env[y0c, x0w]
+    c10 = env[y0c, x1w]
+    c01 = env[y1c, x0w]
+    c11 = env[y1c, x1w]
+    return (c00 * (1 - fx) + c10 * fx) * (1 - fy) + (c01 * (1 - fx) + c11 * fx) * fy
+
+
+def env_pdf(dev, d_world):
+    """Solid-angle pdf of sampling the world direction d by the map's
+    importance distribution."""
+    phi, theta = _env_uv(dev, d_world)
+    sin_t = torch.sin(theta)
+    p_uv = dev["env_distr"].pdf(phi * (0.5 / torch.pi), theta / torch.pi)
+    pdf = p_uv / (2.0 * torch.pi * torch.pi * torch.clamp(sin_t, min=1e-9))
+    return torch.where(sin_t > 1e-7, pdf, torch.zeros_like(pdf))
+
+
+def _env_sample(dev, u1, u2):
+    """A direction from the map's distribution -> (wi, pdf, Le)."""
+    (u, v), pdf_uv = dev["env_distr"].sample_continuous(u1, u2)
+    theta = v * torch.pi
+    phi = u * 2.0 * torch.pi
+    sin_t = torch.sin(theta)
+    # env_w2l is the world -> light rotation; its transpose maps back
+    wi = spherical_direction(sin_t, torch.cos(theta), phi) @ dev["env_w2l"]
+    pdf = pdf_uv / (2.0 * torch.pi * torch.pi * torch.clamp(sin_t, min=1e-9))
+    pdf = torch.where(sin_t > 1e-7, pdf, torch.zeros_like(pdf))
+    return wi, pdf, env_lookup(dev, wi)
 
 
 def sample_triangle_point(tv, u1, u2):
@@ -82,6 +145,15 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     li = torch.where(is_area[..., None], li_a, li_pt)
     pdf = torch.where(is_area, pdf_a, torch.ones_like(pdf_a))
     dist = torch.where(is_area, dist_a, dist_pt)
+
+    # -- infinite: the shadow ray spans the scene -----------------------------
+    if "envmap" in dev:
+        is_env = ltype == LIGHT_INFINITE
+        wi_env, pdf_env, li_env = _env_sample(dev, u1, u2)
+        wi = torch.where(is_env[..., None], wi_env, wi)
+        li = torch.where(is_env[..., None], li_env, li)
+        pdf = torch.where(is_env, pdf_env, pdf)
+        dist = torch.where(is_env, 2.0 * dev["world_radius"] * torch.ones_like(dist), dist)
     li = torch.where((pdf > 0.0)[..., None], li, torch.zeros_like(li))
     return LightSample(li, wi, pdf, dist, is_pt, li_idx)
 
@@ -153,6 +225,26 @@ def light_pick_pmf(dev, light_distr, li_idx, ref_p=None):
             return torch.clamp(light_distr.mean_pmf[idx], min=1e-12)
         return light_distr.discrete_pdf_at(idx, ref_p)
     return light_distr.discrete_pdf(idx)
+
+
+def infinite_pdf(dev, light_distr, wi, ref_p=None):
+    """Pdf_Li x pick pmf of the environment for escaped (BSDF-sampled)
+    rays. ref_p is the scattering position, which the spatial strategy's
+    pick pmf needs (None: the scene-wide marginal)."""
+    lt = dev["light"]
+    n = lt["type"].shape[0]
+    if "envmap" not in dev:
+        return torch.zeros(wi.shape[:-1], dtype=torch.float32, device=wi.device)
+    p = env_pdf(dev, wi)
+    is_env = lt["type"] == LIGHT_INFINITE
+    if light_distr is None:
+        return p * (is_env.to(torch.float32).sum() / n)
+    idx = torch.argmax(is_env.to(torch.int32))
+    if isinstance(light_distr, SpatialLightDistribution):
+        if ref_p is None:
+            return p * light_distr.mean_pmf[idx]
+        return p * light_distr.discrete_pdf_at(idx.expand(wi.shape[:-1]), ref_p)
+    return p * light_distr.discrete_pdf(idx)
 
 
 def emitted_pdf(dev, light_distr, ref_p, hit_p, light_idx, n_l):

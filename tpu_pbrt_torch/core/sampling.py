@@ -283,3 +283,76 @@ class Distribution1D(NamedTuple):
 
     def discrete_pdf(self, index):
         return self.func[index] / torch.clamp(self.func_int * self.count, min=1e-20)
+
+
+class Distribution2D(NamedTuple):
+    """Piecewise-constant 2D distribution (pbrt sampling.h Distribution2D):
+    conditional rows plus a marginal over their integrals, built on the
+    host in numpy as the reference builds it and uploaded f32.
+
+    cond_func / cond_cdf: (H, W) / (H, W + 1); cond_int (H,); the marginal
+    marg_func (H,), marg_cdf (H + 1,), marg_int ()."""
+
+    cond_func: torch.Tensor
+    cond_cdf: torch.Tensor
+    cond_int: torch.Tensor
+    marg_func: torch.Tensor
+    marg_cdf: torch.Tensor
+    marg_int: torch.Tensor
+
+    @staticmethod
+    def build_numpy(f) -> tuple:
+        """The six tables as f32 numpy, the reference's build."""
+        f = np.asarray(f, dtype=np.float64)
+        h, w = f.shape
+        cond_cdf = np.zeros((h, w + 1))
+        cond_cdf[:, 1:] = np.cumsum(f, axis=1) / w
+        cond_int = cond_cdf[:, -1].copy()
+        safe = np.where(cond_int == 0, 1.0, cond_int)
+        cond_cdf[:, 1:] = np.where(
+            cond_int[:, None] == 0,
+            np.arange(1, w + 1)[None, :] / w,
+            cond_cdf[:, 1:] / safe[:, None],
+        )
+        mf, mc, mi = Distribution1D.build_numpy(cond_int)
+        return (np.asarray(f, np.float32), np.asarray(cond_cdf, np.float32),
+                np.asarray(cond_int, np.float32), mf, mc, np.float32(mi))
+
+    @staticmethod
+    def build(f, device="cpu") -> "Distribution2D":
+        return Distribution2D(*(torch.from_numpy(np.asarray(a)).to(device)
+                                for a in Distribution2D.build_numpy(f)))
+
+    def sample_continuous(self, u1, u2):
+        """Returns ((u, v), pdf)."""
+        h, w = self.cond_func.shape
+        zero = torch.zeros_like(u2)
+        # marginal (rows)
+        row = torch.clamp(
+            torch.searchsorted(self.marg_cdf, u2.contiguous(), right=True) - 1, 0, h - 1)
+        mc0 = self.marg_cdf[row]
+        mc1 = self.marg_cdf[row + 1]
+        dv = torch.where(mc1 > mc0, (u2 - mc0) / torch.clamp(mc1 - mc0, min=1e-20), zero)
+        pdf_v = torch.where(self.marg_int > 0,
+                            self.marg_func[row] / torch.clamp(self.marg_int, min=1e-20), zero)
+        v = (row.to(torch.float32) + dv) / h
+        # conditional (columns within the row): a count-based search
+        cdf_row = self.cond_cdf[row]  # (..., W + 1)
+        col = torch.clamp((cdf_row <= u1[..., None]).sum(dim=-1) - 1, 0, w - 1)
+        cc0 = torch.gather(cdf_row, -1, col[..., None])[..., 0]
+        cc1 = torch.gather(cdf_row, -1, col[..., None] + 1)[..., 0]
+        du = torch.where(cc1 > cc0, (u1 - cc0) / torch.clamp(cc1 - cc0, min=1e-20), zero)
+        ci = self.cond_int[row]
+        fval = self.cond_func[row, col]
+        pdf_u = torch.where(ci > 0, fval / torch.clamp(ci, min=1e-20), zero)
+        uu = (col.to(torch.float32) + du) / w
+        return (uu, v), pdf_u * pdf_v
+
+    def pdf(self, u, v):
+        """Pdf of (u, v) in [0, 1)^2 (pbrt Distribution2D::Pdf). The f32 ->
+        int conversion saturates like XLA's, so NaN and huge inputs of
+        masked lanes clamp instead of wrapping."""
+        h, w = self.cond_func.shape
+        iu = torch.nan_to_num(u * w, nan=0.0).clamp(-1.0, float(w)).to(torch.int64).clamp(0, w - 1)
+        iv = torch.nan_to_num(v * h, nan=0.0).clamp(-1.0, float(h)).to(torch.int64).clamp(0, h - 1)
+        return self.cond_func[iv, iu] / torch.clamp(self.marg_int, min=1e-20)

@@ -84,12 +84,29 @@ def cos_theta(w):
     return w[..., 2]
 
 
+def cos2_theta(w):
+    return w[..., 2] * w[..., 2]
+
+
 def abs_cos_theta(w):
     return torch.abs(w[..., 2])
 
 
 def sin2_theta(w):
-    return torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return torch.sqrt(sin2_theta(w))
+
+
+def tan_theta(w):
+    c = cos_theta(w)
+    return sin_theta(w) / torch.where(torch.abs(c) < 1e-8, torch.full_like(c, 1e-8), c)
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / torch.clamp(cos2_theta(w), min=1e-12)
 
 
 def cos_phi(w):
@@ -106,3 +123,31 @@ def sin_phi(w):
 
 def same_hemisphere(w, wp):
     return w[..., 2] * wp[..., 2] > 0.0
+
+
+def reflect(wo, n):
+    """pbrt Reflect: mirror wo about n (both pointing away from the surface)."""
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def refract(wi, n, eta):
+    """pbrt Refract -> (refracted direction, total-internal-reflection mask);
+    eta = eta_i / eta_t (a tensor of wi's batch shape), n on wi's side."""
+    cos_i = dot(n, wi)
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    return eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n, tir
+
+
+def spherical_direction(sin_t, cos_t, phi):
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
+
+
+def spherical_theta(v):
+    return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * torch.pi, p)

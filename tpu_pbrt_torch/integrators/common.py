@@ -148,8 +148,9 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
 
 def textured_mat(dev, mid) -> bxdf.MatParams:
     """Material::ComputeScatteringFunctions on the constant-parameter path:
-    the compiled material rows (textures are not ported; the compiler
-    rejects them)."""
+    the full compiled material row of each lane (every MatParams field,
+    the GGX alphas remapped). Textures are not ported; the compiler
+    rejects them, so no slot carries a texture id to evaluate."""
     return bxdf.gather_mat(dev["mat"], mid)
 
 
@@ -439,6 +440,9 @@ class WavefrontIntegrator:
             "iters_per_wave_max": waves.iters_max,
             "host_reads_per_wave_mean": waves.host_reads / per_wave,
             "loop_host_reads_per_wave": waves.loop_reads / per_wave,
+            # traversal pairs lost to worklist capacity (0 unless the
+            # headroom knob is cut below 1)
+            "n_drop": int(waves.drops),
         }
         if "tstream" in scene.dev:
             stats["tracer_mode"] = plan.tracer

@@ -2,8 +2,11 @@
 
 pbrt-v3 PathIntegrator::Li as a wavefront: a batch of lanes advances one
 bounce per `_bounce_wave`: emission with forward MIS (the continuation
-ray carries its BSDF pdf), NEE with MIS, the BSDF-sampled continuation,
-and Russian roulette after depth 3 with the eta^2 correction.
+ray carries its BSDF pdf; a ray that escapes sees the environment map),
+NEE with MIS, the BSDF-sampled continuation (specular bounces through
+glass and mirrors keep the `specular` flag and the eta^2 scale of
+transmission), and Russian roulette after depth 3 with the eta^2
+correction.
 
 Two loops share that wave, as in the reference:
 
@@ -147,8 +150,18 @@ class PathIntegrator(WavefrontIntegrator):
         nrays = nrays + alive.to(torch.int32)
         it = make_interaction(dev, hit, o, d)
         it.valid = it.valid & alive
+        miss = alive & (hit.prim < 0)
 
         # ---- emitted radiance with forward MIS ----------------------
+        if "envmap" in dev:
+            # an escaped ray sees the environment, weighted against the
+            # light-sampling pdf of its direction
+            le_env = ld.env_lookup(dev, d)
+            pdf_env = ld.infinite_pdf(dev, self.light_distr, d, ref_p=prev_p)
+            w_env = torch.where(specular, torch.ones_like(pdf_env),
+                                power_heuristic(1.0, prev_pdf, 1.0, pdf_env))
+            L = L + torch.where(miss[..., None], beta * le_env * w_env[..., None],
+                                torch.zeros_like(le_env))
         hit_light = torch.where(it.valid, it.light, torch.full_like(it.light, -1))
         le = ld.emitted_radiance(dev, hit_light, it.wo, it.ng)
         pdf_light = ld.emitted_pdf(dev, self.light_distr, prev_p, it.p, hit_light, it.ng)

@@ -1,8 +1,10 @@
-"""Where a killeroo render's time goes on the GPU.
+"""Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--res 128] [--spp 64] [--no-regen] [--out DIR]
+    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown] [--res 128] [--spp 64]
+        [--no-regen] [--out DIR]
 
-Compiles `scenes.make_killeroo_like` at its full mesh, renders it once to
+Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
+`scenes.make_crown_like`) at its full geometry, renders it once to
 warm up, then renders it again under `torch.profiler` (CPU + CUDA
 activity), through the persistent pool (the default render path) or,
 with `--no-regen`, through the fixed batch, and prints:
@@ -62,6 +64,7 @@ def _card() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("killeroo", "crown"), default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--no-regen", action="store_true",
@@ -75,10 +78,11 @@ def main() -> int:
 
     from tpu_pbrt_torch.config import cfg
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
-    from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
+    from tpu_pbrt_torch.scenes import compile_api, make_crown_like, make_killeroo_like
 
     cfg.regen = not args.no_regen
-    scene, integ = compile_api(make_killeroo_like(res=args.res, spp=args.spp, device="cuda"))
+    make = make_crown_like if args.scene == "crown" else make_killeroo_like
+    scene, integ = compile_api(make(res=args.res, spp=args.spp, device="cuda"))
     integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
     reset_launches()
     torch.cuda.synchronize()
@@ -103,7 +107,7 @@ def main() -> int:
 
     st = res.stats
     print(f"card: {_card()}")
-    print(f"render {args.res}x{args.res} {args.spp} spp, "
+    print(f"render {args.scene} {args.res}x{args.res} {args.spp} spp, "
           f"{'pool of ' + str(st['pool']) if st.get('regen') else 'fixed batch'} "
           f"(profiler on): {wall:.3f} s, {res.rays_traced} rays, "
           f"{res.rays_traced / wall / 1e6:.4f} Mray/s")
@@ -128,7 +132,8 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         mode = "fixed" if args.no_regen else "pool"
-        path = os.path.join(args.out, f"render_{args.res}_{args.spp}_{mode}.trace.json")
+        path = os.path.join(args.out,
+                            f"render_{args.scene}_{args.res}_{args.spp}_{mode}.trace.json")
         prof.export_chrome_trace(path)
         print(f"trace: {path}")
     return 0

@@ -16,14 +16,16 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
+from tpu_pbrt_torch.core.bxdf import MAT_COLUMNS
+from tpu_pbrt_torch.core.sampling import Distribution2D
 
-#: per-material and per-light columns the port reads
-MAT_KEYS = ("type", "kd", "sigma", "eta")
+#: per-light columns the port reads (per material: bxdf.MAT_COLUMNS)
 LIGHT_KEYS = ("type", "p", "L", "tri", "twosided", "area", "tri_v")
 #: top-level tables the port reads (when present)
 DEV_KEYS = (
     "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",
     "world_center", "world_radius", "n_lights", "tri_sh16", "tri_verts9T",
+    "envmap", "env_w2l",
 )
 
 
@@ -33,12 +35,15 @@ def _tensor(a, device):
 
 def upload(tab: dict, device) -> dict:
     """Numpy tables (as compile_scene builds them) -> device tables:
-    arrays become tensors, "tstream" becomes a TreeletPack, nested dicts
+    arrays become tensors, "tstream" becomes a TreeletPack, "env_distr"
+    (its six tables in field order) a Distribution2D, nested dicts
     recurse."""
     out = {}
     for k, v in tab.items():
         if k == "tstream":
             out[k] = pack_from_numpy(v, device)
+        elif k == "env_distr":
+            out[k] = Distribution2D(*(_tensor(a, device) for a in v))
         elif isinstance(v, dict):
             out[k] = upload(v, device)
         else:
@@ -69,12 +74,14 @@ def tables_from_numpy(dev_np: dict, device) -> dict:
     """The JAX package's compiled tables (numpy leaves) -> the port's
     device tables, holding exactly the keys compile_scene produces."""
     tab = {k: dev_np[k] for k in DEV_KEYS if k in dev_np}
-    tab["mat"] = {k: dev_np["mat"][k] for k in MAT_KEYS}
+    tab["mat"] = {k: dev_np["mat"][k] for k in MAT_COLUMNS}
     tab["light"] = {k: dev_np["light"][k] for k in LIGHT_KEYS}
     if "tstream" in dev_np:
         tab["tstream"] = pack_tables(dev_np["tstream"])
     if "bfeat" in dev_np:
         tab["bfeat"] = {"feat": dev_np["bfeat"]["feat"], "center": dev_np["bfeat"]["center"]}
+    if "env_distr" in dev_np:
+        tab["env_distr"] = tuple(getattr(dev_np["env_distr"], f) for f in Distribution2D._fields)
     return upload(tab, device)
 
 
@@ -90,6 +97,8 @@ def flat_tables(dev: dict, prefix: str = "") -> dict:
                 "offset": v.offset, "count": v.count,
             }
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in parts.items()})
+        elif isinstance(v, Distribution2D):
+            out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in v._asdict().items()})
         elif isinstance(v, dict):
             out.update(flat_tables(v, name + "."))
         else:

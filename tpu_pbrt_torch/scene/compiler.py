@@ -1,22 +1,26 @@
 """Scene compiler: parsed scene records -> flat tensors on the render device.
 
 Port of tpu_pbrt/scene/compiler.py::compile_scene, reduced to the
-directive set this slice renders:
+directive set the port renders:
 
 - shapes: "trianglemesh" (world-space triangle soup, shading normals, uvs);
-- materials: "matte" with constant Kd / sigma;
+- materials: "matte", "plastic", "metal", "glass" and "mirror" with
+  constant parameters (constant-folded as the reference folds them);
 - lights: "diffuse" area lights (one row per emissive triangle, as pbrt
-  makes one DiffuseAreaLight per Triangle) and "point" lights, with the
-  spatial (default), power or uniform light-pick strategy;
+  makes one DiffuseAreaLight per Triangle), "point" lights and the
+  "infinite" environment light (an HDR lat-long map with its 2D
+  importance distribution), with the spatial (default), power or uniform
+  light-pick strategy;
 - camera "perspective", pixel filter "box", film "image", sampler
   "zerotwosequence" (or "random"), integrator "path", accelerator "bvh".
 
 Anything else raises PbrtError naming what is not ported yet; nothing is
-silently substituted. The host-side work (BVH build, leaf ordering,
-light rows, the treelet pack, the spatial light distribution) is the
-reference's numpy code, so the uploaded tables are bit-identical to the
-reference's (tests/test_torch_scene.py pins that through
-scene/bridge.py).
+silently substituted. (One substitution is the reference's own: an
+environment map that cannot be read becomes a constant map, with a
+warning.) The host-side work (BVH build, leaf ordering, light rows, the
+treelet pack, the light distributions) is the reference's numpy code, so
+the uploaded tables are bit-identical to the reference's
+(tests/test_torch_scene.py pins that through scene/bridge.py).
 """
 
 from __future__ import annotations
@@ -30,13 +34,19 @@ import torch
 from tpu_pbrt_torch.accel.build import build_bvh, triangle_bounds
 from tpu_pbrt_torch.cameras import make_camera
 from tpu_pbrt_torch.config import cfg, resolve_device
-from tpu_pbrt_torch.core.bxdf import MAT_MATTE
+from tpu_pbrt_torch.core import bxdf
 from tpu_pbrt_torch.core.film import Film, make_film
 from tpu_pbrt_torch.core.filters import make_filter
-from tpu_pbrt_torch.core.lights_dev import LIGHT_AREA, LIGHT_POINT, SpatialLightDistribution
-from tpu_pbrt_torch.core.sampling import Distribution1D, normalize_sampler_name
+from tpu_pbrt_torch.core.lights_dev import (
+    LIGHT_AREA,
+    LIGHT_INFINITE,
+    LIGHT_POINT,
+    SpatialLightDistribution,
+)
+from tpu_pbrt_torch.core.sampling import Distribution1D, Distribution2D, normalize_sampler_name
 from tpu_pbrt_torch.core.spectrum import luminance
 from tpu_pbrt_torch.utils.error import Error, PbrtError, Warning
+from tpu_pbrt_torch.utils.fileutil import resolve_filename
 
 
 @dataclass
@@ -66,6 +76,7 @@ class CompiledScene:
     light_distribution_name: str = "spatial"
     light_distr: Optional[Distribution1D] = None
     spatial_distr: Any = None
+    has_envmap: bool = False
 
 
 def _not_ported(what: str):
@@ -79,15 +90,25 @@ def _rgb(v) -> np.ndarray:
     return a[:3]
 
 
-def _const(node, default, what):
-    """A material parameter that must be a constant (textures are not
-    ported): the reference's _fold_const for plain values and const nodes."""
+def _fold_const(node, default, what):
+    """A material parameter as a constant: plain values, const nodes and
+    scale/mix nodes of constants fold as the reference's _fold_const folds
+    them; any other texture is not ported."""
     if node is None:
         return default
     if isinstance(node, tuple):
-        if node[0] in ("const", "constf"):
+        tag = node[0]
+        if tag in ("const", "constf"):
             return node[1]
-        _not_ported(f"texture {node[0]!r} on {what}")
+        if tag == "scale":
+            return (np.asarray(_fold_const(node[1], 1.0, what))
+                    * np.asarray(_fold_const(node[2], 1.0, what)))
+        if tag == "mix":
+            a = np.asarray(_fold_const(node[1], 0.0, what))
+            b = np.asarray(_fold_const(node[2], 1.0, what))
+            t = np.asarray(_fold_const(node[3], 0.5, what))
+            return a * (1 - t) + b * t
+        _not_ported(f"texture {tag!r} on {what}")
     return node
 
 
@@ -122,27 +143,89 @@ def _geometric_normals(verts: np.ndarray) -> np.ndarray:
     return np.repeat(n[:, None, :], 3, axis=1)
 
 
+#: the materials lower_materials lowers, with their type enum values
+_MAT_ENUM = {"matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT_PLASTIC, "metal": bxdf.MAT_METAL,
+             "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR}
+
+
 def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
-    """MaterialRecords -> SoA table (type, kd, sigma, eta) of the matte rows."""
+    """MaterialRecords -> the SoA material table (bxdf.MAT_COLUMNS) with
+    the reference's defaults and constant folding."""
     m = len(mat_records)
     tab = {
         "type": np.zeros(m, np.int32),
         "kd": np.zeros((m, 3), np.float32),
+        "ks": np.zeros((m, 3), np.float32),
+        "kr": np.zeros((m, 3), np.float32),
+        "kt": np.zeros((m, 3), np.float32),
         "eta": np.ones((m, 3), np.float32),
+        "k": np.zeros((m, 3), np.float32),
+        "rough_u": np.zeros(m, np.float32),
+        "rough_v": np.zeros(m, np.float32),
         "sigma": np.zeros(m, np.float32),
+        "opacity": np.ones((m, 3), np.float32),
+        "remap": np.ones(m, np.int32),
     }
     for i, rec in enumerate(mat_records):
-        if rec.type != "matte":
-            _not_ported(f'Material "{rec.type}" (ported: "matte")')
-        if rec.params.get("bumpmap") is not None:
+        t = rec.type
+        if t not in _MAT_ENUM:
+            _not_ported(f'Material "{t}" (ported: {", ".join(map(repr, _MAT_ENUM))})')
+        p = rec.params
+        if p.get("bumpmap") is not None:
             _not_ported("bump mapping")
-        tab["type"][i] = MAT_MATTE
-        tab["kd"][i] = _rgb(_const(rec.params.get("Kd"), 0.5, "matte Kd"))
-        tab["sigma"][i] = float(
-            np.asarray(_const(rec.params.get("sigma"), 0.0, "matte sigma"), np.float64)
-            .reshape(-1).mean()
-        )
+        tab["type"][i] = _MAT_ENUM[t]
+
+        def spec(key, default, slot):
+            tab[slot][i] = _rgb(_fold_const(p.get(key), default, f"{t} {key}"))
+
+        def flt(key, default, slot):
+            v = _fold_const(p.get(key), default, f"{t} {key}")
+            tab[slot][i] = float(np.asarray(v, np.float64).reshape(-1).mean())
+
+        if t == "matte":
+            spec("Kd", 0.5, "kd")
+            flt("sigma", 0.0, "sigma")
+        elif t == "plastic":
+            spec("Kd", 0.25, "kd")
+            spec("Ks", 0.25, "ks")
+            flt("roughness", 0.1, "rough_u")
+            tab["rough_v"][i] = tab["rough_u"][i]
+            tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "metal":
+            spec("eta", 1.0, "eta")
+            spec("k", 1.0, "k")
+            flt("roughness", 0.01, "rough_u")
+            tab["rough_v"][i] = tab["rough_u"][i]
+            if p.get("uroughness") is not None:
+                flt("uroughness", 0.01, "rough_u")
+            if p.get("vroughness") is not None:
+                flt("vroughness", 0.01, "rough_v")
+            tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "glass":
+            spec("Kr", 1.0, "kr")
+            spec("Kt", 1.0, "kt")
+            flt("eta", 1.5, "eta")
+            # nonzero uroughness or vroughness selects the microfacet lobes;
+            # vroughness defaults to 0 on its own (glass.cpp)
+            flt("uroughness", 0.0, "rough_u")
+            flt("vroughness", 0.0, "rough_v")
+            tab["remap"][i] = int(p.get("remaproughness", True))
+            tab["eta"][i] = tab["eta"][i][:1].repeat(3)
+        else:  # mirror
+            spec("Kr", 0.9, "kr")
     return tab
+
+
+def _read_envmap(path: str, L) -> np.ndarray:
+    """The infinite light's map scaled by L, or the reference's constant
+    4x8 map (with its warning) when the file cannot be read."""
+    from tpu_pbrt_torch.utils import imageio
+
+    try:
+        return (imageio.read_image(path) * L[None, None]).astype(np.float32)
+    except Exception as e:  # noqa: BLE001 - the reference substitutes on any failure
+        Warning(f'could not read environment map "{path}": {e}; using constant')
+        return np.full((4, 8, 3), L, np.float32)
 
 
 def _check_directives(api, ro):
@@ -282,14 +365,34 @@ def compile_scene(api, device=None) -> CompiledScene:
         row["tri"] = int(inv_order[row["tri"]])
 
     # -- non-area lights ---------------------------------------------------
+    envmap = env_distr = None
+    env_w2l = np.eye(4, dtype=np.float32)
     for lrec in ro.lights:
-        if lrec.type != "point":
-            _not_ported(f'LightSource "{lrec.type}" (ported: "point")')
         p = lrec.params
         sc = _rgb(p.find_one_spectrum("scale", np.array([1.0, 1.0, 1.0])))
-        I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
-        pos = lrec.light_to_world.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
-        light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, tri=-1, twosided=0, area=0.0))
+        if lrec.type == "point":
+            I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
+            pos = lrec.light_to_world.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
+            light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, tri=-1, twosided=0, area=0.0))
+        elif lrec.type in ("infinite", "exinfinite"):
+            if envmap is not None:
+                _not_ported("more than one infinite light")
+            L = _rgb(p.find_one_spectrum("L", np.array([1.0, 1.0, 1.0]))) * sc
+            fn = p.find_one_string("mapname", "")
+            if fn:
+                envmap = _read_envmap(resolve_filename(fn, lrec.scene_dir), L)
+            else:
+                envmap = np.full((4, 8, 3), L, np.float32)
+            # importance over luminance x sin(theta) (infinite.cpp)
+            hgt = envmap.shape[0]
+            theta = (np.arange(hgt) + 0.5) / hgt * np.pi
+            env_distr = Distribution2D.build_numpy(luminance(envmap) * np.sin(theta)[:, None])
+            env_w2l = np.asarray(lrec.light_to_world.inverse().m, np.float32)
+            # the row carries L = 1: the radiance lives in the map
+            light_rows.append(dict(type=LIGHT_INFINITE, p=wcenter, L=np.ones(3), tri=-1,
+                                   twosided=0, area=0.0))
+        else:
+            _not_ported(f'LightSource "{lrec.type}" (ported: "point", "infinite")')
 
     n_lights = len(light_rows)
     if n_lights == 0:
@@ -316,6 +419,10 @@ def compile_scene(api, device=None) -> CompiledScene:
         lum_v = float(luminance(np.asarray(r["L"], np.float64)))
         if r["type"] == LIGHT_AREA:
             power[i] = lum_v * r["area"] * np.pi * (2.0 if r["twosided"] else 1.0)
+        elif r["type"] == LIGHT_INFINITE:
+            # the row's L is 1: the power is the map's mean luminance
+            env_lum = float(np.mean(luminance(envmap.astype(np.float64))))
+            power[i] = env_lum * np.pi * wradius * wradius * 4
         else:
             power[i] = lum_v * 4 * np.pi
     light_distr = Distribution1D.build(
@@ -381,6 +488,11 @@ def compile_scene(api, device=None) -> CompiledScene:
         T9 = tab["tri_verts"].shape[0]
         tab["tri_verts9T"] = tab["tri_verts"].reshape(T9, 9).T.copy()
 
+    if envmap is not None:
+        tab["envmap"] = envmap
+        tab["env_distr"] = env_distr
+        tab["env_w2l"] = np.ascontiguousarray(env_w2l[:3, :3])
+
     from tpu_pbrt_torch.scene.bridge import upload
 
     return CompiledScene(
@@ -400,12 +512,13 @@ def compile_scene(api, device=None) -> CompiledScene:
         light_distribution_name=strategy,
         light_distr=light_distr,
         spatial_distr=spatial_distr,
+        has_envmap=envmap is not None,
     )
 
 
 def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
     """SpatialLightDistribution tables (numpy), the reference's build for
-    point and area rows."""
+    point, area and infinite rows."""
     res = (8, 8, 8)
     lo_g = wmin - 1e-3
     hi_g = wmax + 1e-3
@@ -421,6 +534,8 @@ def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
             lum_v = float(luminance(np.asarray(r["L"], np.float64)))
             d2 = np.maximum(((centers - r["p"]) ** 2).sum(-1), 1e-6)
             imp[:, i] = lum_v / d2
+        elif r["type"] != LIGHT_AREA:  # the environment: position-independent
+            imp[:, i] = power[i] / max(power.sum(), 1e-12)
     area_rows = [i for i, r in enumerate(light_rows) if r["type"] == LIGHT_AREA]
     if area_rows:
         tri_ids = np.asarray([light_rows[i]["tri"] for i in area_rows])

@@ -1,11 +1,13 @@
-"""Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box and the
-killeroo-class mesh).
+"""Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
+killeroo-class mesh and the crown-class scene).
 
-Same scene text and the same procedural mesh as the reference, driven
-through the port's API, so both packages compile identical worlds.
+Same scene text and the same procedural meshes and sky as the reference,
+driven through the port's API, so both packages compile identical worlds.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -137,6 +139,105 @@ Material "matte" "rgb Kd" [0.35 0.30 0.25]
     ps.add("point P", V.reshape(-1).tolist())
     ps.add("normal N", N.reshape(-1).tolist())
     api.shape("trianglemesh", ps)
+    return api
+
+
+#: where the port writes its copy of the crown's procedural sky
+CROWN_ENV_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              ".torch_build", "crown_env.pfm")
+
+
+def crown_sky(h: int = 64, w: int = 128) -> np.ndarray:
+    """The crown's procedural HDR sky (a gradient and a warm sun disk) as
+    an (h, w, 3) f32 lat-long map: the reference's formula, at any size."""
+    th = np.linspace(0, np.pi, h)[:, None]
+    ph = np.linspace(0, 2 * np.pi, w)[None, :]
+    sky = np.stack(
+        [
+            0.35 + 0.25 * np.cos(th) * np.ones_like(ph),
+            0.45 + 0.30 * np.cos(th) * np.ones_like(ph),
+            0.75 + 0.25 * np.cos(th) * np.ones_like(ph),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    sun_dir = (0.45 * np.pi, 0.3 * np.pi)
+    d2 = (th - sun_dir[0]) ** 2 + (ph - sun_dir[1]) ** 2
+    sun = np.exp(-d2 / 0.004)[..., None] * np.asarray([60.0, 50.0, 35.0])
+    return (sky + sun).astype(np.float32)
+
+
+def _crown_envmap_path(path: str = CROWN_ENV_PATH) -> str:
+    """The crown's 64x128 sky as a PFM file, written once (by the port's
+    own imageio, byte for byte the reference's refimg/crown_env.pfm)."""
+    if os.path.exists(path):
+        return path
+    from tpu_pbrt_torch.utils.imageio import write_image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.pfm"
+    write_image(tmp, crown_sky())
+    os.replace(tmp, path)  # concurrent writers each publish a whole file
+    return path
+
+
+def _add_mesh(api: PbrtAPI, V, F, N) -> None:
+    ps = ParamSet()
+    ps.add("integer indices", F.reshape(-1).tolist())
+    ps.add("point P", V.reshape(-1).tolist())
+    ps.add("normal N", N.reshape(-1).tolist())
+    api.shape("trianglemesh", ps)
+
+
+def make_crown_like(res=512, spp=64, maxdepth=5, options=None, n_theta=500, n_phi=1000,
+                    device=None) -> PbrtAPI:
+    """crown-class stand-in: a >= 1M-triangle displaced mesh in glass, two
+    metal-GGX side pieces (one anisotropic), a matte ground and the HDR
+    sky as an infinite light sampled from its 2D CDF. Parsed up to (not
+    including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    env = _crown_envmap_path()
+    parse_string(
+        f"""
+Integrator "path" "integer maxdepth" [{maxdepth}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.4 -3.6  0 0.4 0  0 1 0
+Camera "perspective" "float fov" [39]
+WorldBegin
+LightSource "infinite" "string mapname" ["{env}"]
+Material "matte" "rgb Kd" [0.45 0.42 0.38]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-8 -0.75 -8  -8 -0.75 8  8 -0.75 8  8 -0.75 -8]
+Material "glass" "float eta" [1.5] "rgb Kr" [1 1 1] "rgb Kt" [1 1 1]
+""",
+        api,
+        render=False,
+    )
+    _add_mesh(api, *_displaced_sphere(n_theta, n_phi))
+    parse_string(
+        """
+AttributeBegin
+Material "metal" "float roughness" [0.05]
+Translate -1.7 -0.15 0.4
+Scale 0.55 0.55 0.55
+""",
+        api,
+        render=False,
+    )
+    _add_mesh(api, *_displaced_sphere(140, 280, seed=11))
+    parse_string(
+        """
+AttributeEnd
+AttributeBegin
+Material "metal" "float roughness" [0.18] "float uroughness" [0.3] "float vroughness" [0.05]
+Translate 1.7 -0.1 0.6
+Scale 0.6 0.6 0.6
+""",
+        api,
+        render=False,
+    )
+    _add_mesh(api, *_displaced_sphere(140, 280, seed=23))
+    parse_string("AttributeEnd\n", api, render=False)
     return api
 
 
