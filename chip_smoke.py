@@ -51,15 +51,34 @@ Phases, each fatal on failure (exit code 1, no result line):
      size (the same rays; images within rtol 1e-4 / atol 1e-5), and the
      512x512 crown at CROWN_SPP (16) through the pool, its kernel launches
      counted as in phase 3;
-  5. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  5. direct — the direct-lighting family (fixed batch, shadow rays as
+     any-hit waves):
+     [direct] both kernels against their plain versions, exact, on the
+     first any-hit shadow wave of the full killeroo's `directlighting`
+     chunk at 128x128x64 (the expand step after the wave's first flush,
+     where answered rays are culled, and the first flush chunk after it;
+     the wave's first of each where no expand follows a flush), timed as
+     in phase 2; that render's Mray/s, its launches and its any-hit
+     waves' counters; `python -m tpu_pbrt_torch.main
+     scenes/cornell-box.pbrt` in a subprocess on the card at the file's
+     own 256x256x16 (brute feature intersector), its image against
+     tests/torch_golden/cornell_direct_cpu_256x256_16spp.npz and its rays
+     (from the checkpoint) against the reference's; the full killeroo
+     under `directlighting` and `ao` (finite maxdistance) at 64x64x16
+     against killeroo_{direct,ao}_cpu_64x64_16spp.npz (MSE bar 1e-4,
+     rays printed beside the reference's, no pair dropped);
+     [samplers] every sampler kind's draws on the card equal the CPU
+     port's bit for bit on a 2^20-item grid (int and per-lane salts, and
+     the Sobol' film jitter);
+  6. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
-  6. summary — one {"kernels": [...]} line (times and bounds at the pool
+  7. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
-     and of the fixed path; the crown's under "crown"), the card's name
-     and power limit
+     and of the fixed path; the crown's under "crown"; the any-hit wave's
+     under "direct"), the card's name and power limit
      (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -77,8 +96,14 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "torch_golden")
 REF_IMAGE = os.path.join(HERE, "refimg", "killeroo_cpu_128x128_256spp.npz")
-CROWN_REF = os.path.join(HERE, "tests", "torch_golden", "crown_cpu_64x64_64spp.npz")
+CROWN_REF = os.path.join(GOLDEN, "crown_cpu_64x64_64spp.npz")
+CORNELL_REF = os.path.join(GOLDEN, "cornell_direct_cpu_256x256_16spp.npz")
+KILLEROO_DIRECT_REF = os.path.join(GOLDEN, "killeroo_{}_cpu_64x64_16spp.npz")
+#: the killeroo directlighting render that is timed and whose first any-hit
+#: wave the kernels are checked on (one chunk of 2^20 camera rays)
+DIRECT_RES, DIRECT_SPP = 128, 64
 MSE_BAR = 1e-4
 #: spp of the 512x512 crown render (the bench's 256 would not fit the time box)
 CROWN_SPP = 16
@@ -130,7 +155,20 @@ def device_time_ms(fn, reps: int, warmup: int = 2):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
     total = sum(by_name.values())
     if total <= 0:
-        raise SmokeFailure("the profiler recorded no device time")
+        # the profiler can come back empty (seen once, late in a run after
+        # the CLI's subprocesses had used the card): time with CUDA events,
+        # which also count the device's idle gaps between the launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        total = start.elapsed_time(end) / reps
+        log(f"[timing] the profiler recorded no device time: CUDA events instead, {total:.4f} ms")
+        if total <= 0:
+            raise SmokeFailure("neither the profiler nor CUDA events recorded device time")
+        by_name = {"(CUDA events)": total}
     return total, by_name
 
 
@@ -183,6 +221,13 @@ def phase_build() -> None:
 
 # -- phase 2 -------------------------------------------------------------------
 
+def _clone(args):
+    """A kernel call's arguments, its tensors copied."""
+    import torch
+
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
 def _hook_kernels(cap, want, past=None):
     """Wrap the stream tracer's two kernel seams: `want()` says whether
     the current call belongs to the traversal being captured; it records
@@ -190,21 +235,16 @@ def _hook_kernels(cap, want, past=None):
     that flush (a popped slab of mixed nodes). With `past` given, the run
     is ended by raising _Captured once the expand is recorded or `past()`
     says the traversal is over. Returns the restore call."""
-    import torch
-
     from tpu_pbrt_torch.accel import stream
 
     real_expand, real_flush = stream.expand, stream.flush_chunk
     n_flush = [0]
 
-    def clone(args):
-        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-
     def expand_hook(*args):
         if past is not None and past():
             raise _Captured
         if want() and n_flush[0] > 0 and "expand" not in cap:
-            cap["expand"] = clone(args)
+            cap["expand"] = _clone(args)
             if past is not None:
                 raise _Captured
         return real_expand(*args)
@@ -215,7 +255,7 @@ def _hook_kernels(cap, want, past=None):
         if want():
             n_flush[0] += 1
             if "flush" not in cap:  # the wave's first chunk: CH = min(512, block capacity)
-                cap["flush"] = clone(args)
+                cap["flush"] = _clone(args)
         return real_flush(*args)
 
     stream.expand, stream.flush_chunk = expand_hook, flush_hook
@@ -772,6 +812,222 @@ def phase_crown_render(scene, integ):
 
 # -- phase 5 -------------------------------------------------------------------
 
+def _capture_anyhit_wave(scene, integ):
+    """Run the render's first chunk up to the end of its first any-hit
+    (shadow) wave, recording that wave's first expand step after its first
+    flush (rays answered by that flush are culled) and the first flush
+    chunk after that expand (its pairs passed the any-hit filter that
+    drops answered rays). Returns (captures, the wave's stats)."""
+    from tpu_pbrt_torch.accel import stream
+
+    cap = {}
+    state = {"in_wave": False, "flushes": 0, "expands": 0}
+    real_p, real_expand, real_flush = stream.stream_intersect_p, stream.expand, stream.flush_chunk
+
+    def intersect_p(tp, o, d, t_max):
+        state["in_wave"] = True
+        state["rays"] = o.shape[0]
+        state["live"] = int((stream._t_max_rows(o, t_max) > 0).sum())
+        hit = real_p(tp, o, d, t_max)
+        state["answered"] = int(hit.sum())
+        raise _Captured
+
+    def expand_hook(*args):
+        if state["in_wave"]:
+            state["expands"] += 1
+            if not args[7]:
+                raise SmokeFailure("direct: the shadow wave's expand is not in any-hit mode")
+            if state["expands"] == 1:
+                cap["first_expand"] = _clone(args)
+            elif state["flushes"] and "expand" not in cap:
+                cap["expand"] = _clone(args)
+        return real_expand(*args)
+
+    def flush_hook(*args):
+        if state["in_wave"]:
+            state["flushes"] += 1
+            if state["flushes"] == 1:
+                cap["first_flush"] = _clone(args)
+            elif "expand" in cap and "flush" not in cap:
+                cap["flush"] = _clone(args)
+        return real_flush(*args)
+
+    plan = integ.prepare_chunks(scene)
+    stream.stream_intersect_p, stream.expand, stream.flush_chunk = (intersect_p, expand_hook,
+                                                                     flush_hook)
+    try:
+        plan.dispatch(scene.film.init_state(scene.device), 0)
+    except _Captured:
+        pass
+    finally:
+        stream.stream_intersect_p, stream.expand, stream.flush_chunk = real_p, real_expand, real_flush
+    if {"first_flush", "first_expand"} - set(cap):
+        raise SmokeFailure(f"direct: could not capture the any-hit wave's kernel inputs ({state})")
+    # a wave whose only flush comes after its last expand step has neither
+    # an expand that culls answered rays nor a flush chunk after it: take
+    # its first of each then
+    state["expand_after_flush"] = "expand" in cap
+    state["flush_after_expand"] = "flush" in cap
+    for k in ("expand", "flush"):
+        first = cap.pop(f"first_{k}")
+        cap.setdefault(k, first)
+    return cap, state
+
+
+def _killeroo_direct(which, res, spp):
+    """The full killeroo under `directlighting` or `ao` on the card, built
+    by the scene function that wrote the JAX CPU references
+    (tests/torch_golden/make_direct_reference.py)."""
+    if GOLDEN not in sys.path:
+        sys.path.insert(0, GOLDEN)
+    from make_direct_reference import killeroo_api
+
+    from tpu_pbrt_torch import scenes
+
+    return scenes.compile_api(killeroo_api(scenes, which, res=res, spp=spp, device="cuda"))
+
+
+def _cornell_cli():
+    """scenes/cornell-box.pbrt through the CLI in a subprocess on the card:
+    (image, rays, seconds)."""
+    import shutil
+    import tempfile
+
+    from tpu_pbrt_torch.parallel.checkpoint import load_checkpoint
+    from tpu_pbrt_torch.utils.imageio import read_pfm
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_direct_")
+    try:
+        cmd = [sys.executable, "-m", "tpu_pbrt_torch.main",
+               os.path.join(HERE, "scenes", "cornell-box.pbrt"), "--quiet",
+               "-o", os.path.join(tmp, "c.pfm"), "--checkpoint", os.path.join(tmp, "c.npz")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise SmokeFailure(f"direct cli: exit {r.returncode}: {r.stderr[-2000:]}")
+        rays = load_checkpoint(os.path.join(tmp, "c.npz"))[2]
+        return read_pfm(os.path.join(tmp, "c.pfm")), rays, secs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _against(label, img, rays, ref, n_drop=0):
+    """MSE of a render against a JAX CPU reference, with the rays beside
+    the reference's; fails past the bar, on a non-finite image or on a
+    dropped pair."""
+    import numpy as np
+
+    want = ref["image"]
+    if img.shape != want.shape or not np.isfinite(img).all():
+        raise SmokeFailure(f"{label}: image shape {img.shape} / finite {np.isfinite(img).all()}")
+    mse = float(np.mean((img.astype(np.float64) - want) ** 2))
+    ref_rays = int(ref["rays_traced"])
+    log(f"[direct] {label}: image mean {img.mean():.6f} (JAX CPU {want.mean():.6f}), MSE {mse:.3e} "
+        f"(bar {MSE_BAR:g}), max |diff| {np.abs(img - want).max():.3e}; rays {rays} (JAX CPU "
+        f"{ref_rays}, {rays - ref_rays:+d}), dropped {n_drop}")
+    if mse > MSE_BAR or n_drop or not want.mean() > 0:
+        raise SmokeFailure(f"{label}: MSE {mse:.3e} > {MSE_BAR:g} or {n_drop} pairs dropped")
+    return mse
+
+
+def phase_direct():
+    """The direct-lighting family on the card (see the module doc, phase 5):
+    the kernels on the any-hit wave and the timed render first, then the
+    renders against the JAX CPU references. Returns {kernel: numbers at
+    the any-hit wave, with the timed render's launches and Mray/s}."""
+    import numpy as np
+
+    scene, integ = _killeroo_direct("direct", DIRECT_RES, DIRECT_SPP)
+    t0 = time.perf_counter()
+    cap, wave = _capture_anyhit_wave(scene, integ)
+    log(f"[direct] any-hit wave: the first shadow wave of chunk 0 ({wave['rays']} rays, "
+        f"{wave['live']} live, {wave['answered']} occluded; {wave['expands']} expand steps, "
+        f"{wave['flushes']} flush chunks; expand captured after a flush: "
+        f"{wave['expand_after_flush']}, flush chunk after that expand: "
+        f"{wave['flush_after_expand']}) in {time.perf_counter() - t0:.2f} s")
+    count = scene.dev["tstream"].count
+    out = {"flush_chunk": _flush_numbers(cap["flush"], count, "any-hit wave", exact=True),
+           "expand": _expand_numbers(cap["expand"], "any-hit wave")}
+    del cap
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_render(f"killeroo directlighting {DIRECT_RES}x{DIRECT_RES}x{DIRECT_SPP}", res, launches)
+    anyhit = res.stats["wave_modes"]["any_hit"]
+    log(f"[direct] killeroo directlighting {DIRECT_RES}x{DIRECT_RES}x{DIRECT_SPP}: "
+        f"{res.mray_per_sec:.4f} Mray/s, {res.rays_traced} rays in {res.seconds:.3f} s; any-hit "
+        f"waves {anyhit['waves']}: {anyhit['iters_per_wave_mean']:.2f} iterations, "
+        f"{anyhit['host_reads_per_wave_mean']:.2f} host reads, "
+        f"{anyhit['expand_calls_per_wave_mean']:.2f} expand and "
+        f"{anyhit['flush_calls_per_wave_mean']:.2f} flush launches per wave; closest-hit "
+        f"{json.dumps(res.stats['wave_modes']['closest_hit'])}")
+    if not np.isfinite(res.image).all() or res.stats["n_drop"]:
+        raise SmokeFailure("killeroo directlighting: non-finite image or pairs dropped")
+    for name in out:
+        out[name].update(launches=launches[name], mray_per_sec=res.mray_per_sec,
+                         launches_anyhit=anyhit["expand_calls" if name == "expand"
+                                                else "flush_calls"],
+                         res=DIRECT_RES, spp=DIRECT_SPP)
+    del scene, integ
+
+    img, rays, secs = _cornell_cli()
+    log(f"[direct] cornell-box.pbrt through the CLI: {img.shape[1]}x{img.shape[0]} "
+        f"(16 spp), {secs:.1f} s in the subprocess")
+    _against("cornell-box.pbrt directlighting 256x256x16", img, rays, np.load(CORNELL_REF))
+
+    for which in ("direct", "ao"):
+        scene, integ = _killeroo_direct(which, 64, 16)
+        res, launches = _render_counted(integ, scene, regen=False)
+        _log_render(f"killeroo {which} 64x64x16", res, launches)
+        _against(f"killeroo {which} 64x64x16", res.image, res.rays_traced,
+                 np.load(KILLEROO_DIRECT_REF.format(which)), res.stats["n_drop"])
+        if not res.stats["wave_modes"].get("any_hit", {}).get("waves"):
+            raise SmokeFailure(f"killeroo {which}: no any-hit wave was traced")
+        del scene, integ
+    return out
+
+
+def phase_samplers():
+    """Every sampler kind's draws on the card against the CPU port's, bit for
+    bit, on a 2^20-item grid: int and per-lane salts, and the Sobol' film
+    jitter."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from tpu_pbrt_torch.core import sampling
+    from tpu_pbrt_torch.integrators.common import WavefrontIntegrator
+
+    n, spp = 1 << 20, 12
+    g = torch.Generator().manual_seed(5)
+    px, py = torch.randint(0, 4096, (2, n), dtype=torch.int32, generator=g)
+    s = torch.randint(0, spp, (n,), dtype=torch.int32, generator=g)
+    salt = torch.randint(0, 400, (n,), dtype=torch.int32, generator=g)
+    cpu = (px, py, s)
+    gpu = tuple(x.cuda() for x in cpu)
+    t0 = time.perf_counter()
+    checked = 0
+    for kind in ("random", "02", "stratified", "halton", "sobol"):
+        for sl_c, sl_g in ((23, 23), (salt, salt.cuda())):
+            for fn in (sampling.sample_1d, sampling.sample_2d):
+                a = fn(kind, spp, *cpu, sl_c)
+                b = fn(kind, spp, *gpu, sl_g)
+                for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+                    checked += 1
+                    if not torch.equal(x.view(torch.int32), y.cpu().view(torch.int32)):
+                        raise SmokeFailure(f"samplers: {kind} {fn.__name__} differs on the card")
+    self_ = SimpleNamespace(skind="sobol", _sobol_m=12)
+    for x, y in zip(WavefrontIntegrator.film_jitter(self_, *cpu),
+                    WavefrontIntegrator.film_jitter(self_, *gpu)):
+        checked += 1
+        if not torch.equal(x.view(torch.int32), y.cpu().view(torch.int32)):
+            raise SmokeFailure("samplers: the Sobol' film jitter differs on the card")
+    log(f"[samplers] {checked} draws of 2^20 items (random, 02, stratified, halton, sobol at "
+        f"spp {spp}; int and per-lane salts; the Sobol' film jitter): the card's equal the CPU "
+        f"port's bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 6 -------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -836,7 +1092,7 @@ def phase_cli(device: str = "cuda") -> None:
 
 def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
-            and os.path.exists(CROWN_REF)):
+            and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
         return 1
@@ -873,6 +1129,9 @@ def main() -> int:
         claunches, c64_pool, c64_fixed, cres = phase_crown_render(cscene, cinteg)
         del cscene, cinteg
         torch.cuda.empty_cache()
+        dt = phase_direct()
+        torch.cuda.empty_cache()
+        phase_samplers()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -881,8 +1140,8 @@ def main() -> int:
                          mray_per_sec=cres.mray_per_sec)
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
-                     crown=crown)
-            k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"])
+                     crown=crown, direct=dt[name])
+            k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"])
             return k
 
         kernels = [

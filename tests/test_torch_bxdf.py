@@ -35,6 +35,10 @@ import torch
 from tpu_pbrt.core import bxdf as jb
 from tpu_pbrt_torch.core import bxdf as tb
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 N = 4096
 RTOL, ATOL = 1e-5, 2e-6
 #: the cap every sampled lane must meet, and the share that must meet (RTOL, ATOL)

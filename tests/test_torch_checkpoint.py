@@ -27,6 +27,10 @@ from tpu_pbrt_torch.integrators.common import ChunkPlan
 from tpu_pbrt_torch.parallel import checkpoint as tck
 from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 FP = "chunk=1024;spp=4;total=1024;tris=532;film=16x16;crop=(0, 16, 0, 16)"
 COUNTERS = {"rays_traced": 2911, "film_deposits": 1024, "occupancy_histogram": [3, 1, 0, 7]}
 TINY = dict(res=8, spp=4, n_theta=12, n_phi=24, maxdepth=2)

@@ -26,6 +26,10 @@ from tpu_pbrt_torch.parallel import checkpoint as tck
 from tpu_pbrt_torch.scene import api
 from tpu_pbrt_torch.utils.imageio import read_pfm
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(ROOT, "scenes", "cornell-path.pbrt")
 

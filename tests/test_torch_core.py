@@ -39,6 +39,10 @@ from tpu_pbrt_torch.core.film import Film as TFilm
 from tpu_pbrt_torch.integrators.common import WavefrontIntegrator as TWave
 from tpu_pbrt_torch.scene.paramset import ParamSet as TParamSet
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 RTOL = 1e-6
 
 
@@ -88,7 +92,7 @@ def test_zero_two_sampler_bits(work, spp, salt):
 def test_film_jitter_bits(work):
     px, py, s = work
     fx_j, fy_j = JWave.film_jitter(types.SimpleNamespace(skind="02"), px, py, s)
-    fx_t, fy_t = TWave.film_jitter(None, _t(px), _t(py), _t(s))
+    fx_t, fy_t = TWave.film_jitter(types.SimpleNamespace(skind="02"), _t(px), _t(py), _t(s))
     np.testing.assert_array_equal(fx_t.numpy().view(np.int32), np.asarray(fx_j).view(np.int32))
     np.testing.assert_array_equal(fy_t.numpy().view(np.int32), np.asarray(fy_j).view(np.int32))
 

@@ -45,6 +45,10 @@ from tpu_pbrt_torch.core.spectrum import luminance
 from tpu_pbrt_torch.scene.api import Options, parse_string, pbrt_init
 from tpu_pbrt_torch.utils.imageio import read_pfm, write_image
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "torch_golden", "crown_small.npz")
 GOLDEN_POOL = os.path.join(HERE, "torch_golden", "crown_small_pool.npz")

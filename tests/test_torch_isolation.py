@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 - A fresh interpreter imports every module of tpu_pbrt_torch and renders
-  a tiny scene on the CPU; afterwards no `jax*` and no `tpu_pbrt.` module
-  may be loaded.
+  tiny scenes on the CPU (`path`, and `directlighting`, `whitted` and
+  `ao` under the sobol, halton and stratified samplers); afterwards no
+  `jax*` and no `tpu_pbrt.` module may be loaded.
 - A scan of the port's sources finds no import that names either.
 - With no GPU, the entry points' default device (CUDA) raises instead of
   falling back to the CPU.
@@ -18,6 +19,10 @@ import torch
 
 import tpu_pbrt_torch
 from tpu_pbrt_torch.config import resolve_device
+
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(tpu_pbrt_torch.__file__))
@@ -41,6 +46,11 @@ Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0
 WorldEnd
 """, render=True, device="cpu")
 assert api.result.image.shape == (4, 4, 3) and api.result.image.max() > 0
+from tpu_pbrt_torch import scenes
+for integ, sampler in (("directlighting", "sobol"), ("whitted", "halton"), ("ao", "stratified")):
+    scene, ig = scenes.compile_api(scenes.make_cornell(res=4, spp=2, integrator=integ,
+                                                       sampler=sampler, device="cpu"))
+    assert ig.render(scene).image.max() > 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "tpu_pbrt.")) or n == "tpu_pbrt")
 print("FOREIGN", bad)

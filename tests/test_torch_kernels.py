@@ -28,6 +28,10 @@ from tpu_pbrt_torch.kernels.expand import expand, expand_plain
 from tpu_pbrt_torch.kernels.fixtures import flush_inputs
 from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 I32_MAX = 2**31 - 1
 
 

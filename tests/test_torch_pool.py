@@ -43,6 +43,10 @@ from tpu_pbrt_torch.core.film import merge_film
 from tpu_pbrt_torch.obs import counters as tcounters
 from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "torch_golden", "killeroo_small_pool.npz")
 SMALL = dict(res=16, spp=4, n_theta=12, n_phi=24, maxdepth=5)
 POOL_STATS = ("pool", "n_waves", "mean_wave_occupancy", "regen")

@@ -113,7 +113,7 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
 
 @pytest.mark.parametrize("field,value", [
     ("mat", "uber"), ("shape", "sphere"), ("light", "spot"),
-    ("sampler", "halton"), ("integ", "bdpt"),
+    ("integ", "volpath"), ("integ", "bdpt"),
 ])
 def test_unported_directives_raise(field, value):
     text = _BASE.format(**{**_OK, field: value})
@@ -129,16 +129,22 @@ def test_supported_directives_render():
 
 def test_cornell_defaults_match_reference():
     """make_cornell and cornell_box_text default to the reference's
-    integrator; the port has no `directlighting` yet, so compiling the
-    default Cornell box names it as not ported."""
+    integrator, `directlighting`, and the default Cornell box compiles and
+    renders through it."""
     import inspect
+
+    from tpu_pbrt_torch.integrators.direct import DirectLightingIntegrator
 
     for fn in ("make_cornell", "cornell_box_text"):
         ours = inspect.signature(getattr(tscenes, fn)).parameters
         ref = inspect.signature(getattr(jscenes, fn)).parameters
         assert ours["integrator"].default == ref["integrator"].default == "directlighting", fn
-    with pytest.raises(PbrtError, match="directlighting.*not ported"):
-        tscenes.compile_api(tscenes.make_cornell(res=8, spp=1, device="cpu"))
+        assert ours["sampler"].default == ref["sampler"].default, fn
+    scene, integ = tscenes.compile_api(tscenes.make_cornell(res=8, spp=1, device="cpu"))
+    assert isinstance(integ, DirectLightingIntegrator) and integ.strategy == "all"
+    res = integ.render(scene)
+    assert res.image.shape == (8, 8, 3) and np.isfinite(res.image).all()
+    assert res.image.max() > 0 and res.rays_traced > 8 * 8
 
 
 def _compile_both(text_of, leaf_tris=None, tmp=None):

@@ -24,6 +24,10 @@ from tpu_pbrt.accel.treelet import build_treelet_pack as jbuild_pack
 from tpu_pbrt_torch.accel import stream as tstream
 from tpu_pbrt_torch.scene.bridge import treelet_pack_from_numpy
 
+# pytest-xdist runs the suite in several worker processes, each of which
+# would start one torch CPU thread per core and oversubscribe the machine
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def case():

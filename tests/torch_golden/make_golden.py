@@ -22,16 +22,33 @@ The tests build it from the same text. Rendered the same two ways:
 - `crown_small_pool.npz` (tests/test_torch_envlight.py): the pool with
   256 slots, with its waves and counters.
 
+The direct-lighting family (tests/test_torch_direct.py) renders through
+the fixed-batch chunk loop, as the reference gives it. `DIRECT_CASES`
+below names each golden's scene (the Cornell box of
+`cornell_box_text` at 16x16, 4 spp, maxdepth 5, which takes the brute
+feature intersector; or the small killeroo above), its integrator with
+its parameters, and its sampler:
+
+- `cornell_direct.npz`: `directlighting` (strategy "all");
+- `cornell_direct_one.npz`: `directlighting` "one" under `sobol`;
+- `cornell_ao.npz`: `ao` with a finite `maxdistance` and uniform
+  hemisphere sampling, under `stratified`;
+- `killeroo_direct.npz`: `directlighting` on the small killeroo (an area
+  and a point light, so two light rows);
+- `killeroo_ao.npz`: `ao` with a finite `maxdistance` on the small
+  killeroo under `halton`.
+
 The JAX renders alone take longer here than the port's test budget
 allows (most of it compiling), so the tests read these files instead.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py \
-        [fixed|pool|crown|crown_pool|all]
+        [fixed|pool|crown|crown_pool|<a DIRECT_CASES name>|direct|all]
 
-It rewrites the named golden(s) (default: all) and records the commit of
-the JAX package it rendered with.
+It rewrites the named golden(s) (default: all; "direct": every
+DIRECT_CASES golden) and records the commit of the JAX package it
+rendered with.
 """
 
 import json
@@ -50,6 +67,42 @@ OUT_POOL = os.path.join(HERE, "killeroo_small_pool.npz")
 OUT_CROWN = os.path.join(HERE, "crown_small.npz")
 OUT_CROWN_POOL = os.path.join(HERE, "crown_small_pool.npz")
 TARGETS = ("fixed", "pool", "crown", "crown_pool")
+#: the Cornell box of the direct-lighting goldens
+CORNELL = dict(res=16, spp=4, maxdepth=5)
+#: golden name -> (scene, integrator, integrator parameters, sampler)
+DIRECT_CASES = {
+    "cornell_direct": ("cornell", "directlighting", (), "zerotwosequence"),
+    "cornell_direct_one": ("cornell", "directlighting", (("string strategy", ["one"]),), "sobol"),
+    "cornell_ao": ("cornell", "ao", (("float maxdistance", [0.5]), ("bool cossample", [False])),
+                   "stratified"),
+    "killeroo_direct": ("killeroo", "directlighting", (), "zerotwosequence"),
+    "killeroo_ao": ("killeroo", "ao", (("float maxdistance", [0.5]),), "halton"),
+}
+
+
+def configure(api, integrator: str, params=(), sampler=None):
+    """Set a parsed scene's integrator (with parameters given as
+    (declaration, values) pairs) and sampler; works on either package's
+    API object."""
+    ro = api.render_options
+    ro.integrator_name = integrator
+    for decl, values in params:
+        ro.integrator_params.add(decl, values)
+    if sampler is not None:
+        ro.sampler_name = sampler
+    return api
+
+
+def direct_case_api(scenes, name: str, device_kw=None):
+    """The parsed scene of DIRECT_CASES[name], built with `scenes` (either
+    package's scenes module); device_kw goes to the scene builder."""
+    scene, integ, params, sampler = DIRECT_CASES[name]
+    kw = dict(device_kw or {})
+    if scene == "cornell":
+        api = scenes.make_cornell(**CORNELL, **kw)
+    else:
+        api = scenes.make_killeroo_like(**SMALL, **kw)
+    return configure(api, integ, params, sampler)
 
 
 def crown_small_sky():
@@ -206,8 +259,9 @@ def _write(path, scene, res, commit, pool: bool):
 
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in TARGETS + ("all",):
-        raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(TARGETS)}|all]")
+    names = TARGETS + tuple(DIRECT_CASES) + ("direct", "all")
+    if which not in names:
+        raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(names)}]")
     root = os.path.dirname(os.path.dirname(HERE))
     sys.path.insert(0, root)
 
@@ -217,6 +271,31 @@ def main() -> None:
             pool = target.endswith("pool")
             scene, res = _render(regen=pool, crown=target.startswith("crown"))
             _write(path, scene, res, commit, pool)
+    for name in DIRECT_CASES:
+        if which in (name, "direct", "all"):
+            _write_direct(name, commit)
+
+
+def _write_direct(name: str, commit: str) -> None:
+    import numpy as np
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    from tpu_pbrt import config, scenes
+
+    config.reload()
+    scene, integ = scenes.compile_api(direct_case_api(scenes, name))
+    assert ("tstream" in scene.dev) == name.startswith("killeroo")
+    res = integ.render(scene)
+    path = os.path.join(HERE, f"{name}.npz")
+    np.savez_compressed(
+        path,
+        image=np.asarray(res.image, np.float32),
+        rays_traced=np.int64(res.rays_traced),
+        n_tris=np.int64(scene.n_tris),
+        jax_commit=np.array(commit),
+    )
+    print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 A second package beside the JAX reference (tpu_pbrt/, unchanged): it
 parses .pbrt scenes, compiles them to flat tensors and renders them with
-the wavefront path integrator on a CUDA device, the stream tracer's two
-dense stages running as hand-written Hopper kernels (kernels/, csrc/).
+the wavefront integrators (path, directlighting, whitted, ao) on a CUDA
+device, the stream tracer's two dense stages running as hand-written
+Hopper kernels (kernels/, csrc/).
 It imports torch and numpy only. Entry points run on CUDA unless the
 caller passes device="cpu".
 

@@ -65,10 +65,12 @@ class WaveTally:
     counter reads and each flush's block count) and the integrator
     loop's own host reads (one per bounce or pool wave, `add_loop_read`).
     `drops` sums the waves' n_drop (pairs lost to worklist capacity) on
-    the device, so counting them costs no host read. The render loop
-    resets and reads it."""
+    the device, so counting them costs no host read. `by_mode` splits
+    waves, iterations, host reads and kernel-wrapper calls (expand,
+    flush_chunk) between closest-hit and any-hit (shadow) waves, whose
+    loops end differently. The render loop resets and reads it."""
 
-    __slots__ = ("waves", "iters", "iters_max", "host_reads", "loop_reads", "drops")
+    __slots__ = ("waves", "iters", "iters_max", "host_reads", "loop_reads", "drops", "by_mode")
 
     def __init__(self):
         self.reset()
@@ -76,13 +78,33 @@ class WaveTally:
     def reset(self) -> None:
         self.waves = self.iters = self.iters_max = self.host_reads = self.loop_reads = 0
         self.drops = 0
+        self.by_mode = {}
 
-    def add(self, iters: int, host_reads: int, n_drop=0) -> None:
+    def add(self, iters: int, host_reads: int, n_drop=0, any_hit: bool = False,
+            expand_calls: int = 0, flush_calls: int = 0) -> None:
         self.waves += 1
         self.iters += iters
         self.iters_max = max(self.iters_max, iters)
         self.host_reads += host_reads
         self.drops = self.drops + n_drop
+        m = self.by_mode.setdefault("any_hit" if any_hit else "closest_hit", {
+            "waves": 0, "iters": 0, "host_reads": 0, "expand_calls": 0, "flush_calls": 0})
+        m["waves"] += 1
+        m["iters"] += iters
+        m["host_reads"] += host_reads
+        m["expand_calls"] += expand_calls
+        m["flush_calls"] += flush_calls
+
+    def mode_stats(self) -> dict:
+        """Per-mode totals with their per-wave means."""
+        out = {}
+        for mode, m in self.by_mode.items():
+            w = max(m["waves"], 1)
+            out[mode] = dict(m, iters_per_wave_mean=m["iters"] / w,
+                             host_reads_per_wave_mean=m["host_reads"] / w,
+                             expand_calls_per_wave_mean=m["expand_calls"] / w,
+                             flush_calls_per_wave_mean=m["flush_calls"] / w)
+        return out
 
     def add_loop_read(self) -> None:
         self.loop_reads += 1
@@ -109,6 +131,7 @@ class _SState(NamedTuple):
     n_exp: torch.Tensor  # i32 stat: pairs expanded
     n_tl: torch.Tensor  # i32 stat: (ray, treelet) block-slot tests
     iters: int  # loop iterations (host count)
+    flush_calls: int  # flush_chunk calls (host count)
 
 
 def _sizes(R: int):
@@ -308,6 +331,7 @@ def _flush(tp: TreeletPack, s: _SState, lb: int, any_hit: bool) -> _SState:
     return s._replace(
         rayE=rayE, rayF=rayF, prim=prim,
         n_lf=torch.zeros_like(s.n_lf), n_tl=n_tl, iters=s.iters + 1,
+        flush_calls=s.flush_calls + -(-n_blocks // chunk),
     )
 
 
@@ -346,10 +370,10 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
         lf_tid=torch.full((lb + s8,), -1, dtype=torch.int32, device=dev),
         n_lf=zero,
         n_drop=zero, n_exp=zero, n_tl=zero,
-        iters=0,
+        iters=0, flush_calls=0,
     )
     dead = t_max <= 0.0
-    reads = 0
+    reads = expands = 0
     while s.iters < _MAX_ITERS:
         # the loop test: one host read of the worklist counters per
         # iteration (plus, for shadow waves, whether every live ray is done)
@@ -368,7 +392,9 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
             reads += 1  # the flush's block count
         else:
             s = _expand(tp, box48, cid, s, n_stk, n_lf, slab, w, lb, any_hit)
-    WAVES.add(s.iters, reads, s.n_drop)
+            expands += 1
+    WAVES.add(s.iters, reads, s.n_drop, any_hit=any_hit, expand_calls=expands,
+              flush_calls=s.flush_calls)
     return s
 
 

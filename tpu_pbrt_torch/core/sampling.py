@@ -1,6 +1,5 @@
-"""Counter-based sampling, warps, Distribution1D and MIS (port of
-tpu_pbrt/core/sampling.py, the parts the (0,2)-sequence sampler and the
-matte path estimator use).
+"""Counter-based sampling, warps, the five samplers' streams,
+Distribution1D/2D and MIS (port of tpu_pbrt/core/sampling.py).
 
 Every random number is a pure hash of (pixel, sample, dimension), so the
 port draws exactly the reference's sample streams. The reference hashes
@@ -106,6 +105,16 @@ def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * (1.0 / np.pi)
 
 
+def uniform_sample_hemisphere(u1, u2):
+    z = u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * np.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+UNIFORM_HEMISPHERE_PDF = 1.0 / (2.0 * np.pi)
+
+
 def uniform_sample_triangle(u1, u2):
     """Returns barycentrics (b0, b1) (sqrt warp)."""
     su0 = torch.sqrt(u1)
@@ -194,13 +203,304 @@ def sobol_2d(n, scramble_x=0, scramble_y=0):
     return _to_unit(x), _to_unit(y)
 
 
+# -------------------------------------------------------------------------
+# Stratified, Halton and Sobol' streams (pbrt stratified.cpp,
+# lowdiscrepancy.h, sobol.cpp + sobolmatrices.cpp as the reference
+# rebuilds them)
+# -------------------------------------------------------------------------
+
+def _div(x, n: int):
+    """x / n as an IEEE division on every device (CUDA turns a division by
+    a host scalar into a multiply by its reciprocal)."""
+    return x / torch.full_like(x, float(n))
+
+
+def stratified_1d(sample_index, n_strata: int, *key_parts):
+    """Jittered stratified sample: cell = perm(sample_index), jitter inside."""
+    seed = hash_u32(*key_parts, 0x517A)
+    cell = permutation_element(sample_index, n_strata, seed).to(torch.float32)
+    u = uniform_float(*key_parts, 0x11D7)
+    return torch.clamp(_div(cell + u, n_strata), max=ONE_MINUS_EPSILON)
+
+
+def stratified_2d(sample_index, sx: int, sy: int, *key_parts):
+    """Jittered 2D stratification over an sx x sy grid."""
+    seed = hash_u32(*key_parts, 0x2F83)
+    cell = permutation_element(sample_index, sx * sy, seed)
+    cx = (cell % sx).to(torch.float32)
+    cy = torch.div(cell, sx, rounding_mode="floor").to(torch.float32)
+    u1 = uniform_float(*key_parts, 0x9E01)
+    u2 = uniform_float(*key_parts, 0xC6A3)
+    return (torch.clamp(_div(cx + u1, sx), max=ONE_MINUS_EPSILON),
+            torch.clamp(_div(cy + u2, sy), max=ONE_MINUS_EPSILON))
+
+
+def _primes(n):
+    out, c = [], 2
+    while len(out) < n:
+        if all(c % p for p in out):
+            out.append(c)
+        c += 1
+    return out
+
+
+#: prime bases for the Halton sampler's dimensions
+PRIMES = _primes(64)
+
+
+def radical_inverse_prime(base: int, n, scramble_seed=None):
+    """ScrambledRadicalInverse for a static prime base: digit reversal with
+    an optional seeded (a*d + c) mod b digit permutation. The digits
+    accumulate in f32, one product and one sum per digit, in the
+    reference's order."""
+    if base == 2:
+        return radical_inverse_base2(n, 0 if scramble_seed is None else scramble_seed)
+    n = _u32(n)
+    digits = int(np.ceil(32 / np.log2(base)))
+    inv_base = np.float32(1.0 / base)
+    if scramble_seed is not None:
+        seed = _u32(scramble_seed, n.device)
+        a = seed % (base - 1) + 1  # coprime to the prime base
+        c = (seed >> 8) % base
+    out = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    factor = np.float32(1.0)
+    for _ in range(digits):
+        d = n % base
+        if scramble_seed is not None:
+            d = (a * d + c) % base
+        factor = factor * inv_base
+        out = out + d.to(torch.float32) * float(factor)
+        n = torch.div(n, base, rounding_mode="floor")
+    return torch.clamp(out, max=ONE_MINUS_EPSILON)
+
+
+N_SOBOL_DIMS = 64
+_SOBOL_BITS = 32
+
+
+def _pascal_matrix():
+    """MSB-aligned direction numbers of the Pascal (binomial mod 2) matrix:
+    the classical Sobol' dimension 2."""
+    v = np.zeros(_SOBOL_BITS, np.uint64)
+    ms = [1]
+    for i in range(1, _SOBOL_BITS):
+        m = ms[-1] ^ (ms[-1] << 1)  # x+1 recurrence => Pascal columns
+        ms.append(m & ((1 << (i + 1)) - 1))
+    for k in range(_SOBOL_BITS):
+        v[k] = np.uint64(ms[k]) << np.uint64(31 - k)
+    return v
+
+
+def _lower_tri_scramble(v_cols, seed):
+    """A hash-seeded unit-lower-triangular (MSB-first) linear scramble of a
+    32-column direction matrix (a linear Owen scramble)."""
+    rows = np.zeros(_SOBOL_BITS, np.uint64)
+    state = np.uint64(seed * 2654435761 % (1 << 32))
+    for p in range(_SOBOL_BITS):
+        state = np.uint64((int(state) * 6364136223846793005 + 1442695040888963407) % (1 << 64))
+        rand_low = int(state >> np.uint64(33)) & ((1 << (31 - p)) - 1)
+        rows[p] = (np.uint64(1) << np.uint64(31 - p)) | np.uint64(rand_low)
+    out = np.zeros_like(v_cols)
+    for k in range(_SOBOL_BITS):
+        acc = np.uint64(0)
+        col = int(v_cols[k])
+        for p in range(_SOBOL_BITS):
+            if (col >> (31 - p)) & 1:
+                acc ^= rows[p]
+        out[k] = acc
+    return out
+
+
+def _build_sobol_matrices():
+    """(N_SOBOL_DIMS, 32) uint32 direction-number table, MSB-aligned: dims
+    0/1 van der Corput + Pascal, every later pair (2k, 2k+1) a linearly
+    Owen-scrambled copy of that pair."""
+    v = np.zeros((N_SOBOL_DIMS, _SOBOL_BITS), np.uint64)
+    for k in range(_SOBOL_BITS):
+        v[0, k] = np.uint64(1) << np.uint64(31 - k)
+    v[1] = _pascal_matrix()
+    for pair in range(1, N_SOBOL_DIMS // 2):
+        v[2 * pair] = _lower_tri_scramble(v[0], 2 * pair + 17)
+        v[2 * pair + 1] = _lower_tri_scramble(v[1], 2 * pair + 18)
+    return v.astype(np.uint32)
+
+
+_SOBOL_CACHE: dict = {}
+
+
+def _sobol_matrices() -> np.ndarray:
+    """The direction-number table, built on the host once per process."""
+    if "v" not in _SOBOL_CACHE:
+        _SOBOL_CACHE["v"] = _build_sobol_matrices()
+    return _SOBOL_CACHE["v"]
+
+
+def _sobol_table(device) -> torch.Tensor:
+    """The table as int64 uint32 values on `device` (cached per device)."""
+    key = str(device)
+    if key not in _SOBOL_CACHE:
+        _SOBOL_CACHE[key] = torch.from_numpy(_sobol_matrices().astype(np.int64)).to(device)
+    return _SOBOL_CACHE[key]
+
+
+def _gf2_inv(mat):
+    """Invert a binary matrix (lists of row bitmasks) over GF(2)."""
+    n = len(mat)
+    a = list(mat)
+    inv = [1 << i for i in range(n)]
+    for col in range(n):
+        piv = next(r for r in range(col, n) if (a[r] >> col) & 1)
+        a[col], a[piv] = a[piv], a[col]
+        inv[col], inv[piv] = inv[piv], inv[col]
+        for r in range(n):
+            if r != col and ((a[r] >> col) & 1):
+                a[r] ^= a[col]
+                inv[r] ^= inv[col]
+    return inv
+
+
+def _remap_tables(m: int):
+    """SobolIntervalToIndex's tables for the 2^m x 2^m pixel grid: (hi, inv)
+    as lists of ints (cached per m). inv maps target pixel bits (x << m |
+    y) to the low 2m index bits; hi[c] is frame bit c's contribution to
+    the pixel bits."""
+    key = ("remap", m)
+    if key not in _SOBOL_CACHE:
+        v = _sobol_matrices()
+        fwd = [((int(v[0, c]) >> (32 - m)) << m) | (int(v[1, c]) >> (32 - m))
+               for c in range(2 * m)]
+        hi = [((int(v[0, c + 2 * m]) >> (32 - m)) << m) | (int(v[1, c + 2 * m]) >> (32 - m))
+              for c in range(_SOBOL_BITS - 2 * m)]
+        _SOBOL_CACHE[key] = (hi, _gf2_inv(fwd))
+    return _SOBOL_CACHE[key]
+
+
+def sobol_interval_to_index(m: int, frame, px, py):
+    """SobolSampler's global index remap: the index whose dims 0/1 land
+    sample `frame` in pixel (px, py) of the 2^m x 2^m grid (int64 values;
+    the caller keeps them below 2^31, as the reference's int32 does)."""
+    frame = frame.to(torch.int64)
+    if m == 0:
+        return frame
+    hi, inv = _remap_tables(m)
+    index = frame << (2 * m)
+    delta = torch.zeros_like(px, dtype=torch.int64)
+    for c, h in enumerate(hi):
+        delta = delta ^ (((frame >> c) & 1) * h)
+    b = ((px.to(torch.int64) << m) | py.to(torch.int64)) ^ delta
+    for c in range(2 * m):
+        index = index ^ (((b >> c) & 1) * inv[c])
+    return index
+
+
+def _sobol_raw_bits(index, dim):
+    """32-bit Sobol' value of `index` in dimension `dim` (an int or a
+    per-lane tensor), before scrambling, as int64 in [0, 2^32)."""
+    index = _u32(index)
+    table = _sobol_table(index.device)
+    if torch.is_tensor(dim):
+        cols = table[(dim.to(torch.int64) % N_SOBOL_DIMS)]  # (..., 32)
+        col = lambda k: cols[..., k]  # noqa: E731
+    else:
+        row = table[int(dim) % N_SOBOL_DIMS]
+        col = lambda k: row[k]  # noqa: E731
+    out = torch.zeros_like(index)
+    for k in range(_SOBOL_BITS):
+        out = out ^ (((index >> k) & 1) * col(k))
+    return out
+
+
+def _fast_owen(bits, seed):
+    """Laine-Karras hash-based nested scramble on MSB-aligned bits."""
+    v = reverse_bits_32(bits)
+    v = (v + _u32(seed, v.device)) & _M32
+    for mult in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        v = v ^ _mul32(v, mult)
+    return reverse_bits_32(v)
+
+
+_SOBOL_MAX = float(np.float32(1.0 - 1e-7))
+
+
+def sobol_sample(index, dim, scramble_seed=None):
+    """U[0,1) Sobol' sample of `index` in dimension `dim`, fast-Owen
+    scrambled when a seed is given."""
+    bits = _sobol_raw_bits(index, dim)
+    if scramble_seed is not None:
+        bits = _fast_owen(bits, scramble_seed)
+    return torch.clamp(bits.to(torch.float32) * _TO_UNIT, max=_SOBOL_MAX)
+
+
+def sobol_resolution_log2(res_xy) -> int:
+    """The SobolSampler's pixel grid: the smallest 2^m x 2^m grid covering
+    the film. Returns m."""
+    m = 0
+    while (1 << m) < max(int(res_xy[0]), int(res_xy[1])):
+        m += 1
+    return m
+
+
+def _sobol_dim_draw(px, py, s, salt, which: int, spp: int):
+    """Decision-dimension Sobol' draw: pair (2k, 2k+1) for salt k, indexed
+    by the per-pixel shuffled sample rank, per-pixel fast-Owen scrambled
+    (the padded construction)."""
+    n_pairs = N_SOBOL_DIMS // 2 - 1
+    sp = permutation_element(s, spp, hash_u32(px, py, salt, 0x5A11))
+    if torch.is_tensor(salt):
+        dim = 2 + 2 * (salt.to(torch.int64) % n_pairs) + which
+    else:
+        dim = 2 + 2 * (int(salt) % n_pairs) + which
+    seed = hash_u32(px, py, salt, 0x193 + 0x7FEB * which)
+    return sobol_sample(sp, dim, seed)
+
+
+#: joint 2D bases of the Halton pair dimensions, chosen by salt % 6
+_HALTON_PAIRS = [(2, 3), (5, 7), (3, 5), (7, 2), (2, 5), (3, 7)]
+
+
+def _halton_2d(spp: int, px, py, s, salt):
+    """The joint prime-base pair at a shared shuffled index. A per-lane
+    (tensor) salt evaluates every pair and selects by salt % 6, which is
+    what the reference's lax.switch computes for each lane."""
+    seed = hash_u32(px, py, salt, 0x62B)
+    sp = permutation_element(s, spp, hash_u32(px, py, salt, 0xD47))
+
+    def pair(b1, b2):
+        return radical_inverse_prime(b1, sp, seed), radical_inverse_prime(b2, sp, seed >> 7)
+
+    if not torch.is_tensor(salt):
+        return pair(*_HALTON_PAIRS[int(salt) % len(_HALTON_PAIRS)])
+    which = salt.to(torch.int64) % len(_HALTON_PAIRS)
+    u = v = None
+    for k, (b1, b2) in enumerate(_HALTON_PAIRS):
+        pu, pv = pair(b1, b2)
+        u = pu if u is None else torch.where(which == k, pu, u)
+        v = pv if v is None else torch.where(which == k, pv, v)
+    return u, v
+
+
+# -------------------------------------------------------------------------
+# Sampler plugin dispatch. Every draw is a pure function of (px, py,
+# sample index, dimension salt); the kind selects each dimension's stream:
+# "random" the counter hash, "stratified" jittered strata shuffled per
+# (pixel, dimension), "02" shuffled and scrambled (0,2)-sequence pairs,
+# "sobol" the padded Sobol' construction, "halton" per-pixel scrambled
+# prime-base pairs. `salt` is an int or a per-lane int tensor.
+# -------------------------------------------------------------------------
+
 def sample_1d(kind: str, spp: int, px, py, s, salt):
-    """One U[0,1) draw for dimension `salt` under sampler `kind`
-    ("02" = the (0,2)-sequence family; "random" or spp <= 1 = hashed)."""
+    """One U[0,1) draw for dimension `salt` under sampler `kind`."""
     if kind == "random" or spp <= 1:
         return uniform_float(px, py, s, salt)
-    if kind != "02":
-        raise NotImplementedError(f"sampler kind {kind!r} is not ported yet")
+    if kind == "sobol":
+        return _sobol_dim_draw(px, py, s, salt, 0, spp)
+    if kind == "stratified":
+        return stratified_1d(s, spp, px, py, salt)
+    if kind == "halton":
+        # base 2 with a per-dimension shuffle and XOR scramble; Halton's
+        # joint prime-base structure lives in sample_2d's pairs
+        sp = permutation_element(s, spp, hash_u32(px, py, salt, 0x6E5))
+        return radical_inverse_base2(sp, hash_u32(px, py, salt, 0x4A1))
     sp = permutation_element(s, spp, hash_u32(px, py, salt, 0x7F2))
     return radical_inverse_base2(sp, hash_u32(px, py, salt, 0x9D3))
 
@@ -209,26 +509,36 @@ def sample_2d(kind: str, spp: int, px, py, s, salt):
     """A consumed-together 2D pair for dimension pair `salt`."""
     if kind == "random" or spp <= 1:
         return uniform_float(px, py, s, salt), uniform_float(px, py, s, salt + 0x151)
-    if kind != "02":
-        raise NotImplementedError(f"sampler kind {kind!r} is not ported yet")
+    if kind == "sobol":
+        return (_sobol_dim_draw(px, py, s, salt, 0, spp),
+                _sobol_dim_draw(px, py, s, salt, 1, spp))
+    if kind == "stratified":
+        sx = max(int(np.sqrt(spp)), 1)
+        sy = (spp + sx - 1) // sx  # sx*sy >= spp: the permutation stays a bijection
+        return stratified_2d(s, sx, sy, px, py, salt)
+    if kind == "halton":
+        return _halton_2d(spp, px, py, s, salt)
     sp = permutation_element(s, spp, hash_u32(px, py, salt, 0x3C5))
     return sobol_2d(sp, hash_u32(px, py, salt, 0x8E7), hash_u32(px, py, salt, 0xB19))
 
 
 def normalize_sampler_name(name: str) -> str:
-    """Scene-file sampler name -> dispatch kind (api.cpp MakeSampler),
-    restricted to the samplers this package implements."""
+    """Scene-file sampler name -> dispatch kind (api.cpp MakeSampler):
+    "maxmindist" and unknown names warn and take the (0,2)-sequence, as
+    the reference does."""
     n = (name or "").lower()
-    if n == "random":
-        return "random"
+    if n in ("random", "stratified", "halton", "sobol"):
+        return n
     if n in ("lowdiscrepancy", "02sequence", "zerotwosequence"):
         return "02"
-    from tpu_pbrt_torch.utils.error import PbrtError
+    from tpu_pbrt_torch.utils.error import Warning as _W
 
-    raise PbrtError(
-        f'sampler "{name}" is not ported to tpu_pbrt_torch yet '
-        '(ported: "zerotwosequence", "random")'
-    )
+    if n == "maxmindist":
+        _W('sampler "maxmindist" has no bespoke generator matrix in this '
+           "build; SUBSTITUTING the (0,2)-sequence sampler")
+        return "02"
+    _W(f'sampler "{name}" unknown; using the (0,2)-sequence sampler')
+    return "02"
 
 
 # -------------------------------------------------------------------------

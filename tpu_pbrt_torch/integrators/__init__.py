@@ -1,14 +1,31 @@
 """Integrator factory (port of tpu_pbrt/integrators/__init__.py::make_integrator).
 
-Only the path integrator is ported; any other name raises."""
+`path` (alias `tpupath`), `directlighting`, `whitted` and `ao` are
+ported; any other name raises PbrtError."""
 
 from __future__ import annotations
 
+#: integrator names the port renders
+PORTED = ("path", "tpupath", "directlighting", "whitted", "ao")
+
+
+def check_ported(name: str) -> None:
+    """Raise PbrtError naming `name` unless the port renders it."""
+    if name not in PORTED:
+        from tpu_pbrt_torch.utils.error import PbrtError
+
+        raise PbrtError(f'Integrator "{name}" is not ported to tpu_pbrt_torch yet '
+                        f"(ported: {', '.join(PORTED)})")
+
 
 def make_integrator(name: str, params, scene, options):
-    from tpu_pbrt_torch.integrators.path import PathIntegrator
-    from tpu_pbrt_torch.utils.error import PbrtError
-
+    check_ported(name)
     if name in ("path", "tpupath"):
-        return PathIntegrator(params, scene, options)
-    raise PbrtError(f'Integrator "{name}" is not ported to tpu_pbrt_torch yet (ported: "path")')
+        from tpu_pbrt_torch.integrators.path import PathIntegrator as cls
+    elif name == "directlighting":
+        from tpu_pbrt_torch.integrators.direct import DirectLightingIntegrator as cls
+    elif name == "whitted":
+        from tpu_pbrt_torch.integrators.whitted import WhittedIntegrator as cls
+    else:
+        from tpu_pbrt_torch.integrators.ao import AOIntegrator as cls
+    return cls(params, scene, options)

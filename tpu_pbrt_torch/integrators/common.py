@@ -28,14 +28,28 @@ from tpu_pbrt_torch.accel.traverse import Hit
 from tpu_pbrt_torch.cameras import generate_rays
 from tpu_pbrt_torch.config import cfg
 from tpu_pbrt_torch.core import bxdf
+from tpu_pbrt_torch.core import lights_dev as ld
 from tpu_pbrt_torch.core.sampling import (
+    _sobol_raw_bits,
     hash_u32,
     normalize_sampler_name,
+    power_heuristic,
     sample_1d,
     sample_2d,
     sobol_2d,
+    sobol_interval_to_index,
+    sobol_resolution_log2,
 )
-from tpu_pbrt_torch.core.vecmath import coordinate_system, cross, dot, face_forward, normalize
+from tpu_pbrt_torch.core.vecmath import (
+    coordinate_system,
+    cross,
+    dot,
+    face_forward,
+    normalize,
+    offset_ray_origin,
+    to_local,
+    to_world,
+)
 
 # dimension salts (one stream per logical sampler dimension; bounce-shifted)
 DIM_FILM_X = 0
@@ -49,6 +63,8 @@ DIM_RR = 10
 DIM_MIX = 11
 DIMS_PER_BOUNCE = 16
 
+#: the largest Sobol' film offset inside a pixel
+_JITTER_MAX = float(np.float32(0.9999999))
 #: camera rays per dispatch on the CPU (the reference's CPU default)
 CPU_CHUNK = 1 << 17
 #: camera rays per dispatch on a GPU (the reference's accelerator default)
@@ -81,6 +97,32 @@ def scene_intersect_fused(dev, o, d, t_max, n_cam: int):
                                       tv9T=dev.get("tri_verts9T"))
     hit = scene_intersect(dev, o, d, t_max)
     return Hit(*(None if a is None else a[:n_cam] for a in hit)), hit.prim[n_cam:]
+
+
+def scene_intersect_p(dev, o, d, t_max):
+    """Scene::IntersectP, the shadow-ray predicate: the stream tracer's
+    any-hit traversal, or the brute product's closest hit tested for a
+    hit (as the reference does)."""
+    if "tstream" in dev:
+        from tpu_pbrt_torch.accel.stream import stream_intersect_p
+
+        return stream_intersect_p(dev["tstream"], o, d, t_max)
+    return scene_intersect(dev, o, d, t_max).prim >= 0
+
+
+def unoccluded_tr(dev, o, d, dist, segments: int = 1):
+    """VisibilityTester::Unoccluded for a scene without media or null
+    interfaces: one any-hit ray stopped at 0.999 of `dist` (dist <= 0: no
+    test, the lane starts dead). Returns (visible, tr) with tr all ones.
+    The multi-segment walk through null interfaces is not ported; the
+    compiler rejects the scenes that need it."""
+    if segments != 1:
+        raise NotImplementedError(
+            "unoccluded_tr: the multi-segment walk through null interfaces is not ported")
+    remaining = torch.broadcast_to(
+        torch.as_tensor(dist, dtype=torch.float32, device=o.device), o.shape[:-1]) * 0.999
+    occluded = scene_intersect_p(dev, o, d, remaining)
+    return ~occluded, torch.ones(o.shape[:-1] + (3,), dtype=torch.float32, device=o.device)
 
 
 @dataclass
@@ -154,6 +196,87 @@ def textured_mat(dev, mid) -> bxdf.MatParams:
     return bxdf.gather_mat(dev["mat"], mid)
 
 
+def estimate_direct(dev, light_distr, it: Interaction, mp, px, py, s, bounce: int,
+                    light_idx=None, salt_extra: int = 0, sampler=("random", 1)):
+    """pbrt EstimateDirect with MIS: the light-sampling half (one any-hit
+    shadow ray) and the BSDF-sampling half (one closest-hit ray).
+
+    light_idx None: UniformSampleOneLight (a light picked through
+    light_distr, its pick pmf folded into the pdf); light_idx (R,): that
+    light row (UniformSampleAllLights loops it over every row; the BSDF
+    half then counts only that light and undoes the uniform pick pmf).
+    The expression order is the reference's. Returns (R, 3)."""
+    salt = bounce * DIMS_PER_BOUNCE + salt_extra
+    skind, spp = sampler
+    # ---- light-sampling half ----------------------------------------
+    u_pick = sample_1d(skind, spp, px, py, s, salt + DIM_LIGHT_PICK)
+    u1, u2 = sample_2d(skind, spp, px, py, s, salt + DIM_LIGHT_UV)
+    if light_idx is None:
+        ls = ld.sample_one_light(dev, light_distr, it.p, u_pick, u1, u2)
+    else:
+        ls = ld.sample_light_rows(dev, light_idx, it.p, u1, u2)
+    wi_l = to_local(ls.wi, it.ss, it.ts, it.ns)
+    wo_l = to_local(it.wo, it.ss, it.ts, it.ns)
+    f, bsdf_pdf = bxdf.bsdf_eval(mp, wo_l, wi_l)
+    f = f * torch.abs(dot(ls.wi, it.ns))[..., None]
+    do_light = (it.valid & (ls.pdf > 0.0) & (f.amax(dim=-1) > 0.0)
+                & (ls.li.amax(dim=-1) > 0.0))
+    o_s = offset_ray_origin(it.p, it.ng, ls.wi)
+    visible, _ = unoccluded_tr(dev, o_s, ls.wi,
+                               torch.where(do_light, ls.dist, torch.full_like(ls.dist, -1.0)))
+    vis = do_light & visible
+    w_light = torch.where(ls.is_delta, torch.ones_like(ls.pdf),
+                          power_heuristic(1.0, ls.pdf, 1.0, bsdf_pdf))
+    contrib_l = f * ls.li * (w_light / torch.clamp(ls.pdf, min=1e-20))[..., None]
+    L = torch.where(vis[..., None], contrib_l, torch.zeros_like(contrib_l))
+
+    # ---- BSDF-sampling half (non-delta lights: area and infinite) ---
+    ul = sample_1d(skind, spp, px, py, s, salt + DIM_BSDF_LOBE + 200)
+    ub1, ub2 = sample_2d(skind, spp, px, py, s, salt + DIM_BSDF_UV + 200)
+    bs = bxdf.bsdf_sample(mp, wo_l, ul, ub1, ub2)
+    wi_w = to_world(bs.wi, it.ss, it.ts, it.ns)
+    f_b = bs.f * torch.abs(dot(wi_w, it.ns))[..., None]
+    do_b = it.valid & ~bs.is_specular & (bs.pdf > 0.0) & (f_b.amax(dim=-1) > 0.0)
+    o_b = offset_ray_origin(it.p, it.ng, wi_w)
+    hit_b = scene_intersect(dev, o_b, wi_w, float("inf"))
+    hit_light = dev["tri_light"][hit_b.prim.clamp(min=0).long()]
+    hit_emissive = (hit_b.prim >= 0) & (hit_light >= 0)
+    if light_idx is not None:
+        # restricted to one light: only hits on that light's triangles count
+        hit_emissive = hit_emissive & (hit_light == light_idx)
+    it_b = make_interaction(dev, hit_b, o_b, wi_w)
+    le_b = ld.emitted_radiance(
+        dev, torch.where(hit_emissive, hit_light, torch.full_like(hit_light, -1)), -wi_w, it_b.ng)
+    # the light-sampling pdf of this direction for MIS: the pick pmf is
+    # included for one light and undone for a fixed row, as in the
+    # light half's convention
+    lpdf_area = ld.emitted_pdf(dev, None if light_idx is not None else light_distr,
+                               it.p, it_b.p, hit_light, it_b.ng)
+    n_l = dev["light"]["type"].shape[0]
+    if light_idx is not None:
+        lpdf_area = lpdf_area * n_l
+    zero = torch.zeros_like(lpdf_area)
+    if "envmap" in dev:
+        le_env = ld.env_lookup(dev, wi_w)
+        lpdf_env = ld.infinite_pdf(dev, None if light_idx is not None else light_distr, wi_w,
+                                   ref_p=it.p)
+        miss = hit_b.prim < 0
+        if light_idx is not None:
+            lpdf_env = lpdf_env * n_l
+            is_env_row = dev["light"]["type"][light_idx.clamp(min=0).long()] == ld.LIGHT_INFINITE
+            miss = miss & is_env_row
+        le_b = torch.where(miss[..., None], le_env, le_b)
+        lpdf = torch.where(miss, lpdf_env, torch.where(hit_emissive, lpdf_area, zero))
+        got_light = miss | hit_emissive
+    else:
+        lpdf = torch.where(hit_emissive, lpdf_area, zero)
+        got_light = hit_emissive
+    w_b = power_heuristic(1.0, bs.pdf, 1.0, lpdf)
+    contrib_b = f_b * le_b * (w_b / torch.clamp(bs.pdf, min=1e-20))[..., None]
+    return L + torch.where((do_b & got_light & (lpdf > 0.0))[..., None], contrib_b,
+                           torch.zeros_like(contrib_b))
+
+
 @dataclass
 class ChunkPlan:
     """The chunked decomposition of one render's work domain on one
@@ -220,6 +343,23 @@ class WavefrontIntegrator:
             self.light_distr = scene.light_distr
         self.skind = normalize_sampler_name(scene.sampler.name)
         self.spp = int(scene.sampler.spp)
+        self._prepare_sampler()
+
+    def _prepare_sampler(self):
+        """The Sobol' sampler's pixel grid for this scene (self._sobol_m,
+        the log2 of its side); downgrades to the (0,2)-sequence, with a
+        warning, when spp * 4^m would overflow the 32-bit global index."""
+        self._sobol_m = 0
+        if self.skind != "sobol":
+            return
+        m = sobol_resolution_log2(self.scene.film.full_resolution)
+        self._sobol_m = m
+        if self.spp << (2 * m) >= (1 << 31):
+            from tpu_pbrt_torch.utils.error import Warning as _W
+
+            _W("sobol: spp * 4^ceil(log2(res)) exceeds the 32-bit global "
+               "index range; SUBSTITUTING the (0,2)-sequence sampler")
+            self.skind = "02"
 
     def u1d(self, px, py, s, salt):
         return sample_1d(self.skind, self.spp, px, py, s, salt)
@@ -233,9 +373,21 @@ class WavefrontIntegrator:
         return False
 
     def film_jitter(self, px, py, s):
-        """In-pixel film sample offset of sample s of pixel (px, py): the
-        per-pixel scrambled (0,2)-sequence (a pure function of the work
-        item, so the pool recomputes it at deposit time)."""
+        """In-pixel film sample offset of sample s of pixel (px, py), a pure
+        function of the work item (the pool recomputes it at deposit
+        time): under Sobol' the global sequence's dims 0/1 at the index
+        that lands the sample in its pixel (sobol.cpp), else the
+        per-pixel scrambled (0,2)-sequence."""
+        if self.skind == "sobol":
+            m = self._sobol_m
+            gi = sobol_interval_to_index(m, s, px, py)
+            sc = float(np.float32((1 << m) * 2.3283064365386963e-10))
+
+            def offset(dim, p):
+                v = _sobol_raw_bits(gi, dim).to(torch.float32) * sc - p.to(torch.float32)
+                return torch.clamp(v, 0.0, _JITTER_MAX)
+
+            return offset(0, px), offset(1, py)
         return sobol_2d(s, hash_u32(px, py, 0x11), hash_u32(px, py, 0x22))
 
     def work_to_rays(self, cam, spp, x0, y0, w, npix, start_pix, start_s, k):
@@ -443,6 +595,9 @@ class WavefrontIntegrator:
             # traversal pairs lost to worklist capacity (0 unless the
             # headroom knob is cut below 1)
             "n_drop": int(waves.drops),
+            # closest-hit and any-hit waves apart: waves, iterations, host
+            # reads and kernel-wrapper calls, with their per-wave means
+            "wave_modes": waves.mode_stats(),
         }
         if "tstream" in scene.dev:
             stats["tracer_mode"] = plan.tracer

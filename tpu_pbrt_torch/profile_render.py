@@ -1,13 +1,14 @@
 """Where a render's time goes on the GPU.
 
     python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown] [--res 128] [--spp 64]
-        [--no-regen] [--out DIR]
+        [--integrator path|directlighting|whitted|ao] [--no-regen] [--out DIR]
 
 Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
-`scenes.make_crown_like`) at its full geometry, renders it once to
-warm up, then renders it again under `torch.profiler` (CPU + CUDA
-activity), through the persistent pool (the default render path) or,
-with `--no-regen`, through the fixed batch, and prints:
+`scenes.make_crown_like`) at its full geometry under the integrator
+(default `path`), renders it once to warm up, then renders it again
+under `torch.profiler` (CPU + CUDA activity), through the persistent
+pool (`path`'s default render path) or, with `--no-regen` and for the
+other integrators, through the fixed batch, and prints:
 
 - the render's wall time, rays traced and Mray/s (with the profiler on);
 - the device's busy share: the summed time of the CUDA kernels and
@@ -67,6 +68,8 @@ def main() -> int:
     ap.add_argument("--scene", choices=("killeroo", "crown"), default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--integrator", choices=("path", "directlighting", "whitted", "ao"),
+                    default="path")
     ap.add_argument("--no-regen", action="store_true",
                     help="profile the fixed batch instead of the persistent pool")
     ap.add_argument("--out", default="", help="directory for the Chrome trace")
@@ -82,7 +85,9 @@ def main() -> int:
 
     cfg.regen = not args.no_regen
     make = make_crown_like if args.scene == "crown" else make_killeroo_like
-    scene, integ = compile_api(make(res=args.res, spp=args.spp, device="cuda"))
+    api = make(res=args.res, spp=args.spp, device="cuda")
+    api.render_options.integrator_name = args.integrator
+    scene, integ = compile_api(api)
     integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
     reset_launches()
     torch.cuda.synchronize()
@@ -107,7 +112,7 @@ def main() -> int:
 
     st = res.stats
     print(f"card: {_card()}")
-    print(f"render {args.scene} {args.res}x{args.res} {args.spp} spp, "
+    print(f"render {args.scene} {args.integrator} {args.res}x{args.res} {args.spp} spp, "
           f"{'pool of ' + str(st['pool']) if st.get('regen') else 'fixed batch'} "
           f"(profiler on): {wall:.3f} s, {res.rays_traced} rays, "
           f"{res.rays_traced / wall / 1e6:.4f} Mray/s")
@@ -133,7 +138,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         mode = "fixed" if args.no_regen else "pool"
         path = os.path.join(args.out,
-                            f"render_{args.scene}_{args.res}_{args.spp}_{mode}.trace.json")
+                            f"render_{args.scene}_{args.integrator}_{args.res}_{args.spp}_{mode}"
+                            ".trace.json")
         prof.export_chrome_trace(path)
         print(f"trace: {path}")
     return 0

@@ -8,7 +8,7 @@ registries) through which the `tpupath` integrator is selected by unmodified
 .pbrt scene files.
 
 Port note: a copy of tpu_pbrt/scene/api.py whose WorldEnd compiles and
-renders with this package (scene/compiler.py, integrators/path.py), and
+renders with this package (scene/compiler.py, integrators/), and
 whose entry points take a `device` ("cuda" unless the caller passes
 "cpu"; see config.resolve_device).
 

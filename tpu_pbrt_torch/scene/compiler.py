@@ -11,13 +11,16 @@ directive set the port renders:
   "infinite" environment light (an HDR lat-long map with its 2D
   importance distribution), with the spatial (default), power or uniform
   light-pick strategy;
-- camera "perspective", pixel filter "box", film "image", sampler
-  "zerotwosequence" (or "random"), integrator "path", accelerator "bvh".
+- camera "perspective", pixel filter "box", film "image", accelerator
+  "bvh", every sampler the reference dispatches ("zerotwosequence" and
+  its aliases, "random", "stratified", "halton", "sobol"), and the
+  integrators of integrators.PORTED ("path", "directlighting",
+  "whitted", "ao").
 
 Anything else raises PbrtError naming what is not ported yet; nothing is
-silently substituted. (One substitution is the reference's own: an
-environment map that cannot be read becomes a constant map, with a
-warning.) The host-side work (BVH build, leaf ordering, light rows, the
+silently substituted. (The substitutions are the reference's own: an
+environment map that cannot be read becomes a constant map, and the
+"maxmindist" or an unknown sampler the (0,2)-sequence, with a warning.) The host-side work (BVH build, leaf ordering, light rows, the
 treelet pack, the light distributions) is the reference's numpy code, so
 the uploaded tables are bit-identical to the reference's
 (tests/test_torch_scene.py pins that through scene/bridge.py).
@@ -43,8 +46,9 @@ from tpu_pbrt_torch.core.lights_dev import (
     LIGHT_POINT,
     SpatialLightDistribution,
 )
-from tpu_pbrt_torch.core.sampling import Distribution1D, Distribution2D, normalize_sampler_name
+from tpu_pbrt_torch.core.sampling import Distribution1D, Distribution2D
 from tpu_pbrt_torch.core.spectrum import luminance
+from tpu_pbrt_torch.integrators import check_ported
 from tpu_pbrt_torch.utils.error import Error, PbrtError, Warning
 from tpu_pbrt_torch.utils.fileutil import resolve_filename
 
@@ -229,13 +233,11 @@ def _read_envmap(path: str, L) -> np.ndarray:
 
 
 def _check_directives(api, ro):
-    if ro.integrator_name not in ("path", "tpupath"):
-        _not_ported(f'Integrator "{ro.integrator_name}" (ported: "path")')
+    check_ported(ro.integrator_name)
     if ro.film_name != "image":
         _not_ported(f'Film "{ro.film_name}" (ported: "image")')
     if ro.accelerator_name != "bvh":
         _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
-    normalize_sampler_name(ro.sampler_name)
     if ro.instance_uses:
         _not_ported("ObjectInstance")
     if ro.named_media or ro.camera_medium:
