@@ -70,15 +70,35 @@ Phases, each fatal on failure (exit code 1, no result line):
      [samplers] every sampler kind's draws on the card equal the CPU
      port's bit for bit on a 2^20-item grid (int and per-lane salts, and
      the Sobol' film jitter);
-  6. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  6. cloud  — participating media and null interfaces: make_cloud_like()
+     (the killeroo's 128,880-triangle displaced sphere as a `Material
+     "none"` container of a homogeneous medium, the ground, the quad area
+     and point lights and the HDR sky) under `volpath` (fixed batch,
+     maxdepth 5 + 4 pass-through iterations, shadow rays walking up to 4
+     closest-hit segments through the container):
+     [scene] its sizes and compile seconds;
+     [check] both kernels against their plain versions, EXACT, on the
+     first shadow-walk segment wave of the 256x256x16 render's chunk
+     (closest hit with a finite per-ray t_max: the expand step after the
+     wave's first flush and the first flush chunk after it), timed as in
+     phase 2;
+     [render] 64x64x16 against the JAX CPU render
+     tests/torch_golden/cloud_volpath_cpu_64x64_16spp.npz (MSE bar 1e-4,
+     no pair dropped, rays printed beside the reference's); the card
+     against the CPU port per pixel at 32x32x16, and at 16x16x16 with
+     Russian roulette off (MSE bar 1e-4, rays printed); the 256x256x16
+     render timed (Mray/s, waves, wave_modes),
+     its kernel launches counted as in phase 3;
+  7. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
-  7. summary — one {"kernels": [...]} line (times and bounds at the pool
+  8. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
-     under "direct"), the card's name and power limit
+     under "direct"; the cloud's shadow-walk wave under "cloud"), the
+     card's name and power limit
      (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -101,6 +121,10 @@ REF_IMAGE = os.path.join(HERE, "refimg", "killeroo_cpu_128x128_256spp.npz")
 CROWN_REF = os.path.join(GOLDEN, "crown_cpu_64x64_64spp.npz")
 CORNELL_REF = os.path.join(GOLDEN, "cornell_direct_cpu_256x256_16spp.npz")
 KILLEROO_DIRECT_REF = os.path.join(GOLDEN, "killeroo_{}_cpu_64x64_16spp.npz")
+CLOUD_REF = os.path.join(GOLDEN, "cloud_volpath_cpu_64x64_16spp.npz")
+#: the timed cloud render, whose first shadow-walk wave the kernels are
+#: checked on (one chunk of 2^20 camera rays)
+CLOUD_RES, CLOUD_SPP = 256, 16
 #: the killeroo directlighting render that is timed and whose first any-hit
 #: wave the kernels are checked on (one chunk of 2^20 camera rays)
 DIRECT_RES, DIRECT_SPP = 128, 64
@@ -912,7 +936,7 @@ def _cornell_cli():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _against(label, img, rays, ref, n_drop=0):
+def _against(label, img, rays, ref, n_drop=0, tag="direct"):
     """MSE of a render against a JAX CPU reference, with the rays beside
     the reference's; fails past the bar, on a non-finite image or on a
     dropped pair."""
@@ -923,7 +947,7 @@ def _against(label, img, rays, ref, n_drop=0):
         raise SmokeFailure(f"{label}: image shape {img.shape} / finite {np.isfinite(img).all()}")
     mse = float(np.mean((img.astype(np.float64) - want) ** 2))
     ref_rays = int(ref["rays_traced"])
-    log(f"[direct] {label}: image mean {img.mean():.6f} (JAX CPU {want.mean():.6f}), MSE {mse:.3e} "
+    log(f"[{tag}] {label}: image mean {img.mean():.6f} (JAX CPU {want.mean():.6f}), MSE {mse:.3e} "
         f"(bar {MSE_BAR:g}), max |diff| {np.abs(img - want).max():.3e}; rays {rays} (JAX CPU "
         f"{ref_rays}, {rays - ref_rays:+d}), dropped {n_drop}")
     if mse > MSE_BAR or n_drop or not want.mean() > 0:
@@ -1028,6 +1052,173 @@ def phase_samplers():
 
 # -- phase 6 -------------------------------------------------------------------
 
+def _capture_walk_wave(scene, integ):
+    """Run the render's first chunk up to the end of its first shadow-walk
+    segment wave (volpath's unoccluded_tr: closest hit, t_max the light
+    distance left), recording that wave's first expand step after its
+    first flush and the first flush chunk after that expand (the wave's
+    first of each where none follows). Returns (captures, the wave's
+    stats)."""
+    import torch
+
+    from tpu_pbrt_torch.accel import stream
+    from tpu_pbrt_torch.integrators import volpath
+
+    cap = {}
+    state = {"in_walk": False, "in_wave": False, "flushes": 0, "expands": 0}
+    real_walk, real_trav = volpath.unoccluded_tr, stream._traverse
+    real_expand, real_flush = stream.expand, stream.flush_chunk
+
+    def walk(*args, **kw):
+        state["in_walk"] = True
+        try:
+            return real_walk(*args, **kw)
+        finally:
+            state["in_walk"] = False
+
+    def traverse(tp, o, d, t_max, any_hit):
+        if not state["in_walk"]:
+            return real_trav(tp, o, d, t_max, any_hit)
+        if any_hit:
+            raise SmokeFailure("cloud: the shadow walk traced an any-hit wave")
+        live = t_max > 0
+        state.update(in_wave=True, rays=o.shape[0], live=int(live.sum()),
+                     finite=bool(torch.isfinite(t_max[live]).all()))
+        s = real_trav(tp, o, d, t_max, any_hit)
+        state["hits"] = int((s.prim >= 0).sum())
+        raise _Captured
+
+    def expand_hook(*args):
+        if state["in_wave"]:
+            state["expands"] += 1
+            if args[7]:
+                raise SmokeFailure("cloud: the shadow walk's expand is in any-hit mode")
+            if state["expands"] == 1:
+                cap["first_expand"] = _clone(args)
+            elif state["flushes"] and "expand" not in cap:
+                cap["expand"] = _clone(args)
+        return real_expand(*args)
+
+    def flush_hook(*args):
+        if state["in_wave"]:
+            state["flushes"] += 1
+            if state["flushes"] == 1:
+                cap["first_flush"] = _clone(args)
+            elif "expand" in cap and "flush" not in cap:
+                cap["flush"] = _clone(args)
+        return real_flush(*args)
+
+    plan = integ.prepare_chunks(scene)
+    volpath.unoccluded_tr, stream._traverse = walk, traverse
+    stream.expand, stream.flush_chunk = expand_hook, flush_hook
+    try:
+        plan.dispatch(scene.film.init_state(scene.device), 0)
+    except _Captured:
+        pass
+    finally:
+        volpath.unoccluded_tr, stream._traverse = real_walk, real_trav
+        stream.expand, stream.flush_chunk = real_expand, real_flush
+    if {"first_flush", "first_expand"} - set(cap) or not state.get("finite"):
+        raise SmokeFailure(f"cloud: could not capture a shadow-walk wave with a finite t_max "
+                           f"({state})")
+    state["expand_after_flush"] = "expand" in cap
+    state["flush_after_expand"] = "flush" in cap
+    for k in ("expand", "flush"):
+        first = cap.pop(f"first_{k}")
+        cap.setdefault(k, first)
+    return cap, state
+
+
+def _cloud(res, spp, device):
+    from tpu_pbrt_torch.scenes import compile_api, make_cloud_like
+
+    return compile_api(make_cloud_like(res=res, spp=spp, maxdepth=5, device=device))
+
+
+def phase_cloud():
+    """The cloud-class scene on the card (see the module doc, phase 6):
+    the kernels on the first shadow-walk wave of the 256x256x16 chunk,
+    then that render timed, the 64x64x16 render against the JAX CPU
+    reference and the card against the CPU port at 32x32x16. Returns
+    {kernel: numbers at the shadow-walk wave, with the timed render's
+    launches and Mray/s}."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    scene, integ = _cloud(CLOUD_RES, CLOUD_SPP, "cuda")
+    tp = scene.dev["tstream"]
+    log(f"[scene] cloud: {scene.n_tris} triangles, {tp.n_treelets} treelets of {tp.leaf_tris}, "
+        f"{tp.top.child_bmin.shape[0]} top-tree nodes, {scene.n_lights} light rows, null "
+        f"surfaces {scene.has_null_materials} (shadow walk of {integ.vis_segments} segments, "
+        f"{integ.max_depth + 1 + integ.margin} iterations), compiled in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (scene.has_null_materials and integ.vis_segments == 4 and integ.margin == 4):
+        raise SmokeFailure("cloud: the container is not a null interface")
+    t0 = time.perf_counter()
+    cap, wave = _capture_walk_wave(scene, integ)
+    log(f"[cloud] shadow-walk wave: segment 0 of chunk 0's first walk ({wave['rays']} rays, "
+        f"{wave['live']} live, all with a finite t_max: {wave['finite']}; {wave['hits']} hit "
+        f"before their light; {wave['expands']} expand steps, {wave['flushes']} flush chunks; "
+        f"expand captured after a flush: {wave['expand_after_flush']}, flush chunk after that "
+        f"expand: {wave['flush_after_expand']}) in {time.perf_counter() - t0:.2f} s")
+    out = {"flush_chunk": _flush_numbers(cap["flush"], tp.count, "cloud shadow-walk wave",
+                                         exact=True),
+           "expand": _expand_numbers(cap["expand"], "cloud shadow-walk wave")}
+    del cap
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_render(f"cloud volpath {CLOUD_RES}x{CLOUD_RES}x{CLOUD_SPP}", res, launches)
+    closest = res.stats["wave_modes"]["closest_hit"]
+    log(f"[cloud] {CLOUD_RES}x{CLOUD_RES}x{CLOUD_SPP}: {res.mray_per_sec:.4f} Mray/s, "
+        f"{res.rays_traced} rays in {res.seconds:.3f} s; closest-hit waves {closest['waves']}: "
+        f"{closest['iters_per_wave_mean']:.2f} iterations, "
+        f"{closest['host_reads_per_wave_mean']:.2f} host reads, "
+        f"{closest['expand_calls_per_wave_mean']:.2f} expand and "
+        f"{closest['flush_calls_per_wave_mean']:.2f} flush launches per wave; loop host reads "
+        f"{res.stats['loop_host_reads_per_wave'] * res.stats['waves']:.0f}")
+    if not np.isfinite(res.image).all() or res.stats["n_drop"] or "any_hit" in res.stats[
+            "wave_modes"]:
+        raise SmokeFailure("cloud: non-finite image, pairs dropped or an any-hit wave traced")
+    for name in out:
+        out[name].update(launches=launches[name], mray_per_sec=res.mray_per_sec,
+                         res=CLOUD_RES, spp=CLOUD_SPP)
+    del scene, integ, res
+
+    scene, integ = _cloud(64, 16, "cuda")
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_render("cloud volpath 64x64x16", res, launches)
+    ref = np.load(CLOUD_REF)
+    _against("cloud volpath 64x64x16", res.image, res.rays_traced, ref, res.stats["n_drop"],
+             tag="cloud")
+    del scene, integ
+
+    # the card against the CPU port, as rendered and with Russian roulette
+    # off (rrthreshold 0): the roulette's survivor scale leaves a one-ulp
+    # edge that a second roll after a null crossing reads, so the two
+    # devices' rounding of the transcendentals moves some paths there
+    for res, spp, rr in ((32, 16, None), (16, 16, 0.0)):
+        t0 = time.perf_counter()
+        img = {}
+        for device in ("cuda", "cpu"):
+            scene, integ = _cloud(res, spp, device)
+            if rr is not None:
+                integ.rr_threshold = rr
+            r = integ.render(scene)
+            img[device] = (r.image, r.rays_traced)
+        (a, ra), (b, rb) = img["cuda"], img["cpu"]
+        diff = np.abs(a.astype(np.float64) - b).max(axis=-1)
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        label = f"{res}x{res}x{spp}" + ("" if rr is None else ", Russian roulette off")
+        log(f"[cloud] card vs CPU port at {label}: rays {ra} / {rb} ({ra - rb:+d}), MSE "
+            f"{mse:.3e}, max |diff| {diff.max():.3e}, pixels off by > 1e-5: "
+            f"{int((diff > 1e-5).sum())} of {diff.size} ({time.perf_counter() - t0:.1f} s with "
+            f"the CPU render)")
+        if mse > MSE_BAR or not np.isfinite(a).all():
+            raise SmokeFailure(f"cloud: the card and the CPU port differ by MSE {mse:.3e}")
+    return out
+
+
+# -- phase 7 -------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -1092,7 +1283,8 @@ def phase_cli(device: str = "cuda") -> None:
 
 def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
-            and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)):
+            and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
+            and os.path.exists(CLOUD_REF)):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
         return 1
@@ -1132,6 +1324,8 @@ def main() -> int:
         dt = phase_direct()
         torch.cuda.empty_cache()
         phase_samplers()
+        lt = phase_cloud()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -1140,8 +1334,9 @@ def main() -> int:
                          mray_per_sec=cres.mray_per_sec)
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
-                     crown=crown, direct=dt[name])
-            k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"])
+                     crown=crown, direct=dt[name], cloud=lt[name])
+            k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
+                                   lt[name]["max_abs_err"])
             return k
 
         kernels = [

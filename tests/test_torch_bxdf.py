@@ -215,3 +215,41 @@ def test_bsdf_eval_and_sample(name, lanes, shaded):
         tr = bt.is_transmission
         assert 0.05 < tr.mean() < 0.95
         assert (tr & (wo[:, 2] < 0)).any() and (tr & (wo[:, 2] > 0)).any()
+
+
+def _aligned(a, align=64):
+    """A copy of `a` whose data starts on an `align`-byte boundary."""
+    buf = np.empty(a.nbytes + align, np.uint8)
+    off = (-buf.ctypes.data) % align
+    out = buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def test_shared_input_buffers_are_not_written(lanes, shaded):
+    """One numpy buffer per material column handed to both frameworks at
+    once (jnp.asarray and torch.from_numpy), 64-byte aligned so the JAX
+    CPU client may take it without a copy: neither side writes to it, and
+    the port's material rows (the GGX alphas among them) and its eval and
+    sample outputs equal those from private copies, bit for bit."""
+    wo_m, wi_m, u_m = lanes
+    names, tab = _tables()
+    shared = {k: _aligned(v) for k, v in tab.items()}
+    before = {k: v.copy() for k, v in shared.items()}
+    mid = np.repeat(np.arange(len(names), dtype=np.int32), N)
+    jt = {k: jnp.asarray(v) for k, v in shared.items()}
+    tt = {k: torch.from_numpy(v) for k, v in shared.items()}
+    jax.block_until_ready(_both_jax(jt, jnp.asarray(mid), jnp.asarray(wo_m), jnp.asarray(wi_m),
+                                    *map(jnp.asarray, u_m)))
+    mp = tb.gather_mat(tt, _t(mid))
+    got = (mp.ax, mp.ay, tb.bsdf_eval(mp, _t(wo_m), _t(wi_m)),
+           tb.bsdf_sample(mp, _t(wo_m), *map(_t, u_m)))
+    for k in shared:
+        np.testing.assert_array_equal(shared[k], before[k], err_msg=k)
+    mp_c = tb.gather_mat({k: _t(v) for k, v in tab.items()}, _t(mid))
+    want = (mp_c.ax, mp_c.ay, tb.bsdf_eval(mp_c, _t(wo_m), _t(wi_m)),
+            tb.bsdf_sample(mp_c, _t(wo_m), *map(_t, u_m)))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert torch.equal(a, b)
+    ja_ax = np.asarray(jb.gather_mat(jt, jnp.asarray(mid)).ax)
+    _close(mp.ax, ja_ax)

@@ -12,7 +12,9 @@ repository's Cornell box, against the JAX package.
   row. Tolerance: the same
   lanes nonzero, values within atol 2e-6 (measured up to 6.6e-7: the
   camera directions differ by an ulp where XLA's and PyTorch's
-  transcendentals round apart, and it carries through).
+  transcendentals round apart, and it carries through). Also on the null
+  quad of tests/test_media.py, whose shadow rays walk through the quad
+  in up to 4 segments (vis_segments), to the same tolerance.
 - Renders through the fixed-batch chunk loop, against the JAX CPU
   goldens of tests/torch_golden/make_golden.py (`DIRECT_CASES`: the small
   Cornell box under directlighting "all" and "one", ao; the small
@@ -190,9 +192,40 @@ def test_strategy_selection_matches_reference(n_lights, strategy):
 
 
 def test_unoccluded_walk_through_null_interfaces_is_not_ported():
-    o = torch.zeros((2, 3))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcommon.unoccluded_tr({}, o, o, 1.0, segments=4)
+    """(Named when the walk raised.) The walk is ported: on the null quad
+    of tests/test_media.py under directlighting, estimate_direct's shadow
+    rays cross the quad in up to 4 segments (vis_segments, set by the
+    scene's null surfaces), as the reference's do: the same lanes lit,
+    values within 2e-6."""
+    from make_golden import media_text
+
+    text = media_text("null_quad_path").rsplit("WorldEnd", 1)[0]
+    sj, ij = jscenes.compile_api(configure(
+        jparse_string(text, jpbrt_init(JOptions(quiet=True))), "directlighting"))
+    st, it_ = tscenes.compile_api(configure(
+        tparse_string(text, tpbrt_init(TOptions(quiet=True), device="cpu")), "directlighting"))
+    assert st.has_null_materials and it_.vis_segments == ij.vis_segments == 4
+    plan = it_.prepare_chunks(st)
+    x0, x1, y0, _ = plan.bounds
+    k = np.arange(plan.total, dtype=np.int32)
+    _, pxj, pyj, s_j, _, oj, dj, _ = ij.work_to_rays(
+        sj.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, jnp.asarray(k))
+    _, pxt, pyt, s_t, _, ot, dt, _ = it_.work_to_rays(
+        st.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, torch.from_numpy(k))
+    itj = jcommon.make_interaction(sj.dev, jcommon.scene_intersect(sj.dev, oj, dj, jnp.inf),
+                                   oj, dj)
+    itt = tcommon.make_interaction(st.dev, tcommon.scene_intersect(st.dev, ot, dt, float("inf")),
+                                   ot, dt)
+    a = np.asarray(jcommon.estimate_direct(
+        sj.dev, ij.light_distr, itj, ij.mat_at(sj.dev, itj, u_mix=jnp.zeros(k.shape)),
+        pxj, pyj, s_j, 0, vis_segments=4, sampler=(ij.skind, ij.spp)))
+    b = tcommon.estimate_direct(st.dev, it_.light_distr, itt, it_.mat_at(st.dev, itt),
+                                pxt, pyt, s_t, 0, vis_segments=4,
+                                sampler=(it_.skind, it_.spp)).numpy()
+    lit = a.max(-1) > 0
+    assert lit.mean() > 0.2
+    np.testing.assert_array_equal(b.max(-1) > 0, lit)
+    np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
 
 
 def test_cli_renders_the_cornell_box_file(tmp_path, monkeypatch):

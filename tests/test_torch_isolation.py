@@ -2,9 +2,12 @@
 
 - A fresh interpreter imports every module of tpu_pbrt_torch and renders
   tiny scenes on the CPU (`path`, and `directlighting`, `whitted` and
-  `ao` under the sobol, halton and stratified samplers); afterwards no
-  `jax*` and no `tpu_pbrt.` module may be loaded.
-- A scan of the port's sources finds no import that names either.
+  `ao` under the sobol, halton and stratified samplers, and `volpath`
+  through a homogeneous and a grid medium in a null-material cube, which
+  runs core/media.py and integrators/volpath.py); afterwards no `jax*`
+  and no `tpu_pbrt.` module may be loaded.
+- A scan of the port's sources finds no import that names either; the
+  media modules are named one by one.
 - With no GPU, the entry points' default device (CUDA) raises instead of
   falling back to the CPU.
 """
@@ -51,6 +54,27 @@ for integ, sampler in (("directlighting", "sobol"), ("whitted", "halton"), ("ao"
     scene, ig = scenes.compile_api(scenes.make_cornell(res=4, spp=2, integrator=integ,
                                                        sampler=sampler, device="cpu"))
     assert ig.render(scene).image.max() > 0
+for medium in ('"string type" "homogeneous" "rgb sigma_a" [0.1 0.1 0.1] "rgb sigma_s" [1 1 1]',
+               '"string type" "heterogeneous" "integer nx" [2] "integer ny" [2] "integer nz" [2] '
+               '"float density" [1 0.5 1 0.5 1 0.5 1 0.5] '
+               '"point p0" [-1 -1 -1] "point p1" [1 1 1]'):
+    api = parse_string(f"""
+Integrator "volpath" "integer maxdepth" [2]
+Sampler "zerotwosequence" "integer pixelsamples" [2]
+Film "image" "integer xresolution" [4] "integer yresolution" [4]
+LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+MakeNamedMedium "m" {medium}
+LightSource "point" "rgb I" [20 20 20] "point from" [0 3 0]
+AttributeBegin
+Material "none"
+MediumInterface "m" ""
+Shape "sphere" "float radius" [1]
+AttributeEnd
+WorldEnd
+""", render=True, device="cpu")
+    assert api.result.image.max() > 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "tpu_pbrt.")) or n == "tpu_pbrt")
 print("FOREIGN", bad)
@@ -90,6 +114,14 @@ def test_no_source_names_jax_or_the_reference():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "tpu_pbrt"), f"{fn} imports {name}"
     assert seen > 20
+
+
+@pytest.mark.parametrize("module", ["core/media.py", "integrators/volpath.py"])
+def test_media_modules_name_neither_jax_nor_the_reference(module):
+    names = list(_imported_names(os.path.join(PKG, module)))
+    assert "torch" in names
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_pbrt"), f"{module} imports {name}"
 
 
 def test_default_device_without_gpu_raises():

@@ -112,8 +112,8 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mat", "uber"), ("shape", "sphere"), ("light", "spot"),
-    ("integ", "volpath"), ("integ", "bdpt"),
+    ("mat", "uber"), ("shape", "disk"), ("light", "spot"),
+    ("integ", "sppm"), ("integ", "bdpt"),
 ])
 def test_unported_directives_raise(field, value):
     text = _BASE.format(**{**_OK, field: value})
@@ -278,3 +278,42 @@ def test_crown_materials_render():
     assert api.result.image.shape == (8, 8, 3)
     assert np.isfinite(api.result.image).all() and api.result.image.max() > 0
 
+
+
+@pytest.mark.parametrize("name", ["vol_beer", "null_cube_volpath", "grid_null_cube",
+                                  "furnace_g05", "cloud_small"])
+def test_media_tables_equal_bridge(name):
+    """The media goldens' scenes (tests/torch_golden/make_golden.py
+    MEDIA_CASES): the medium table (homogeneous rows, the 8^3 grid with
+    its p0/p1 placement and majorant), the per-triangle MediumInterface
+    ids in leaf order, the camera's medium and the null-surface flag are
+    the reference's; the "none" material row too. The furnace's 4,096
+    emissive sphere triangles pass the shading-row packing, so both sides
+    keep the four per-triangle tables instead of tri_sh16."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "torch_golden"))
+    try:
+        from make_golden import CLOUD_SMALL, jax_cloud_api, media_text
+    finally:
+        sys.path.pop(0)
+    if name == "cloud_small":
+        mp = pytest.MonkeyPatch()
+        mp.setenv("TPU_PBRT_LEAF_TRIS", "64")
+        mp.setattr(tcfg, "leaf_tris", 64)
+        jconfig.reload()
+        try:
+            sj = jcompile(jax_cloud_api(**CLOUD_SMALL))
+            st = tcompile(tscenes.make_cloud_like(**CLOUD_SMALL, device="cpu"))
+        finally:
+            mp.undo()
+            jconfig.reload()
+    else:
+        sj, st = _compile_both(lambda _: media_text(name).rsplit("WorldEnd", 1)[0])
+    _assert_tables_equal(sj, st)
+    assert st.camera_medium_id == sj.camera_medium_id == (0 if name in ("vol_beer",
+                                                                        "furnace_g05") else -1)
+    assert st.has_null_materials == sj.has_null_materials == ("null" in name or "cloud" in name)
+    med_in = st.dev["tri_med_in"].numpy()
+    assert (med_in == 0).any() == st.has_null_materials
+    mt = st.dev["media"]
+    assert mt.density.numel() == (512 if name == "grid_null_cube" else 1)
+    assert ("tri_sh16" in st.dev) == (name != "furnace_g05")

@@ -38,17 +38,43 @@ its parameters, and its sampler:
 - `killeroo_ao.npz`: `ao` with a finite `maxdistance` on the small
   killeroo under `halton`.
 
+Participating media and null interfaces (tests/test_torch_media.py):
+`MEDIA_CASES` below, each a scene text of `media_text` (rendered through
+the fixed batch, as the reference renders `volpath` and any scene with
+null surfaces):
+
+- `vol_beer`, `vol_no_medium`, `vol_fog_shadow`: the three scenes of
+  tests/test_media.py::TestVolPath (a camera inside an absorbing fog, a
+  medium-free scene, a scattering fog under a point light) at 8x8;
+- `null_cube_volpath`, `null_quad_path`: TestNullInterface's scenes (a
+  scattering medium in a `Material "none"` cube under `volpath`; a null
+  quad between an area light and the floor under `path`, which takes the
+  split layout) at 8x8;
+- `furnace_g05`: TestVolumeFurnace at g 0.5 (a camera inside a fog
+  filled emitting sphere, the reference's 4,096-triangle tessellation,
+  so the stream tracer runs) at 8x8;
+- `grid_null_cube`: a seeded 8^3 grid medium (ratio and delta tracking)
+  in the null cube, at 8x8;
+- `cloud_small`: `tpu_pbrt_torch.scenes.make_cloud_like` at n_theta=12,
+  n_phi=24 (the sky, both other lights, the null container of a
+  homogeneous medium) at 16x16, 4 spp, in 64-triangle treelets;
+- `furnace_g05_rr_off`, `cloud_small_rr_off`: the same two scenes with
+  Russian roulette off (`"float rrthreshold" [0]`). The reference's
+  roulette scales a survivor so that its beta lands on 1 or 1 - 2^-24 by
+  the last bits, and a second roll at the same depth compares that with
+  1; these two goldens hold everything else to the port exactly.
+
 The JAX renders alone take longer here than the port's test budget
 allows (most of it compiling), so the tests read these files instead.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py \
-        [fixed|pool|crown|crown_pool|<a DIRECT_CASES name>|direct|all]
+        [fixed|pool|crown|crown_pool|<a DIRECT_CASES or MEDIA_CASES name>|direct|media|all]
 
 It rewrites the named golden(s) (default: all; "direct": every
-DIRECT_CASES golden) and records the commit of the JAX package it
-rendered with.
+DIRECT_CASES golden; "media": every MEDIA_CASES golden) and records the
+commit of the JAX package it rendered with.
 """
 
 import json
@@ -78,6 +104,157 @@ DIRECT_CASES = {
     "killeroo_direct": ("killeroo", "directlighting", (), "zerotwosequence"),
     "killeroo_ao": ("killeroo", "ao", (("float maxdistance", [0.5]),), "halton"),
 }
+
+
+#: the null cube of tests/test_media.py::TestNullInterface
+NULL_CUBE = (
+    'Shape "trianglemesh" "integer indices" '
+    "[0 1 2 0 2 3  4 6 5 4 7 6  0 4 1 1 4 5  2 6 3 3 6 7  1 5 2 2 5 6  0 3 7 0 7 4] "
+    '"point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1  -1 1 -1  1 1 -1  1 1 1  -1 1 1]'
+)
+
+
+def _grid_density_text() -> str:
+    """A seeded 8^3 density grid (a soft ball plus noise), as scene text."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    c = (np.arange(8) + 0.5) / 8 - 0.5
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    dens = np.clip(1.2 - 3.0 * (x * x + y * y + z * z) + rng.uniform(-0.2, 0.2, x.shape), 0, None)
+    return " ".join(f"{v:.3f}" for v in dens.reshape(-1))
+
+
+#: the integrator parameter of the `_rr_off` goldens: Russian roulette off
+RR_OFF = ("float rrthreshold", [0.0])
+
+
+def media_api(name: str, parse_string, pbrt_init, Options, cloud_api, **kw):
+    """The parsed scene (up to WorldEnd) of MEDIA_CASES[name], through
+    either package's parse_string/pbrt_init/Options; cloud_api(**CLOUD_SMALL,
+    **kw) builds the small cloud; kw goes to pbrt_init."""
+    base = name[: -len("_rr_off")] if name.endswith("_rr_off") else name
+    if base == "cloud_small":
+        api = cloud_api(**CLOUD_SMALL, **kw)
+    else:
+        api = parse_string(media_text(base).rsplit("WorldEnd", 1)[0],
+                           pbrt_init(Options(quiet=True), **kw))
+    if name != base:
+        api.render_options.integrator_params.add(*RR_OFF)
+    return api
+
+
+def media_text(name: str) -> str:
+    """The whole scene text of MEDIA_CASES[name] (the small cloud excepted)."""
+    head = ('Sampler "halton" "integer pixelsamples" [16]\nPixelFilter "box"\n'
+            'Film "image" "integer xresolution" [8] "integer yresolution" [8] '
+            '"string filename" [""]\n')
+    if name == "vol_beer":
+        return ('Integrator "volpath" "integer maxdepth" [3]\n' + head + """
+LookAt 0 0 -3  0 0 0  0 1 0
+MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" [0.4 0.4 0.4] "rgb sigma_s" [0 0 0]
+MediumInterface "" "fog"
+Camera "perspective" "float fov" [50]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [5 5 5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-4 -4 0  -4 4 0  4 4 0  4 -4 0]
+AttributeEnd
+WorldEnd
+""")
+    if name == "vol_no_medium":
+        return ('Integrator "volpath" "integer maxdepth" [2]\n' + head + """
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [60]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [8 8 8]
+  Translate 0 1.8 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-0.6 0 -0.6  0.6 0 -0.6  0.6 0 0.6  -0.6 0 0.6]
+AttributeEnd
+Material "matte" "rgb Kd" [0.7 0.6 0.5]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-2 -2 2  2 -2 2  2 2 2  -2 2 2]
+WorldEnd
+""")
+    if name == "vol_fog_shadow":
+        return ('Integrator "volpath" "integer maxdepth" [3]\n' + head + """
+LookAt 0 0 -3  0 0 0  0 1 0
+MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" [0.01 0.01 0.01] "rgb sigma_s" [0.4 0.4 0.4] "float g" [0.0]
+MediumInterface "" "fog"
+Camera "perspective" "float fov" [50]
+WorldBegin
+LightSource "point" "rgb I" [20 20 20] "point from" [0 2 0]
+Material "matte" "rgb Kd" [0.1 0.1 0.1]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-9 -9 4  9 -9 4  9 9 4  -9 9 4]
+WorldEnd
+""")
+    if name in ("null_cube_volpath", "grid_null_cube"):
+        # (the grid medium is made inside the world block, so it sits in
+        # world space, on the cube)
+        if name == "null_cube_volpath":
+            medium = ('MakeNamedMedium "cloud" "string type" "homogeneous" "rgb sigma_a" '
+                      '[0.05 0.05 0.05] "rgb sigma_s" [0.8 0.8 0.8] "float g" [0.0]')
+        else:
+            medium = ('MakeNamedMedium "cloud" "string type" "heterogeneous" "integer nx" [8] '
+                      '"integer ny" [8] "integer nz" [8] "float density" ['
+                      + _grid_density_text() + '] "rgb sigma_a" [0.3 0.3 0.3] '
+                      '"rgb sigma_s" [2.0 2.0 2.0] "float g" [0.3] '
+                      '"point p0" [-1 -1 -1] "point p1" [1 1 1]')
+        return ('Integrator "volpath" "integer maxdepth" [3]\n' + head + f"""
+LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+{medium if name == "null_cube_volpath" else ""}
+WorldBegin
+{medium if name == "grid_null_cube" else ""}
+LightSource "point" "rgb I" [40 40 40] "point from" [0 3 0]
+AttributeBegin
+  Material "none"
+  MediumInterface "cloud" ""
+  {NULL_CUBE}
+AttributeEnd
+WorldEnd
+""")
+    if name == "null_quad_path":
+        return ('Integrator "path" "integer maxdepth" [3]\n' + head + """
+LookAt 0 0.4 -3.5  0 -0.4 0  0 1 0
+Camera "perspective" "float fov" [45]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [10 10 10]
+  Translate 0 2 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-0.8 0 -0.8  0.8 0 -0.8  0.8 0 0.8  -0.8 0 0.8]
+AttributeEnd
+AttributeBegin
+  Material "none"
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1.5 0.5 -1.5  1.5 0.5 -1.5  1.5 0.5 1.5  -1.5 0.5 1.5]
+AttributeEnd
+Material "matte" "rgb Kd" [0.7 0.7 0.7]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-2 -1 -2  2 -1 -2  2 -1 2  -2 -1 2]
+WorldEnd
+""")
+    assert name == "furnace_g05", name
+    return ('Integrator "volpath" "integer maxdepth" [12]\n' + head + """
+LookAt 0 0 0  0 0 1  0 1 0
+MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" [0 0 0] "rgb sigma_s" [0.25 0.25 0.25] "float g" [0.5]
+MediumInterface "" "fog"
+Camera "perspective" "float fov" [60]
+WorldBegin
+AttributeBegin
+  Material "matte" "rgb Kd" [0 0 0]
+  AreaLightSource "diffuse" "rgb L" [2 2 2] "bool twosided" ["true"]
+  Shape "sphere" "float radius" [5]
+AttributeEnd
+WorldEnd
+""")
+
+
+#: the media goldens (tests/test_torch_media.py), rendered from media_text
+#: or, for the small cloud, jax_cloud_api
+MEDIA_CASES = ("vol_beer", "vol_no_medium", "vol_fog_shadow", "null_cube_volpath",
+               "null_quad_path", "furnace_g05", "grid_null_cube", "cloud_small",
+               "furnace_g05_rr_off", "cloud_small_rr_off")
+#: the small cloud of the media goldens
+CLOUD_SMALL = dict(res=16, spp=4, maxdepth=5, n_theta=12, n_phi=24)
 
 
 def configure(api, integrator: str, params=(), sampler=None):
@@ -195,6 +372,24 @@ AttributeEnd
 """
 
 
+def jax_cloud_api(res, spp, maxdepth=5, n_theta=180, n_phi=360):
+    """The port's cloud-class scene (`tpu_pbrt_torch.scenes.cloud_parts`:
+    the same text, mesh arrays and sky file) parsed through the JAX
+    package's API, up to (not including) WorldEnd."""
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+    from tpu_pbrt.scene.paramset import ParamSet
+    from tpu_pbrt_torch.scenes import _crown_envmap_path, cloud_parts
+
+    head, (V, F, N), tail = cloud_parts(res, spp, maxdepth, n_theta, n_phi, _crown_envmap_path())
+    api = parse_string(head, pbrt_init(Options(quiet=True)))
+    ps = ParamSet()
+    ps.add("integer indices", F.reshape(-1).tolist())
+    ps.add("point P", V.reshape(-1).tolist())
+    ps.add("normal N", N.reshape(-1).tolist())
+    api.shape("trianglemesh", ps)
+    return parse_string(tail, api)
+
+
 def _commit(root: str) -> str:
     try:
         head = subprocess.run(["git", "-C", root, "rev-parse", "HEAD"], capture_output=True,
@@ -259,7 +454,7 @@ def _write(path, scene, res, commit, pool: bool):
 
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    names = TARGETS + tuple(DIRECT_CASES) + ("direct", "all")
+    names = TARGETS + tuple(DIRECT_CASES) + MEDIA_CASES + ("direct", "media", "all")
     if which not in names:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(names)}]")
     root = os.path.dirname(os.path.dirname(HERE))
@@ -274,6 +469,35 @@ def main() -> None:
     for name in DIRECT_CASES:
         if which in (name, "direct", "all"):
             _write_direct(name, commit)
+    for name in MEDIA_CASES:
+        if which in (name, "media", "all"):
+            _write_media(name, commit)
+
+
+def _write_media(name: str, commit: str) -> None:
+    import time
+
+    import numpy as np
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    from tpu_pbrt import config, scenes
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+
+    config.reload()
+    api = media_api(name, parse_string, pbrt_init, Options, jax_cloud_api)
+    scene, integ = scenes.compile_api(api)
+    t0 = time.perf_counter()
+    res = integ.render(scene)
+    path = os.path.join(HERE, f"{name}.npz")
+    np.savez_compressed(
+        path,
+        image=np.asarray(res.image, np.float32),
+        rays_traced=np.int64(res.rays_traced),
+        n_tris=np.int64(scene.n_tris),
+        jax_commit=np.array(commit),
+    )
+    print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _write_direct(name: str, commit: str) -> None:

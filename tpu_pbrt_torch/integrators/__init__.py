@@ -1,12 +1,12 @@
 """Integrator factory (port of tpu_pbrt/integrators/__init__.py::make_integrator).
 
-`path` (alias `tpupath`), `directlighting`, `whitted` and `ao` are
-ported; any other name raises PbrtError."""
+`path` (alias `tpupath`), `directlighting`, `whitted`, `ao` and
+`volpath` are ported; any other name raises PbrtError."""
 
 from __future__ import annotations
 
 #: integrator names the port renders
-PORTED = ("path", "tpupath", "directlighting", "whitted", "ao")
+PORTED = ("path", "tpupath", "directlighting", "whitted", "ao", "volpath")
 
 
 def check_ported(name: str) -> None:
@@ -26,6 +26,8 @@ def make_integrator(name: str, params, scene, options):
         from tpu_pbrt_torch.integrators.direct import DirectLightingIntegrator as cls
     elif name == "whitted":
         from tpu_pbrt_torch.integrators.whitted import WhittedIntegrator as cls
+    elif name == "volpath":
+        from tpu_pbrt_torch.integrators.volpath import VolPathIntegrator as cls
     else:
         from tpu_pbrt_torch.integrators.ao import AOIntegrator as cls
     return cls(params, scene, options)

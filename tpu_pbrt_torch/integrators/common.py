@@ -110,19 +110,72 @@ def scene_intersect_p(dev, o, d, t_max):
     return scene_intersect(dev, o, d, t_max).prim >= 0
 
 
-def unoccluded_tr(dev, o, d, dist, segments: int = 1):
-    """VisibilityTester::Unoccluded for a scene without media or null
-    interfaces: one any-hit ray stopped at 0.999 of `dist` (dist <= 0: no
-    test, the lane starts dead). Returns (visible, tr) with tr all ones.
-    The multi-segment walk through null interfaces is not ported; the
-    compiler rejects the scenes that need it."""
-    if segments != 1:
-        raise NotImplementedError(
-            "unoccluded_tr: the multi-segment walk through null interfaces is not ported")
+def unoccluded_tr(dev, o, d, dist, cur_med, px, py, s, salt, segments: int = 1):
+    """VisibilityTester::Unoccluded/Tr: is the light sample visible, and
+    with what transmittance? The ray stops at 0.999 of `dist` (dist <= 0:
+    no test, the lane starts dead); cur_med (R,) is each ray's medium
+    (-1: vacuum), None to skip the transmittance.
+
+    segments == 1 (a scene without null interfaces): one any-hit ray, and
+    the current medium's Tr on the unoccluded lanes. segments > 1: the
+    walk through null-material (MAT_NONE) surfaces, as pbrt's Tr walk:
+    up to `segments` closest-hit segments, each with its medium's Tr
+    (salt + 7k), the medium flipped at each null crossing by the side of
+    the triangle's geometric normal and the ray re-offset there; a real
+    material occludes, and a lane still crossing after the last segment
+    counts as occluded, as in the reference. A lane that is no longer
+    walking traces no further segment, and the walk stops once none is
+    (one host read per segment): neither changes a result.
+    Returns (visible (R,), tr (R, 3))."""
+    from tpu_pbrt_torch.accel import stream
+    from tpu_pbrt_torch.core import media as md
+
+    shape = o.shape[:-1]
+    tr = torch.ones(shape + (3,), dtype=torch.float32, device=o.device)
     remaining = torch.broadcast_to(
-        torch.as_tensor(dist, dtype=torch.float32, device=o.device), o.shape[:-1]) * 0.999
-    occluded = scene_intersect_p(dev, o, d, remaining)
-    return ~occluded, torch.ones(o.shape[:-1] + (3,), dtype=torch.float32, device=o.device)
+        torch.as_tensor(dist, dtype=torch.float32, device=o.device), shape) * 0.999
+    mt = dev.get("media") if cur_med is not None else None
+    none = torch.full(shape, -1, dtype=torch.int32, device=o.device)
+
+    if segments == 1:
+        occluded = scene_intersect_p(dev, o, d, remaining)
+        if mt is not None:
+            med = torch.where(~occluded, torch.broadcast_to(cur_med, shape), none)
+            tr = md.medium_tr(mt, med, o, d, remaining, px, py, s, salt)
+        return ~occluded, tr
+
+    med = torch.broadcast_to(cur_med, shape) if cur_med is not None else none
+    oo = o
+    visible = torch.zeros(shape, dtype=torch.bool, device=o.device)
+    active = torch.ones(shape, dtype=torch.bool, device=o.device)
+    for k in range(segments):
+        if k:
+            stream.WAVES.add_loop_read()
+            if not bool(active.any()):
+                break
+        hit = scene_intersect(dev, oo, d,
+                              torch.where(active, remaining, torch.full_like(remaining, -1.0)))
+        hit_any = active & (hit.prim >= 0)
+        prim = hit.prim.clamp(min=0).long()
+        # tri_mat holds material-table rows; the null test is on their type
+        is_null = hit_any & (dev["mat"]["type"][dev["tri_mat"][prim].long()] == bxdf.MAT_NONE)
+        seg_len = torch.where(hit_any, hit.t, remaining)
+        if mt is not None:
+            tr_seg = md.medium_tr(mt, torch.where(active, med, none), oo, d, seg_len,
+                                  px, py, s, salt + 7 * k)
+            tr = torch.where(active[..., None], tr * tr_seg, tr)
+        visible = visible | (active & ~hit_any)
+        # step past the null interfaces, flipping the medium at the crossing
+        tv = dev["tri_verts"][prim]
+        ng = normalize(cross(tv[..., 1, :] - tv[..., 0, :], tv[..., 2, :] - tv[..., 0, :]))
+        going_in = dot(d, ng) < 0.0
+        new_med = torch.where(going_in, dev["tri_med_in"][prim], dev["tri_med_out"][prim])
+        med = torch.where(is_null, new_med, med)
+        p_hit = oo + hit.t[..., None] * d
+        oo = torch.where(is_null[..., None], offset_ray_origin(p_hit, ng, d), oo)
+        remaining = torch.where(is_null, remaining - hit.t, remaining)
+        active = is_null
+    return visible, tr
 
 
 @dataclass
@@ -161,13 +214,19 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
     shading normal; an orthonormal shading frame)."""
     prim = hit.prim.clamp(min=0).long()
     tv = hit.tv if hit.tv is not None else dev["tri_verts"][prim]
-    sh = dev["tri_sh16"][:, prim]  # (16, R): normals, uvs, packed ids
-    shT = sh.T
-    tn = shT[..., 0:9].reshape(shT.shape[:-1] + (3, 3))
-    tuv = shT[..., 9:15].reshape(shT.shape[:-1] + (3, 2))
-    packed = sh[15].to(torch.int32)
-    mat_id = packed // 4096
-    light_id = packed % 4096 - 1
+    if "tri_sh16" in dev:
+        sh = dev["tri_sh16"][:, prim]  # (16, R): normals, uvs, packed ids
+        shT = sh.T
+        tn = shT[..., 0:9].reshape(shT.shape[:-1] + (3, 3))
+        tuv = shT[..., 9:15].reshape(shT.shape[:-1] + (3, 2))
+        packed = sh[15].to(torch.int32)
+        mat_id = packed // 4096
+        light_id = packed % 4096 - 1
+    else:  # ids past the packing: four gathers
+        tn = dev["tri_normals"][prim]
+        tuv = dev["tri_uvs"][prim]
+        mat_id = dev["tri_mat"][prim]
+        light_id = dev["tri_light"][prim]
     b0 = hit.b0
     b1 = hit.b1
     b2 = 1.0 - b0 - b1
@@ -197,9 +256,11 @@ def textured_mat(dev, mid) -> bxdf.MatParams:
 
 
 def estimate_direct(dev, light_distr, it: Interaction, mp, px, py, s, bounce: int,
-                    light_idx=None, salt_extra: int = 0, sampler=("random", 1)):
+                    light_idx=None, salt_extra: int = 0, vis_segments: int = 1,
+                    sampler=("random", 1)):
     """pbrt EstimateDirect with MIS: the light-sampling half (one any-hit
-    shadow ray) and the BSDF-sampling half (one closest-hit ray).
+    shadow ray, or the walk through null interfaces with vis_segments >
+    1) and the BSDF-sampling half (one closest-hit ray).
 
     light_idx None: UniformSampleOneLight (a light picked through
     light_distr, its pick pmf folded into the pdf); light_idx (R,): that
@@ -223,7 +284,8 @@ def estimate_direct(dev, light_distr, it: Interaction, mp, px, py, s, bounce: in
                 & (ls.li.amax(dim=-1) > 0.0))
     o_s = offset_ray_origin(it.p, it.ng, ls.wi)
     visible, _ = unoccluded_tr(dev, o_s, ls.wi,
-                               torch.where(do_light, ls.dist, torch.full_like(ls.dist, -1.0)))
+                               torch.where(do_light, ls.dist, torch.full_like(ls.dist, -1.0)),
+                               None, px, py, s, salt + DIM_LIGHT_UV + 300, segments=vis_segments)
     vis = do_light & visible
     w_light = torch.where(ls.is_delta, torch.ones_like(ls.pdf),
                           power_heuristic(1.0, ls.pdf, 1.0, bsdf_pdf))
@@ -341,6 +403,9 @@ class WavefrontIntegrator:
             self.light_distr = scene.spatial_distr
         else:
             self.light_distr = scene.light_distr
+        # shadow rays walk through null-interface (MAT_NONE) surfaces only
+        # in scenes that have them
+        self.vis_segments = 4 if scene.has_null_materials else 1
         self.skind = normalize_sampler_name(scene.sampler.name)
         self.spp = int(scene.sampler.spp)
         self._prepare_sampler()

@@ -94,12 +94,13 @@ class DirectLightingIntegrator(WavefrontIntegrator):
                 for li_i in range(self.n_light_loop):
                     idx = torch.full(shape, li_i, dtype=torch.int32, device=o.device)
                     Ld = estimate_direct(dev, self.light_distr, it, mp, px, py, s, depth,
-                                         light_idx=idx, salt_extra=li_i * 1000, sampler=sampler)
+                                         light_idx=idx, salt_extra=li_i * 1000,
+                                         vis_segments=self.vis_segments, sampler=sampler)
                     L = L + torch.where(it.valid[..., None], beta * Ld, torch.zeros_like(Ld))
                     nrays = nrays + two
             else:
                 Ld = estimate_direct(dev, self.light_distr, it, mp, px, py, s, depth,
-                                     sampler=sampler)
+                                     vis_segments=self.vis_segments, sampler=sampler)
                 L = L + torch.where(it.valid[..., None], beta * Ld, torch.zeros_like(Ld))
                 nrays = nrays + two
 

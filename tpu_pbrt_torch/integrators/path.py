@@ -20,13 +20,17 @@ Two loops share that wave, as in the reference:
   (px, py, s, dimension), so a regenerated lane draws exactly the
   stream the fixed batch would have: the two estimate the same image.
 
-Both trace the reference's fused layout: each wave traces [continuation
-rays; the previous bounce's shadow rays] as one 2R closest-hit batch, and
-the NEE contribution lands one wave later. (The reference's split layout,
-a separate shadow wave per bounce walking null interfaces, serves scenes
-the port's compiler rejects, so it is not ported.) The reference's
-lax.while_loops are host loops here, with one host read per wave for
-their exit tests.
+Both trace the reference's fused layout where the scene allows it: each
+wave traces [continuation rays; the previous bounce's shadow rays] as one
+2R closest-hit batch, and the NEE contribution lands one wave later. A
+scene with null-interface (MAT_NONE) surfaces takes the reference's split
+layout instead, through the fixed batch only: each bounce traces its
+continuation rays, then its shadow rays' walk through the null surfaces
+(`unoccluded_tr` with vis_segments segments); a lane that hits a null
+surface passes through it without counting a bounce (pbrt's
+`bounces--`), so the loop runs PASSTHROUGH_MARGIN more iterations. The
+reference's lax.while_loops are host loops here, with one host read per
+wave for their exit tests.
 """
 
 from __future__ import annotations
@@ -50,9 +54,15 @@ from tpu_pbrt_torch.integrators.common import (
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
     make_interaction,
+    scene_intersect,
     scene_intersect_fused,
+    unoccluded_tr,
 )
 from tpu_pbrt_torch.obs import counters as obs_counters
+
+#: extra bounce iterations for null-interface crossings, which do not count
+#: as bounces (scenes with MAT_NONE surfaces only)
+PASSTHROUGH_MARGIN = 4
 
 #: compaction packs (free_flag << 30) | lane into one int32 sort key
 _POOL_LANE_BITS = 30
@@ -108,22 +118,32 @@ class PathIntegrator(WavefrontIntegrator):
         super().__init__(params, scene, options)
         self.max_depth = params.find_one_int("maxdepth", 5)
         self.rr_threshold = params.find_one_float("rrthreshold", 1.0)
+        self.margin = PASSTHROUGH_MARGIN if scene.has_null_materials else 0
+
+    @property
+    def fused(self) -> bool:
+        """Whether the bounce waves take the fused 2R layout (single-segment
+        visibility and no null pass-through) or the split one."""
+        return self.vis_segments == 1 and self.margin == 0
 
     def _regen_enabled(self) -> bool:
-        """The persistent pool is on by default wherever its
-        precondition holds: a sampler whose dimension salts work per lane
-        (not halton). (The reference also requires the fused layout, which
-        every scene the port compiles takes.)"""
+        """The persistent pool is on by default wherever its preconditions
+        hold: the fused layout, and a sampler whose dimension salts work
+        per lane (not halton). A scene with null interfaces takes the
+        fixed batch."""
         from tpu_pbrt_torch.config import cfg
 
-        return cfg.regen and self.skind != "halton"
+        return cfg.regen and self.fused and self.skind != "halton"
 
     # -- one wavefront step ------------------------------------------------
     def _bounce_wave(self, dev, px, py, s, salt, st: LaneSt, nrays, ctr=None):
-        """Advance every lane one bounce: trace the continuation rays and
-        the pending shadow rays as one 2R wave, settling the previous
-        bounce's NEE; add emission with forward MIS, queue NEE's shadow ray
-        and sample the BSDF continuation, apply Russian roulette.
+        """Advance every lane one bounce. Fused layout: trace the
+        continuation rays and the pending shadow rays as one 2R wave,
+        settling the previous bounce's NEE, and queue this bounce's shadow
+        ray. Split layout: trace the continuation rays, then this
+        bounce's shadow walk, and let null-surface lanes pass through.
+        Both add emission with forward MIS, sample the BSDF continuation
+        and apply Russian roulette.
 
         `salt` is the sampler-dimension base: the loop iteration *
         DIMS_PER_BOUNCE (an int) in the fixed batch, the per-lane depth *
@@ -136,17 +156,21 @@ class PathIntegrator(WavefrontIntegrator):
         depth, prev_pdf, specular = st.depth, st.prev_pdf, st.specular
         eta_scale, prev_p = st.eta_scale, st.prev_p
 
+        fused = self.fused
         # dead lanes trace with t_max < 0: never seeded into the traversal
         t_max = torch.where(alive, torch.full_like(o[..., 0], float("inf")),
                             torch.full_like(o[..., 0], -1.0))
-        hit, sh_prim = scene_intersect_fused(
-            dev, torch.cat([o, st.sh_o]), torch.cat([d, st.sh_d]),
-            torch.cat([t_max, st.sh_dist]), n_cam=o.shape[0],
-        )
-        # settle the previous bounce's NEE with its visibility
-        vis_prev = (st.sh_dist > 0.0) & (sh_prim < 0)
-        L = L + torch.where(vis_prev[..., None], st.ld_pend, torch.zeros_like(st.ld_pend))
-        nrays = nrays + (st.sh_dist > 0.0).to(torch.int32)
+        if fused:
+            hit, sh_prim = scene_intersect_fused(
+                dev, torch.cat([o, st.sh_o]), torch.cat([d, st.sh_d]),
+                torch.cat([t_max, st.sh_dist]), n_cam=o.shape[0],
+            )
+            # settle the previous bounce's NEE with its visibility
+            vis_prev = (st.sh_dist > 0.0) & (sh_prim < 0)
+            L = L + torch.where(vis_prev[..., None], st.ld_pend, torch.zeros_like(st.ld_pend))
+            nrays = nrays + (st.sh_dist > 0.0).to(torch.int32)
+        else:
+            hit = scene_intersect(dev, o, d, t_max)
         nrays = nrays + alive.to(torch.int32)
         it = make_interaction(dev, hit, o, d)
         it.valid = it.valid & alive
@@ -176,6 +200,7 @@ class PathIntegrator(WavefrontIntegrator):
 
         # ---- NEE: light-sampling half ---------------------------------
         mp = self.mat_at(dev, it)
+        is_null = it.valid & (mp.mtype == bxdf.MAT_NONE) if self.margin else None
         u_pick = self.u1d(px, py, s, salt + DIM_LIGHT_PICK)
         u1, u2 = self.u2d(px, py, s, salt + DIM_LIGHT_UV)
         ls = ld.sample_one_light(dev, self.light_distr, it.p, u_pick, u1, u2)
@@ -195,14 +220,21 @@ class PathIntegrator(WavefrontIntegrator):
         w_l = torch.where(ls.is_delta, torch.ones_like(ls.pdf),
                           power_heuristic(1.0, ls.pdf, 1.0, bsdf_pdf))
         Ld = f * ls.li * (w_l / torch.clamp(ls.pdf, min=1e-20))[..., None]
-        # queue the shadow ray for the NEXT wave, stopping at 0.999 of the
-        # light distance (VisibilityTester::Unoccluded's margin); its
-        # contribution uses this bounce's beta
-        pend = (
-            o_sh, ls.wi,
-            torch.where(do_nee, sh_dist * 0.999, torch.full_like(sh_dist, -1.0)),
-            torch.where(do_nee[..., None], beta * Ld, torch.zeros_like(Ld)),
-        )
+        if fused:
+            # queue the shadow ray for the NEXT wave, stopping at 0.999 of
+            # the light distance (VisibilityTester::Unoccluded's margin);
+            # its contribution uses this bounce's beta
+            pend = (
+                o_sh, ls.wi,
+                torch.where(do_nee, sh_dist * 0.999, torch.full_like(sh_dist, -1.0)),
+                torch.where(do_nee[..., None], beta * Ld, torch.zeros_like(Ld)),
+            )
+        else:
+            visible, _ = unoccluded_tr(dev, o_sh, ls.wi, sh_dist, None, px, py, s,
+                                       salt + DIM_LIGHT_UV + 200, segments=self.vis_segments)
+            nrays = nrays + do_nee.to(torch.int32)
+            L = L + torch.where((do_nee & visible)[..., None], beta * Ld, torch.zeros_like(Ld))
+            pend = (st.sh_o, st.sh_d, st.sh_dist, st.ld_pend)
 
         # ---- continuation: BSDF sample --------------------------------
         ul = self.u1d(px, py, s, salt + DIM_BSDF_LOBE)
@@ -227,6 +259,12 @@ class PathIntegrator(WavefrontIntegrator):
         depth = depth + cont.to(torch.int32)
         alive = cont
 
+        # ---- null pass-through: not a bounce (path.cpp bounces--); d,
+        # beta and the MIS state stay those of the last real vertex -------
+        if is_null is not None:
+            alive = alive | is_null
+            o = torch.where(is_null[..., None], offset_ray_origin(it.p, it.ng, d), o)
+
         # ---- Russian roulette: first possible kill after the 5th real
         # bounce is sampled (pbrt's `bounces > 3` at the end of the
         # iteration, with depth counted post-increment) -----------------
@@ -249,13 +287,17 @@ class PathIntegrator(WavefrontIntegrator):
     # -- fixed-batch loop (TORCH_PBRT_REGEN=0) -------------------------------
     def li(self, dev, o, d, px, py, s):
         """Radiance of the camera rays (o, d) of work items (px, py, s):
-        bounce waves until every lane is dead and every pending shadow ray
-        has settled, at most maxdepth + 1 waves + 1 to settle the last
-        shadow rays. Returns (L (R, 3), per-lane traced-ray counts (R,))."""
+        bounce waves until every lane is dead (and, fused, every pending
+        shadow ray has settled), at most maxdepth + 1 (+ the null
+        pass-through margin) waves, + 1 to settle the last shadow rays when
+        fused. Returns (L (R, 3), per-lane traced-ray counts (R,))."""
         lane = fresh_lanes(o, d)
         nrays = torch.zeros(o.shape[:-1], dtype=torch.int32, device=o.device)
-        for bounce in range(self.max_depth + 2):
-            live = lane.alive.any() | (lane.sh_dist > 0.0).any()
+        fused = self.fused
+        for bounce in range(self.max_depth + 1 + self.margin + int(fused)):
+            live = lane.alive.any()
+            if fused:
+                live = live | (lane.sh_dist > 0.0).any()
             stream.WAVES.add_loop_read()
             if not bool(live):  # the loop test: one host read per wave
                 break

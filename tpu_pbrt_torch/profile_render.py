@@ -1,11 +1,13 @@
 """Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown] [--res 128] [--spp 64]
-        [--integrator path|directlighting|whitted|ao] [--no-regen] [--out DIR]
+    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud] [--res 128]
+        [--spp 64] [--integrator path|directlighting|whitted|ao|volpath] [--no-regen]
+        [--out DIR]
 
 Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
-`scenes.make_crown_like`) at its full geometry under the integrator
-(default `path`), renders it once to warm up, then renders it again
+`scenes.make_crown_like`, with `--scene cloud`, `scenes.make_cloud_like`)
+at its full geometry under the integrator (default `path`; the cloud's
+own is `volpath`), renders it once to warm up, then renders it again
 under `torch.profiler` (CPU + CUDA activity), through the persistent
 pool (`path`'s default render path) or, with `--no-regen` and for the
 other integrators, through the fixed batch, and prints:
@@ -17,7 +19,8 @@ other integrators, through the fixed batch, and prints:
 - the device time by group (the two hand-written kernels, sorts,
   gathers and scatters, elementwise work, copies) and the top kernels;
 - the host reads per wave from the render's stats: the traversal's and
-  the render loop's (one per pool wave or fixed-batch bounce).
+  the render loop's (one per pool wave or fixed-batch bounce), and the
+  waves by mode (closest-hit, any-hit).
 
 With `--out DIR` it also writes the Chrome trace there. The script needs
 a CUDA device; it does not fall back to the CPU.
@@ -65,11 +68,11 @@ def _card() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("killeroo", "crown"), default="killeroo")
+    ap.add_argument("--scene", choices=("killeroo", "crown", "cloud"), default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--integrator", choices=("path", "directlighting", "whitted", "ao"),
-                    default="path")
+    ap.add_argument("--integrator", choices=("path", "directlighting", "whitted", "ao", "volpath"),
+                    default=None, help="default: path (volpath for the cloud)")
     ap.add_argument("--no-regen", action="store_true",
                     help="profile the fixed batch instead of the persistent pool")
     ap.add_argument("--out", default="", help="directory for the Chrome trace")
@@ -81,13 +84,15 @@ def main() -> int:
 
     from tpu_pbrt_torch.config import cfg
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
-    from tpu_pbrt_torch.scenes import compile_api, make_crown_like, make_killeroo_like
+    from tpu_pbrt_torch import scenes
 
     cfg.regen = not args.no_regen
-    make = make_crown_like if args.scene == "crown" else make_killeroo_like
+    make = {"killeroo": scenes.make_killeroo_like, "crown": scenes.make_crown_like,
+            "cloud": scenes.make_cloud_like}[args.scene]
     api = make(res=args.res, spp=args.spp, device="cuda")
+    args.integrator = args.integrator or ("volpath" if args.scene == "cloud" else "path")
     api.render_options.integrator_name = args.integrator
-    scene, integ = compile_api(api)
+    scene, integ = scenes.compile_api(api)
     integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
     reset_launches()
     torch.cuda.synchronize()
@@ -118,6 +123,11 @@ def main() -> int:
           f"{res.rays_traced / wall / 1e6:.4f} Mray/s")
     print(f"traversal waves {st['waves']}, host reads per wave {st['host_reads_per_wave_mean']:.2f} "
           f"(traversal) + {st['loop_host_reads_per_wave']:.2f} (loop)")
+    for mode, m in st["wave_modes"].items():
+        print(f"{mode} waves {m['waves']}: {m['iters_per_wave_mean']:.2f} iterations, "
+              f"{m['host_reads_per_wave_mean']:.2f} host reads, "
+              f"{m['expand_calls_per_wave_mean']:.2f} expand and "
+              f"{m['flush_calls_per_wave_mean']:.2f} flush launches per wave")
     print(f"stats: {json.dumps(st)}")
     print(f"launches: {json.dumps(launches)}")
     if dev_us == 0:

@@ -17,6 +17,7 @@ import torch
 
 from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
 from tpu_pbrt_torch.core.bxdf import MAT_COLUMNS
+from tpu_pbrt_torch.core.media import MediumTable
 from tpu_pbrt_torch.core.sampling import Distribution2D
 
 #: per-light columns the port reads (per material: bxdf.MAT_COLUMNS)
@@ -25,7 +26,7 @@ LIGHT_KEYS = ("type", "p", "L", "tri", "twosided", "area", "tri_v")
 DEV_KEYS = (
     "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",
     "world_center", "world_radius", "n_lights", "tri_sh16", "tri_verts9T",
-    "envmap", "env_w2l",
+    "envmap", "env_w2l", "tri_med_in", "tri_med_out",
 )
 
 
@@ -36,14 +37,16 @@ def _tensor(a, device):
 def upload(tab: dict, device) -> dict:
     """Numpy tables (as compile_scene builds them) -> device tables:
     arrays become tensors, "tstream" becomes a TreeletPack, "env_distr"
-    (its six tables in field order) a Distribution2D, nested dicts
-    recurse."""
+    (its six tables in field order) a Distribution2D, "media" (its eight
+    fields in order) a MediumTable, nested dicts recurse."""
     out = {}
     for k, v in tab.items():
         if k == "tstream":
             out[k] = pack_from_numpy(v, device)
         elif k == "env_distr":
             out[k] = Distribution2D(*(_tensor(a, device) for a in v))
+        elif k == "media":
+            out[k] = MediumTable(*(_tensor(a, device) for a in v))
         elif isinstance(v, dict):
             out[k] = upload(v, device)
         else:
@@ -80,6 +83,8 @@ def tables_from_numpy(dev_np: dict, device) -> dict:
         tab["tstream"] = pack_tables(dev_np["tstream"])
     if "bfeat" in dev_np:
         tab["bfeat"] = {"feat": dev_np["bfeat"]["feat"], "center": dev_np["bfeat"]["center"]}
+    if "media" in dev_np:
+        tab["media"] = tuple(getattr(dev_np["media"], f) for f in MediumTable._fields)
     if "env_distr" in dev_np:
         tab["env_distr"] = tuple(getattr(dev_np["env_distr"], f) for f in Distribution2D._fields)
     return upload(tab, device)
@@ -97,7 +102,7 @@ def flat_tables(dev: dict, prefix: str = "") -> dict:
                 "offset": v.offset, "count": v.count,
             }
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in parts.items()})
-        elif isinstance(v, Distribution2D):
+        elif isinstance(v, (Distribution2D, MediumTable)):
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in v._asdict().items()})
         elif isinstance(v, dict):
             out.update(flat_tables(v, name + "."))

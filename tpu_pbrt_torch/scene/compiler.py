@@ -3,9 +3,15 @@
 Port of tpu_pbrt/scene/compiler.py::compile_scene, reduced to the
 directive set the port renders:
 
-- shapes: "trianglemesh" (world-space triangle soup, shading normals, uvs);
+- shapes: "trianglemesh" (world-space triangle soup, shading normals,
+  uvs) and "sphere" (the reference's 64x32 parametric tessellation);
 - materials: "matte", "plastic", "metal", "glass" and "mirror" with
-  constant parameters (constant-folded as the reference folds them);
+  constant parameters (constant-folded as the reference folds them), and
+  "none" (a null interface: rays pass through it);
+- participating media: `MakeNamedMedium` "homogeneous" and "grid" (or
+  "heterogeneous") rows with presets and scale, the shapes'
+  `MediumInterface` as per-triangle inside/outside medium ids, and the
+  camera's medium;
 - lights: "diffuse" area lights (one row per emissive triangle, as pbrt
   makes one DiffuseAreaLight per Triangle), "point" lights and the
   "infinite" environment light (an HDR lat-long map with its 2D
@@ -15,14 +21,16 @@ directive set the port renders:
   "bvh", every sampler the reference dispatches ("zerotwosequence" and
   its aliases, "random", "stratified", "halton", "sobol"), and the
   integrators of integrators.PORTED ("path", "directlighting",
-  "whitted", "ao").
+  "whitted", "ao", "volpath").
 
 Anything else raises PbrtError naming what is not ported yet; nothing is
 silently substituted. (The substitutions are the reference's own: an
 environment map that cannot be read becomes a constant map, and the
-"maxmindist" or an unknown sampler the (0,2)-sequence, with a warning.) The host-side work (BVH build, leaf ordering, light rows, the
-treelet pack, the light distributions) is the reference's numpy code, so
-the uploaded tables are bit-identical to the reference's
+"maxmindist" or an unknown sampler the (0,2)-sequence, and an unknown
+medium type an empty medium row, with a warning.) The host-side work
+(BVH build, leaf ordering, light rows, the treelet pack, the light
+distributions, the media rows) is the reference's numpy code, so the
+uploaded tables are bit-identical to the reference's
 (tests/test_torch_scene.py pins that through scene/bridge.py).
 """
 
@@ -30,6 +38,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
+
+import math
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ from tpu_pbrt_torch.config import cfg, resolve_device
 from tpu_pbrt_torch.core import bxdf
 from tpu_pbrt_torch.core.film import Film, make_film
 from tpu_pbrt_torch.core.filters import make_filter
+from tpu_pbrt_torch.core import media as md
 from tpu_pbrt_torch.core.lights_dev import (
     LIGHT_AREA,
     LIGHT_INFINITE,
@@ -81,6 +92,11 @@ class CompiledScene:
     light_distr: Optional[Distribution1D] = None
     spatial_distr: Any = None
     has_envmap: bool = False
+    #: the medium the camera sits in (-1: vacuum)
+    camera_medium_id: int = -1
+    #: the scene holds null-interface (MAT_NONE) surfaces: shadow rays
+    #: walk through them (integrators/common.py::unoccluded_tr)
+    has_null_materials: bool = False
 
 
 def _not_ported(what: str):
@@ -138,6 +154,64 @@ def _tess_mesh(params):
     return verts, normals, uvs
 
 
+def _grid_to_tris(n_u, n_v):
+    """Vertex index triples of an (n_v+1, n_u+1) grid of points."""
+    tris = []
+    for v in range(n_v):
+        for u in range(n_u):
+            a = v * (n_u + 1) + u
+            b = v * (n_u + 1) + u + 1
+            c = (v + 1) * (n_u + 1) + u + 1
+            d = (v + 1) * (n_u + 1) + u
+            tris.append((a, b, c))
+            tris.append((a, c, d))
+    return np.asarray(tris, np.int64)
+
+
+def _tess_param_surface(point_fn, normal_fn, u_max, v_range, n_u, n_v):
+    """Tessellate a parametric surface: point_fn(u, v) -> (..., 3), u in
+    [0, u_max] (phi), v in v_range."""
+    us = np.linspace(0.0, u_max, n_u + 1)
+    vs = np.linspace(v_range[0], v_range[1], n_v + 1)
+    uu, vv = np.meshgrid(us, vs)  # (n_v+1, n_u+1)
+    pts = point_fn(uu, vv)
+    nrm = normal_fn(uu, vv) if normal_fn is not None else None
+    idx = _grid_to_tris(n_u, n_v)
+    verts = pts.reshape(-1, 3)[idx]
+    normals = nrm.reshape(-1, 3)[idx] if nrm is not None else None
+    v_den = v_range[1] - v_range[0]
+    if abs(v_den) < 1e-9:
+        v_den = 1e-9
+    uvn = np.stack([uu / max(u_max, 1e-9), (vv - v_range[0]) / v_den], axis=-1)
+    uvs = uvn.reshape(-1, 2)[idx]
+    return verts, normals, uvs
+
+
+def _tess_sphere(params):
+    """pbrt's Sphere (radius, zmin, zmax, phimax) as a 64 x 32 grid in
+    (phi, theta) with normals p / r."""
+    r = params.find_one_float("radius", 1.0)
+    zmin = params.find_one_float("zmin", -r)
+    zmax = params.find_one_float("zmax", r)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+    theta_min = math.acos(np.clip(zmin / r, -1, 1))
+    theta_max = math.acos(np.clip(zmax / r, -1, 1))
+    n_u, n_v = 64, 32
+
+    def pt(u, v):
+        return np.stack([r * np.sin(v) * np.cos(u), r * np.sin(v) * np.sin(u), r * np.cos(v)],
+                        axis=-1)
+
+    def nrm(u, v):
+        return pt(u, v) / r
+
+    return _tess_param_surface(pt, nrm, phimax, (theta_min, theta_max), n_u, n_v)
+
+
+#: shape type -> tessellator (ShapeRecord params -> verts, normals, uvs)
+_TESSELLATORS = {"trianglemesh": _tess_mesh, "sphere": _tess_sphere}
+
+
 def _geometric_normals(verts: np.ndarray) -> np.ndarray:
     e1 = verts[:, 1] - verts[:, 0]
     e2 = verts[:, 2] - verts[:, 0]
@@ -148,8 +222,8 @@ def _geometric_normals(verts: np.ndarray) -> np.ndarray:
 
 
 #: the materials lower_materials lowers, with their type enum values
-_MAT_ENUM = {"matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT_PLASTIC, "metal": bxdf.MAT_METAL,
-             "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR}
+_MAT_ENUM = {"none": bxdf.MAT_NONE, "matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT_PLASTIC,
+             "metal": bxdf.MAT_METAL, "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR}
 
 
 def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
@@ -205,6 +279,8 @@ def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
             if p.get("vroughness") is not None:
                 flt("vroughness", 0.01, "rough_v")
             tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "none":
+            pass  # the row keeps the defaults: a null interface
         elif t == "glass":
             spec("Kr", 1.0, "kr")
             spec("Kt", 1.0, "kt")
@@ -240,8 +316,6 @@ def _check_directives(api, ro):
         _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
     if ro.instance_uses:
         _not_ported("ObjectInstance")
-    if ro.named_media or ro.camera_medium:
-        _not_ported("participating media")
     if api.render_options.camera_to_world.is_animated():
         _not_ported("an animated camera transform (motion blur)")
 
@@ -278,9 +352,13 @@ def compile_scene(api, device=None) -> CompiledScene:
     mat_index: Dict[int, int] = {}
     light_rows: List[dict] = []
 
+    shape_tri_counts: List = []  # (ShapeRecord, n_tris), for the medium interfaces
+
     def mat_id_for(mrec):
         if mrec is None:
-            _not_ported('Material "none" (null interfaces)')
+            from tpu_pbrt_torch.scene.api import MaterialRecord
+
+            mrec = MaterialRecord("none", {})
         key = id(mrec)
         if key not in mat_index:
             mat_index[key] = len(mat_records)
@@ -288,9 +366,9 @@ def compile_scene(api, device=None) -> CompiledScene:
         return mat_index[key]
 
     for rec in ro.shapes:
-        if rec.type != "trianglemesh":
-            _not_ported(f'Shape "{rec.type}" (ported: "trianglemesh")')
-        verts, normals, uvs = _tess_mesh(rec.params)
+        if rec.type not in _TESSELLATORS:
+            _not_ported(f'Shape "{rec.type}" (ported: {", ".join(map(repr, _TESSELLATORS))})')
+        verts, normals, uvs = _TESSELLATORS[rec.type](rec.params)
         o2w = rec.object_to_world[0]
         if not np.allclose(o2w.m, rec.object_to_world[1].m):
             _not_ported("animated shape transforms (motion blur)")
@@ -310,6 +388,7 @@ def compile_scene(api, device=None) -> CompiledScene:
         mid = mat_id_for(rec.material)
         n_t = len(wverts)
         base = sum(len(v) for v in all_verts)
+        shape_tri_counts.append((rec, n_t))
         all_verts.append(wverts)
         all_normals.append(wn)
         all_uvs.append(uvs)
@@ -396,6 +475,20 @@ def compile_scene(api, device=None) -> CompiledScene:
         else:
             _not_ported(f'LightSource "{lrec.type}" (ported: "point", "infinite")')
 
+    # -- media (medium.cpp, media/{homogeneous,grid}.cpp) ---------------------
+    medium_ids, media = lower_media(ro.named_media)
+    # per-triangle MediumInterface ids, in the BVH's leaf order
+    med_in = np.full(len(verts), -1, np.int32)
+    med_out = np.full(len(verts), -1, np.int32)
+    tri_base = 0
+    for rec, n_t in shape_tri_counts:
+        med_in[tri_base: tri_base + n_t] = medium_ids.get(rec.inside_medium, -1)
+        med_out[tri_base: tri_base + n_t] = medium_ids.get(rec.outside_medium, -1)
+        tri_base += n_t
+    med_in = med_in[order]
+    med_out = med_out[order]
+    camera_medium_id = medium_ids.get(ro.camera_medium, -1)
+
     n_lights = len(light_rows)
     if n_lights == 0:
         Warning("No light sources defined in scene; rendering a black image.")
@@ -460,19 +553,23 @@ def compile_scene(api, device=None) -> CompiledScene:
         "tri_light": light_ids.astype(np.int32),
         "mat": mtab,
         "light": lt,
+        "tri_med_in": med_in,
+        "tri_med_out": med_out,
+        "media": media,
         "world_center": np.asarray(wcenter, np.float32),
         "world_radius": np.float32(wradius),
         "n_lights": np.int32(n_lights),
     }
-    if len(mtab["type"]) >= 4096 or n_lights >= 4095:
-        _not_ported("scenes past the 4096-material / 4095-light shading-row packing")
-    # (16, T) lane-major shading rows [n0 n1 n2 | uv0 uv1 uv2 | mat*4096 + light+1]
-    pack = (
-        np.asarray(mat_ids, np.int64) * 4096 + np.asarray(light_ids, np.int64) + 1
-    ).astype(np.float32)[:, None]
-    tab["tri_sh16"] = np.concatenate(
-        [normals.reshape(len(normals), 9), uvs.reshape(len(uvs), 6), pack], axis=1
-    ).T.copy()
+    if len(mtab["type"]) < 4096 and n_lights < 4095:
+        # (16, T) lane-major shading rows [n0 n1 n2 | uv0 uv1 uv2 | mat*4096 + light+1],
+        # where the ids fit the exact-f32 packing (else make_interaction
+        # gathers the four tables)
+        pack = (
+            np.asarray(mat_ids, np.int64) * 4096 + np.asarray(light_ids, np.int64) + 1
+        ).astype(np.float32)[:, None]
+        tab["tri_sh16"] = np.concatenate(
+            [normals.reshape(len(normals), 9), uvs.reshape(len(uvs), 6), pack], axis=1
+        ).T.copy()
 
     from tpu_pbrt_torch.accel.mxu import BRUTE_MAX_TRIS, tri_feature_weights
 
@@ -515,7 +612,62 @@ def compile_scene(api, device=None) -> CompiledScene:
         light_distr=light_distr,
         spatial_distr=spatial_distr,
         has_envmap=envmap is not None,
+        camera_medium_id=camera_medium_id,
+        has_null_materials=bool(np.any(mtab["type"][mat_ids] == bxdf.MAT_NONE)),
     )
+
+
+def lower_media(named_media) -> tuple:
+    """MakeNamedMedium records -> ({name: row id, "": -1}, the medium
+    table's fields as numpy arrays (md.medium_table_numpy)): the
+    reference's defaults, presets, scale and grid placement (p0/p1 into
+    world_to_medium; sigma_t_max the grid's majorant). One density grid:
+    a second one replaces the first, with the reference's warning."""
+    medium_ids: Dict[str, int] = {"": -1}
+    rows = []
+    density = None
+    w2m = np.eye(4, dtype=np.float32)
+    sigma_t_max = 0.0
+    for name, mrec in named_media.items():
+        p = mrec.params
+        scale = p.find_one_float("scale", 1.0)
+        g = p.find_one_float("g", 0.0)
+        preset = p.find_one_string("preset", "")
+        sig_a_d = np.array([0.0011, 0.0024, 0.014])
+        sig_s_d = np.array([2.55, 3.21, 3.77])
+        if preset:
+            if preset in md.MEDIUM_PRESETS:
+                sig_s_d, sig_a_d = md.MEDIUM_PRESETS[preset]
+            else:
+                Warning(f'Material preset "{preset}" not found; using defaults')
+        sig_a = _rgb(p.find_one_spectrum("sigma_a", sig_a_d)) * scale
+        sig_s = _rgb(p.find_one_spectrum("sigma_s", sig_s_d)) * scale
+        if mrec.type == "homogeneous":
+            rows.append(dict(type=md.MEDIUM_HOMOGENEOUS, sa=sig_a, ss=sig_s, g=g, grid=-1))
+        elif mrec.type in ("heterogeneous", "grid"):
+            nx = p.find_one_int("nx", 1)
+            ny = p.find_one_int("ny", 1)
+            nz = p.find_one_int("nz", 1)
+            dvals = p.find_float("density")
+            if dvals is None or len(dvals) != nx * ny * nz:
+                Error('GridDensityMedium requires nx*ny*nz "density" values')
+            if density is not None:
+                Warning("multiple grid media: only one density grid supported; last wins")
+            density = np.asarray(dvals, np.float32).reshape(nz, ny, nx)
+            # medium space [0,1]^3 maps onto the p0-p1 box
+            p0 = np.asarray(p.find_one_point3("p0", [0.0, 0.0, 0.0]))
+            p1 = np.asarray(p.find_one_point3("p1", [1.0, 1.0, 1.0]))
+            m2w = mrec.medium_to_world.m @ np.block(
+                [[np.diag(p1 - p0), p0[:, None]], [np.zeros((1, 3)), np.ones((1, 1))]])
+            w2m = np.linalg.inv(m2w).astype(np.float32)
+            sigma_t_max = float((sig_a + sig_s).max() * density.max())
+            rows.append(dict(type=md.MEDIUM_GRID, sa=sig_a, ss=sig_s, g=g, grid=0))
+        else:
+            Warning(f'Medium "{mrec.type}" unknown; ignored.')
+            rows.append(dict(type=md.MEDIUM_HOMOGENEOUS, sa=sig_a * 0, ss=sig_s * 0, g=0.0,
+                             grid=-1))
+        medium_ids[name] = len(rows) - 1
+    return medium_ids, md.medium_table_numpy(rows, density, w2m, sigma_t_max)
 
 
 def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:

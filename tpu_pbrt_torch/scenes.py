@@ -1,8 +1,12 @@
 """Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
-killeroo-class mesh and the crown-class scene).
+killeroo-class mesh and the crown-class scene), and the cloud-class scene.
 
 Same scene text and the same procedural meshes and sky as the reference,
 driven through the port's API, so both packages compile identical worlds.
+The reference has no cloud scene: `cloud_parts` holds the cloud's text
+and mesh, which the port parses here and the JAX reference's generator
+(tests/torch_golden/make_volpath_reference.py) parses through the JAX
+package's API.
 """
 
 from __future__ import annotations
@@ -238,6 +242,58 @@ Scale 0.6 0.6 0.6
     )
     _add_mesh(api, *_displaced_sphere(140, 280, seed=23))
     parse_string("AttributeEnd\n", api, render=False)
+    return api
+
+
+#: the cloud's homogeneous medium: optical depth about 5 across the blob
+CLOUD_MEDIUM = ('MakeNamedMedium "cloud" "string type" "homogeneous" '
+                '"rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [2.5 2.5 2.5] "float g" [0.5]')
+
+
+def cloud_parts(res, spp, maxdepth, n_theta, n_phi, env_path):
+    """The cloud-class scene as (text up to the container, the container's
+    (V, F, N) arrays, the closing text): the killeroo's camera, ground,
+    quad area light and point light, the crown's HDR sky as an infinite
+    light, and the killeroo's displaced sphere as a `Material "none"`
+    container holding CLOUD_MEDIUM (`MediumInterface "cloud" ""`), under
+    `volpath` with `zerotwosequence`. The sphere's faces wind inward, so
+    its winding and normals are reversed: the interface's inside is then
+    the blob's interior."""
+    head = f"""
+Integrator "volpath" "integer maxdepth" [{maxdepth}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.2 -3.4  0 0.3 0  0 1 0
+Camera "perspective" "float fov" [38]
+WorldBegin
+LightSource "infinite" "string mapname" ["{env_path}"]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [18 17 15]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 2.98 -1  1 2.98 -1  1 2.98 1  -1 2.98 1]
+AttributeEnd
+LightSource "point" "rgb I" [4 4 5] "point from" [2.5 2 -2.5]
+Material "matte" "rgb Kd" [0.82 0.78 0.75]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-6 -0.72 -6  -6 -0.72 6  6 -0.72 6  6 -0.72 -6]
+{CLOUD_MEDIUM}
+AttributeBegin
+Material "none"
+MediumInterface "cloud" ""
+"""
+    V, F, N = _displaced_sphere(n_theta, n_phi)
+    return head, (V, np.ascontiguousarray(F[:, ::-1]), -N), "AttributeEnd\n"
+
+
+def make_cloud_like(res=256, spp=16, maxdepth=5, n_theta=180, n_phi=360, options=None,
+                    device=None) -> PbrtAPI:
+    """cloud-class stand-in (`cloud.pbrt`: VolPathIntegrator in a
+    homogeneous medium): `cloud_parts` at the killeroo's 128,880-triangle
+    container. Parsed up to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    head, mesh, tail = cloud_parts(res, spp, maxdepth, n_theta, n_phi, _crown_envmap_path())
+    parse_string(head, api, render=False)
+    _add_mesh(api, *mesh)
+    parse_string(tail, api, render=False)
     return api
 
 
