@@ -89,15 +89,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      Russian roulette off (MSE bar 1e-4, rays printed); the 256x256x16
      render timed (Mray/s, waves, wave_modes),
      its kernel launches counted as in phase 3;
-  7. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  7. caustic — the light-transport integrators on make_caustic_like()
+     (the killeroo's 128,880-triangle displaced sphere in glass over its
+     matte ground, lit by its quad area light and by a point light that
+     the glass focuses onto the ground; maxdepth 5):
+     [scene] its sizes and compile seconds;
+     [check] both kernels against their plain versions, EXACT, on two
+     captured waves, timed as in phase 2: BDPT's fused connection wave of
+     the 256x256x16 chunk (every strategy's visibility ray, 20 x 2^20
+     rays, any hit with a finite per-ray t_max: the expand step after its
+     first flush and the first flush chunk after it) and SPPM's first
+     photon wave (closest hit, 2^20 rays leaving the lights);
+     [render] BDPT at 256x256x16, SPPM at 256x256 (2 iterations of 2^20
+     photons) and MLT at 128x128 (65,536 chains) timed (Mray/s, waves,
+     wave_modes), each with its kernel launches counted as in phase 3;
+     BDPT and SPPM against the JAX CPU references of
+     tests/torch_golden/make_caustic_reference.py (MSE bar 1e-4, no pair
+     dropped, rays printed beside the reference's), MLT against its
+     reference by the image mean (within 2%: one accept that flips
+     reroutes a chain for good) with the MSE printed; BDPT and SPPM on
+     the card against the CPU port at 16x16 (MSE bar 1e-4);
+  8. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
-  8. summary — one {"kernels": [...]} line (times and bounds at the pool
+  9. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
-     under "direct"; the cloud's shadow-walk wave under "cloud"), the
+     under "direct"; the cloud's shadow-walk wave under "cloud"; the
+     caustic's connection and photon waves under "caustic"), the
      card's name and power limit
      (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -129,6 +150,20 @@ CLOUD_RES, CLOUD_SPP = 256, 16
 #: wave the kernels are checked on (one chunk of 2^20 camera rays)
 DIRECT_RES, DIRECT_SPP = 128, 64
 MSE_BAR = 1e-4
+#: the timed caustic BDPT render, whose connection wave the kernels are
+#: checked on (one chunk of 2^20 camera rays)
+CAUSTIC_RES, CAUSTIC_SPP = 256, 16
+#: the timed caustic SPPM render (resolution, integrator parameters), whose
+#: first photon wave the kernels are checked on
+SPPM_TIMED = (256, '"integer numiterations" [2] "integer photonsperiteration" [1048576] '
+                   '"float radius" [0.05]')
+#: the timed caustic MLT render, with a chain count that fills the card
+MLT_TIMED = (128, '"integer chains" [65536] "integer bootstrapsamples" [65536] '
+                  '"integer mutationsperpixel" [64]')
+#: SPPM on the card against the CPU port
+SPPM_SMALL = '"integer numiterations" [2] "integer photonsperiteration" [4096] "float radius" [0.1]'
+#: MLT on the card against its JAX CPU reference: the image means' bar
+MLT_MEAN_BAR = 0.02
 #: spp of the 512x512 crown render (the bench's 256 would not fit the time box)
 CROWN_SPP = 16
 
@@ -836,31 +871,39 @@ def phase_crown_render(scene, integ):
 
 # -- phase 5 -------------------------------------------------------------------
 
-def _capture_anyhit_wave(scene, integ):
-    """Run the render's first chunk up to the end of its first any-hit
-    (shadow) wave, recording that wave's first expand step after its first
-    flush (rays answered by that flush are culled) and the first flush
-    chunk after that expand (its pairs passed the any-hit filter that
-    drops answered rays). Returns (captures, the wave's stats)."""
+def _capture_first_wave(run, any_hit: bool, label: str, when=lambda: True):
+    """Run `run()` up to the end of its first traversal wave of the given
+    mode (any-hit or closest-hit) that starts while `when()` holds,
+    recording that wave's first expand step after its first flush (in an
+    any-hit wave, rays answered by that flush are culled) and the first
+    flush chunk after that expand (its pairs passed the filters of the
+    steps before). A wave whose only flush comes after its last expand
+    step has neither: its first of each is taken then. Returns
+    (captures, the wave's stats: rays, live, hits, finite t_max,
+    expand steps, flush chunks)."""
+    import torch
+
     from tpu_pbrt_torch.accel import stream
 
     cap = {}
     state = {"in_wave": False, "flushes": 0, "expands": 0}
-    real_p, real_expand, real_flush = stream.stream_intersect_p, stream.expand, stream.flush_chunk
+    real_trav, real_expand, real_flush = stream._traverse, stream.expand, stream.flush_chunk
 
-    def intersect_p(tp, o, d, t_max):
-        state["in_wave"] = True
-        state["rays"] = o.shape[0]
-        state["live"] = int((stream._t_max_rows(o, t_max) > 0).sum())
-        hit = real_p(tp, o, d, t_max)
-        state["answered"] = int(hit.sum())
+    def traverse(tp, o, d, t_max, mode):
+        if mode != any_hit or state["in_wave"] or not when():
+            return real_trav(tp, o, d, t_max, mode)
+        live = t_max > 0
+        state.update(in_wave=True, rays=o.shape[0], live=int(live.sum()),
+                     finite=bool(torch.isfinite(t_max[live]).all()))
+        s = real_trav(tp, o, d, t_max, mode)
+        state["hits"] = int((s.prim >= 0).sum())
         raise _Captured
 
     def expand_hook(*args):
         if state["in_wave"]:
             state["expands"] += 1
-            if not args[7]:
-                raise SmokeFailure("direct: the shadow wave's expand is not in any-hit mode")
+            if bool(args[7]) != any_hit:
+                raise SmokeFailure(f"{label}: the captured wave's expand has the wrong mode")
             if state["expands"] == 1:
                 cap["first_expand"] = _clone(args)
             elif state["flushes"] and "expand" not in cap:
@@ -876,26 +919,28 @@ def _capture_anyhit_wave(scene, integ):
                 cap["flush"] = _clone(args)
         return real_flush(*args)
 
-    plan = integ.prepare_chunks(scene)
-    stream.stream_intersect_p, stream.expand, stream.flush_chunk = (intersect_p, expand_hook,
-                                                                     flush_hook)
+    stream._traverse, stream.expand, stream.flush_chunk = traverse, expand_hook, flush_hook
     try:
-        plan.dispatch(scene.film.init_state(scene.device), 0)
+        run()
     except _Captured:
         pass
     finally:
-        stream.stream_intersect_p, stream.expand, stream.flush_chunk = real_p, real_expand, real_flush
+        stream._traverse, stream.expand, stream.flush_chunk = real_trav, real_expand, real_flush
     if {"first_flush", "first_expand"} - set(cap):
-        raise SmokeFailure(f"direct: could not capture the any-hit wave's kernel inputs ({state})")
-    # a wave whose only flush comes after its last expand step has neither
-    # an expand that culls answered rays nor a flush chunk after it: take
-    # its first of each then
+        raise SmokeFailure(f"{label}: could not capture the wave's kernel inputs ({state})")
     state["expand_after_flush"] = "expand" in cap
     state["flush_after_expand"] = "flush" in cap
     for k in ("expand", "flush"):
         first = cap.pop(f"first_{k}")
         cap.setdefault(k, first)
     return cap, state
+
+
+def _capture_anyhit_wave(scene, integ):
+    """The first any-hit (shadow) wave of the render's first chunk."""
+    plan = integ.prepare_chunks(scene)
+    return _capture_first_wave(lambda: plan.dispatch(scene.film.init_state(scene.device), 0),
+                               True, "direct")
 
 
 def _killeroo_direct(which, res, spp):
@@ -966,7 +1011,7 @@ def phase_direct():
     t0 = time.perf_counter()
     cap, wave = _capture_anyhit_wave(scene, integ)
     log(f"[direct] any-hit wave: the first shadow wave of chunk 0 ({wave['rays']} rays, "
-        f"{wave['live']} live, {wave['answered']} occluded; {wave['expands']} expand steps, "
+        f"{wave['live']} live, {wave['hits']} occluded; {wave['expands']} expand steps, "
         f"{wave['flushes']} flush chunks; expand captured after a flush: "
         f"{wave['expand_after_flush']}, flush chunk after that expand: "
         f"{wave['flush_after_expand']}) in {time.perf_counter() - t0:.2f} s")
@@ -1053,79 +1098,30 @@ def phase_samplers():
 # -- phase 6 -------------------------------------------------------------------
 
 def _capture_walk_wave(scene, integ):
-    """Run the render's first chunk up to the end of its first shadow-walk
-    segment wave (volpath's unoccluded_tr: closest hit, t_max the light
-    distance left), recording that wave's first expand step after its
-    first flush and the first flush chunk after that expand (the wave's
-    first of each where none follows). Returns (captures, the wave's
-    stats)."""
-    import torch
-
-    from tpu_pbrt_torch.accel import stream
+    """The first shadow-walk segment wave of the render's first chunk
+    (volpath's unoccluded_tr: closest hit, t_max the light distance
+    left)."""
     from tpu_pbrt_torch.integrators import volpath
 
-    cap = {}
-    state = {"in_walk": False, "in_wave": False, "flushes": 0, "expands": 0}
-    real_walk, real_trav = volpath.unoccluded_tr, stream._traverse
-    real_expand, real_flush = stream.expand, stream.flush_chunk
+    real_walk, in_walk = volpath.unoccluded_tr, [False]
 
     def walk(*args, **kw):
-        state["in_walk"] = True
+        in_walk[0] = True
         try:
             return real_walk(*args, **kw)
         finally:
-            state["in_walk"] = False
-
-    def traverse(tp, o, d, t_max, any_hit):
-        if not state["in_walk"]:
-            return real_trav(tp, o, d, t_max, any_hit)
-        if any_hit:
-            raise SmokeFailure("cloud: the shadow walk traced an any-hit wave")
-        live = t_max > 0
-        state.update(in_wave=True, rays=o.shape[0], live=int(live.sum()),
-                     finite=bool(torch.isfinite(t_max[live]).all()))
-        s = real_trav(tp, o, d, t_max, any_hit)
-        state["hits"] = int((s.prim >= 0).sum())
-        raise _Captured
-
-    def expand_hook(*args):
-        if state["in_wave"]:
-            state["expands"] += 1
-            if args[7]:
-                raise SmokeFailure("cloud: the shadow walk's expand is in any-hit mode")
-            if state["expands"] == 1:
-                cap["first_expand"] = _clone(args)
-            elif state["flushes"] and "expand" not in cap:
-                cap["expand"] = _clone(args)
-        return real_expand(*args)
-
-    def flush_hook(*args):
-        if state["in_wave"]:
-            state["flushes"] += 1
-            if state["flushes"] == 1:
-                cap["first_flush"] = _clone(args)
-            elif "expand" in cap and "flush" not in cap:
-                cap["flush"] = _clone(args)
-        return real_flush(*args)
+            in_walk[0] = False
 
     plan = integ.prepare_chunks(scene)
-    volpath.unoccluded_tr, stream._traverse = walk, traverse
-    stream.expand, stream.flush_chunk = expand_hook, flush_hook
+    volpath.unoccluded_tr = walk
     try:
-        plan.dispatch(scene.film.init_state(scene.device), 0)
-    except _Captured:
-        pass
+        cap, state = _capture_first_wave(
+            lambda: plan.dispatch(scene.film.init_state(scene.device), 0), False, "cloud",
+            when=lambda: in_walk[0])
     finally:
-        volpath.unoccluded_tr, stream._traverse = real_walk, real_trav
-        stream.expand, stream.flush_chunk = real_expand, real_flush
-    if {"first_flush", "first_expand"} - set(cap) or not state.get("finite"):
-        raise SmokeFailure(f"cloud: could not capture a shadow-walk wave with a finite t_max "
-                           f"({state})")
-    state["expand_after_flush"] = "expand" in cap
-    state["flush_after_expand"] = "flush" in cap
-    for k in ("expand", "flush"):
-        first = cap.pop(f"first_{k}")
-        cap.setdefault(k, first)
+        volpath.unoccluded_tr = real_walk
+    if not state["finite"]:
+        raise SmokeFailure(f"cloud: the shadow-walk wave has no finite t_max ({state})")
     return cap, state
 
 
@@ -1219,6 +1215,189 @@ def phase_cloud():
 
 # -- phase 7 -------------------------------------------------------------------
 
+def _caustic(res, spp, integrator, params, device):
+    from tpu_pbrt_torch.scenes import compile_api, make_caustic_like
+
+    return compile_api(make_caustic_like(res=res, spp=spp, maxdepth=5, integrator=integrator,
+                                         params=params, device=device))
+
+
+def _caustic_cases():
+    """make_caustic_reference.py's cases: {integrator: (res, spp, params, file)}."""
+    if GOLDEN not in sys.path:
+        sys.path.insert(0, GOLDEN)
+    import make_caustic_reference as mcr
+
+    return {k: (*v[:3], mcr.out_path(k)) for k, v in mcr.CASES.items()}
+
+
+def _wave_line(tag, label, wave):
+    log(f"[{tag}] {label}: {wave['rays']} rays, {wave['live']} live, finite t_max on every live "
+        f"ray: {wave['finite']}; {wave['hits']} hit; {wave['expands']} expand steps, "
+        f"{wave['flushes']} flush chunks; expand captured after a flush: "
+        f"{wave['expand_after_flush']}, flush chunk after that expand: "
+        f"{wave['flush_after_expand']}")
+
+
+def _modes_line(tag, label, res):
+    st = res.stats
+    parts = []
+    for mode, m in st["wave_modes"].items():
+        parts.append(f"{mode} {m['waves']} waves, {m['iters_per_wave_mean']:.2f} iterations, "
+                     f"{m['expand_calls_per_wave_mean']:.2f} expand and "
+                     f"{m['flush_calls_per_wave_mean']:.2f} flush launches per wave")
+    log(f"[{tag}] {label}: {res.mray_per_sec:.4f} Mray/s, {res.rays_traced} rays in "
+        f"{res.seconds:.3f} s; waves {st['waves']}: {'; '.join(parts)}")
+
+
+def _log_loop_render(label, res, launches):
+    """An sppm or mlt render (its own iteration loop): time, rays, Mray/s,
+    waves and launches, and its stats."""
+    log(f"[render] {label}: {res.seconds:.3f} s, {res.rays_traced} rays, "
+        f"{res.mray_per_sec:.4f} Mray/s, traversal waves {res.stats['waves']}, launches "
+        f"{json.dumps(launches)}")
+    log(f"[render] {label}: stats {json.dumps(res.stats)}")
+
+
+def phase_caustic():
+    """The light-transport integrators on the caustic-glass-class scene (see
+    the module doc, phase 7). Returns {kernel: {"connection": numbers at
+    BDPT's connection wave, "photon": at SPPM's first photon wave}, with
+    the timed renders' launches and Mray/s}."""
+    import numpy as np
+    import torch
+
+    cases = _caustic_cases()
+    t0 = time.perf_counter()
+    scene, integ = _caustic(CAUSTIC_RES, CAUSTIC_SPP, "bdpt", "", "cuda")
+    tp = scene.dev["tstream"]
+    n_k = integ.max_depth * 4
+    log(f"[scene] caustic: {scene.n_tris} triangles, {tp.n_treelets} treelets of "
+        f"{tp.leaf_tris}, {tp.top.child_bmin.shape[0]} top-tree nodes, {scene.n_lights} light "
+        f"rows, materials {np.unique(scene.dev['mat']['type'].cpu().numpy()).tolist()}, "
+        f"compiled in {time.perf_counter() - t0:.2f} s; bdpt maxdepth {integ.max_depth}: "
+        f"{n_k} connection strategies")
+    count = tp.count
+
+    # [check] BDPT's fused connection wave (any hit, finite t_max)
+    plan = integ.prepare_chunks(scene)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cap, wave = _capture_first_wave(
+        lambda: plan.dispatch(scene.film.init_state(scene.device), 0), True, "caustic bdpt")
+    _wave_line("caustic", f"bdpt connection wave of chunk 0 ({plan.chunk} camera rays x {n_k} "
+               f"strategies; captured in {time.perf_counter() - t0:.2f} s, peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", wave)
+    if wave["rays"] != n_k * plan.chunk or not wave["finite"]:
+        raise SmokeFailure(f"caustic: the connection wave is not {n_k} x {plan.chunk} rays "
+                           "with a finite t_max")
+    out = {"flush_chunk": {"connection": _flush_numbers(cap["flush"], count,
+                                                        "caustic connection wave", exact=True)},
+           "expand": {"connection": _expand_numbers(cap["expand"], "caustic connection wave")}}
+    del cap
+    torch.cuda.empty_cache()
+
+    # [render] BDPT timed at full size
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_render(f"caustic bdpt {CAUSTIC_RES}x{CAUSTIC_RES}x{CAUSTIC_SPP}", res, launches)
+    _modes_line("caustic", f"bdpt {CAUSTIC_RES}x{CAUSTIC_RES}x{CAUSTIC_SPP}", res)
+    if not np.isfinite(res.image).all() or res.stats["n_drop"] or not res.image.mean() > 0:
+        raise SmokeFailure("caustic bdpt: non-finite or black image, or pairs dropped")
+    for name in out:
+        out[name]["connection"].update(launches=launches[name], mray_per_sec=res.mray_per_sec,
+                                       res=CAUSTIC_RES, spp=CAUSTIC_SPP)
+    del scene, integ, res, plan
+    torch.cuda.empty_cache()
+
+    # [check] SPPM's first photon wave (closest hit, rays leaving the lights)
+    scene, integ = _caustic(SPPM_TIMED[0], 1, "sppm", SPPM_TIMED[1], "cuda")
+    n_ph = integ.photons_per_iter
+    count = scene.dev["tstream"].count
+    t0 = time.perf_counter()
+    cap, wave = _capture_first_wave(lambda: integ._photon_pass(scene.dev, n_ph, 0), False,
+                                    "caustic sppm")
+    _wave_line("caustic", f"sppm photon wave 0 ({n_ph} photons; captured in "
+               f"{time.perf_counter() - t0:.2f} s)", wave)
+    if wave["rays"] != n_ph:
+        raise SmokeFailure("caustic: the photon wave does not hold one ray per photon")
+    out["flush_chunk"]["photon"] = _flush_numbers(cap["flush"], count, "caustic photon wave",
+                                                  exact=True)
+    out["expand"]["photon"] = _expand_numbers(cap["expand"], "caustic photon wave")
+    del cap
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_loop_render(f"caustic sppm {SPPM_TIMED[0]}x{SPPM_TIMED[0]} ({SPPM_TIMED[1]})", res,
+                     launches)
+    _modes_line("caustic", f"sppm {SPPM_TIMED[0]}x{SPPM_TIMED[0]}", res)
+    if not np.isfinite(res.image).all() or res.stats["n_drop"] or res.stats["photons_dropped"]:
+        raise SmokeFailure("caustic sppm: non-finite image or photons dropped")
+    for name in out:
+        out[name]["photon"].update(launches=launches[name], mray_per_sec=res.mray_per_sec,
+                                   res=SPPM_TIMED[0])
+    del scene, integ, res
+    torch.cuda.empty_cache()
+
+    # [render] MLT timed, with a chain count that fills the card
+    scene, integ = _caustic(MLT_TIMED[0], 1, "mlt", MLT_TIMED[1], "cuda")
+    res, launches = _render_counted(integ, scene, regen=False)
+    _log_loop_render(f"caustic mlt {MLT_TIMED[0]}x{MLT_TIMED[0]} ({MLT_TIMED[1]})", res, launches)
+    _modes_line("caustic", f"mlt {MLT_TIMED[0]}x{MLT_TIMED[0]} ({res.stats['chains']} chains, "
+                f"{res.stats['steps']} steps, acceptance {res.stats['acceptance']:.4f})", res)
+    if not np.isfinite(res.image).all() or res.stats["n_drop"] or not res.image.mean() > 0:
+        raise SmokeFailure("caustic mlt: non-finite or black image, or pairs dropped")
+    for name in out:
+        out[name]["mlt_launches"] = launches[name]
+        out[name]["mlt_mray_per_sec"] = res.mray_per_sec
+    del scene, integ, res
+    torch.cuda.empty_cache()
+
+    # [render] against the JAX CPU references
+    for integrator, (r_res, r_spp, r_params, path) in cases.items():
+        ref = np.load(path)
+        scene, integ = _caustic(r_res, r_spp, integrator, r_params, "cuda")
+        res, launches = _render_counted(integ, scene, regen=False)
+        label = f"caustic {integrator} {r_res}x{r_res} (JAX CPU reference)"
+        (_log_render if integrator == "bdpt" else _log_loop_render)(label, res, launches)
+        if integrator != "mlt":
+            _against(label, res.image, res.rays_traced, ref, res.stats["n_drop"], tag="caustic")
+        else:
+            # one accept that flips reroutes a chain for good: the chains on
+            # the card and in the reference part ways, and the image is held
+            # by its mean
+            img, want = res.image, ref["image"]
+            mse = float(np.mean((img.astype(np.float64) - want) ** 2))
+            rel = abs(float(img.mean()) - float(want.mean())) / float(want.mean())
+            log(f"[caustic] {label}: image mean {img.mean():.6f} (JAX CPU {want.mean():.6f}, "
+                f"{rel:.4%} apart, bar {MLT_MEAN_BAR:.0%}), per-pixel MSE {mse:.3e}, max |diff| "
+                f"{np.abs(img - want).max():.3e}; rays {res.rays_traced} (JAX CPU "
+                f"{int(ref['rays_traced'])}); acceptance {res.stats['acceptance']:.4f}, b "
+                f"{res.stats['b']:.6f} (JAX CPU {json.loads(str(ref['stats']))})")
+            if rel > MLT_MEAN_BAR or not np.isfinite(img).all() or res.stats["n_drop"]:
+                raise SmokeFailure(f"caustic mlt: image mean {rel:.4%} from the reference")
+        del scene, integ, res
+
+    # [render] the card against the CPU port
+    for integrator, res_, spp, params in (("bdpt", 16, 4, ""), ("sppm", 16, 1, SPPM_SMALL)):
+        t0 = time.perf_counter()
+        img = {}
+        for device in ("cuda", "cpu"):
+            scene, integ = _caustic(res_, spp, integrator, params, device)
+            r = integ.render(scene)
+            img[device] = (r.image, r.rays_traced)
+        (a, ra), (b, rb) = img["cuda"], img["cpu"]
+        diff = np.abs(a.astype(np.float64) - b).max(axis=-1)
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        log(f"[caustic] card vs CPU port, {integrator} {res_}x{res_}: rays {ra} / {rb} "
+            f"({ra - rb:+d}), MSE {mse:.3e}, max |diff| {diff.max():.3e}, pixels off by > 1e-5: "
+            f"{int((diff > 1e-5).sum())} of {diff.size} ({time.perf_counter() - t0:.1f} s with "
+            f"the CPU render)")
+        if mse > MSE_BAR or not np.isfinite(a).all():
+            raise SmokeFailure(f"caustic {integrator}: the card and the CPU port differ by MSE "
+                               f"{mse:.3e}")
+    return out
+
+
+# -- phase 8 -------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -1284,7 +1463,8 @@ def phase_cli(device: str = "cuda") -> None:
 def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
-            and os.path.exists(CLOUD_REF)):
+            and os.path.exists(CLOUD_REF)
+            and os.path.exists(os.path.join(GOLDEN, "make_caustic_reference.py"))):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
         return 1
@@ -1326,6 +1506,8 @@ def main() -> int:
         phase_samplers()
         lt = phase_cloud()
         torch.cuda.empty_cache()
+        kt_c = phase_caustic()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -1334,9 +1516,11 @@ def main() -> int:
                          mray_per_sec=cres.mray_per_sec)
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
-                     crown=crown, direct=dt[name], cloud=lt[name])
+                     crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
-                                   lt[name]["max_abs_err"])
+                                   lt[name]["max_abs_err"],
+                                   kt_c[name]["connection"]["max_abs_err"],
+                                   kt_c[name]["photon"]["max_abs_err"])
             return k
 
         kernels = [

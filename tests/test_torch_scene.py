@@ -98,9 +98,10 @@ def test_light_distributions_and_camera_equal(scenes):
 _BASE = '''
 Integrator "{integ}" "integer maxdepth" [2]
 Sampler "{sampler}" "integer pixelsamples" [2]
+PixelFilter "{filter}"
 Film "image" "integer xresolution" [8] "integer yresolution" [8]
 LookAt 0 0 -3  0 0 0  0 1 0
-Camera "perspective" "float fov" [40]
+Camera "{camera}" "float fov" [40]
 WorldBegin
 LightSource "{light}" "rgb I" [1 1 1] "point from" [0 0 -2]
 Material "{mat}"
@@ -108,12 +109,12 @@ Shape "{shape}" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
 WorldEnd
 '''
 _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
-           shape="trianglemesh")
+           shape="trianglemesh", filter="box", camera="perspective")
 
 
 @pytest.mark.parametrize("field,value", [
     ("mat", "uber"), ("shape", "disk"), ("light", "spot"),
-    ("integ", "sppm"), ("integ", "bdpt"),
+    ("filter", "gaussian"), ("camera", "orthographic"),
 ])
 def test_unported_directives_raise(field, value):
     text = _BASE.format(**{**_OK, field: value})
@@ -251,9 +252,9 @@ _MIX = ('MakeNamedMaterial "a" "string type" "matte"\n'
     'Material "uber"', 'Material "substrate"', 'Material "translucent"',
     'Material "disney"', 'Material "hair"', 'Material "fourier" "string bsdffile" "x.bsdf"',
     'Material "subsurface"', _MIX, _TEXTURED,
-    'LightSource "spot" "rgb I" [1 1 1]', 'LightSource "distant" "rgb L" [1 1 1]',
+    'LightSource "spot" "rgb I" [1 1 1]', 'LightSource "goniometric" "rgb I" [1 1 1]',
 ], ids=["uber", "substrate", "translucent", "disney", "hair", "fourier", "subsurface", "mix",
-        "textured_plastic_kd", "spot", "distant"])
+        "textured_plastic_kd", "spot", "goniometric"])
 def test_unported_materials_and_lights_raise(directive):
     text = f"""
 Integrator "path" "integer maxdepth" [2]

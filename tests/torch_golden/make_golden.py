@@ -64,17 +64,36 @@ null surfaces):
   the last bits, and a second roll at the same depth compares that with
   1; these two goldens hold everything else to the port exactly.
 
+The light-transport integrators (tests/test_torch_{bdpt,sppm,mlt}.py):
+`LT_CASES` below, each a scene of `lt_api` with its integrator and
+parameters, at maxdepth 5 unless the scene text says otherwise:
+
+- `bdpt_cornell`: the Cornell box of the direct goldens under `bdpt`
+  (the brute feature intersector);
+- `bdpt_env`, `bdpt_distant`: tests/test_bdpt.py's environment-lit and
+  distant-lit scenes (a glass or plastic sphere of the reference's
+  4,096-triangle tessellation on a matte plane, maxdepth 3) at 8x8, 8 spp;
+- `bdpt_caustic`: `tpu_pbrt_torch.scenes.make_caustic_like` at
+  n_theta=12, n_phi=24 (the glass blob, the ground, the quad area light
+  and the point light) at 16x16, 4 spp, in 64-triangle treelets;
+- `sppm_cornell`, `sppm_caustic`: the same two scenes under `sppm`, 4
+  iterations of 4,096 photons;
+- `mlt_cornell`: the Cornell box under `mlt` at maxdepth 3, 512 chains
+  from 4,096 bootstrap samples, 32 mutations per pixel.
+
 The JAX renders alone take longer here than the port's test budget
 allows (most of it compiling), so the tests read these files instead.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py \
-        [fixed|pool|crown|crown_pool|<a DIRECT_CASES or MEDIA_CASES name>|direct|media|all]
+        [fixed|pool|crown|crown_pool|<a DIRECT_CASES, MEDIA_CASES or LT_CASES name>|
+         direct|media|lt|all]
 
 It rewrites the named golden(s) (default: all; "direct": every
-DIRECT_CASES golden; "media": every MEDIA_CASES golden) and records the
-commit of the JAX package it rendered with.
+DIRECT_CASES golden; "media": every MEDIA_CASES golden; "lt": every
+LT_CASES golden) and records the commit of the JAX package it rendered
+with.
 """
 
 import json
@@ -257,6 +276,70 @@ MEDIA_CASES = ("vol_beer", "vol_no_medium", "vol_fog_shadow", "null_cube_volpath
 CLOUD_SMALL = dict(res=16, spp=4, maxdepth=5, n_theta=12, n_phi=24)
 
 
+#: the small caustic of the light-transport goldens
+CAUSTIC_SMALL = dict(res=16, spp=4, maxdepth=5, n_theta=12, n_phi=24)
+_SPPM_SMALL = (("integer numiterations", [4]), ("integer photonsperiteration", [4096]),
+               ("float radius", [-1.0]))
+#: light-transport golden name -> (scene, integrator, integrator parameters)
+LT_CASES = {
+    "bdpt_cornell": ("cornell", "bdpt", ()),
+    "bdpt_env": ("env", "bdpt", ()),
+    "bdpt_distant": ("distant", "bdpt", ()),
+    "bdpt_caustic": ("caustic", "bdpt", ()),
+    "sppm_cornell": ("cornell", "sppm", _SPPM_SMALL),
+    "sppm_caustic": ("caustic", "sppm", _SPPM_SMALL),
+    "mlt_cornell": ("cornell_md3", "mlt", (("integer chains", [512]),
+                                           ("integer bootstrapsamples", [4096]),
+                                           ("integer mutationsperpixel", [32]))),
+}
+
+
+def lt_scene_text(which: str, env_path: str = "", integrator: str = "bdpt", md: int = 3,
+                  spp: int = 8, res: int = 8) -> str:
+    """tests/test_bdpt.py's environment-lit ("env") and distant-lit
+    ("distant") scenes, whole, at the given size."""
+    light = (f'LightSource "infinite" "string mapname" ["{env_path}"]' if which == "env" else
+             'LightSource "distant" "rgb L" [3 3 2.6] "point from" [2 5 -2] "point to" [0 0 0]')
+    sphere_mat = ('Material "glass" "float eta" [1.5]' if which == "env" else
+                  'Material "plastic" "rgb Kd" [0.3 0.1 0.1] "rgb Ks" [0.4 0.4 0.4]')
+    return f"""
+Integrator "{integrator}" "integer maxdepth" [{md}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1 -4  0 0.5 0  0 1 0
+Camera "perspective" "float fov" [45]
+WorldBegin
+{light}
+Material "matte" "rgb Kd" [0.6 0.55 0.5]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-5 0 -5  5 0 -5  5 0 5  -5 0 5]
+{sphere_mat}
+AttributeBegin
+  Translate 0 0.8 0
+  Shape "sphere" "float radius" [0.6]
+AttributeEnd
+WorldEnd
+"""
+
+
+def lt_api(name: str, scenes, parse_string, pbrt_init, Options, caustic_api, env_path, **kw):
+    """The parsed scene (up to WorldEnd) of LT_CASES[name] through either
+    package's modules; caustic_api(**CAUSTIC_SMALL, integrator=...) builds
+    the small caustic, env_path names the crown's sky file; kw goes to the
+    scene builder."""
+    scene, integrator, params = LT_CASES[name]
+    if scene.startswith("cornell"):
+        md = 3 if scene == "cornell_md3" else CORNELL["maxdepth"]
+        api = scenes.make_cornell(**dict(CORNELL, maxdepth=md), **kw)
+    elif scene == "caustic":
+        api = caustic_api(**CAUSTIC_SMALL, integrator=integrator, **kw)
+    else:
+        text = lt_scene_text(scene, env_path, integrator)
+        api = parse_string(text.rsplit("WorldEnd", 1)[0], pbrt_init(Options(quiet=True), **kw))
+    return configure(api, integrator, params)
+
+
 def configure(api, integrator: str, params=(), sampler=None):
     """Set a parsed scene's integrator (with parameters given as
     (declaration, values) pairs) and sampler; works on either package's
@@ -390,6 +473,24 @@ def jax_cloud_api(res, spp, maxdepth=5, n_theta=180, n_phi=360):
     return parse_string(tail, api)
 
 
+def jax_caustic_api(res, spp, maxdepth=5, integrator="bdpt", params="", n_theta=180, n_phi=360):
+    """The port's caustic-glass-class scene (`tpu_pbrt_torch.scenes.caustic_parts`:
+    the same text and mesh arrays) parsed through the JAX package's API, up
+    to (not including) WorldEnd."""
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+    from tpu_pbrt.scene.paramset import ParamSet
+    from tpu_pbrt_torch.scenes import caustic_parts
+
+    head, (V, F, N), tail = caustic_parts(res, spp, maxdepth, n_theta, n_phi, integrator, params)
+    api = parse_string(head, pbrt_init(Options(quiet=True)))
+    ps = ParamSet()
+    ps.add("integer indices", F.reshape(-1).tolist())
+    ps.add("point P", V.reshape(-1).tolist())
+    ps.add("normal N", N.reshape(-1).tolist())
+    api.shape("trianglemesh", ps)
+    return parse_string(tail, api)
+
+
 def _commit(root: str) -> str:
     try:
         head = subprocess.run(["git", "-C", root, "rev-parse", "HEAD"], capture_output=True,
@@ -454,7 +555,8 @@ def _write(path, scene, res, commit, pool: bool):
 
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    names = TARGETS + tuple(DIRECT_CASES) + MEDIA_CASES + ("direct", "media", "all")
+    names = (TARGETS + tuple(DIRECT_CASES) + MEDIA_CASES + tuple(LT_CASES)
+             + ("direct", "media", "lt", "all"))
     if which not in names:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(names)}]")
     root = os.path.dirname(os.path.dirname(HERE))
@@ -472,6 +574,9 @@ def main() -> None:
     for name in MEDIA_CASES:
         if which in (name, "media", "all"):
             _write_media(name, commit)
+    for name in LT_CASES:
+        if which in (name, "lt", "all"):
+            _write_lt(name, commit)
 
 
 def _write_media(name: str, commit: str) -> None:
@@ -485,6 +590,33 @@ def _write_media(name: str, commit: str) -> None:
 
     config.reload()
     api = media_api(name, parse_string, pbrt_init, Options, jax_cloud_api)
+    scene, integ = scenes.compile_api(api)
+    t0 = time.perf_counter()
+    res = integ.render(scene)
+    path = os.path.join(HERE, f"{name}.npz")
+    np.savez_compressed(
+        path,
+        image=np.asarray(res.image, np.float32),
+        rays_traced=np.int64(res.rays_traced),
+        n_tris=np.int64(scene.n_tris),
+        jax_commit=np.array(commit),
+    )
+    print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _write_lt(name: str, commit: str) -> None:
+    import time
+
+    import numpy as np
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    from tpu_pbrt import config, scenes
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+
+    config.reload()
+    api = lt_api(name, scenes, parse_string, pbrt_init, Options, jax_caustic_api,
+                 scenes._crown_envmap_path())
     scene, integ = scenes.compile_api(api)
     t0 = time.perf_counter()
     res = integ.render(scene)

@@ -5,7 +5,12 @@ The projective chain (screen window -> raster -> camera) is built on the
 host exactly as pbrt's ProjectiveCamera constructor (and the reference)
 does; ray generation is one vectorized pass over a batch of film points,
 with the thin-lens model when lensradius > 0. Point transforms are
-written out term by term in the reference's summation order.
+written out term by term in the reference's summation order. The
+importance side that BDPT's camera strategies read (We's pdf, Sample_Wi
+and the world-to-raster projection of a pinhole) follows the reference;
+the inverse matrices that projection needs are taken on the host
+whatever the render device, as the reference's CPU inverse takes them, so
+every device lands a splat in the same pixel.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from tpu_pbrt_torch.core import transform as xf
 from tpu_pbrt_torch.core.sampling import concentric_sample_disk
-from tpu_pbrt_torch.core.vecmath import normalize
+from tpu_pbrt_torch.core.vecmath import dot, normalize
 from tpu_pbrt_torch.utils.error import Error, PbrtError
 
 CAM_PERSPECTIVE = 0
@@ -121,3 +126,91 @@ def generate_rays(cam: CompiledCamera, p_film, u_lens):
     d_w = normalize(_xform_vector(cam.camera_to_world, d))
     weight = torch.ones(p_film.shape[:-1], dtype=torch.float32, device=p_film.device)
     return o_w, d_w, weight
+
+
+def _inverse(m):
+    """The inverse of a (4,4) f32 camera matrix, taken on the host as the
+    reference's CPU inverse takes it (LAPACK sgetrf, then the two
+    triangular solves of the permuted identity, through scipy's LAPACK
+    and BLAS, bit for bit; torch.linalg.inv differs by an ulp in some
+    entries), and moved to m's device."""
+    from scipy.linalg import blas, lapack
+
+    a = m.detach().cpu().numpy().astype(np.float32)
+    lu, piv, _ = lapack.sgetrf(a)
+    perm = np.arange(a.shape[0])
+    for i, p in enumerate(piv):
+        perm[i], perm[p] = perm[p], perm[i]
+    x = np.eye(a.shape[0], dtype=np.float32)[perm]
+    x = blas.strsm(1.0, lu, x, side=0, lower=1, diag=1)
+    x = blas.strsm(1.0, lu, x, side=0, lower=0, diag=0)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(m.device)
+
+
+def _screen_area_z1(cam: CompiledCamera):
+    """Area of the perspective screen window projected to the z=1 plane in
+    camera space (PerspectiveCamera's A)."""
+    rx, ry = cam.full_res
+    corners = torch.tensor([[0.0, 0.0, 0.0], [rx, ry, 0.0]], dtype=torch.float32,
+                           device=cam.raster_to_camera.device)
+    p = _xform_point(cam.raster_to_camera, corners)
+    p = p / p[:, 2:3]
+    return torch.abs((p[1, 0] - p[0, 0]) * (p[1, 1] - p[0, 1]))
+
+
+def camera_world_frame(cam: CompiledCamera):
+    """(origin, forward) of the camera in world space."""
+    dv = cam.camera_to_world.device
+    o = _xform_point(cam.camera_to_world, torch.zeros((1, 3), dtype=torch.float32, device=dv))[0]
+    fwd = normalize(_xform_vector(
+        cam.camera_to_world, torch.tensor([[0.0, 0.0, 1.0]], dtype=torch.float32, device=dv)))[0]
+    return o, fwd
+
+
+def project_to_raster(cam: CompiledCamera, p_world):
+    """World points -> raster coordinates and the in-front / in-bounds
+    mask (the pinhole's inverse of generate_rays, for BDPT's t=1
+    strategies)."""
+    p_cam = _xform_point(_inverse(cam.camera_to_world), p_world)
+    in_front = p_cam[..., 2] > 1e-6
+    p_safe = torch.where(in_front[..., None], p_cam, torch.ones_like(p_cam))
+    p_ras = _xform_point(_inverse(cam.raster_to_camera), p_safe)
+    rx, ry = cam.full_res
+    in_b = (in_front & (p_ras[..., 0] >= 0.0) & (p_ras[..., 0] < rx)
+            & (p_ras[..., 1] >= 0.0) & (p_ras[..., 1] < ry))
+    return p_ras[..., :2], in_b
+
+
+def _pow3(c):
+    return c * (c * c)
+
+
+def camera_pdf_we(cam: CompiledCamera, d_world):
+    """PerspectiveCamera::Pdf_We: (pdf_pos, pdf_dir) of a camera ray in
+    direction d_world; the pinhole's delta position gives pdf_pos 1."""
+    _, fwd = camera_world_frame(cam)
+    a = _screen_area_z1(cam)
+    cos_t = torch.clamp(dot(d_world, fwd), min=0.0)
+    pdf_dir = torch.where(cos_t > 1e-6, 1.0 / (a * _pow3(torch.clamp(cos_t, min=1e-9))),
+                          torch.zeros_like(cos_t))
+    return torch.ones_like(pdf_dir), pdf_dir
+
+
+def camera_sample_wi(cam: CompiledCamera, ref_p):
+    """PerspectiveCamera::Sample_Wi for a pinhole: the direction to the
+    camera, its distance, the solid-angle pdf at ref_p, the importance We
+    that connection carries, its raster position and whether it lands on
+    the film. Returns (wi, dist, pdf, we, raster_xy, in_bounds)."""
+    cam_p, fwd = camera_world_frame(cam)
+    a = _screen_area_z1(cam)
+    to_cam = cam_p - ref_p
+    dist = torch.clamp(torch.sqrt(dot(to_cam, to_cam)), min=1e-12)
+    wi = to_cam / dist[..., None]
+    cos_t = torch.clamp(dot(-wi, fwd), min=0.0)  # the ray camera -> ref_p
+    pdf = dist * dist / torch.clamp(cos_t, min=1e-9)
+    c = torch.clamp(cos_t, min=1e-9)
+    c2 = c * c
+    we = torch.where(cos_t > 1e-6, 1.0 / (a * (c2 * c2)), torch.zeros_like(cos_t))
+    raster, in_b = project_to_raster(cam, ref_p)
+    we = torch.where(in_b, we, torch.zeros_like(we))
+    return wi, dist, pdf, we, raster, in_b

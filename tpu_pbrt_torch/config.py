@@ -16,7 +16,9 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
 - TORCH_PBRT_DEPOSIT_SEG: width of the pool's segmented film deposit
   (0: pool/4 once the pool holds 256 slots; >= pool or < 0: full width);
 - TORCH_PBRT_TELEMETRY: the pool's wave counters (on by default; 0
-  carries none).
+  carries none);
+- PBRT_PROGRESS_FREQUENCY: seconds between progress-bar updates (pbrt's
+  own knob, read by utils/stats.py::ProgressReporter; 0: every update).
 
 These are the reference's TPU_PBRT_CHUNK/_REGEN/_POOL/_DEPOSIT_SEG/
 _TELEMETRY under the port's prefix.
@@ -57,7 +59,7 @@ def _float(name: str, default: float) -> float:
 
 class Config:
     __slots__ = ("leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
-                 "telemetry")
+                 "telemetry", "progress_frequency")
 
     def _load(self) -> "Config":
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
@@ -76,6 +78,8 @@ class Config:
         self.deposit_seg: int = _int("TORCH_PBRT_DEPOSIT_SEG", 0)
         #: the pool's wave counters (obs/counters.py)
         self.telemetry: bool = _flag("TORCH_PBRT_TELEMETRY", True)
+        #: progress-bar update interval in seconds (None -> 0.25)
+        self.progress_frequency: Optional[float] = _float("PBRT_PROGRESS_FREQUENCY", None)
         return self
 
 

@@ -185,6 +185,26 @@ class Film:
         )
         return state
 
+    def add_splats(self, state: FilmState, p_film, v) -> FilmState:
+        """Film::AddSplat over a batch: no filter, the value lands in the
+        pixel under p_film (box deposit) after AddSample's clean-up
+        (non-finite rows zeroed, maxsampleluminance clamp); splats outside
+        the crop window are dropped."""
+        v = self._prep(v, None)
+        px = torch.floor(p_film[..., 0])
+        py = torch.floor(p_film[..., 1])
+        # f32 -> int saturates like XLA's convert (NaN -> 0)
+        px = torch.nan_to_num(px, nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+        py = torch.nan_to_num(py, nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+        cx0, cx1, cy0, cy1 = self.cropped_pixel_bounds
+        inb = (px >= cx0) & (px < cx1) & (py >= cy0) & (py < cy1)
+        # only nonzero splats inside the crop land: adding a zero changes no
+        # sum, and the deterministic scatter-add serializes the zeros of
+        # rejected strategies piled on one pixel (one host read for the count)
+        keep = torch.nonzero(inb & (v != 0.0).any(dim=-1), as_tuple=True)
+        state.splat.index_put_((py[keep], px[keep]), v[keep], accumulate=True)
+        return state
+
     def develop(self, state: FilmState, splat_scale: float = 1.0) -> np.ndarray:
         """Film::WriteImage math: rgb/filterWeightSum + splatScale*splat,
         then `scale`. Returns the cropped (h, w, 3) float32 image."""

@@ -1,12 +1,15 @@
 """Light sampling for next-event estimation (port of tpu_pbrt/core/lights_dev.py).
 
 Lights are rows of a tagged-union SoA table; area lights are one row per
-emissive triangle (pbrt's one DiffuseAreaLight per Triangle). This slice
-ports the point, area-triangle and infinite (HDR environment map) rows:
-Sample_Li of each, the environment's Le and its 2D-CDF pdf, emission of
-hit area lights and its MIS pdf, and the power and spatial (per-voxel)
-light-pick distributions, in which the environment's row is position-
-independent. The scene compiler rejects every other light type.
+emissive triangle (pbrt's one DiffuseAreaLight per Triangle). The port
+compiles point, distant, area-triangle and infinite (HDR environment map)
+rows: Sample_Li of each, the environment's Le and its 2D-CDF pdf,
+emission of hit area lights and its MIS pdf, the power and spatial
+(per-voxel) light-pick distributions, in which the distant and
+environment rows are position-independent, and the emission side that
+BDPT and SPPM start light subpaths from (Sample_Le, Pdf_Le). The scene
+compiler rejects every other light type; sample_le keeps the reference's
+spot and image-light branches, which no compiled row reaches yet.
 """
 
 from __future__ import annotations
@@ -15,8 +18,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from tpu_pbrt_torch.core.sampling import uniform_sample_triangle
+from tpu_pbrt_torch.core.sampling import (
+    concentric_sample_disk,
+    cosine_sample_hemisphere,
+    uniform_cone_pdf,
+    uniform_sample_cone,
+    uniform_sample_sphere,
+    uniform_sample_triangle,
+)
 from tpu_pbrt_torch.core.vecmath import (
+    coordinate_system,
     cross,
     dot,
     normalize,
@@ -27,8 +38,12 @@ from tpu_pbrt_torch.core.vecmath import (
 
 # light type enum (the reference's values)
 LIGHT_POINT = 0
+LIGHT_SPOT = 1
+LIGHT_DISTANT = 2
 LIGHT_AREA = 3
 LIGHT_INFINITE = 4
+LIGHT_GONIO = 5
+LIGHT_PROJECTION = 6
 
 
 class LightSample(NamedTuple):
@@ -43,6 +58,14 @@ class LightSample(NamedTuple):
 def _take(table, idx):
     """table[idx] with idx clamped to the table (the reference's clamp)."""
     return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
+def _spot_falloff(cos_w, cos_falloff_start, cos_total_width):
+    d = torch.clamp(
+        (cos_w - cos_total_width)
+        / torch.clamp(cos_falloff_start - cos_total_width, min=1e-9), 0.0, 1.0)
+    return torch.where(cos_w < cos_total_width, torch.zeros_like(d),
+                       torch.where(cos_w > cos_falloff_start, torch.ones_like(d), d * d * d * d))
 
 
 def _env_uv(dev, d_world):
@@ -111,6 +134,12 @@ def sample_triangle_point(tv, u1, u2):
     return p, n
 
 
+def triangle_normal(tv):
+    """Unit geometric normal of (...,3,3) triangles."""
+    n = cross(tv[..., 1, :] - tv[..., 0, :], tv[..., 2, :] - tv[..., 0, :])
+    return n / torch.clamp(torch.sqrt(dot(n, n))[..., None], min=1e-20)
+
+
 def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     """Sample_Li for explicit light rows li_idx (R,) — no pick pmf folded."""
     lt = dev["light"]
@@ -140,11 +169,20 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     pdf_a = d2a / torch.clamp(torch.abs(cos_l) * area, min=1e-12)
 
     is_pt = ltype == LIGHT_POINT
+    is_distant = ltype == LIGHT_DISTANT
     is_area = ltype == LIGHT_AREA
     wi = torch.where(is_area[..., None], wi_a, wi_pt)
     li = torch.where(is_area[..., None], li_a, li_pt)
     pdf = torch.where(is_area, pdf_a, torch.ones_like(pdf_a))
     dist = torch.where(is_area, dist_a, dist_pt)
+
+    # -- distant: the direction toward the light, a shadow ray across the
+    # scene (every compiled scene carries its radius; a bare table of
+    # point and area rows needs none)
+    if "world_radius" in dev:
+        wi = torch.where(is_distant[..., None], _take(lt["dir"], li_idx), wi)
+        li = torch.where(is_distant[..., None], lL, li)
+        dist = torch.where(is_distant, 2.0 * dev["world_radius"] * torch.ones_like(dist), dist)
 
     # -- infinite: the shadow ray spans the scene -----------------------------
     if "envmap" in dev:
@@ -155,7 +193,7 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
         pdf = torch.where(is_env, pdf_env, pdf)
         dist = torch.where(is_env, 2.0 * dev["world_radius"] * torch.ones_like(dist), dist)
     li = torch.where((pdf > 0.0)[..., None], li, torch.zeros_like(li))
-    return LightSample(li, wi, pdf, dist, is_pt, li_idx)
+    return LightSample(li, wi, pdf, dist, is_pt | is_distant, li_idx)
 
 
 class SpatialLightDistribution(NamedTuple):
@@ -270,3 +308,167 @@ def emitted_radiance(dev, tri_light, wo_world, n_g):
     emit = (tri_light >= 0) & (front | (two > 0))
     return torch.where(emit[..., None], lL, torch.zeros_like(lL))
 
+
+
+class LeSample(NamedTuple):
+    """One sampled emission ray per lane (Light::Sample_Le)."""
+
+    li_idx: torch.Tensor  # (R,) light row
+    pmf: torch.Tensor  # (R,) pick pmf
+    p: torch.Tensor  # (R,3) emission origin
+    n: torch.Tensor  # (R,3) emission normal (the light's forward direction for deltas)
+    d: torch.Tensor  # (R,3) emission direction
+    le: torch.Tensor  # (R,3) emitted radiance / intensity
+    pdf_pos: torch.Tensor  # (R,) area-measure position pdf (1 for delta positions)
+    pdf_dir: torch.Tensor  # (R,) solid-angle direction pdf
+    is_delta: torch.Tensor  # (R,) delta light (point, spot, image lights, distant)
+    supported: torch.Tensor  # (R,) the row's type has an emission model
+
+
+def sample_le(dev, light_distr, u_pick, up1, up2, ud1, ud2) -> LeSample:
+    """Light::Sample_Le for BDPT/SPPM light subpaths (point.cpp,
+    spot.cpp, diffuse.cpp, distant.cpp, infinite.cpp Sample_Le), batched
+    with masked type dispatch. Distant and infinite lights emit from the
+    scene-spanning disk behind their direction."""
+    lt = dev["light"]
+    n_lights = lt["type"].shape[0]
+    if light_distr is None:
+        li_idx = torch.clamp((u_pick * n_lights).to(torch.int64), max=n_lights - 1)
+        pmf = torch.full(u_pick.shape, 1.0 / n_lights, dtype=torch.float32, device=u_pick.device)
+    elif isinstance(light_distr, SpatialLightDistribution):
+        # emission has no receiver position: pick by the scene marginal
+        cdf = torch.cumsum(light_distr.mean_pmf, dim=0)
+        li_idx = torch.clamp((u_pick[..., None] >= cdf).sum(dim=-1), max=n_lights - 1)
+        pmf = torch.clamp(_take(light_distr.mean_pmf, li_idx), min=1e-12)
+    else:
+        li_idx, pmf = light_distr.sample_discrete(u_pick)
+    ltype = _take(lt["type"], li_idx)
+    lp = _take(lt["p"], li_idx)
+    lL = _take(lt["L"], li_idx)
+    ldir = _take(lt["dir"], li_idx)
+    cos0 = _take(lt["cos0"], li_idx)
+    cos1 = _take(lt["cos1"], li_idx)
+    twosided = _take(lt["twosided"], li_idx)
+    area = _take(lt["area"], li_idx)
+    ones = torch.ones_like(ud1)
+
+    # -- point: uniform sphere --------------------------------------------
+    d_pt = uniform_sample_sphere(ud1, ud2)
+    pdf_dir_pt = torch.full_like(ud1, 1.0 / (4.0 * torch.pi))
+
+    # -- spot: uniform cone of the total width -----------------------------
+    d_cone = uniform_sample_cone(ud1, ud2, cos1)  # local frame, +z axis
+    s1, s2 = coordinate_system(ldir)
+    d_spot = d_cone[..., 0:1] * s1 + d_cone[..., 1:2] * s2 + d_cone[..., 2:3] * ldir
+    pdf_dir_spot = uniform_cone_pdf(cos1)
+    le_spot = lL * _spot_falloff(d_cone[..., 2], cos0, cos1)[..., None]
+
+    # -- area: uniform point on the triangle + cosine hemisphere; twosided
+    # lights pick the emission side with a remapped ud1 and halve the
+    # direction pdf (diffuse.cpp Sample_Le / Pdf_Le)
+    tv = _take(lt["tri_v"], li_idx)
+    p_a, n_front = sample_triangle_point(tv, up1, up2)
+    two = twosided > 0
+    flip = two & (ud1 >= 0.5)
+    ud1_a = torch.where(two, torch.clamp(torch.remainder(ud1 * 2.0, 1.0), max=0.999999), ud1)
+    n_a = torch.where(flip[..., None], -n_front, n_front)
+    d_loc = cosine_sample_hemisphere(ud1_a, ud2)
+    t1, t2 = coordinate_system(n_a)
+    d_a = d_loc[..., 0:1] * t1 + d_loc[..., 1:2] * t2 + d_loc[..., 2:3] * n_a
+    pdf_dir_a = torch.abs(d_loc[..., 2]) / torch.pi
+    pdf_dir_a = torch.where(two, pdf_dir_a * 0.5, pdf_dir_a)
+    pdf_pos_a = 1.0 / torch.clamp(area, min=1e-20)
+
+    is_pt = ltype == LIGHT_POINT
+    is_spot = ltype == LIGHT_SPOT
+    is_area = ltype == LIGHT_AREA
+    is_img = (ltype == LIGHT_GONIO) | (ltype == LIGHT_PROJECTION)
+    is_distant = ltype == LIGHT_DISTANT
+    is_env = ltype == LIGHT_INFINITE
+
+    # -- distant: the row's dir points TOWARD the light (from - to), so
+    # photons travel along -dir from a world-spanning disk a radius toward
+    # the light; pdf_pos 1/(pi r^2), pdf_dir 1 (a delta direction)
+    wr = dev["world_radius"]
+    wc = dev["world_center"]
+    dx_d, dy_d = concentric_sample_disk(up1, up2)
+    v1d, v2d = coordinate_system(ldir)
+    p_dist = wc + wr * (dx_d[..., None] * v1d + dy_d[..., None] * v2d) + ldir * wr
+    pdf_pos_dist = 1.0 / (torch.pi * wr * wr)
+
+    # -- infinite: a direction from the map's distribution (photons travel
+    # -wi), the origin on the tangent disk behind it
+    if "envmap" in dev:
+        wi_e, pdf_e, le_e = _env_sample(dev, ud1, ud2)
+        d_env = -wi_e
+        dx_e, dy_e = concentric_sample_disk(up1, up2)
+        v1e, v2e = coordinate_system(d_env)
+        p_env = wc + wr * (dx_e[..., None] * v1e + dy_e[..., None] * v2e) - d_env * wr
+        pdf_dir_env = pdf_e
+        le_env = le_e
+    else:  # no row of type infinite without a map: keep such lanes inert
+        d_env = d_pt
+        p_env = torch.broadcast_to(wc, d_pt.shape)
+        pdf_dir_env = torch.zeros_like(ud1)
+        le_env = torch.zeros_like(lL)
+    supported = is_pt | is_spot | is_area | is_img | is_distant | is_env
+
+    def pick(mask, a, b):
+        return torch.where(mask[..., None] if a.dim() > mask.dim() else mask, a, b)
+
+    p = pick(is_area, p_a, lp)
+    p = pick(is_distant, p_dist, p)
+    p = pick(is_env, p_env, p)
+    n = pick(is_area, n_a, ldir)
+    n = pick(is_distant, -ldir, n)
+    n = pick(is_env, d_env, n)
+    d = pick(is_area, d_a, d_pt)
+    d = pick(is_spot, d_spot, d)
+    d = pick(is_distant, -ldir, d)
+    d = pick(is_env, d_env, d)
+    le = pick(is_spot, le_spot, lL)
+    le = pick(is_env, le_env, le)
+    pdf_pos = torch.where(is_area, pdf_pos_a, ones)
+    pdf_pos = torch.where(is_distant | is_env, pdf_pos_dist * ones, pdf_pos)
+    pdf_dir = torch.where(is_area, pdf_dir_a, pdf_dir_pt)
+    pdf_dir = torch.where(is_spot, pdf_dir_spot, pdf_dir)
+    pdf_dir = torch.where(is_distant, ones, pdf_dir)
+    pdf_dir = torch.where(is_env, pdf_dir_env, pdf_dir)
+    is_delta = is_pt | is_spot | is_img | is_distant
+    le = torch.where(supported[..., None], le, torch.zeros_like(le))
+    return LeSample(li_idx, pmf, p, n, d, le, pdf_pos, pdf_dir, is_delta, supported)
+
+
+def le_pdfs(dev, li_idx, n_emit, w):
+    """Light::Pdf_Le for an emission configuration: the position pdf (area
+    measure) and the direction pdf (solid angle) of emitting along w from
+    light row li_idx whose surface normal is n_emit. Twosided area lights
+    emit from either face at half the one-sided cosine pdf; a distant
+    light's direction is a delta (pdf 0, which BDPT's MIS ratio walk
+    remaps like any delta junction)."""
+    lt = dev["light"]
+    idx = li_idx.long()
+    ltype = lt["type"][idx]
+    cos1 = lt["cos1"][idx]
+    area = lt["area"][idx]
+    two = lt["twosided"][idx] > 0
+    is_pt = ltype == LIGHT_POINT
+    is_spot = ltype == LIGHT_SPOT
+    is_area = ltype == LIGHT_AREA
+    cos_l = dot(n_emit, w)
+    pdf_area = torch.where(two, 0.5 * torch.abs(cos_l) / torch.pi,
+                           torch.clamp(cos_l, min=0.0) / torch.pi)
+    zero = torch.zeros_like(cos_l)
+    pdf_dir = torch.where(is_pt, zero + 1.0 / (4.0 * torch.pi), zero)
+    pdf_dir = torch.where(is_spot, uniform_cone_pdf(cos1), pdf_dir)
+    pdf_dir = torch.where(is_area, pdf_area, pdf_dir)
+    pdf_pos = torch.where(is_area, 1.0 / torch.clamp(area, min=1e-20), zero + 1.0)
+    is_distant = ltype == LIGHT_DISTANT
+    is_env = ltype == LIGHT_INFINITE
+    wr = dev["world_radius"]
+    disk_pdf = 1.0 / (torch.pi * wr * wr)
+    pdf_pos = torch.where(is_distant | is_env, disk_pdf * (zero + 1.0), pdf_pos)
+    pdf_dir = torch.where(is_distant, zero, pdf_dir)
+    if "envmap" in dev:
+        pdf_dir = torch.where(is_env, env_pdf(dev, -w), pdf_dir)
+    return pdf_pos, pdf_dir

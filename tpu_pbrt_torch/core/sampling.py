@@ -113,12 +113,37 @@ def uniform_sample_hemisphere(u1, u2):
 
 
 UNIFORM_HEMISPHERE_PDF = 1.0 / (2.0 * np.pi)
+UNIFORM_SPHERE_PDF = 1.0 / (4.0 * np.pi)
+
+
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * np.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def uniform_sample_triangle(u1, u2):
     """Returns barycentrics (b0, b1) (sqrt warp)."""
     su0 = torch.sqrt(u1)
     return 1.0 - su0, u2 * su0
+
+
+def uniform_sample_cone(u1, u2, cos_theta_max):
+    cos_theta = (1.0 - u1) + u1 * cos_theta_max
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = 2.0 * np.pi * u2
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
+    )
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2.0 * np.pi * torch.clamp(1.0 - cos_theta_max, min=1e-9))
+
+
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    return (nf * f_pdf) / torch.clamp(nf * f_pdf + ng * g_pdf, min=1e-20)
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

@@ -538,7 +538,8 @@ class WavefrontIntegrator:
                 start_pix, start_s = plan.start(c)
                 valid, px, py, s, p_film, o, d, wt = self.work_to_rays(
                     cam, spp, x0, y0, w, npix, start_pix, start_s, k)
-                L, nrays = self.li(scene.dev, o, d, px, py, s)
+                out = self.li(scene.dev, o, d, px, py, s)
+                L, nrays = out[:2]
                 nrays = torch.where(valid, nrays, torch.zeros_like(nrays)).sum()
                 nf = _fixed_batch_nonfinite(valid, L)
                 if aligned:
@@ -548,6 +549,12 @@ class WavefrontIntegrator:
                 else:
                     p_film = torch.where(valid[..., None], p_film, torch.full_like(p_film, -1e6))
                     film.add_samples(state, p_film, L, wt)
+                if len(out) == 4:
+                    # a splatting integrator (BDPT's t=1 strategies):
+                    # (L, nrays, splat_xy (R,K,2), splat_val (R,K,3))
+                    sxy, sval = out[2:]
+                    sval = torch.where(valid[..., None, None], sval, torch.zeros_like(sval))
+                    film.add_splats(state, sxy.reshape(-1, 2), sval.reshape(-1, 3))
                 return nrays, nf
 
         plan._dispatch = dispatch

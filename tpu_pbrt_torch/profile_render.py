@@ -1,16 +1,21 @@
 """Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud] [--res 128]
-        [--spp 64] [--integrator path|directlighting|whitted|ao|volpath] [--no-regen]
-        [--out DIR]
+    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic]
+        [--res 128] [--spp 64]
+        [--integrator path|directlighting|whitted|ao|volpath|bdpt|sppm|mlt]
+        [--params '"integer numiterations" [4] ...'] [--no-regen] [--out DIR]
 
 Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
-`scenes.make_crown_like`, with `--scene cloud`, `scenes.make_cloud_like`)
-at its full geometry under the integrator (default `path`; the cloud's
-own is `volpath`), renders it once to warm up, then renders it again
-under `torch.profiler` (CPU + CUDA activity), through the persistent
-pool (`path`'s default render path) or, with `--no-regen` and for the
-other integrators, through the fixed batch, and prints:
+`scenes.make_crown_like`, with `--scene cloud`, `scenes.make_cloud_like`,
+with `--scene caustic`, `scenes.make_caustic_like`) at its full geometry
+under the integrator (default `path`; the cloud's own is `volpath`, the
+caustic's `bdpt`), with `--params` as more integrator parameters of the
+caustic (scene text, e.g. sppm's iterations and photons or mlt's
+chains), renders it
+once to warm up, then renders it again under `torch.profiler` (CPU +
+CUDA activity), through the persistent pool (`path`'s default render
+path) or, with `--no-regen` and for the other integrators, through the
+fixed batch (sppm and mlt run their own iteration loops), and prints:
 
 - the render's wall time, rays traced and Mray/s (with the profiler on);
 - the device's busy share: the summed time of the CUDA kernels and
@@ -68,11 +73,16 @@ def _card() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("killeroo", "crown", "cloud"), default="killeroo")
+    ap.add_argument("--scene", choices=("killeroo", "crown", "cloud", "caustic"),
+                    default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--integrator", choices=("path", "directlighting", "whitted", "ao", "volpath"),
-                    default=None, help="default: path (volpath for the cloud)")
+    ap.add_argument("--integrator", choices=("path", "directlighting", "whitted", "ao", "volpath",
+                                             "bdpt", "sppm", "mlt"),
+                    default=None, help="default: path (volpath for the cloud, bdpt for the "
+                                       "caustic)")
+    ap.add_argument("--params", default="",
+                    help="more integrator parameters of the caustic, as scene text")
     ap.add_argument("--no-regen", action="store_true",
                     help="profile the fixed batch instead of the persistent pool")
     ap.add_argument("--out", default="", help="directory for the Chrome trace")
@@ -87,11 +97,18 @@ def main() -> int:
     from tpu_pbrt_torch import scenes
 
     cfg.regen = not args.no_regen
-    make = {"killeroo": scenes.make_killeroo_like, "crown": scenes.make_crown_like,
-            "cloud": scenes.make_cloud_like}[args.scene]
-    api = make(res=args.res, spp=args.spp, device="cuda")
-    args.integrator = args.integrator or ("volpath" if args.scene == "cloud" else "path")
-    api.render_options.integrator_name = args.integrator
+    args.integrator = args.integrator or {"cloud": "volpath", "caustic": "bdpt"}.get(
+        args.scene, "path")
+    if args.scene == "caustic":
+        api = scenes.make_caustic_like(res=args.res, spp=args.spp, integrator=args.integrator,
+                                       params=args.params, device="cuda")
+    else:
+        make = {"killeroo": scenes.make_killeroo_like, "crown": scenes.make_crown_like,
+                "cloud": scenes.make_cloud_like}[args.scene]
+        api = make(res=args.res, spp=args.spp, device="cuda")
+        api.render_options.integrator_name = args.integrator
+        if args.params:
+            raise SystemExit("profile_render: --params applies to --scene caustic")
     scene, integ = scenes.compile_api(api)
     integ.render(scene)  # warm-up: kernel build, allocator, first-use costs
     reset_launches()
@@ -117,12 +134,17 @@ def main() -> int:
 
     st = res.stats
     print(f"card: {_card()}")
-    print(f"render {args.scene} {args.integrator} {args.res}x{args.res} {args.spp} spp, "
-          f"{'pool of ' + str(st['pool']) if st.get('regen') else 'fixed batch'} "
+    loop = ("pool of " + str(st["pool"]) if st.get("regen") else
+            "own iteration loop" if args.integrator in ("sppm", "mlt") else "fixed batch")
+    print(f"render {args.scene} {args.integrator} {args.res}x{args.res} {args.spp} spp, {loop} "
           f"(profiler on): {wall:.3f} s, {res.rays_traced} rays, "
           f"{res.rays_traced / wall / 1e6:.4f} Mray/s")
-    print(f"traversal waves {st['waves']}, host reads per wave {st['host_reads_per_wave_mean']:.2f} "
-          f"(traversal) + {st['loop_host_reads_per_wave']:.2f} (loop)")
+    if "host_reads_per_wave_mean" in st:
+        print(f"traversal waves {st['waves']}, host reads per wave "
+              f"{st['host_reads_per_wave_mean']:.2f} (traversal) + "
+              f"{st['loop_host_reads_per_wave']:.2f} (loop)")
+    else:
+        print(f"traversal waves {st['waves']}")
     for mode, m in st["wave_modes"].items():
         print(f"{mode} waves {m['waves']}: {m['iters_per_wave_mean']:.2f} iterations, "
               f"{m['host_reads_per_wave_mean']:.2f} host reads, "

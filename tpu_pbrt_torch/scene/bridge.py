@@ -21,7 +21,7 @@ from tpu_pbrt_torch.core.media import MediumTable
 from tpu_pbrt_torch.core.sampling import Distribution2D
 
 #: per-light columns the port reads (per material: bxdf.MAT_COLUMNS)
-LIGHT_KEYS = ("type", "p", "L", "tri", "twosided", "area", "tri_v")
+LIGHT_KEYS = ("type", "p", "L", "dir", "cos0", "cos1", "tri", "twosided", "area", "tri_v")
 #: top-level tables the port reads (when present)
 DEV_KEYS = (
     "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",

@@ -13,15 +13,15 @@ directive set the port renders:
   `MediumInterface` as per-triangle inside/outside medium ids, and the
   camera's medium;
 - lights: "diffuse" area lights (one row per emissive triangle, as pbrt
-  makes one DiffuseAreaLight per Triangle), "point" lights and the
-  "infinite" environment light (an HDR lat-long map with its 2D
+  makes one DiffuseAreaLight per Triangle), "point" and "distant" lights
+  and the "infinite" environment light (an HDR lat-long map with its 2D
   importance distribution), with the spatial (default), power or uniform
   light-pick strategy;
 - camera "perspective", pixel filter "box", film "image", accelerator
   "bvh", every sampler the reference dispatches ("zerotwosequence" and
   its aliases, "random", "stratified", "halton", "sobol"), and the
   integrators of integrators.PORTED ("path", "directlighting",
-  "whitted", "ao", "volpath").
+  "whitted", "ao", "volpath", "bdpt", "sppm", "mlt").
 
 Anything else raises PbrtError naming what is not ported yet; nothing is
 silently substituted. (The substitutions are the reference's own: an
@@ -53,6 +53,7 @@ from tpu_pbrt_torch.core.filters import make_filter
 from tpu_pbrt_torch.core import media as md
 from tpu_pbrt_torch.core.lights_dev import (
     LIGHT_AREA,
+    LIGHT_DISTANT,
     LIGHT_INFINITE,
     LIGHT_POINT,
     SpatialLightDistribution,
@@ -406,8 +407,8 @@ def compile_scene(api, device=None) -> CompiledScene:
             for k in range(n_t):
                 lids[k] = len(light_rows)
                 light_rows.append(dict(
-                    type=LIGHT_AREA, p=np.zeros(3), L=L * sc, tri=base + k,
-                    twosided=int(two), area=float(areas[k]),
+                    type=LIGHT_AREA, p=np.zeros(3), L=L * sc, dir=np.zeros(3), cos0=0,
+                    cos1=0, tri=base + k, twosided=int(two), area=float(areas[k]),
                 ))
         all_light.append(lids)
 
@@ -454,7 +455,16 @@ def compile_scene(api, device=None) -> CompiledScene:
         if lrec.type == "point":
             I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
             pos = lrec.light_to_world.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
-            light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, tri=-1, twosided=0, area=0.0))
+            light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, dir=np.zeros(3), cos0=0,
+                                   cos1=0, tri=-1, twosided=0, area=0.0))
+        elif lrec.type == "distant":
+            L = _rgb(p.find_one_spectrum("L", np.array([1.0, 1.0, 1.0]))) * sc
+            frm = np.asarray(p.find_one_point3("from", [0, 0, 0]), np.float64)
+            to = np.asarray(p.find_one_point3("to", [0, 0, 1]), np.float64)
+            d = lrec.light_to_world.apply_vector(frm - to)
+            d = d / max(np.linalg.norm(d), 1e-20)  # the direction TOWARD the light
+            light_rows.append(dict(type=LIGHT_DISTANT, p=np.zeros(3), L=L, dir=d, cos0=0,
+                                   cos1=0, tri=-1, twosided=0, area=0.0))
         elif lrec.type in ("infinite", "exinfinite"):
             if envmap is not None:
                 _not_ported("more than one infinite light")
@@ -470,10 +480,11 @@ def compile_scene(api, device=None) -> CompiledScene:
             env_distr = Distribution2D.build_numpy(luminance(envmap) * np.sin(theta)[:, None])
             env_w2l = np.asarray(lrec.light_to_world.inverse().m, np.float32)
             # the row carries L = 1: the radiance lives in the map
-            light_rows.append(dict(type=LIGHT_INFINITE, p=wcenter, L=np.ones(3), tri=-1,
-                                   twosided=0, area=0.0))
+            light_rows.append(dict(type=LIGHT_INFINITE, p=wcenter, L=np.ones(3),
+                                   dir=np.zeros(3), cos0=0, cos1=0, tri=-1, twosided=0,
+                                   area=0.0))
         else:
-            _not_ported(f'LightSource "{lrec.type}" (ported: "point", "infinite")')
+            _not_ported(f'LightSource "{lrec.type}" (ported: "point", "distant", "infinite")')
 
     # -- media (medium.cpp, media/{homogeneous,grid}.cpp) ---------------------
     medium_ids, media = lower_media(ro.named_media)
@@ -492,12 +503,15 @@ def compile_scene(api, device=None) -> CompiledScene:
     n_lights = len(light_rows)
     if n_lights == 0:
         Warning("No light sources defined in scene; rendering a black image.")
-        light_rows.append(dict(type=LIGHT_POINT, p=np.zeros(3), L=np.zeros(3), tri=-1,
-                               twosided=0, area=0.0))
+        light_rows.append(dict(type=LIGHT_POINT, p=np.zeros(3), L=np.zeros(3), dir=np.zeros(3),
+                               cos0=0, cos1=0, tri=-1, twosided=0, area=0.0))
     lt = {
         "type": np.array([r["type"] for r in light_rows], np.int32),
         "p": np.array([r["p"] for r in light_rows], np.float32),
         "L": np.array([r["L"] for r in light_rows], np.float32),
+        "dir": np.array([r["dir"] for r in light_rows], np.float32),
+        "cos0": np.array([r["cos0"] for r in light_rows], np.float32),
+        "cos1": np.array([r["cos1"] for r in light_rows], np.float32),
         "tri": np.array([r["tri"] for r in light_rows], np.int32),
         "twosided": np.array([r["twosided"] for r in light_rows], np.int32),
         "area": np.array([r["area"] for r in light_rows], np.float32),
@@ -518,6 +532,8 @@ def compile_scene(api, device=None) -> CompiledScene:
             # the row's L is 1: the power is the map's mean luminance
             env_lum = float(np.mean(luminance(envmap.astype(np.float64))))
             power[i] = env_lum * np.pi * wradius * wradius * 4
+        elif r["type"] == LIGHT_DISTANT:
+            power[i] = lum_v * np.pi * wradius * wradius
         else:
             power[i] = lum_v * 4 * np.pi
     light_distr = Distribution1D.build(
@@ -672,7 +688,7 @@ def lower_media(named_media) -> tuple:
 
 def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
     """SpatialLightDistribution tables (numpy), the reference's build for
-    point, area and infinite rows."""
+    point, area, distant and infinite rows."""
     res = (8, 8, 8)
     lo_g = wmin - 1e-3
     hi_g = wmax + 1e-3
@@ -688,7 +704,7 @@ def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
             lum_v = float(luminance(np.asarray(r["L"], np.float64)))
             d2 = np.maximum(((centers - r["p"]) ** 2).sum(-1), 1e-6)
             imp[:, i] = lum_v / d2
-        elif r["type"] != LIGHT_AREA:  # the environment: position-independent
+        elif r["type"] != LIGHT_AREA:  # distant and environment: position-independent
             imp[:, i] = power[i] / max(power.sum(), 1e-12)
     area_rows = [i for i, r in enumerate(light_rows) if r["type"] == LIGHT_AREA]
     if area_rows:

@@ -297,6 +297,53 @@ def make_cloud_like(res=256, spp=16, maxdepth=5, n_theta=180, n_phi=360, options
     return api
 
 
+def caustic_parts(res, spp, maxdepth, n_theta, n_phi, integrator="bdpt", params=""):
+    """The caustic-glass-class scene as (text up to the glass mesh, the
+    mesh's (V, F, N) arrays, the closing text): the killeroo's camera,
+    matte ground and quad area light, a point light behind the blob that
+    the glass focuses onto the ground in front of it (a point-light
+    caustic behind a specular chain, which a unidirectional path tracer
+    cannot render), and the killeroo's displaced sphere as `Material
+    "glass"` (eta 1.5), its winding and normals reversed (the sphere's
+    faces wind inward) so that the dielectric sees the outside as
+    outside. `zerotwosequence`, box filter, no infinite light;
+    `integrator` ("bdpt", "sppm" or "mlt") takes maxdepth and `params`,
+    more integrator parameters as scene text."""
+    head = f"""
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}] {params}
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.2 -3.4  0 0.3 0  0 1 0
+Camera "perspective" "float fov" [38]
+WorldBegin
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [18 17 15]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 2.98 -1  1 2.98 -1  1 2.98 1  -1 2.98 1]
+AttributeEnd
+LightSource "point" "rgb I" [30 28 24] "point from" [-2.5 1.8 3.5]
+Material "matte" "rgb Kd" [0.82 0.78 0.75]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-6 -0.72 -6  -6 -0.72 6  6 -0.72 6  6 -0.72 -6]
+AttributeBegin
+Material "glass" "float eta" [1.5]
+"""
+    V, F, N = _displaced_sphere(n_theta, n_phi)
+    return head, (V, np.ascontiguousarray(F[:, ::-1]), -N), "AttributeEnd\n"
+
+
+def make_caustic_like(res=256, spp=16, maxdepth=5, integrator="bdpt", params="", n_theta=180,
+                      n_phi=360, options=None, device=None) -> PbrtAPI:
+    """caustic-glass-class stand-in (pbrt-v3-scenes' `caustic-glass`, under
+    BDPT, SPPM or MLT): `caustic_parts` at the killeroo's 128,880-triangle
+    glass blob. Parsed up to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    head, mesh, tail = caustic_parts(res, spp, maxdepth, n_theta, n_phi, integrator, params)
+    parse_string(head, api, render=False)
+    _add_mesh(api, *mesh)
+    parse_string(tail, api, render=False)
+    return api
+
+
 def compile_api(api: PbrtAPI):
     """Compile the world accumulated so far (WorldEnd's compile step without
     the render or the state reset) -> (CompiledScene, integrator)."""
