@@ -109,18 +109,42 @@ Phases, each fatal on failure (exit code 1, no result line):
      reference by the image mean (within 2%: one accept that flips
      reroutes a chain for good) with the MSE printed; BDPT and SPPM on
      the card against the CPU port at 16x16 (MSE bar 1e-4);
-  8. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  8. breadth — scene breadth on make_breadth_like() at its full geometry
+     (1,178,624 triangles: eight `ObjectInstance`s of a 128,880-triangle
+     `plymesh` blob, a 257x257 `heightfield2` ground, a disk, cylinder,
+     cone, paraboloid and hyperboloid, a level-4 `loopsubdiv` tetrahedron
+     and 256 `curve` strands; a spot, a goniometric, a projection and an
+     infinite light; `path` at maxdepth 5):
+     [scene] its sizes and compile seconds;
+     [check] both kernels against their plain versions, EXACT, on the
+     512x512x16 (gaussian filter) render's pool wave 1 of its middle chunk
+     (packed flush key) and its middle chunk's first fixed-batch 2^20-ray
+     camera wave (unpacked key), timed as in phase 2;
+     [render] that render through the pool and the fixed batch (the same
+     rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s), its
+     launches counted as in phase 3; the perspective camera under the
+     gaussian and the realistic camera (the built-in doublet) under the
+     mitchell filter at 64x64x16 against the JAX CPU references
+     tests/torch_golden/breadth_{perspective,realistic}_cpu_64x64_16spp.npz
+     (MSE bar 1e-4, no pair dropped, rays printed beside the
+     reference's); the realistic camera's rays for every work item of
+     that render on the card and on the CPU port (the vignetting masks
+     equal); the orthographic camera under the triangle and the
+     environment camera under the sinc filter on the card against the
+     CPU port at 32x32x4 on the small tessellation (MSE below 1e-8, the
+     same rays);
+  9. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
-  9. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 10. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
-     caustic's connection and photon waves under "caustic"), the
-     card's name and power limit
-     (nvidia-smi), and as the last line
+     caustic's connection and photon waves under "caustic"; the breadth
+     scene's pool and fixed waves under "breadth"), the card's name and
+     power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX or of the JAX package, and it fails without a
@@ -166,6 +190,16 @@ SPPM_SMALL = '"integer numiterations" [2] "integer photonsperiteration" [4096] "
 MLT_MEAN_BAR = 0.02
 #: spp of the 512x512 crown render (the bench's 256 would not fit the time box)
 CROWN_SPP = 16
+#: the JAX CPU references of the breadth scene at 64x64x16, by camera
+BREADTH_REF = os.path.join(GOLDEN, "breadth_{}_cpu_64x64_16spp.npz")
+#: the timed breadth render, whose pool and fixed waves the kernels are checked on
+BREADTH_RES, BREADTH_SPP = 512, 16
+#: the 64x64x16 renders held against the JAX CPU references: camera -> filter
+BREADTH_REFS = {"perspective": "gaussian", "realistic": "mitchell"}
+#: the cameras held against the CPU port at 32x32x4 on the small tessellation
+BREADTH_PORT = {"orthographic": "triangle", "environment": "sinc"}
+#: the card against the CPU port on the breadth scene: the MSE bar
+BREADTH_PORT_BAR = 1e-8
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -1398,6 +1432,138 @@ def phase_caustic():
 
 # -- phase 8 -------------------------------------------------------------------
 
+def _breadth(res, spp, camera, filt, device, **kw):
+    from tpu_pbrt_torch.scenes import compile_api, make_breadth_like
+
+    return compile_api(make_breadth_like(res, spp, camera=camera, filter=filt, device=device,
+                                         **kw))
+
+
+def _vignetting(scene, integ, cpu_scene, cpu_integ):
+    """The realistic camera's rays for every work item of the render on
+    the card and on the CPU port: the vignetting masks (weight > 0) must
+    be equal. Returns (lanes, vignetted on the card, on the CPU, masks
+    differing, max |o| / |d| difference over the passing lanes)."""
+    import torch
+
+    out = []
+    for sc, ig in ((scene, integ), (cpu_scene, cpu_integ)):
+        x0, x1, y0, y1 = sc.film.sample_bounds()
+        npix = (x1 - x0) * (y1 - y0)
+        k = torch.arange(npix * sc.sampler.spp, dtype=torch.int32, device=sc.device)
+        valid, *_, o, d, wt = ig.work_to_rays(sc.camera, sc.sampler.spp, x0, y0, x1 - x0, npix,
+                                              0, 0, k)
+        out.append((wt.cpu() > 0, o.cpu(), d.cpu()))
+    (ma, oa, da), (mb, ob, db) = out
+    both = ma & mb
+    return (ma.numel(), int((~ma).sum()), int((~mb).sum()), int((ma != mb).sum()),
+            float((oa - ob)[both].abs().max()), float((da - db)[both].abs().max()))
+
+
+def phase_breadth():
+    """Scene breadth on the card (see the module doc, phase 8): the kernels
+    on the 512x512x16 render's pool and fixed waves, that render timed
+    through both, the 64x64x16 perspective and realistic renders against
+    the JAX CPU references, the realistic camera's vignetting against the
+    CPU port, and the orthographic and environment cameras against the
+    CPU port. Returns {kernel: numbers at the pool wave (the fixed wave's
+    under "at_fixed_wave"), with the timed renders' launches and Mray/s}."""
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.scenes import BREADTH_SMALL
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, integ = _breadth(BREADTH_RES, BREADTH_SPP, "perspective", "gaussian", "cuda")
+    tp = scene.dev["tstream"]
+    types = scene.dev["light"]["type"].tolist()
+    log(f"[scene] breadth: {scene.n_tris} triangles, {tp.n_treelets} treelets of "
+        f"{tp.leaf_tris}, {tp.top.child_bmin.shape[0]} top-tree nodes, featT "
+        f"{tuple(tp.featT.shape)}, light rows {types} (spot, goniometric, projection, "
+        f"infinite), light atlas {tuple(scene.dev['light_atlas'].shape)}, materials "
+        f"{np.unique(scene.dev['mat']['type'].cpu().numpy()).tolist()}, filter "
+        f"{tuple(scene.film.filter)}, compiled in {time.perf_counter() - t0:.2f} s")
+    if scene.n_tris != 1_178_624 or types != [1, 5, 6, 4]:
+        raise SmokeFailure(f"breadth: expected 1,178,624 triangles and the four light types, "
+                           f"got {scene.n_tris} and {types}")
+
+    # [check] both kernels, exact, at the pool wave and the middle chunk's
+    # first fixed-batch camera wave (2^20 rays: the unpacked flush key)
+    n_chunks = integ.prepare_chunks(scene).n_chunks
+    out, _ = _check_waves(scene, integ, "breadth ", fixed_chunk=n_chunks // 2, exact=True,
+                          fixed_packed=False)
+
+    # [render] the 512x512x16 render through the pool and the fixed batch
+    pool, p_l = _render_counted(integ, scene, regen=True)
+    _log_render(f"breadth pool {BREADTH_RES}x{BREADTH_RES}x{BREADTH_SPP}", pool, p_l)
+    fixed, f_l = _render_counted(integ, scene, regen=False)
+    _log_render(f"breadth fixed {BREADTH_RES}x{BREADTH_RES}x{BREADTH_SPP}", fixed, f_l)
+    close = np.isclose(pool.image, fixed.image, rtol=1e-4, atol=1e-5)
+    log(f"[breadth] {BREADTH_RES}x{BREADTH_RES}x{BREADTH_SPP}: pool {pool.mray_per_sec:.4f} "
+        f"Mray/s, fixed {fixed.mray_per_sec:.4f} Mray/s (pool/fixed "
+        f"{pool.mray_per_sec / max(fixed.mray_per_sec, 1e-9):.3f}); rays {pool.rays_traced} / "
+        f"{fixed.rays_traced}; pool waves {pool.stats['n_waves']}, occupancy "
+        f"{pool.stats['mean_wave_occupancy']:.4f}; image mean {pool.image.mean():.6f}, pixel "
+        f"channels outside rtol 1e-4 / atol 1e-5 of the fixed batch: {int((~close).sum())}; "
+        f"dropped {pool.stats['n_drop']} / {fixed.stats['n_drop']}")
+    if (not np.isfinite(pool.image).all() or not pool.image.mean() > 1e-6
+            or pool.rays_traced != fixed.rays_traced or not close.all()
+            or pool.stats["n_drop"] or fixed.stats["n_drop"]):
+        raise SmokeFailure("breadth 512x512: the pool and the fixed batch disagree, or the "
+                           "image is not a finite lit render, or pairs dropped")
+    for name in out:
+        out[name].update(launches=p_l[name], launches_fixed=f_l[name],
+                         mray_per_sec=pool.mray_per_sec, fixed_mray_per_sec=fixed.mray_per_sec,
+                         res=BREADTH_RES, spp=BREADTH_SPP)
+    del scene, integ, pool, fixed
+    torch.cuda.empty_cache()
+
+    # [render] 64x64x16 against the JAX CPU references
+    for camera, filt in BREADTH_REFS.items():
+        ref = np.load(BREADTH_REF.format(camera))
+        t0 = time.perf_counter()
+        scene, integ = _breadth(64, 16, camera, filt, "cuda")
+        secs = time.perf_counter() - t0
+        res, launches = _render_counted(integ, scene, regen=True)
+        label = f"breadth {camera}/{filt} pool 64x64x16"
+        _log_render(f"{label} (compiled in {secs:.2f} s)", res, launches)
+        _against(label, res.image, res.rays_traced, ref, res.stats["n_drop"], tag="breadth")
+        if camera == "realistic":
+            t0 = time.perf_counter()
+            cpu_scene, cpu_integ = _breadth(64, 16, camera, filt, "cpu", **BREADTH_SMALL)
+            n, vc, vp, differ, do, dd = _vignetting(scene, integ, cpu_scene, cpu_integ)
+            log(f"[breadth] realistic camera rays, card vs CPU port: {n} lanes, vignetted "
+                f"{vc} / {vp}, masks differing {differ}; max |o| diff {do:.3e}, max |d| diff "
+                f"{dd:.3e} ({time.perf_counter() - t0:.1f} s)")
+            if differ or not 0 < vc < n:
+                raise SmokeFailure("breadth: the realistic camera vignettes other lanes on the "
+                                   "card than on the CPU port")
+        del scene, integ, res
+
+    # the card against the CPU port on the small tessellation
+    for camera, filt in BREADTH_PORT.items():
+        t0 = time.perf_counter()
+        img = {}
+        for device in ("cuda", "cpu"):
+            scene, integ = _breadth(32, 4, camera, filt, device, **BREADTH_SMALL)
+            r = integ.render(scene)
+            img[device] = (r.image, r.rays_traced)
+        (a, ra), (b, rb) = img["cuda"], img["cpu"]
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        log(f"[breadth] card vs CPU port, {camera}/{filt} 32x32x4 (small tessellation): rays "
+            f"{ra} / {rb}, MSE {mse:.3e} (bar {BREADTH_PORT_BAR:g}), max |diff| "
+            f"{np.abs(a - b).max():.3e}, image mean {a.mean():.6f} "
+            f"({time.perf_counter() - t0:.1f} s with the CPU render)")
+        if ra != rb or not mse < BREADTH_PORT_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+            raise SmokeFailure(f"breadth {camera}: the card and the CPU port differ (rays {ra} / "
+                               f"{rb}, MSE {mse:.3e})")
+    log(f"[breadth] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 9 -------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -1463,7 +1629,7 @@ def phase_cli(device: str = "cuda") -> None:
 def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
-            and os.path.exists(CLOUD_REF)
+            and os.path.exists(CLOUD_REF) and os.path.exists(BREADTH_REF.format("realistic"))
             and os.path.exists(os.path.join(GOLDEN, "make_caustic_reference.py"))):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
@@ -1508,6 +1674,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kt_c = phase_caustic()
         torch.cuda.empty_cache()
+        kt_b = phase_breadth()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -1516,11 +1684,13 @@ def main() -> int:
                          mray_per_sec=cres.mray_per_sec)
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
-                     crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name])
+                     crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
+                     breadth=kt_b[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],
-                                   kt_c[name]["photon"]["max_abs_err"])
+                                   kt_c[name]["photon"]["max_abs_err"],
+                                   kt_b[name]["max_abs_err"])
             return k
 
         kernels = [

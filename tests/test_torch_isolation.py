@@ -7,7 +7,9 @@
   runs core/media.py and integrators/volpath.py); afterwards no `jax*`
   and no `tpu_pbrt.` module may be loaded.
 - A scan of the port's sources finds no import that names either; the
-  media modules are named one by one.
+  media modules are named one by one, and the host modules the port
+  keeps as copies of the reference's (`COPIES`) are its code line for
+  line.
 - With no GPU, the entry points' default device (CUDA) raises instead of
   falling back to the CPU.
 """
@@ -122,6 +124,22 @@ def test_media_modules_name_neither_jax_nor_the_reference(module):
     assert "torch" in names
     for name in names:
         assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_pbrt"), f"{module} imports {name}"
+
+
+#: host modules the port keeps as its own copies of the reference's (the
+#: copy's import of the port's error helpers is the one line that differs)
+COPIES = ["scene/plyreader.py", "shapes/loopsubdiv.py"]
+
+
+@pytest.mark.parametrize("module", COPIES)
+def test_host_copies_match_the_reference_and_import_neither(module):
+    names = list(_imported_names(os.path.join(PKG, module)))
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_pbrt"), f"{module} imports {name}"
+    with open(os.path.join(PKG, module)) as f:
+        ours = f.read().replace("tpu_pbrt_torch.", "tpu_pbrt.")
+    with open(os.path.join(ROOT, "tpu_pbrt", module)) as f:
+        assert ours == f.read(), f"{module} is no longer the reference's code"
 
 
 def test_default_device_without_gpu_raises():

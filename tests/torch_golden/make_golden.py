@@ -81,18 +81,29 @@ parameters, at maxdepth 5 unless the scene text says otherwise:
 - `mlt_cornell`: the Cornell box under `mlt` at maxdepth 3, 512 chains
   from 4,096 bootstrap samples, 32 mutations per pixel.
 
+Scene breadth (tests/test_torch_breadth.py): `BREADTH_CASES` below, the
+small tessellation of `tpu_pbrt_torch.scenes.make_breadth_like`
+(`BREADTH_SMALL`: every shape, eight object instances of a 528-triangle
+blob, the spot, goniometric, projection and infinite lights) at 16x16,
+4 spp, through the pool with 256 slots, once per camera and filter:
+`breadth_perspective` (gaussian), `breadth_realistic` (mitchell, the
+built-in doublet), `breadth_orthographic` (triangle) and
+`breadth_environment` (sinc). The reference's `plymesh` cannot compile,
+so its scene declares the blob as the `trianglemesh` of the arrays read
+back from the PLY file (`jax_breadth_api`).
+
 The JAX renders alone take longer here than the port's test budget
 allows (most of it compiling), so the tests read these files instead.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py \
-        [fixed|pool|crown|crown_pool|<a DIRECT_CASES, MEDIA_CASES or LT_CASES name>|
-         direct|media|lt|all]
+        [fixed|pool|crown|crown_pool|<a DIRECT_CASES, MEDIA_CASES, LT_CASES or
+         BREADTH_CASES name>|direct|media|lt|breadth|all]
 
 It rewrites the named golden(s) (default: all; "direct": every
 DIRECT_CASES golden; "media": every MEDIA_CASES golden; "lt": every
-LT_CASES golden) and records the commit of the JAX package it rendered
+LT_CASES golden; "breadth": every BREADTH_CASES golden) and records the commit of the JAX package it rendered
 with.
 """
 
@@ -294,6 +305,18 @@ LT_CASES = {
 }
 
 
+#: scene breadth (tests/test_torch_breadth.py): the small tessellation of
+#: tpu_pbrt_torch.scenes.make_breadth_like (BREADTH_SMALL) at 16x16x4,
+#: name -> (camera, filter), through the pool with POOL slots
+BREADTH_CASES = {
+    "breadth_perspective": ("perspective", "gaussian"),
+    "breadth_realistic": ("realistic", "mitchell"),
+    "breadth_orthographic": ("orthographic", "triangle"),
+    "breadth_environment": ("environment", "sinc"),
+}
+BREADTH_RES, BREADTH_SPP = 16, 4
+
+
 def lt_scene_text(which: str, env_path: str = "", integrator: str = "bdpt", md: int = 3,
                   spp: int = 8, res: int = 8) -> str:
     """tests/test_bdpt.py's environment-lit ("env") and distant-lit
@@ -491,6 +514,35 @@ def jax_caustic_api(res, spp, maxdepth=5, integrator="bdpt", params="", n_theta=
     return parse_string(tail, api)
 
 
+def jax_breadth_api(res, spp, maxdepth=5, camera="perspective", filter="gaussian",
+                    n_instances=8, n_theta=180, n_phi=360, n_height=257, n_curves=256,
+                    subdiv_levels=4):
+    """The port's scene-breadth stand-in (`tpu_pbrt_torch.scenes.breadth_parts`:
+    the same text, PLY file and light maps) parsed through the JAX
+    package's API, up to (not including) WorldEnd. The reference's
+    `plymesh` cannot compile (its _tess_ply reads keys its read_ply does
+    not return), so the blob inside `ObjectBegin "blob"` is declared as a
+    `trianglemesh` of the arrays read back from the PLY file (float32
+    positions and normals, as write_ply stores them): what `plymesh` means
+    in pbrt-v3."""
+    from tpu_pbrt_torch.scenes import breadth_parts
+
+    head, ply, tail = breadth_parts(res, spp, maxdepth, camera, filter, n_instances, n_theta,
+                                    n_phi, n_height, n_curves, subdiv_levels)
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+    from tpu_pbrt.scene.paramset import ParamSet
+    from tpu_pbrt.scene.plyreader import read_ply
+
+    mesh = read_ply(ply)
+    api = parse_string(head, pbrt_init(Options(quiet=True)))
+    ps = ParamSet()
+    ps.add("integer indices", mesh["indices"].reshape(-1).tolist())
+    ps.add("point P", mesh["vertices"].reshape(-1).tolist())
+    ps.add("normal N", mesh["normals"].reshape(-1).tolist())
+    api.shape("trianglemesh", ps)
+    return parse_string(tail, api)
+
+
 def _commit(root: str) -> str:
     try:
         head = subprocess.run(["git", "-C", root, "rev-parse", "HEAD"], capture_output=True,
@@ -556,7 +608,7 @@ def _write(path, scene, res, commit, pool: bool):
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     names = (TARGETS + tuple(DIRECT_CASES) + MEDIA_CASES + tuple(LT_CASES)
-             + ("direct", "media", "lt", "all"))
+             + tuple(BREADTH_CASES) + ("direct", "media", "lt", "breadth", "all"))
     if which not in names:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(names)}]")
     root = os.path.dirname(os.path.dirname(HERE))
@@ -577,6 +629,9 @@ def main() -> None:
     for name in LT_CASES:
         if which in (name, "lt", "all"):
             _write_lt(name, commit)
+    for name in BREADTH_CASES:
+        if which in (name, "breadth", "all"):
+            _write_breadth(name, commit)
 
 
 def _write_media(name: str, commit: str) -> None:
@@ -630,6 +685,37 @@ def _write_lt(name: str, commit: str) -> None:
     )
     print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _write_breadth(name: str, commit: str) -> None:
+    import time
+
+    import numpy as np
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    os.environ["TPU_PBRT_REGEN"] = "1"
+    os.environ["TPU_PBRT_POOL"] = str(POOL)
+    from tpu_pbrt import config, scenes
+    from tpu_pbrt_torch.scenes import BREADTH_SMALL
+
+    config.reload()
+    camera, filt = BREADTH_CASES[name]
+    scene, integ = scenes.compile_api(jax_breadth_api(BREADTH_RES, BREADTH_SPP, camera=camera,
+                                                      filter=filt, **BREADTH_SMALL))
+    t0 = time.perf_counter()
+    res = integ.render(scene)
+    assert res.stats["pool"] == POOL and res.stats["regen"]
+    path = os.path.join(HERE, f"{name}.npz")
+    np.savez_compressed(
+        path,
+        image=np.asarray(res.image, np.float32),
+        rays_traced=np.int64(res.rays_traced),
+        n_tris=np.int64(scene.n_tris),
+        n_waves=np.int64(res.stats["n_waves"]),
+        jax_commit=np.array(commit),
+    )
+    print(f"wrote {path}: mean {float(np.mean(res.image)):.8f}, rays {res.rays_traced}, "
+          f"waves {res.stats['n_waves']}, {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _write_direct(name: str, commit: str) -> None:

@@ -1,31 +1,41 @@
 """Cameras: host construction + batched ray generation (port of
-tpu_pbrt/cameras/__init__.py, the perspective camera).
+tpu_pbrt/cameras/__init__.py: the perspective, orthographic, environment
+and realistic cameras).
 
 The projective chain (screen window -> raster -> camera) is built on the
 host exactly as pbrt's ProjectiveCamera constructor (and the reference)
 does; ray generation is one vectorized pass over a batch of film points,
-with the thin-lens model when lensradius > 0. Point transforms are
-written out term by term in the reference's summation order. The
-importance side that BDPT's camera strategies read (We's pdf, Sample_Wi
-and the world-to-raster projection of a pinhole) follows the reference;
-the inverse matrices that projection needs are taken on the host
-whatever the render device, as the reference's CPU inverse takes them, so
-every device lands a splat in the same pixel.
+with the thin-lens model when lensradius > 0 (the orthographic camera
+keeps its z origin under the lens), the lat-long sphere for the
+environment camera, and the element-stack trace of cameras/realistic.py
+for the realistic camera, whose vignetted lanes carry weight 0. Point
+transforms are written out term by term in the reference's summation
+order. The importance side that BDPT's camera strategies read (We's pdf,
+Sample_Wi and the world-to-raster projection) is the reference's pinhole
+formula for every camera type (for the realistic camera its projective
+matrices hold a thin-lens proxy, as in the reference); the inverse
+matrices that projection needs are taken on the host whatever the render
+device, as the reference's CPU inverse takes them, so every device lands
+a splat in the same pixel.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_pbrt_torch.core import transform as xf
-from tpu_pbrt_torch.core.sampling import concentric_sample_disk
+from tpu_pbrt_torch.core.sampling import _div, concentric_sample_disk
 from tpu_pbrt_torch.core.vecmath import dot, normalize
-from tpu_pbrt_torch.utils.error import Error, PbrtError
+from tpu_pbrt_torch.utils.error import Error, Warning
 
 CAM_PERSPECTIVE = 0
+CAM_ORTHOGRAPHIC = 1
+CAM_ENVIRONMENT = 2
+CAM_REALISTIC = 3
 
 
 class CompiledCamera(NamedTuple):
@@ -37,6 +47,7 @@ class CompiledCamera(NamedTuple):
     shutter_open: float
     shutter_close: float
     full_res: tuple  # (x, y)
+    lens: object = None  # realistic.CompiledLens for CAM_REALISTIC
 
 
 def _screen_window(aspect: float, params) -> tuple:
@@ -54,22 +65,66 @@ def _screen_window(aspect: float, params) -> tuple:
 
 
 def make_camera(name: str, params, cam_to_world: xf.Transform, full_res,
-                shutter=(0.0, 1.0), device="cpu") -> CompiledCamera:
-    """api.cpp MakeCamera for the perspective camera."""
-    if name != "perspective":
-        raise PbrtError(
-            f'Camera "{name}" is not ported to tpu_pbrt_torch yet (ported: "perspective")'
-        )
+                shutter=(0.0, 1.0), film_diag: float = 0.035, scene_dir: str = ".",
+                device="cpu") -> CompiledCamera:
+    """api.cpp MakeCamera: the perspective, orthographic, environment and
+    realistic cameras; an unknown name takes "perspective" with the
+    reference's warning. For the realistic camera the projective
+    matrices hold the reference's thin-lens proxy (a fov from the focused
+    film distance), which only the pinhole-approximated importance side
+    reads."""
     res_x, res_y = full_res
     aspect = params.find_one_float("frameaspectratio", res_x / res_y)
     lens_radius = params.find_one_float("lensradius", 0.0)
     focal = params.find_one_float("focaldistance", 1e6)
-    fov = params.find_one_float("fov", 90.0)
-    halffov = params.find_one_float("halffov", -1.0)
-    if halffov > 0:
-        fov = 2.0 * halffov
-    screen = _screen_window(aspect, params)
-    cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    lens = None
+    if name in ("perspective", "realistic"):
+        if name == "realistic":
+            from tpu_pbrt_torch.cameras.realistic import (
+                apply_aperture_diameter,
+                builtin_doublet,
+                compile_lens,
+                parse_lens_file,
+            )
+            from tpu_pbrt_torch.utils.fileutil import resolve_filename
+
+            ap_diam = params.find_one_float("aperturediameter", 1.0) / 1000.0
+            focal = params.find_one_float("focusdistance", 10.0)
+            lens_file = params.find_one_string("lensfile", "")
+            rows = None
+            if lens_file:
+                try:
+                    rows = apply_aperture_diameter(
+                        parse_lens_file(resolve_filename(lens_file, scene_dir)), ap_diam)
+                except Exception as e:  # noqa: BLE001 - the reference substitutes on any failure
+                    Warning(f'realistic: could not read lensfile "{lens_file}" ({e}); '
+                            "using the built-in doublet")
+            if rows is None:
+                rows = builtin_doublet(ap_diam=max(ap_diam, 1e-4))
+            lens = compile_lens(rows, focal, film_diag, device=device)
+            ctype = CAM_REALISTIC
+            fov = math.degrees(2.0 * math.atan(0.5 * film_diag / max(lens.rear_z, 1e-4)))
+            lens_radius = ap_diam / 2.0
+        else:
+            fov = params.find_one_float("fov", 90.0)
+            halffov = params.find_one_float("halffov", -1.0)
+            if halffov > 0:
+                fov = 2.0 * halffov
+            ctype = CAM_PERSPECTIVE
+        screen = _screen_window(aspect, params)
+        cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    elif name == "orthographic":
+        screen = _screen_window(aspect, params)
+        cam_to_screen = xf.orthographic(0.0, 1.0)
+        ctype = CAM_ORTHOGRAPHIC
+    elif name == "environment":
+        screen = [-1.0, 1.0, -1.0, 1.0]
+        cam_to_screen = xf.Transform()
+        ctype = CAM_ENVIRONMENT
+    else:
+        Warning(f'Camera "{name}" unknown; using "perspective".')
+        return make_camera("perspective", params, cam_to_world, full_res, shutter,
+                           device=device)
     x0, x1, y0, y1 = screen
     screen_to_raster = (
         xf.scale(res_x, res_y, 1.0)
@@ -78,7 +133,7 @@ def make_camera(name: str, params, cam_to_world: xf.Transform, full_res,
     )
     raster_to_camera = cam_to_screen.inverse() * screen_to_raster.inverse()
     return CompiledCamera(
-        cam_type=CAM_PERSPECTIVE,
+        cam_type=ctype,
         raster_to_camera=torch.from_numpy(
             np.asarray(raster_to_camera.m, np.float32)).to(device),
         camera_to_world=torch.from_numpy(
@@ -88,6 +143,7 @@ def make_camera(name: str, params, cam_to_world: xf.Transform, full_res,
         shutter_open=shutter[0],
         shutter_close=shutter[1],
         full_res=(res_x, res_y),
+        lens=lens,
     )
 
 
@@ -106,22 +162,69 @@ def _xform_vector(m, v):
     )
 
 
+def _realistic_rays(cam: CompiledCamera, p_film, u_lens):
+    """realistic.cpp GenerateRay: raster -> physical film point (x
+    negated, pbrt's film orientation), an exit-pupil sample, the element
+    trace; the weight is cos^4 x the sampled pupil box's area over the
+    on-axis box's (exposure-normalized simple weighting), 0 where the
+    lens vignettes the ray."""
+    from tpu_pbrt_torch.cameras.realistic import sample_pupil, trace_lenses
+
+    lens = cam.lens
+    rx, ry = cam.full_res
+    a = ry / rx
+    fx = np.float32(np.sqrt(lens.film_diag ** 2 / (1.0 + a * a)))
+    fy = np.float32(a * fx)
+    sx = _div(p_film[..., 0], rx)
+    sy = _div(p_film[..., 1], ry)
+    pf = torch.stack([-(sx - 0.5) * fx, (sy - 0.5) * fy, torch.zeros_like(sx)], dim=-1)
+    p_rear, area = sample_pupil(lens, pf, u_lens)
+    d0 = normalize(p_rear - pf)
+    ok, o_c, d_c = trace_lenses(lens, pf, d0)
+    c = torch.clamp(d0[..., 2], min=0.0)
+    c2 = c * c
+    area0 = (lens.pupil[0, 2] - lens.pupil[0, 0]) * (lens.pupil[0, 3] - lens.pupil[0, 1])
+    weight = torch.where(ok, c2 * c2 * area / torch.clamp(area0, min=1e-20),
+                         torch.zeros_like(c))
+    o_w = _xform_point(cam.camera_to_world, o_c)
+    d_w = normalize(_xform_vector(cam.camera_to_world, d_c))
+    return o_w, d_w, weight
+
+
 def generate_rays(cam: CompiledCamera, p_film, u_lens):
     """Batched Camera::GenerateRay. p_film: (...,2) raster-space sample
     points; u_lens: (...,2) in [0,1). Returns world (o, d, weight)."""
+    if cam.cam_type == CAM_REALISTIC:
+        return _realistic_rays(cam, p_film, u_lens)
     p_raster = torch.cat([p_film, torch.zeros_like(p_film[..., :1])], dim=-1)
     p_cam = _xform_point(cam.raster_to_camera, p_raster)
-    o = torch.zeros_like(p_cam)
-    d = normalize(p_cam)
-    if cam.lens_radius > 0.0:
-        # thin-lens depth of field (ProjectiveCamera lens code)
+    if cam.cam_type == CAM_PERSPECTIVE:
+        o = torch.zeros_like(p_cam)
+        d = normalize(p_cam)
+    elif cam.cam_type == CAM_ORTHOGRAPHIC:
+        o = p_cam
+        d = torch.zeros_like(p_cam)
+        d[..., 2] = 1.0
+    else:  # environment: lat-long over the whole sphere (environment.cpp)
+        theta = _div(torch.pi * p_film[..., 1], cam.full_res[1])
+        phi = _div(2.0 * torch.pi * p_film[..., 0], cam.full_res[0])
+        sin_t = torch.sin(theta)
+        d = torch.stack([sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi)],
+                        dim=-1)
+        o = torch.zeros_like(d)
+    if cam.cam_type != CAM_ENVIRONMENT and cam.lens_radius > 0.0:
+        # thin-lens depth of field (ProjectiveCamera lens code); the
+        # orthographic camera keeps its z origin
         lx, ly = concentric_sample_disk(u_lens[..., 0], u_lens[..., 1])
         p_lens = cam.lens_radius * torch.stack([lx, ly], dim=-1)
         dz = d[..., 2]
         ft = cam.focal_distance / torch.where(dz == 0.0, torch.ones_like(dz), dz)
         p_focus = o + ft[..., None] * d
-        o = torch.cat([p_lens, torch.zeros_like(p_lens[..., :1])], dim=-1)
-        d = normalize(p_focus - o)
+        o_new = torch.cat([p_lens, torch.zeros_like(p_lens[..., :1])], dim=-1)
+        if cam.cam_type == CAM_ORTHOGRAPHIC:
+            o_new = o_new + o * torch.tensor([0.0, 0.0, 1.0], device=o.device)
+        d = normalize(p_focus - o_new)
+        o = o_new
     o_w = _xform_point(cam.camera_to_world, o)
     d_w = normalize(_xform_vector(cam.camera_to_world, d))
     weight = torch.ones(p_film.shape[:-1], dtype=torch.float32, device=p_film.device)

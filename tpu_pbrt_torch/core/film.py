@@ -79,6 +79,15 @@ class Film:
             int(math.ceil(y1 - 0.5 + fy)),
         )
 
+    def physical_extent(self):
+        """Film::GetPhysicalExtent (meters): the film's (x0, x1, y0, y1)
+        from its diagonal and aspect."""
+        rx, ry = self.full_resolution
+        aspect = ry / rx
+        x = math.sqrt(self.diagonal * self.diagonal / (1 + aspect * aspect))
+        y = aspect * x
+        return (-x / 2, x / 2, -y / 2, y / 2)
+
     def init_state(self, device="cpu") -> FilmState:
         rx, ry = self.full_resolution
         return FilmState(
@@ -106,30 +115,41 @@ class Film:
 
     def add_samples(self, state: FilmState, p_film, L, ray_weight=None) -> FilmState:
         """FilmTile::AddSample over a batch. p_film: (R,2) raster coords,
-        L: (R,3). Static filter footprint of masked scatter-adds."""
+        L: (R,3). The filter's (nx x ny) footprint taps are deposited as
+        ONE scatter-add of the taps inside the crop window with a nonzero
+        weight (one host read for their count). The reference scatters
+        tap by tap and clamps masked lanes and off-crop taps onto the
+        frame's edges with weight 0; the deterministic scatter-add
+        serializes the entries that share a pixel, so those zeros would
+        pile up there. Adding a zero changes no sum, and the entries keep
+        the reference's order (tap by tap, lanes in order), which the
+        deterministic scatter-add keeps per pixel: the sums are the
+        reference's bit for bit."""
         f = self.filter
         L = self._prep(L, ray_weight)
         dx = p_film[..., 0] - 0.5
         dy = p_film[..., 1] - 0.5
         x0f = torch.ceil(dx - f.xwidth)
         y0f = torch.ceil(dy - f.ywidth)
-        x0 = x0f.to(torch.int64)
-        y0 = y0f.to(torch.int64)
         nx = int(math.floor(2 * f.xwidth)) + 1
         ny = int(math.floor(2 * f.ywidth)) + 1
-        rx, ryres = self.full_resolution
+        # tap-major (ny*nx, R) offsets, in the reference's loop order
+        oy, ox = torch.meshgrid(torch.arange(ny, device=L.device), torch.arange(nx, device=L.device),
+                                indexing="ij")
+        oxf = ox.reshape(-1, 1).to(torch.float32)
+        oyf = oy.reshape(-1, 1).to(torch.float32)
+        tx = x0f + oxf
+        ty = y0f + oyf
+        fw = f.evaluate(tx - dx, ty - dy)
         cx0, cx1, cy0, cy1 = self.cropped_pixel_bounds
-        for oy in range(ny):
-            for ox in range(nx):
-                px = x0 + ox
-                py = y0 + oy
-                fw = f.evaluate((x0f + ox) - dx, (y0f + oy) - dy)
-                inb = (px >= cx0) & (px < cx1) & (py >= cy0) & (py < cy1)
-                fw = torch.where(inb, fw, torch.zeros_like(fw))
-                pxc = px.clamp(0, rx - 1)
-                pyc = py.clamp(0, ryres - 1)
-                state.rgb.index_put_((pyc, pxc), fw[..., None] * L, accumulate=True)
-                state.weight.index_put_((pyc, pxc), fw, accumulate=True)
+        keep = (tx >= cx0) & (tx < cx1) & (ty >= cy0) & (ty < cy1) & (fw != 0.0)
+        sel = torch.nonzero(keep.reshape(-1), as_tuple=True)[0]
+        rx = self.full_resolution[0]
+        pix = ty.reshape(-1)[sel].to(torch.int64) * rx + tx.reshape(-1)[sel].to(torch.int64)
+        w = fw.reshape(-1)[sel]
+        lane = sel % L.shape[0]
+        state.rgb.view(-1, 3).index_put_((pix,), w[:, None] * L[lane], accumulate=True)
+        state.weight.view(-1).index_put_((pix,), w, accumulate=True)
         return state
 
     def aligned_chunk_pixels(self, chunk: int, spp: int) -> int:

@@ -2,14 +2,16 @@
 
 Lights are rows of a tagged-union SoA table; area lights are one row per
 emissive triangle (pbrt's one DiffuseAreaLight per Triangle). The port
-compiles point, distant, area-triangle and infinite (HDR environment map)
-rows: Sample_Li of each, the environment's Le and its 2D-CDF pdf,
-emission of hit area lights and its MIS pdf, the power and spatial
-(per-voxel) light-pick distributions, in which the distant and
-environment rows are position-independent, and the emission side that
-BDPT and SPPM start light subpaths from (Sample_Le, Pdf_Le). The scene
-compiler rejects every other light type; sample_le keeps the reference's
-spot and image-light branches, which no compiled row reaches yet.
+compiles every light type of the reference: point, spot (the cone's
+quartic falloff, spot.cpp), distant, area-triangle,
+infinite (HDR environment map), and the goniometric and projection lights,
+whose intensity an image in the shared light atlas modulates by direction
+(`_light_map_scale`). This module holds Sample_Li of each, the
+environment's Le and its 2D-CDF pdf, emission of hit area lights and its
+MIS pdf, the power and spatial (per-voxel) light-pick distributions, in
+which the distant and environment rows are position-independent, and the
+emission side that BDPT and SPPM start light subpaths from (Sample_Le,
+Pdf_Le).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpu_pbrt_torch.core.sampling import (
+    _div,
     concentric_sample_disk,
     cosine_sample_hemisphere,
     uniform_cone_pdf,
@@ -60,6 +63,11 @@ def _take(table, idx):
     return table[idx.long().clamp(0, table.shape[0] - 1)]
 
 
+def _to_index(x):
+    """f32 -> int64 as XLA's convert saturates (NaN of a masked lane -> 0)."""
+    return torch.nan_to_num(x, nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+
+
 def _spot_falloff(cos_w, cos_falloff_start, cos_total_width):
     d = torch.clamp(
         (cos_w - cos_total_width)
@@ -82,9 +90,8 @@ def env_lookup(dev, d_world):
     phi, theta = _env_uv(dev, d_world)
     x = phi * (0.5 / torch.pi) * w - 0.5
     y = theta / torch.pi * h - 0.5
-    # f32 -> int saturates like XLA's convert (NaN of a masked lane -> 0)
-    x0 = torch.nan_to_num(torch.floor(x), nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
-    y0 = torch.nan_to_num(torch.floor(y), nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+    x0 = _to_index(torch.floor(x))
+    y0 = _to_index(torch.floor(y))
     fx = (x - x0.to(torch.float32))[..., None]
     fy = (y - y0.to(torch.float32))[..., None]
     x0w = torch.remainder(x0, w)
@@ -140,6 +147,67 @@ def triangle_normal(tv):
     return n / torch.clamp(torch.sqrt(dot(n, n))[..., None], min=1e-20)
 
 
+def _light_map_scale(dev, lt, li_idx, w_from_light, is_gonio, is_proj):
+    """The image factor of goniometric and projection lights
+    (goniometric.h Scale, projection.cpp Projection) for the world
+    direction FROM the light toward the shading point: each row carries
+    its world-to-light rotation and its (offset, width, height) window into
+    the shared light atlas; a bilinear lookup whose taps clamp to the
+    row's own extent (and to offset 0 for rows without a map). The
+    goniometric diagram is lat-long about the light's Y axis; the
+    projection's picture covers the fov frustum (0 outside it)."""
+    atlas = dev["light_atlas"]
+    w2l = _take(lt["w2l"], li_idx).reshape(li_idx.shape + (3, 3))
+    img = _take(lt["img"], li_idx).long()  # (..., 3): offset, width, height
+    off, iw, ih = img[..., 0], img[..., 1], img[..., 2]
+    w = w_from_light
+    dl = normalize(torch.stack(
+        [(w2l[..., i, 0] * w[..., 0] + w2l[..., i, 1] * w[..., 1]) + w2l[..., i, 2] * w[..., 2]
+         for i in range(3)], dim=-1))
+
+    # goniometric: Scale() swaps y and z before SphericalTheta / Phi
+    theta = torch.acos(torch.clamp(dl[..., 1], -1.0, 1.0))
+    phi = torch.atan2(dl[..., 2], dl[..., 0])
+    phi = torch.where(phi < 0, phi + 2 * torch.pi, phi)
+    u_g = _div(phi, 2 * torch.pi)
+    v_g = _div(theta, torch.pi)
+
+    # projection: the perspective divide into the fov screen window
+    tan_half = torch.clamp(_take(lt["cos0"], li_idx), min=1e-6)
+    aspect = _take(lt["cos1"], li_idx)
+    z = dl[..., 2]
+    inside_z = z > 1e-3
+    zs = torch.where(inside_z, z, torch.ones_like(z))
+    sx = dl[..., 0] / (zs * tan_half)
+    sy = dl[..., 1] / (zs * tan_half)
+    u_p = (sx / torch.clamp(aspect, min=1.0) + 1.0) * 0.5
+    v_p = (sy * torch.clamp(aspect, max=1.0) + 1.0) * 0.5
+    in_win = inside_z & (u_p >= 0) & (u_p < 1) & (v_p >= 0) & (v_p < 1)
+
+    u = torch.where(is_proj, u_p, u_g)
+    v = torch.where(is_proj, v_p, v_g)
+    x = u * iw.to(torch.float32) - 0.5
+    y = v * ih.to(torch.float32) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    base = torch.clamp(off, min=0)
+
+    def tap(ix, iy):
+        ix = torch.minimum(torch.clamp(_to_index(ix), min=0), torch.clamp(iw - 1, min=0))
+        iy = torch.minimum(torch.clamp(_to_index(iy), min=0), torch.clamp(ih - 1, min=0))
+        return atlas[base + iy * iw + ix]
+
+    c = (tap(x0, y0) * ((1 - fx) * (1 - fy))[..., None]
+         + tap(x0 + 1, y0) * (fx * (1 - fy))[..., None]
+         + tap(x0, y0 + 1) * ((1 - fx) * fy)[..., None]
+         + tap(x0 + 1, y0 + 1) * (fx * fy)[..., None])
+    use = (is_gonio | (is_proj & in_win)) & (off >= 0)
+    outside = torch.where(is_proj, torch.zeros_like(u), torch.ones_like(u))[..., None]
+    return torch.where(use[..., None], c, outside)
+
+
 def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     """Sample_Li for explicit light rows li_idx (R,) — no pick pmf folded."""
     lt = dev["light"]
@@ -149,7 +217,7 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     twosided = _take(lt["twosided"], li_idx)
     area = _take(lt["area"], li_idx)
 
-    # -- point ------------------------------------------------------------
+    # -- point (and the position of spot and image lights) ----------------
     to_l = lp - ref_p
     d2 = torch.clamp(dot(to_l, to_l), min=1e-20)
     dist_pt = torch.sqrt(d2)
@@ -169,12 +237,27 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     pdf_a = d2a / torch.clamp(torch.abs(cos_l) * area, min=1e-12)
 
     is_pt = ltype == LIGHT_POINT
+    is_spot = ltype == LIGHT_SPOT
     is_distant = ltype == LIGHT_DISTANT
     is_area = ltype == LIGHT_AREA
+    is_gonio = ltype == LIGHT_GONIO
+    is_proj = ltype == LIGHT_PROJECTION
     wi = torch.where(is_area[..., None], wi_a, wi_pt)
     li = torch.where(is_area[..., None], li_a, li_pt)
     pdf = torch.where(is_area, pdf_a, torch.ones_like(pdf_a))
     dist = torch.where(is_area, dist_a, dist_pt)
+
+    # -- spot: the cone's falloff about the row's axis ---------------------
+    fall = _spot_falloff(dot(-wi_pt, _take(lt["dir"], li_idx)), _take(lt["cos0"], li_idx),
+                         _take(lt["cos1"], li_idx))
+    li = torch.where(is_spot[..., None], li_pt * fall[..., None], li)
+
+    # -- goniometric / projection: the point intensity times the map ----------
+    if "light_atlas" in dev:
+        li_img = li_pt * _light_map_scale(dev, lt, li_idx, -wi_pt, is_gonio, is_proj)
+    else:
+        li_img = li_pt
+    li = torch.where((is_gonio | is_proj)[..., None], li_img, li)
 
     # -- distant: the direction toward the light, a shadow ray across the
     # scene (every compiled scene carries its radius; a bare table of
@@ -193,7 +276,8 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
         pdf = torch.where(is_env, pdf_env, pdf)
         dist = torch.where(is_env, 2.0 * dev["world_radius"] * torch.ones_like(dist), dist)
     li = torch.where((pdf > 0.0)[..., None], li, torch.zeros_like(li))
-    return LightSample(li, wi, pdf, dist, is_pt | is_distant, li_idx)
+    return LightSample(li, wi, pdf, dist, is_pt | is_spot | is_distant | is_gonio | is_proj,
+                       li_idx)
 
 
 class SpatialLightDistribution(NamedTuple):
@@ -428,6 +512,11 @@ def sample_le(dev, light_distr, u_pick, up1, up2, ud1, ud2) -> LeSample:
     d = pick(is_env, d_env, d)
     le = pick(is_spot, le_spot, lL)
     le = pick(is_env, le_env, le)
+    if "light_atlas" in dev:
+        # image lights emit over the sphere with the map's factor
+        le_img = lL * _light_map_scale(dev, lt, li_idx, d, ltype == LIGHT_GONIO,
+                                       ltype == LIGHT_PROJECTION)
+        le = pick(is_img, le_img, le)
     pdf_pos = torch.where(is_area, pdf_pos_a, ones)
     pdf_pos = torch.where(is_distant | is_env, pdf_pos_dist * ones, pdf_pos)
     pdf_dir = torch.where(is_area, pdf_dir_a, pdf_dir_pt)

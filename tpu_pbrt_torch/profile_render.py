@@ -1,13 +1,15 @@
 """Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic]
+    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic|breadth]
         [--res 128] [--spp 64]
         [--integrator path|directlighting|whitted|ao|volpath|bdpt|sppm|mlt]
         [--params '"integer numiterations" [4] ...'] [--no-regen] [--out DIR]
 
 Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
 `scenes.make_crown_like`, with `--scene cloud`, `scenes.make_cloud_like`,
-with `--scene caustic`, `scenes.make_caustic_like`) at its full geometry
+with `--scene caustic`, `scenes.make_caustic_like`, with `--scene
+breadth`, `scenes.make_breadth_like`: perspective camera, gaussian
+filter) at its full geometry
 under the integrator (default `path`; the cloud's own is `volpath`, the
 caustic's `bdpt`), with `--params` as more integrator parameters of the
 caustic (scene text, e.g. sppm's iterations and photons or mlt's
@@ -23,6 +25,9 @@ fixed batch (sppm and mlt run their own iteration loops), and prints:
   how many of them the render launched;
 - the device time by group (the two hand-written kernels, sorts,
   gathers and scatters, elementwise work, copies) and the top kernels;
+- the film deposit's share: the device time of the kernels launched
+  inside the film's deposit calls (`Film.add_samples*`, each under a
+  profiler range), which a wide filter footprint multiplies;
 - the host reads per wave from the render's stats: the traversal's and
   the render loop's (one per pool wave or fixed-batch bounce), and the
   waves by mode (closest-hit, any-hit).
@@ -43,6 +48,8 @@ from collections import defaultdict
 
 import torch
 
+#: the profiler range around the film's deposit calls
+DEPOSIT = "film_deposit"
 #: kernel-name patterns -> group, first match wins
 GROUPS = (
     ("flush (hand-written)", r"flush_blocks_kernel|seed_kernel|finalize_kernel"),
@@ -73,7 +80,7 @@ def _card() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("killeroo", "crown", "cloud", "caustic"),
+    ap.add_argument("--scene", choices=("killeroo", "crown", "cloud", "caustic", "breadth"),
                     default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
@@ -93,13 +100,27 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_pbrt_torch.config import cfg
+    from tpu_pbrt_torch.core.film import Film
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
     from tpu_pbrt_torch import scenes
+
+    def _ranged(fn):
+        def deposit(*a, **k):
+            with torch.profiler.record_function(DEPOSIT):
+                return fn(*a, **k)
+        return deposit
+
+    for name in ("add_samples", "add_samples_pixel", "add_samples_aligned"):
+        setattr(Film, name, _ranged(getattr(Film, name)))
 
     cfg.regen = not args.no_regen
     args.integrator = args.integrator or {"cloud": "volpath", "caustic": "bdpt"}.get(
         args.scene, "path")
-    if args.scene == "caustic":
+    if args.scene == "breadth":
+        api = scenes.make_breadth_like(args.res, args.spp, device="cuda")
+        if args.integrator != "path" or args.params:
+            raise SystemExit("profile_render: the breadth scene renders under path")
+    elif args.scene == "caustic":
         api = scenes.make_caustic_like(res=args.res, spp=args.spp, integrator=args.integrator,
                                        params=args.params, device="cuda")
     else:
@@ -163,6 +184,15 @@ def main() -> int:
     print("device time by group:")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:24s} {us / 1e3:10.2f} ms  {us / dev_us:6.3f}")
+    dep = [e for e in prof.key_averages() if e.key == DEPOSIT]
+    dep_us = (getattr(dep[0], "device_time_total", None) or getattr(dep[0], "cuda_time_total", 0)
+              if dep else 0)
+    if dep and dep_us:
+        print(f"film deposit: {dep[0].count} calls, {dep_us / 1e3:.2f} ms device "
+              f"({dep_us / dev_us:.3f} of the device time), "
+              f"{dep[0].cpu_time_total / 1e3:.2f} ms host")
+    else:
+        print(f"film deposit: {dep[0].count if dep else 0} calls, device time not measured")
     print("top kernels by device time:")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:10.2f} ms  {n:7d} x  {name[:110]}")

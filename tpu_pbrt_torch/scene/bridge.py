@@ -21,12 +21,13 @@ from tpu_pbrt_torch.core.media import MediumTable
 from tpu_pbrt_torch.core.sampling import Distribution2D
 
 #: per-light columns the port reads (per material: bxdf.MAT_COLUMNS)
-LIGHT_KEYS = ("type", "p", "L", "dir", "cos0", "cos1", "tri", "twosided", "area", "tri_v")
+LIGHT_KEYS = ("type", "p", "L", "dir", "cos0", "cos1", "tri", "twosided", "area", "w2l", "img",
+              "tri_v")
 #: top-level tables the port reads (when present)
 DEV_KEYS = (
     "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",
     "world_center", "world_radius", "n_lights", "tri_sh16", "tri_verts9T",
-    "envmap", "env_w2l", "tri_med_in", "tri_med_out",
+    "envmap", "env_w2l", "tri_med_in", "tri_med_out", "light_atlas",
 )
 
 

@@ -3,8 +3,13 @@
 Port of tpu_pbrt/scene/compiler.py::compile_scene, reduced to the
 directive set the port renders:
 
-- shapes: "trianglemesh" (world-space triangle soup, shading normals,
-  uvs) and "sphere" (the reference's 64x32 parametric tessellation);
+- shapes: every shape the reference tessellates ("trianglemesh",
+  "plymesh", "sphere", "disk", "cylinder", "cone", "paraboloid",
+  "hyperboloid", "heightfield2", "loopsubdiv" and "curve", with the
+  reference's grid sizes), one world-space triangle soup with shading
+  normals and uvs; object instances expanded by baking each use's
+  transform into its shapes; an unknown shape name is skipped with the
+  reference's warning;
 - materials: "matte", "plastic", "metal", "glass" and "mirror" with
   constant parameters (constant-folded as the reference folds them), and
   "none" (a null interface: rays pass through it);
@@ -13,33 +18,39 @@ directive set the port renders:
   `MediumInterface` as per-triangle inside/outside medium ids, and the
   camera's medium;
 - lights: "diffuse" area lights (one row per emissive triangle, as pbrt
-  makes one DiffuseAreaLight per Triangle), "point" and "distant" lights
-  and the "infinite" environment light (an HDR lat-long map with its 2D
-  importance distribution), with the spatial (default), power or uniform
-  light-pick strategy;
-- camera "perspective", pixel filter "box", film "image", accelerator
-  "bvh", every sampler the reference dispatches ("zerotwosequence" and
-  its aliases, "random", "stratified", "halton", "sobol"), and the
+  makes one DiffuseAreaLight per Triangle), "point", "spot" and
+  "distant" lights, "goniometric" and "projection" lights (their maps in
+  one shared light atlas), and "infinite" environment lights (an HDR
+  lat-long map with its 2D importance distribution; with several, every
+  one gets a row and the last map is the scene's, as in the reference),
+  with the spatial (default), power or uniform light-pick strategy;
+- cameras "perspective", "orthographic", "environment" and "realistic",
+  the pixel filters of core/filters.py, film "image", accelerator "bvh",
+  every sampler the reference dispatches ("zerotwosequence" and its
+  aliases, "random", "stratified", "halton", "sobol"), and the
   integrators of integrators.PORTED ("path", "directlighting",
   "whitted", "ao", "volpath", "bdpt", "sppm", "mlt").
 
-Anything else raises PbrtError naming what is not ported yet; nothing is
-silently substituted. (The substitutions are the reference's own: an
-environment map that cannot be read becomes a constant map, and the
-"maxmindist" or an unknown sampler the (0,2)-sequence, and an unknown
-medium type an empty medium row, with a warning.) The host-side work
-(BVH build, leaf ordering, light rows, the treelet pack, the light
-distributions, the media rows) is the reference's numpy code, so the
-uploaded tables are bit-identical to the reference's
-(tests/test_torch_scene.py pins that through scene/bridge.py).
+Anything else raises PbrtError naming what is not ported yet. The
+substitutions are the reference's own, each with its warning: a map
+that cannot be read becomes a constant map, an unknown shape is
+skipped, an unknown light is ignored, an unknown camera becomes
+"perspective" and an unknown filter box(0.5), and "maxmindist" or an
+unknown sampler the (0,2)-sequence, and an unknown medium type an empty
+medium row. The host-side work (tessellation, BVH build, leaf ordering,
+light rows, the treelet pack, the light distributions, the media rows)
+is the reference's numpy code, so the uploaded tables are bit-identical
+to the reference's (tests/test_torch_scene.py and
+tests/test_torch_shapes.py pin that through scene/bridge.py).
 """
 
 from __future__ import annotations
 
+import copy
+import math
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
-
-import math
 
 import numpy as np
 import torch
@@ -54,8 +65,11 @@ from tpu_pbrt_torch.core import media as md
 from tpu_pbrt_torch.core.lights_dev import (
     LIGHT_AREA,
     LIGHT_DISTANT,
+    LIGHT_GONIO,
     LIGHT_INFINITE,
     LIGHT_POINT,
+    LIGHT_PROJECTION,
+    LIGHT_SPOT,
     SpatialLightDistribution,
 )
 from tpu_pbrt_torch.core.sampling import Distribution1D, Distribution2D
@@ -133,7 +147,7 @@ def _fold_const(node, default, what):
     return node
 
 
-def _tess_mesh(params):
+def _tess_mesh(params, scene_dir):
     idx = params.find_int("indices")
     P = params.find_point3("P")
     if idx is None or P is None:
@@ -155,14 +169,32 @@ def _tess_mesh(params):
     return verts, normals, uvs
 
 
-def _grid_to_tris(n_u, n_v):
+def _tess_ply(params, scene_dir):
+    """plymesh: the file's triangles as a triangle mesh (pbrt-v3's
+    plymesh.cpp builds a TriangleMesh), read by scene/plyreader.py, whose
+    keys are vertices, normals, uvs and indices."""
+    from tpu_pbrt_torch.scene.plyreader import read_ply
+
+    path = resolve_filename(params.find_one_string("filename", ""), scene_dir)
+    if not os.path.exists(path):
+        Error(f"PLY file \"{path}\" not found.")
+    mesh = read_ply(path)
+    idx = mesh["indices"].reshape(-1, 3)
+    verts = mesh["vertices"][idx]
+    normals = mesh["normals"][idx] if mesh.get("normals") is not None else None
+    uvs = mesh["uvs"][idx] if mesh.get("uvs") is not None else None
+    return verts, normals, uvs
+
+
+def _grid_to_tris(n_u, n_v, wrap_u=False):
     """Vertex index triples of an (n_v+1, n_u+1) grid of points."""
     tris = []
     for v in range(n_v):
         for u in range(n_u):
+            u1 = (u + 1) % (n_u + 1) if wrap_u else u + 1
             a = v * (n_u + 1) + u
-            b = v * (n_u + 1) + u + 1
-            c = (v + 1) * (n_u + 1) + u + 1
+            b = v * (n_u + 1) + u1
+            c = (v + 1) * (n_u + 1) + u1
             d = (v + 1) * (n_u + 1) + u
             tris.append((a, b, c))
             tris.append((a, c, d))
@@ -188,7 +220,7 @@ def _tess_param_surface(point_fn, normal_fn, u_max, v_range, n_u, n_v):
     return verts, normals, uvs
 
 
-def _tess_sphere(params):
+def _tess_sphere(params, scene_dir):
     """pbrt's Sphere (radius, zmin, zmax, phimax) as a 64 x 32 grid in
     (phi, theta) with normals p / r."""
     r = params.find_one_float("radius", 1.0)
@@ -209,8 +241,183 @@ def _tess_sphere(params):
     return _tess_param_surface(pt, nrm, phimax, (theta_min, theta_max), n_u, n_v)
 
 
-#: shape type -> tessellator (ShapeRecord params -> verts, normals, uvs)
-_TESSELLATORS = {"trianglemesh": _tess_mesh, "sphere": _tess_sphere}
+def _tess_disk(params, scene_dir):
+    """pbrt's Disk (height, radius, innerradius, phimax) as a 64 x 1 grid
+    in (phi, radius), normal +z."""
+    h = params.find_one_float("height", 0.0)
+    r = params.find_one_float("radius", 1.0)
+    ri = params.find_one_float("innerradius", 0.0)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+
+    def pt(u, v):
+        rad = ri + (r - ri) * v
+        return np.stack([rad * np.cos(u), rad * np.sin(u), np.full_like(u, h)], axis=-1)
+
+    def nrm(u, v):
+        return np.broadcast_to(np.array([0.0, 0.0, 1.0]), u.shape + (3,))
+
+    return _tess_param_surface(pt, nrm, phimax, (0.0, 1.0), 64, 1)
+
+
+def _tess_cylinder(params, scene_dir):
+    """pbrt's Cylinder (radius, zmin, zmax, phimax) as a 64 x 8 grid."""
+    r = params.find_one_float("radius", 1.0)
+    zmin = params.find_one_float("zmin", -1.0)
+    zmax = params.find_one_float("zmax", 1.0)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+
+    def pt(u, v):
+        return np.stack([r * np.cos(u), r * np.sin(u), v], axis=-1)
+
+    def nrm(u, v):
+        return np.stack([np.cos(u), np.sin(u), np.zeros_like(u)], axis=-1)
+
+    return _tess_param_surface(pt, nrm, phimax, (zmin, zmax), 64, 8)
+
+
+def _tess_cone(params, scene_dir):
+    """pbrt's Cone (radius, height, phimax) as a 64 x 16 grid that stops
+    just short of the apex; geometric normals."""
+    r = params.find_one_float("radius", 1.0)
+    h = params.find_one_float("height", 1.0)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+
+    def pt(u, v):
+        rad = r * (1.0 - v / h)
+        return np.stack([rad * np.cos(u), rad * np.sin(u), v], axis=-1)
+
+    return _tess_param_surface(pt, None, phimax, (0.0, h * (1 - 1e-6)), 64, 16)
+
+
+def _tess_paraboloid(params, scene_dir):
+    """pbrt's Paraboloid (radius, zmin, zmax, phimax) as a 64 x 16 grid."""
+    r = params.find_one_float("radius", 1.0)
+    zmin = params.find_one_float("zmin", 0.0)
+    zmax = params.find_one_float("zmax", 1.0)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+
+    def pt(u, v):
+        rad = r * np.sqrt(np.maximum(v, 0.0) / zmax)
+        return np.stack([rad * np.cos(u), rad * np.sin(u), v], axis=-1)
+
+    return _tess_param_surface(pt, None, phimax, (zmin, zmax), 64, 16)
+
+
+def _tess_hyperboloid(params, scene_dir):
+    """pbrt's Hyperboloid (p1, p2, phimax): the segment p1-p2 swept about
+    the z axis, a 64 x 16 grid."""
+    p1 = np.asarray(params.find_one_point3("p1", [0.0, 0.0, 0.0]), np.float64)
+    p2 = np.asarray(params.find_one_point3("p2", [1.0, 1.0, 1.0]), np.float64)
+    phimax = math.radians(params.find_one_float("phimax", 360.0))
+
+    def pt(u, v):
+        p = p1[None, None] * (1 - v[..., None]) + p2[None, None] * v[..., None]
+        xr = np.cos(u) * p[..., 0] - np.sin(u) * p[..., 1]
+        yr = np.sin(u) * p[..., 0] + np.cos(u) * p[..., 1]
+        return np.stack([xr, yr, p[..., 2]], axis=-1)
+
+    return _tess_param_surface(pt, None, phimax, (0.0, 1.0), 64, 16)
+
+
+def _tess_heightfield(params, scene_dir):
+    """pbrt's Heightfield (nu x nv heights Pz over the unit square) as two
+    triangles per grid cell, uv the (x, y) position."""
+    nu = params.find_one_int("nu", -1)
+    nv = params.find_one_int("nv", -1)
+    z = params.find_float("Pz")
+    if nu <= 0 or nv <= 0 or z is None:
+        Error("heightfield2 requires nu, nv, Pz")
+    z = np.asarray(z, np.float64).reshape(nv, nu)
+    xx, yy = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv))
+    pts = np.stack([xx, yy, z], axis=-1)
+    idx = _grid_to_tris(nu - 1, nv - 1)
+    uv = np.stack([xx, yy], axis=-1).reshape(-1, 2)
+    return pts.reshape(-1, 3)[idx], None, uv[idx]
+
+
+def _tess_loopsubdiv(params, scene_dir):
+    """pbrt's LoopSubdiv: the control mesh subdivided `levels` times
+    (shapes/loopsubdiv.py), limit positions and normals."""
+    from tpu_pbrt_torch.shapes.loopsubdiv import loop_subdivide
+
+    levels = params.find_one_int("levels", params.find_one_int("nlevels", 3))
+    idx = params.find_int("indices")
+    P = params.find_point3("P")
+    if idx is None or P is None:
+        Error("loopsubdiv requires indices and P")
+    verts, normals = loop_subdivide(
+        np.asarray(P, np.float64).reshape(-1, 3), np.asarray(idx, np.int64).reshape(-1, 3), levels
+    )
+    return verts, normals, None
+
+
+def _tess_curve(params, scene_dir):
+    """pbrt's Curve (cubic Bezier segments sharing their end points) as
+    flat ribbons: 16 quads per segment across a side vector perpendicular
+    to the tangent, the width interpolated from width0 to width1; uv is
+    (along the curve, across it)."""
+    cps = params.find_point3("P")
+    if cps is None:
+        Error("curve requires control points P")
+    cps = np.asarray(cps, np.float64).reshape(-1, 3)
+    if len(cps) < 4:
+        Error("curve requires at least 4 control points")
+    w0 = params.find_one_float("width0", params.find_one_float("width", 1.0))
+    w1 = params.find_one_float("width1", params.find_one_float("width", 1.0))
+    n_seg_pts = 16
+    verts_all, uvs_all = [], []
+    n_curves = (len(cps) - 1) // 3
+    for ci in range(max(n_curves, 1)):
+        p0, p1, p2, p3 = cps[3 * ci: 3 * ci + 4]
+        t = np.linspace(0.0, 1.0, n_seg_pts + 1)[:, None]
+        b = ((1 - t) ** 3 * p0 + 3 * (1 - t) ** 2 * t * p1 + 3 * (1 - t) * t * t * p2
+             + t ** 3 * p3)
+        tan = 3 * (1 - t) ** 2 * (p1 - p0) + 6 * (1 - t) * t * (p2 - p1) + 3 * t * t * (p3 - p2)
+        tan /= np.maximum(np.linalg.norm(tan, axis=-1, keepdims=True), 1e-12)
+        # side = tangent x reference axis, with a second axis where the
+        # tangent turns parallel to the first
+        ref = np.eye(3)[np.argmin(np.abs(tan[0]))]
+        side = np.cross(tan, ref)
+        nrm = np.linalg.norm(side, axis=-1, keepdims=True)
+        alt = np.eye(3)[(np.argmin(np.abs(tan[0])) + 1) % 3]
+        side = np.where(nrm < 1e-6, np.cross(tan, alt), side)
+        side /= np.maximum(np.linalg.norm(side, axis=-1, keepdims=True), 1e-12)
+        u_glob = (ci + t[:, 0]) / max(n_curves, 1)
+        half_w = 0.5 * ((1 - u_glob) * w0 + u_glob * w1)[:, None]
+        pts = np.stack([b - side * half_w, b + side * half_w], axis=1)  # (n+1, 2, 3)
+        for k in range(n_seg_pts):
+            a0, a1 = pts[k, 0], pts[k, 1]
+            b0_, b1_ = pts[k + 1, 0], pts[k + 1, 1]
+            verts_all += [[a0, a1, b1_], [a0, b1_, b0_]]
+            ua, ub = u_glob[k], u_glob[k + 1]
+            uvs_all += [[[ua, 0], [ua, 1], [ub, 1]], [[ua, 0], [ub, 1], [ub, 0]]]
+    return np.asarray(verts_all, np.float64), None, np.asarray(uvs_all, np.float64)
+
+
+#: shape type -> tessellator (ShapeRecord params, scene dir -> verts, normals, uvs)
+_TESSELLATORS = {
+    "trianglemesh": _tess_mesh,
+    "plymesh": _tess_ply,
+    "curve": _tess_curve,
+    "sphere": _tess_sphere,
+    "disk": _tess_disk,
+    "cylinder": _tess_cylinder,
+    "cone": _tess_cone,
+    "paraboloid": _tess_paraboloid,
+    "hyperboloid": _tess_hyperboloid,
+    "heightfield2": _tess_heightfield,
+    "loopsubdiv": _tess_loopsubdiv,
+}
+
+
+def tessellate_shape(rec) -> Optional[tuple]:
+    """(verts, normals, uvs) of a ShapeRecord in object space, or None
+    (with the reference's warning) for a shape name it does not know."""
+    fn = _TESSELLATORS.get(rec.type)
+    if fn is None:
+        Warning(f'Shape "{rec.type}" unknown or not yet tessellatable; skipping.')
+        return None
+    return fn(rec.params, rec.scene_dir)
 
 
 def _geometric_normals(verts: np.ndarray) -> np.ndarray:
@@ -309,14 +516,31 @@ def _read_envmap(path: str, L) -> np.ndarray:
         return np.full((4, 8, 3), L, np.float32)
 
 
+def _read_light_map(fn: str, scene_dir: str) -> np.ndarray:
+    """A goniometric or projection light's map as (h, w, 3) f32: the file,
+    or the reference's constant 1x1 map (with its warning) when there is
+    none or it cannot be read."""
+    from tpu_pbrt_torch.utils import imageio
+
+    img = None
+    if fn:
+        try:
+            img = np.asarray(imageio.read_image(resolve_filename(fn, scene_dir)), np.float32)
+        except Exception as e:  # noqa: BLE001 - the reference substitutes on any failure
+            Warning(f'could not read light map "{fn}": {e}; using constant')
+    if img is None:
+        img = np.ones((1, 1, 3), np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    return np.ascontiguousarray(img[..., :3], np.float32)
+
+
 def _check_directives(api, ro):
     check_ported(ro.integrator_name)
     if ro.film_name != "image":
         _not_ported(f'Film "{ro.film_name}" (ported: "image")')
     if ro.accelerator_name != "bvh":
         _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
-    if ro.instance_uses:
-        _not_ported("ObjectInstance")
     if api.render_options.camera_to_world.is_animated():
         _not_ported("an animated camera transform (motion blur)")
 
@@ -339,19 +563,30 @@ def compile_scene(api, device=None) -> CompiledScene:
     )
     camera = make_camera(
         ro.camera_name, ro.camera_params, ro.camera_to_world[0],
-        film.full_resolution, shutter, device=device,
+        film.full_resolution, shutter, film_diag=film.diagonal,
+        scene_dir=getattr(api, "scene_dir", "."), device=device,
     )
     spp = ro.sampler_params.find_one_int("pixelsamples", 16)
     if getattr(opts, "quick_render", False):
         spp = max(1, spp // 4)
     sampler = SamplerSpec(ro.sampler_name, spp, ro.sampler_params)
 
-    # -- gather shapes ----------------------------------------------------
+    # -- gather shapes (object instances expanded: each use bakes its
+    # transform into a copy of every shape record of the instance) -------
+    shape_list = list(ro.shapes)
+    for use in ro.instance_uses:
+        for rec in ro.instances.get(use.name, []):
+            r2 = copy.copy(rec)
+            r2.object_to_world = type(rec.object_to_world)(
+                [use.instance_to_world[i] * rec.object_to_world[i] for i in range(2)])
+            shape_list.append(r2)
+
     all_verts, all_normals, all_uvs = [], [], []
     all_mat, all_light = [], []
     mat_records: List = []
     mat_index: Dict[int, int] = {}
     light_rows: List[dict] = []
+    light_atlas_chunks: List[np.ndarray] = []  # goniometric/projection maps
 
     shape_tri_counts: List = []  # (ShapeRecord, n_tris), for the medium interfaces
 
@@ -366,10 +601,11 @@ def compile_scene(api, device=None) -> CompiledScene:
             mat_records.append(mrec)
         return mat_index[key]
 
-    for rec in ro.shapes:
-        if rec.type not in _TESSELLATORS:
-            _not_ported(f'Shape "{rec.type}" (ported: {", ".join(map(repr, _TESSELLATORS))})')
-        verts, normals, uvs = _TESSELLATORS[rec.type](rec.params)
+    for rec in shape_list:
+        tess = tessellate_shape(rec)
+        if tess is None:
+            continue
+        verts, normals, uvs = tess
         o2w = rec.object_to_world[0]
         if not np.allclose(o2w.m, rec.object_to_world[1].m):
             _not_ported("animated shape transforms (motion blur)")
@@ -450,24 +686,39 @@ def compile_scene(api, device=None) -> CompiledScene:
     envmap = env_distr = None
     env_w2l = np.eye(4, dtype=np.float32)
     for lrec in ro.lights:
+        l2w = lrec.light_to_world
         p = lrec.params
         sc = _rgb(p.find_one_spectrum("scale", np.array([1.0, 1.0, 1.0])))
         if lrec.type == "point":
             I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
-            pos = lrec.light_to_world.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
+            pos = l2w.apply_point(p.find_one_point3("from", [0.0, 0.0, 0.0]))
             light_rows.append(dict(type=LIGHT_POINT, p=pos, L=I, dir=np.zeros(3), cos0=0,
                                    cos1=0, tri=-1, twosided=0, area=0.0))
+        elif lrec.type == "spot":
+            I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
+            cone = p.find_one_float("coneangle", 30.0)
+            delta = p.find_one_float("conedeltaangle", 5.0)
+            frm = np.asarray(p.find_one_point3("from", [0, 0, 0]), np.float64)
+            to = np.asarray(p.find_one_point3("to", [0, 0, 1]), np.float64)
+            pos = l2w.apply_point(frm)
+            d = l2w.apply_point(to) - pos
+            d = d / max(np.linalg.norm(d), 1e-20)
+            # cos0: where the falloff starts; cos1: the cone's total width
+            light_rows.append(dict(type=LIGHT_SPOT, p=pos, L=I, dir=d,
+                                   cos0=math.cos(math.radians(cone - delta)),
+                                   cos1=math.cos(math.radians(cone)),
+                                   tri=-1, twosided=0, area=0.0))
         elif lrec.type == "distant":
             L = _rgb(p.find_one_spectrum("L", np.array([1.0, 1.0, 1.0]))) * sc
             frm = np.asarray(p.find_one_point3("from", [0, 0, 0]), np.float64)
             to = np.asarray(p.find_one_point3("to", [0, 0, 1]), np.float64)
-            d = lrec.light_to_world.apply_vector(frm - to)
+            d = l2w.apply_vector(frm - to)
             d = d / max(np.linalg.norm(d), 1e-20)  # the direction TOWARD the light
             light_rows.append(dict(type=LIGHT_DISTANT, p=np.zeros(3), L=L, dir=d, cos0=0,
                                    cos1=0, tri=-1, twosided=0, area=0.0))
         elif lrec.type in ("infinite", "exinfinite"):
-            if envmap is not None:
-                _not_ported("more than one infinite light")
+            # every infinite light gets a row; the last one's map is the
+            # scene's environment (the reference keeps one map)
             L = _rgb(p.find_one_spectrum("L", np.array([1.0, 1.0, 1.0]))) * sc
             fn = p.find_one_string("mapname", "")
             if fn:
@@ -478,13 +729,36 @@ def compile_scene(api, device=None) -> CompiledScene:
             hgt = envmap.shape[0]
             theta = (np.arange(hgt) + 0.5) / hgt * np.pi
             env_distr = Distribution2D.build_numpy(luminance(envmap) * np.sin(theta)[:, None])
-            env_w2l = np.asarray(lrec.light_to_world.inverse().m, np.float32)
+            env_w2l = np.asarray(l2w.inverse().m, np.float32)
             # the row carries L = 1: the radiance lives in the map
             light_rows.append(dict(type=LIGHT_INFINITE, p=wcenter, L=np.ones(3),
                                    dir=np.zeros(3), cos0=0, cos1=0, tri=-1, twosided=0,
                                    area=0.0))
+        elif lrec.type in ("projection", "goniometric"):
+            # a point light whose intensity an image modulates by direction
+            # (goniometric.cpp: a lat-long diagram; projection.cpp: a
+            # picture projected through a fov frustum); the image goes into
+            # the shared light atlas, the world-to-light rotation rides the row
+            I = _rgb(p.find_one_spectrum("I", np.array([1.0, 1.0, 1.0]))) * sc
+            pos = l2w.apply_point([0.0, 0.0, 0.0])
+            img = _read_light_map(p.find_one_string("mapname", ""), lrec.scene_dir)
+            off = sum(ch.shape[0] for ch in light_atlas_chunks)
+            light_atlas_chunks.append(img.reshape(-1, 3))
+            w2l_rot = np.asarray(l2w.inverse().m, np.float64)[:3, :3]
+            row = dict(p=pos, L=I, dir=np.zeros(3), tri=-1, twosided=0, area=0.0,
+                       w2l=w2l_rot.reshape(-1),
+                       img=np.array([off, img.shape[1], img.shape[0]], np.int64))
+            if lrec.type == "goniometric":
+                light_rows.append(dict(row, type=LIGHT_GONIO, cos0=0, cos1=0))
+            else:
+                # the map spans the [-1, 1] frustum of the short axis at
+                # tan(fov / 2); cos0 / cos1 carry tan(fov / 2) and the aspect
+                fov = p.find_one_float("fov", 45.0)
+                light_rows.append(dict(row, type=LIGHT_PROJECTION,
+                                       cos0=math.tan(math.radians(fov) / 2.0),
+                                       cos1=img.shape[1] / img.shape[0]))
         else:
-            _not_ported(f'LightSource "{lrec.type}" (ported: "point", "distant", "infinite")')
+            Warning(f'LightSource "{lrec.type}" unknown.')
 
     # -- media (medium.cpp, media/{homogeneous,grid}.cpp) ---------------------
     medium_ids, media = lower_media(ro.named_media)
@@ -505,6 +779,9 @@ def compile_scene(api, device=None) -> CompiledScene:
         Warning("No light sources defined in scene; rendering a black image.")
         light_rows.append(dict(type=LIGHT_POINT, p=np.zeros(3), L=np.zeros(3), dir=np.zeros(3),
                                cos0=0, cos1=0, tri=-1, twosided=0, area=0.0))
+    for r in light_rows:
+        r.setdefault("w2l", np.eye(3).reshape(-1))
+        r.setdefault("img", np.array([-1, 0, 0], np.int64))
     lt = {
         "type": np.array([r["type"] for r in light_rows], np.int32),
         "p": np.array([r["p"] for r in light_rows], np.float32),
@@ -515,7 +792,11 @@ def compile_scene(api, device=None) -> CompiledScene:
         "tri": np.array([r["tri"] for r in light_rows], np.int32),
         "twosided": np.array([r["twosided"] for r in light_rows], np.int32),
         "area": np.array([r["area"] for r in light_rows], np.float32),
+        "w2l": np.array([r["w2l"] for r in light_rows], np.float32),
+        "img": np.array([r["img"] for r in light_rows], np.int32),
     }
+    light_atlas = (np.concatenate(light_atlas_chunks, 0) if light_atlas_chunks
+                   else np.zeros((1, 3), np.float32))
     # per-light triangle vertices (area rows; zeros elsewhere)
     lt_tri = np.asarray([r["tri"] for r in light_rows], np.int64)
     lv = np.asarray(verts, np.float32)[np.clip(lt_tri, 0, len(verts) - 1)]
@@ -534,6 +815,10 @@ def compile_scene(api, device=None) -> CompiledScene:
             power[i] = env_lum * np.pi * wradius * wradius * 4
         elif r["type"] == LIGHT_DISTANT:
             power[i] = lum_v * np.pi * wradius * wradius
+        elif r["type"] in (LIGHT_GONIO, LIGHT_PROJECTION):
+            off, iw, ih = (int(v) for v in r["img"])
+            mean_lum = float(np.mean(luminance(light_atlas[off: off + iw * ih].astype(np.float64))))
+            power[i] = lum_v * mean_lum * 4 * np.pi
         else:
             power[i] = lum_v * 4 * np.pi
     light_distr = Distribution1D.build(
@@ -603,6 +888,8 @@ def compile_scene(api, device=None) -> CompiledScene:
         T9 = tab["tri_verts"].shape[0]
         tab["tri_verts9T"] = tab["tri_verts"].reshape(T9, 9).T.copy()
 
+    if light_atlas_chunks:
+        tab["light_atlas"] = light_atlas
     if envmap is not None:
         tab["envmap"] = envmap
         tab["env_distr"] = env_distr
@@ -687,8 +974,11 @@ def lower_media(named_media) -> tuple:
 
 
 def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
-    """SpatialLightDistribution tables (numpy), the reference's build for
-    point, area, distant and infinite rows."""
+    """SpatialLightDistribution tables (numpy), the reference's build:
+    point, spot and image-light rows fall off with the squared distance
+    to each voxel center (a spot also by its clipped cone factor), area
+    rows by their luminance x area over the squared distance, distant and
+    infinite rows take their power share everywhere."""
     res = (8, 8, 8)
     lo_g = wmin - 1e-3
     hi_g = wmax + 1e-3
@@ -700,11 +990,20 @@ def spatial_tables(light_rows, verts, wmin, wmax, power) -> dict:
     L = len(light_rows)
     imp = np.zeros((V, L), np.float64)
     for i, r in enumerate(light_rows):
-        if r["type"] == LIGHT_POINT:
+        t = r["type"]
+        if t in (LIGHT_POINT, LIGHT_SPOT, LIGHT_GONIO, LIGHT_PROJECTION):
             lum_v = float(luminance(np.asarray(r["L"], np.float64)))
             d2 = np.maximum(((centers - r["p"]) ** 2).sum(-1), 1e-6)
-            imp[:, i] = lum_v / d2
-        elif r["type"] != LIGHT_AREA:  # distant and environment: position-independent
+            base = lum_v / d2
+            if t == LIGHT_SPOT:
+                # the cone's clipped falloff toward the voxel center
+                toc = centers - r["p"]
+                toc /= np.maximum(np.linalg.norm(toc, axis=-1, keepdims=True), 1e-12)
+                cosw = toc @ np.asarray(r["dir"])
+                base = base * np.clip(
+                    (cosw - r["cos1"]) / max(r["cos0"] - r["cos1"], 1e-6), 0.05, 1.0)
+            imp[:, i] = base
+        elif t != LIGHT_AREA:  # distant and environment: position-independent
             imp[:, i] = power[i] / max(power.sum(), 1e-12)
     area_rows = [i for i, r in enumerate(light_rows) if r["type"] == LIGHT_AREA]
     if area_rows:

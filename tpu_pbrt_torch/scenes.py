@@ -1,12 +1,13 @@
 """Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
-killeroo-class mesh and the crown-class scene), and the cloud-class scene.
+killeroo-class mesh and the crown-class scene), and the cloud-class,
+caustic-glass-class and scene-breadth scenes.
 
 Same scene text and the same procedural meshes and sky as the reference,
 driven through the port's API, so both packages compile identical worlds.
-The reference has no cloud scene: `cloud_parts` holds the cloud's text
-and mesh, which the port parses here and the JAX reference's generator
-(tests/torch_golden/make_volpath_reference.py) parses through the JAX
-package's API.
+The reference has no cloud, caustic or breadth scene: `cloud_parts`,
+`caustic_parts` and `breadth_parts` hold their text and meshes, which the
+port parses here and the JAX reference's generators (under
+tests/torch_golden/) parse through the JAX package's API.
 """
 
 from __future__ import annotations
@@ -146,9 +147,26 @@ Material "matte" "rgb Kd" [0.35 0.30 0.25]
     return api
 
 
+#: the directory of the port's generated scene files (gitignored)
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         ".torch_build")
+
+
+def _publish(path: str, write) -> str:
+    """Write a generated scene file once: `write(tmp)` fills a temporary
+    file that then replaces `path` whole (concurrent writers each publish
+    a complete file)."""
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp{os.path.splitext(path)[1]}"
+    write(tmp)
+    os.replace(tmp, path)
+    return path
+
+
 #: where the port writes its copy of the crown's procedural sky
-CROWN_ENV_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                              ".torch_build", "crown_env.pfm")
+CROWN_ENV_PATH = os.path.join(BUILD_DIR, "crown_env.pfm")
 
 
 def crown_sky(h: int = 64, w: int = 128) -> np.ndarray:
@@ -173,15 +191,9 @@ def crown_sky(h: int = 64, w: int = 128) -> np.ndarray:
 def _crown_envmap_path(path: str = CROWN_ENV_PATH) -> str:
     """The crown's 64x128 sky as a PFM file, written once (by the port's
     own imageio, byte for byte the reference's refimg/crown_env.pfm)."""
-    if os.path.exists(path):
-        return path
     from tpu_pbrt_torch.utils.imageio import write_image
 
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp.pfm"
-    write_image(tmp, crown_sky())
-    os.replace(tmp, path)  # concurrent writers each publish a whole file
-    return path
+    return _publish(path, lambda tmp: write_image(tmp, crown_sky()))
 
 
 def _add_mesh(api: PbrtAPI, V, F, N) -> None:
@@ -341,6 +353,201 @@ def make_caustic_like(res=256, spp=16, maxdepth=5, integrator="bdpt", params="",
     parse_string(head, api, render=False)
     _add_mesh(api, *mesh)
     parse_string(tail, api, render=False)
+    return api
+
+
+def gonio_map(h: int = 32, w: int = 64) -> np.ndarray:
+    """The breadth scene's goniometric diagram: an (h, w, 3) lat-long map
+    (theta from the light's +Y axis), brighter toward the equator with
+    eight lobes in phi."""
+    th = (np.arange(h) + 0.5)[:, None] / h * np.pi
+    ph = (np.arange(w) + 0.5)[None, :] / w * 2 * np.pi
+    lobe = 0.25 + np.sin(th) ** 2 * (0.6 + 0.4 * np.cos(8 * ph))
+    return (lobe[..., None] * np.asarray([1.0, 0.9, 0.75])).astype(np.float32)
+
+
+def projection_map(n: int = 64) -> np.ndarray:
+    """The breadth scene's projected picture: an (n, n, 3) colored
+    checkerboard inside a bright frame."""
+    i = np.arange(n)
+    check = ((i[:, None] // 8 + i[None, :] // 8) % 2).astype(np.float64)
+    img = np.stack([0.3 + 0.7 * check, 0.3 + 0.5 * (1 - check), 0.4 + 0.2 * check], -1)
+    edge = (np.minimum(i, n - 1 - i)[:, None] < 2) | (np.minimum(i, n - 1 - i)[None, :] < 2)
+    img[edge] = 1.5
+    return img.astype(np.float32)
+
+
+def breadth_files(n_theta: int = 180, n_phi: int = 360) -> dict:
+    """The breadth scene's generated files, written once under
+    .torch_build/: the blob (`_displaced_sphere(n_theta, n_phi)` with its
+    normals) as a binary PLY, and the goniometric and projection maps as
+    PFM. Returns their paths as {"blob", "gonio", "proj"}."""
+    from tpu_pbrt_torch.scene.plyreader import write_ply
+    from tpu_pbrt_torch.utils.imageio import write_image
+
+    suffix = "" if (n_theta, n_phi) == (180, 360) else f"_{n_theta}x{n_phi}"
+    return {
+        "blob": _publish(os.path.join(BUILD_DIR, f"breadth_blob{suffix}.ply"),
+                         lambda t: write_ply(t, *_displaced_sphere(n_theta, n_phi))),
+        "gonio": _publish(os.path.join(BUILD_DIR, "breadth_gonio.pfm"),
+                          lambda t: write_image(t, gonio_map())),
+        "proj": _publish(os.path.join(BUILD_DIR, "breadth_proj.pfm"),
+                         lambda t: write_image(t, projection_map())),
+    }
+
+
+#: camera lines of the breadth scene, by camera type
+BREADTH_CAMERAS = {
+    "perspective": 'Camera "perspective" "float fov" [45]',
+    "realistic": ('Camera "realistic" "float focusdistance" [5.2] '
+                  '"float aperturediameter" [4]'),
+    "orthographic": 'Camera "orthographic" "float screenwindow" [-3.4 3.4 -3.4 3.4]',
+    "environment": 'Camera "environment"',
+}
+#: the small tessellation of the breadth scene (tests and goldens)
+BREADTH_SMALL = dict(n_theta=12, n_phi=24, n_height=17, n_curves=16, subdiv_levels=2)
+
+
+def _heightfield_text(n: int) -> str:
+    x = np.linspace(0.0, 1.0, n)
+    xx, yy = np.meshgrid(x, x)
+    z = 0.05 * np.sin(6 * np.pi * xx) * np.cos(4 * np.pi * yy) + 0.03 * np.cos(10 * np.pi * xx * yy)
+    vals = " ".join(f"{v:.6f}" for v in z.reshape(-1))
+    return (f'Shape "heightfield2" "integer nu" [{n}] "integer nv" [{n}] "float Pz" [{vals}]')
+
+
+def _curves_text(n: int) -> str:
+    """n grass strands, one cubic Bezier segment each, on a square patch
+    at the front right, seeded."""
+    rng = np.random.default_rng(5)
+    side = int(np.ceil(np.sqrt(n)))
+    lines = []
+    for k in range(n):
+        x = 0.9 + 1.5 * ((k % side) + rng.uniform(0.2, 0.8)) / side
+        z = -1.2 + 1.0 * ((k // side) + rng.uniform(0.2, 0.8)) / side
+        h = rng.uniform(0.25, 0.5)
+        bx, bz = rng.uniform(-0.15, 0.15, 2)
+        pts = [x, -0.78, z, x, -0.78 + h / 3, z, x + bx / 2, -0.78 + 2 * h / 3, z + bz / 2,
+               x + bx, -0.78 + h, z + bz]
+        lines.append('Shape "curve" "point P" [' + " ".join(f"{v:.6f}" for v in pts)
+                     + '] "float width0" [0.02] "float width1" [0.004]')
+    return "\n".join(lines)
+
+
+def breadth_parts(res, spp, maxdepth=5, camera="perspective", filter="gaussian", n_instances=8,
+                  n_theta=180, n_phi=360, n_height=257, n_curves=256, subdiv_levels=4):
+    """The breadth scene as (text up to the instanced blob's shape, the
+    blob's PLY path, the text after it), its files written by
+    breadth_files.
+
+    Every shape of the reference: `n_instances` `ObjectInstance`s of one
+    `ObjectBegin "blob"` (the killeroo's displaced sphere in plastic,
+    declared between the two texts, each instance under its own rotation,
+    scale and position), a `heightfield2` ground of n_height^2 heights, a
+    `disk`, a `cylinder`, a `cone`, a `paraboloid` and a `hyperboloid`,
+    a `loopsubdiv` tetrahedron at `subdiv_levels` and `n_curves` `curve`
+    strands, in matte, plastic, metal and glass. Lights: a `spot` key
+    light, a `goniometric` and a `projection` light with the maps of
+    gonio_map / projection_map, and a dim constant `infinite` fill.
+    `path` at `maxdepth` with `zerotwosequence`; `camera` is a key of
+    BREADTH_CAMERAS, `filter` any pixel filter with its defaults."""
+    files = breadth_files(n_theta, n_phi)
+    head = f"""
+Integrator "path" "integer maxdepth" [{maxdepth}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "{filter}"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.6 -4.4  0 0.0 1.2  0 1 0
+{BREADTH_CAMERAS[camera]}
+WorldBegin
+LightSource "spot" "rgb I" [40 38 34] "point from" [2.5 4 -2] "point to" [0 -0.5 1] "float coneangle" [40] "float conedeltaangle" [10]
+AttributeBegin
+Translate -2.8 2.2 0.5
+LightSource "goniometric" "rgb I" [6 6 7] "string mapname" ["{files['gonio']}"]
+AttributeEnd
+AttributeBegin
+Translate 0.5 3.2 1.0
+Rotate 90 1 0 0
+LightSource "projection" "rgb I" [14 13 12] "float fov" [60] "string mapname" ["{files['proj']}"]
+AttributeEnd
+LightSource "infinite" "rgb L" [0.08 0.09 0.12]
+AttributeBegin
+Material "matte" "rgb Kd" [0.55 0.5 0.45]
+Translate -6 -0.8 6
+Rotate -90 1 0 0
+Scale 12 12 1
+{_heightfield_text(n_height)}
+AttributeEnd
+AttributeBegin
+Material "matte" "rgb Kd" [0.2 0.45 0.15]
+{_curves_text(n_curves)}
+AttributeEnd
+AttributeBegin
+Material "metal" "float roughness" [0.08]
+Translate -1.6 -0.45 -0.9
+Scale 0.35 0.35 0.35
+Shape "loopsubdiv" "integer levels" [{subdiv_levels}] "integer indices" [0 2 1  0 1 3  1 2 3  0 3 2] "point P" [1 1 1  -1 -1 1  -1 1 -1  1 -1 -1]
+AttributeEnd
+AttributeBegin
+Material "matte" "rgb Kd" [0.7 0.2 0.15]
+Translate -2.4 -0.8 3.0
+Rotate -90 1 0 0
+Shape "cylinder" "float radius" [0.25] "float zmin" [0] "float zmax" [0.8]
+AttributeEnd
+AttributeBegin
+Material "plastic" "rgb Kd" [0.2 0.3 0.7] "rgb Ks" [0.3 0.3 0.3] "float roughness" [0.1]
+Translate -1.2 -0.8 3.0
+Rotate -90 1 0 0
+Shape "cone" "float radius" [0.3] "float height" [0.8]
+AttributeEnd
+AttributeBegin
+Material "metal" "float roughness" [0.03]
+Translate 0 -0.2 3.0
+Rotate 90 1 0 0
+Shape "paraboloid" "float radius" [0.35] "float zmin" [0] "float zmax" [0.6]
+AttributeEnd
+AttributeBegin
+Material "glass" "float eta" [1.5]
+Translate 1.2 -0.8 3.0
+Rotate -90 1 0 0
+Shape "hyperboloid" "point p1" [0.3 0 0] "point p2" [0 0.3 0.8]
+AttributeEnd
+AttributeBegin
+Material "matte" "rgb Kd" [0.8 0.75 0.3]
+Translate 2.4 -0.35 3.0
+Rotate 180 0 1 0
+Shape "disk" "float radius" [0.4]
+AttributeEnd
+ObjectBegin "blob"
+Material "plastic" "rgb Kd" [0.5 0.3 0.2] "rgb Ks" [0.3 0.3 0.3] "float roughness" [0.05]
+"""
+    uses = []
+    for i in range(n_instances):
+        row, col = divmod(i, 4)
+        x = -2.1 + 1.4 * col + 0.35 * (row % 2)
+        z = 0.2 + 1.3 * row
+        uses.append(f"AttributeBegin\nTranslate {x:.3f} -0.38 {z:.3f}\nRotate {37 * i} 0 1 0\n"
+                    f"Scale {0.42 + 0.02 * (i % 3):.3f} {0.42 + 0.02 * (i % 3):.3f} "
+                    f'{0.42 + 0.02 * (i % 3):.3f}\nObjectInstance "blob"\nAttributeEnd')
+    tail = "ObjectEnd\n" + "\n".join(uses) + "\n"
+    return head, files["blob"], tail
+
+
+def make_breadth_like(res, spp, maxdepth=5, camera="perspective", filter="gaussian",
+                      n_instances=8, n_theta=180, n_phi=360, n_height=257, n_curves=256,
+                      subdiv_levels=4, options=None, device=None) -> PbrtAPI:
+    """The scene-breadth stand-in (`breadth_parts`): every shape, object
+    instances, a filter and a camera of choice and the spot, goniometric,
+    projection and infinite lights; 1,178,624 triangles at the defaults
+    (8 x 128,880 instanced blob triangles, a 131,072-triangle heightfield,
+    7,296 quadric, 1,024 subdivision and 8,192 curve triangles). The blob
+    is a `Shape "plymesh"` of the PLY file breadth_files writes. Parsed up
+    to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    head, ply, tail = breadth_parts(res, spp, maxdepth, camera, filter, n_instances, n_theta,
+                                    n_phi, n_height, n_curves, subdiv_levels)
+    parse_string(head + f'Shape "plymesh" "string filename" ["{ply}"]\n' + tail, api,
+                 render=False)
     return api
 
 
