@@ -133,17 +133,44 @@ Phases, each fatal on failure (exit code 1, no result line):
      environment camera under the sinc filter on the card against the
      CPU port at 32x32x4 on the small tessellation (MSE below 1e-8, the
      same rays);
-  9. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+  9. textured — textures and the layered materials on make_textured_like()
+     at its full geometry (1,166,214 triangles: eight `ObjectInstance`s
+     of the 128,880-triangle blob in uber, translucent, mix, matte,
+     plastic, substrate materials under every procedural texture kind, a
+     257x257 `heightfield2` ground in substrate with a 2048^2 sRGB PNG
+     albedo and a PFM-driven roughness, a uv-textured sphere and two PNG
+     panels under wrap black and clamp; an atlas of 8,738,132 texels; the
+     crown's sky and a quad area light; `path` at maxdepth 5):
+     [scene] its sizes, textures, atlas and compile seconds;
+     [check] both kernels against their plain versions, EXACT, on the
+     512x512x16 render's pool wave 1 of its middle chunk (packed flush
+     key) and its middle chunk's first fixed-batch 2^20-ray camera wave
+     (unpacked key), timed as in phase 2;
+     [render] that render through the pool and the fixed batch (the same
+     rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves),
+     its launches counted as in phase 3; one 256x256x4 chunk of each
+     under torch.profiler (profile_render.measure: the idle share, the
+     device operations per wave with and without the texture
+     evaluation, and its share of the device time); 64x64x16 through
+     the pool and the fixed batch against the JAX CPU reference
+     tests/torch_golden/textured_path_cpu_64x64_16spp.npz (MSE bar 1e-4,
+     no pair dropped, rays printed beside the reference's); the card
+     against the CPU port at 32x32x4 on the small variant
+     (TEXTURED_SMALL; MSE bar 1e-4, rays printed); `bdpt` (mix lanes
+     resolved per vertex) at 32x32x16 against
+     tests/torch_golden/textured_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4);
+ 10. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
- 10. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 11. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
      caustic's connection and photon waves under "caustic"; the breadth
-     scene's pool and fixed waves under "breadth"), the card's name and
+     scene's pool and fixed waves under "breadth", the textured scene's
+     under "textured"), the card's name and
      power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -200,6 +227,14 @@ BREADTH_REFS = {"perspective": "gaussian", "realistic": "mitchell"}
 BREADTH_PORT = {"orthographic": "triangle", "environment": "sinc"}
 #: the card against the CPU port on the breadth scene: the MSE bar
 BREADTH_PORT_BAR = 1e-8
+#: the JAX CPU references of the textured scene (path 64x64x16, bdpt 32x32x16)
+TEXTURED_REF = os.path.join(GOLDEN, "textured_path_cpu_64x64_16spp.npz")
+TEXTURED_BDPT_REF = os.path.join(GOLDEN, "textured_bdpt_cpu_32x32_16spp.npz")
+#: the timed textured render, whose pool and fixed waves the kernels are checked on
+TEXTURED_RES, TEXTURED_SPP = 512, 16
+#: the profiled textured render: 2^18 camera rays (a trace's parse time
+#: follows its device ops, which follow its waves)
+TEXTURED_PROFILE = (256, 4)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -1564,6 +1599,159 @@ def phase_breadth():
 
 # -- phase 9 -------------------------------------------------------------------
 
+def _textured(res, spp, device, **kw):
+    from tpu_pbrt_torch.scenes import compile_api, make_textured_like
+
+    return compile_api(make_textured_like(res, spp, device=device, **kw))
+
+
+def _profile_line(label, scene, integ, regen: bool):
+    """One render under torch.profiler (profile_render.measure): its idle
+    share, device operations per wave with and without the texture
+    evaluation, and the texture evaluation's share of the device time."""
+    from tpu_pbrt_torch.config import cfg
+    from tpu_pbrt_torch.profile_render import TEXTURES, measure
+
+    saved = cfg.regen
+    cfg.regen = regen
+    try:
+        m = measure(integ, scene)
+    finally:
+        cfg.regen = saved
+    waves = max(m["res"].stats["waves"], 1)
+    tex = m["ranges"][TEXTURES]
+    share = tex["device_us"] / max(m["device_us"], 1e-9)
+    log(f"[textured] profile {label}: wall {m['wall']:.3f} s (profiler on), traversal waves "
+        f"{waves}, device busy {m['device_us'] / 1e6:.3f} s, idle share {m['idle_share']:.3f}; "
+        f"device ops {m['ops']}, {m['ops_per_wave']:.0f} per wave, {(m['ops'] - tex['ops']) / waves:.0f} "
+        f"per wave without the texture evaluation; texture evaluation {tex['calls']} calls, "
+        f"{tex['ops']} ops ({tex['ops'] / waves:.0f} per wave), {tex['device_us'] / 1e3:.2f} ms "
+        f"device = {share:.4f} of the device time, {tex['host_us'] / 1e3:.2f} ms host")
+    log(f"[textured] profile {label}: device time by group "
+        f"{json.dumps({k: round(v / 1e3, 2) for k, v in m['groups'].items()})} ms")
+    if m["device_us"] <= 0 or not tex["calls"]:
+        raise SmokeFailure(f"textured profile {label}: no device time or no texture range")
+    return dict(idle_share=m["idle_share"], ops_per_wave=m["ops_per_wave"],
+                ops_per_wave_without_textures=(m["ops"] - tex["ops"]) / waves,
+                texture_device_share=share, waves=waves)
+
+
+def phase_textured():
+    """Textures and the layered materials on the card (see the module doc,
+    phase 9): the kernels on the 512x512x16 render's pool and fixed waves,
+    that render timed through both, one chunk of each profiled, 64x64x16
+    against the JAX CPU reference, the card against the CPU port, and
+    `bdpt` against its JAX CPU reference. Returns {kernel: numbers at the
+    pool wave (the fixed wave's under "at_fixed_wave"), with the timed
+    renders' launches and Mray/s}."""
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.scenes import TEXTURED_SMALL
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, integ = _textured(TEXTURED_RES, TEXTURED_SPP, "cuda")
+    tp = scene.dev["tstream"]
+    atlas = scene.dev["tex_atlas"]
+    log(f"[scene] textured: {scene.n_tris} triangles, {tp.n_treelets} treelets of "
+        f"{tp.leaf_tris}, {tp.top.child_bmin.shape[0]} top-tree nodes, {len(scene.tex_eval)} "
+        f"textures, atlas {atlas.shape[0]} texels ({atlas.numel() * 4 / 1e6:.1f} MB f32), "
+        f"tex_used {sorted(scene.tex_used)}, material types "
+        f"{np.unique(scene.dev['mat']['type'].cpu().numpy()).tolist()}, mix rows "
+        f"{int((scene.dev['mat']['mix_a'] >= 0).sum())}, compiled in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if scene.n_tris != 1_166_214 or atlas.shape[0] != 8_738_132 or len(scene.tex_eval) < 14:
+        raise SmokeFailure(f"textured: expected 1,166,214 triangles, 8,738,132 texels and 14 "
+                           f"textures, got {scene.n_tris}, {atlas.shape[0]}, "
+                           f"{len(scene.tex_eval)}")
+
+    # [check] both kernels, exact, at the pool wave and the middle chunk's
+    # first fixed-batch camera wave (2^20 rays: the unpacked flush key)
+    n_chunks = integ.prepare_chunks(scene).n_chunks
+    out, _ = _check_waves(scene, integ, "textured ", fixed_chunk=n_chunks // 2, exact=True,
+                          fixed_packed=False)
+
+    # [render] the 512x512x16 render through the pool and the fixed batch
+    pool, p_l = _render_counted(integ, scene, regen=True)
+    _log_render(f"textured pool {TEXTURED_RES}x{TEXTURED_RES}x{TEXTURED_SPP}", pool, p_l)
+    fixed, f_l = _render_counted(integ, scene, regen=False)
+    _log_render(f"textured fixed {TEXTURED_RES}x{TEXTURED_RES}x{TEXTURED_SPP}", fixed, f_l)
+    close = np.isclose(pool.image, fixed.image, rtol=1e-4, atol=1e-5)
+    log(f"[textured] {TEXTURED_RES}x{TEXTURED_RES}x{TEXTURED_SPP}: pool "
+        f"{pool.mray_per_sec:.4f} Mray/s, fixed {fixed.mray_per_sec:.4f} Mray/s (pool/fixed "
+        f"{pool.mray_per_sec / max(fixed.mray_per_sec, 1e-9):.3f}); rays {pool.rays_traced} / "
+        f"{fixed.rays_traced}; pool waves {pool.stats['n_waves']}, occupancy "
+        f"{pool.stats['mean_wave_occupancy']:.4f}; image mean {pool.image.mean():.6f}, pixel "
+        f"channels outside rtol 1e-4 / atol 1e-5 of the fixed batch: {int((~close).sum())}; "
+        f"dropped {pool.stats['n_drop']} / {fixed.stats['n_drop']}")
+    if (not np.isfinite(pool.image).all() or not pool.image.mean() > 1e-6
+            or pool.rays_traced != fixed.rays_traced or not close.all()
+            or pool.stats["n_drop"] or fixed.stats["n_drop"]):
+        raise SmokeFailure("textured 512x512: the pool and the fixed batch disagree, or the "
+                           "image is not a finite lit render, or pairs dropped")
+    for name in out:
+        out[name].update(launches=p_l[name], launches_fixed=f_l[name],
+                         mray_per_sec=pool.mray_per_sec, fixed_mray_per_sec=fixed.mray_per_sec,
+                         res=TEXTURED_RES, spp=TEXTURED_SPP)
+    del scene, integ, pool, fixed
+    torch.cuda.empty_cache()
+
+    # [profile] one chunk through the pool and the fixed batch (the kernels,
+    # the allocator and the texture constants are warm from the renders above)
+    res_p, spp_p = TEXTURED_PROFILE
+    scene, integ = _textured(res_p, spp_p, "cuda")
+    prof = {"pool": _profile_line(f"pool {res_p}x{res_p}x{spp_p}", scene, integ, True),
+            "fixed": _profile_line(f"fixed {res_p}x{res_p}x{spp_p}", scene, integ, False)}
+    for name in out:
+        out[name]["profile"] = prof
+    del scene, integ
+
+    # [render] 64x64x16 against the JAX CPU reference, pool and fixed batch
+    ref = np.load(TEXTURED_REF)
+    t0 = time.perf_counter()
+    scene, integ = _textured(64, 16, "cuda")
+    secs = time.perf_counter() - t0
+    for regen in (True, False):
+        res, launches = _render_counted(integ, scene, regen=regen)
+        label = f"textured {'pool' if regen else 'fixed'} 64x64x16"
+        _log_render(f"{label} (compiled in {secs:.2f} s)", res, launches)
+        _against(label, res.image, res.rays_traced, ref, res.stats["n_drop"], tag="textured")
+    del scene, integ
+
+    # the card against the CPU port on the small variant
+    t0 = time.perf_counter()
+    got = {}
+    for device in ("cuda", "cpu"):
+        scene, integ = _textured(32, 4, device, **TEXTURED_SMALL)
+        r = integ.render(scene)
+        got[device] = (r.image, r.rays_traced)
+    (a, ra), (b, rb) = got["cuda"], got["cpu"]
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    log(f"[textured] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
+        f"{mse:.3e} (bar {MSE_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
+        f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
+    if not mse < MSE_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+        raise SmokeFailure(f"textured: the card and the CPU port differ (MSE {mse:.3e})")
+
+    # [render] bdpt with mix lanes against its JAX CPU reference
+    ref = np.load(TEXTURED_BDPT_REF)
+    t0 = time.perf_counter()
+    from tpu_pbrt_torch.scenes import compile_api, make_textured_like
+
+    scene, integ = compile_api(make_textured_like(32, 16, integrator="bdpt", device="cuda"))
+    res = integ.render(scene)
+    log(f"[textured] bdpt 32x32x16: {res.seconds:.3f} s, {res.mray_per_sec:.4f} Mray/s "
+        f"({time.perf_counter() - t0:.1f} s with the compile)")
+    _against("textured bdpt 32x32x16", res.image, res.rays_traced, ref, res.stats["n_drop"],
+             tag="textured")
+    del scene, integ, res
+    log(f"[textured] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 10 ------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -1630,6 +1818,7 @@ def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
             and os.path.exists(CLOUD_REF) and os.path.exists(BREADTH_REF.format("realistic"))
+            and os.path.exists(TEXTURED_REF) and os.path.exists(TEXTURED_BDPT_REF)
             and os.path.exists(os.path.join(GOLDEN, "make_caustic_reference.py"))):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
@@ -1676,6 +1865,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kt_b = phase_breadth()
         torch.cuda.empty_cache()
+        kt_t = phase_textured()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -1685,12 +1876,12 @@ def main() -> int:
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
-                     breadth=kt_b[name])
+                     breadth=kt_b[name], textured=kt_t[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],
                                    kt_c[name]["photon"]["max_abs_err"],
-                                   kt_b[name]["max_abs_err"])
+                                   kt_b[name]["max_abs_err"], kt_t[name]["max_abs_err"])
             return k
 
         kernels = [

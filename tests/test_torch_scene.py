@@ -113,7 +113,7 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
            shape="trianglemesh", filter="box", camera="perspective")
 
 
-@pytest.mark.parametrize("field,value", [("mat", "uber")])
+@pytest.mark.parametrize("field,value", [("mat", "disney")])
 def test_unported_directives_raise(field, value):
     text = _BASE.format(**{**_OK, field: value})
     with pytest.raises(PbrtError, match="not ported"):
@@ -134,7 +134,15 @@ _POINT = 'LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]'
              'AttributeEnd'),
     (_POINT, 'LightSource "spot" "rgb I" [1 1 1] "point from" [0 0 -2] "point to" [0 0.2 0] '
              '"float coneangle" [20] "float conedeltaangle" [15]'),
-], ids=["disk", "spot", "gaussian", "orthographic", "goniometric", "spot_narrow"])
+    ('Material "matte"', 'Material "uber"'),
+    ('Material "matte"', 'Material "substrate"'),
+    ('Material "matte"', 'Material "translucent"'),
+    ('Material "matte"', 'MakeNamedMaterial "a" "string type" "matte"\n'
+                         'MakeNamedMaterial "b" "string type" "glass"\n'
+                         'Material "mix" "string namedmaterial1" "a" "string namedmaterial2" "b"'),
+    ('Material "matte"', 'Texture "t" "spectrum" "checkerboard"\nMaterial "plastic" "texture Kd" "t"'),
+], ids=["disk", "spot", "gaussian", "orthographic", "goniometric", "spot_narrow", "uber",
+        "substrate", "translucent", "mix", "textured_plastic_kd"])
 def test_ported_directives_render(old, new):
     """Directives that used to raise "not ported" compile and render a
     finite, lit 8x8 image (a goniometric light without a map takes the
@@ -266,18 +274,10 @@ def test_environment_row_in_the_light_distributions():
                                       _bits(np.asarray(getattr(sj.light_distr, f))), err_msg=f)
 
 
-_TEXTURED = 'Texture "t" "spectrum" "checkerboard"\nMaterial "plastic" "texture Kd" "t"'
-_MIX = ('MakeNamedMaterial "a" "string type" "matte"\n'
-        'MakeNamedMaterial "b" "string type" "glass"\n'
-        'Material "mix" "string namedmaterial1" "a" "string namedmaterial2" "b"')
-
-
 @pytest.mark.parametrize("directive", [
-    'Material "uber"', 'Material "substrate"', 'Material "translucent"',
     'Material "disney"', 'Material "hair"', 'Material "fourier" "string bsdffile" "x.bsdf"',
-    'Material "subsurface"', _MIX, _TEXTURED,
-], ids=["uber", "substrate", "translucent", "disney", "hair", "fourier", "subsurface", "mix",
-        "textured_plastic_kd"])
+    'Material "subsurface"',
+], ids=["disney", "hair", "fourier", "subsurface"])
 def test_unported_materials_and_lights_raise(directive):
     text = f"""
 Integrator "path" "integer maxdepth" [2]

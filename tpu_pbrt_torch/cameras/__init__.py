@@ -16,7 +16,8 @@ formula for every camera type (for the realistic camera its projective
 matrices hold a thin-lens proxy, as in the reference); the inverse
 matrices that projection needs are taken on the host whatever the render
 device, as the reference's CPU inverse takes them, so every device lands
-a splat in the same pixel.
+a splat in the same pixel. `ray_differentials` gives the one-pixel
+offset rays' deltas that the texture footprint of a camera hit reads.
 """
 
 from __future__ import annotations
@@ -229,6 +230,45 @@ def generate_rays(cam: CompiledCamera, p_film, u_lens):
     d_w = normalize(_xform_vector(cam.camera_to_world, d))
     weight = torch.ones(p_film.shape[:-1], dtype=torch.float32, device=p_film.device)
     return o_w, d_w, weight
+
+
+def ray_differentials(cam: CompiledCamera, p_film):
+    """Camera::GenerateRayDifferential's offset-ray deltas (camera.cpp):
+    world-space (d_origin/dx, d_dir/dx, d_origin/dy, d_dir/dy) for a
+    +1-raster-pixel step, pinhole-analytic as in the reference (the
+    thin-lens jitter is ignored, as pbrt's differentials assume the
+    primary ray; the realistic camera takes its thin-lens proxy)."""
+    zero = torch.zeros(p_film.shape[:-1] + (3,), dtype=torch.float32, device=p_film.device)
+    if cam.cam_type == CAM_ENVIRONMENT:
+        x, y = p_film[..., 0], p_film[..., 1]
+
+        def dir_at(xx, yy):
+            theta = _div(torch.pi * yy, cam.full_res[1])
+            phi = _div(2.0 * torch.pi * xx, cam.full_res[0])
+            d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
+                             torch.sin(theta) * torch.sin(phi)], dim=-1)
+            return normalize(_xform_vector(cam.camera_to_world, d))
+
+        base = dir_at(x, y)
+        return zero, dir_at(x + 1.0, y) - base, zero, dir_at(x, y + 1.0) - base
+
+    p_raster = torch.cat([p_film, torch.zeros_like(p_film[..., :1])], dim=-1)
+    p_cam = _xform_point(cam.raster_to_camera, p_raster)
+    # raster steps as projected point differences (camera.cpp shifts the
+    # CameraSample by one pixel; raster_to_camera is projective)
+    step_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=p_film.device)
+    step_y = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=p_film.device)
+    dx_cam = _xform_point(cam.raster_to_camera, p_raster + step_x) - p_cam
+    dy_cam = _xform_point(cam.raster_to_camera, p_raster + step_y) - p_cam
+    if cam.cam_type in (CAM_PERSPECTIVE, CAM_REALISTIC):
+        d0 = normalize(p_cam)
+        ddx = _xform_vector(cam.camera_to_world, normalize(p_cam + dx_cam) - d0)
+        ddy = _xform_vector(cam.camera_to_world, normalize(p_cam + dy_cam) - d0)
+        return zero, ddx, zero, ddy
+    # orthographic: the direction is constant, the origin shifts
+    dox = _xform_vector(cam.camera_to_world, dx_cam)
+    doy = _xform_vector(cam.camera_to_world, dy_cam)
+    return dox, zero, doy, zero
 
 
 def _inverse(m):

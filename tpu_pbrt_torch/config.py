@@ -17,11 +17,14 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
   (0: pool/4 once the pool holds 256 slots; >= pool or < 0: full width);
 - TORCH_PBRT_TELEMETRY: the pool's wave counters (on by default; 0
   carries none);
+- TORCH_PBRT_MIPFILTER: the camera hits' ray-differential footprint and
+  the mip filtering of image textures (on by default; 0 looks every
+  texture up at its finest level);
 - PBRT_PROGRESS_FREQUENCY: seconds between progress-bar updates (pbrt's
   own knob, read by utils/stats.py::ProgressReporter; 0: every update).
 
 These are the reference's TPU_PBRT_CHUNK/_REGEN/_POOL/_DEPOSIT_SEG/
-_TELEMETRY under the port's prefix.
+_TELEMETRY/_MIPFILTER under the port's prefix.
 
 There is no switch between the hand-written kernels and their plain
 versions: a CUDA tensor always goes through the kernel, a CPU tensor
@@ -59,7 +62,7 @@ def _float(name: str, default: float) -> float:
 
 class Config:
     __slots__ = ("leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
-                 "telemetry", "progress_frequency")
+                 "telemetry", "mipfilter", "progress_frequency")
 
     def _load(self) -> "Config":
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
@@ -78,6 +81,8 @@ class Config:
         self.deposit_seg: int = _int("TORCH_PBRT_DEPOSIT_SEG", 0)
         #: the pool's wave counters (obs/counters.py)
         self.telemetry: bool = _flag("TORCH_PBRT_TELEMETRY", True)
+        #: trilinear / EWA mip selection from camera-ray differentials
+        self.mipfilter: bool = _flag("TORCH_PBRT_MIPFILTER", True)
         #: progress-bar update interval in seconds (None -> 0.25)
         self.progress_frequency: Optional[float] = _float("PBRT_PROGRESS_FREQUENCY", None)
         return self

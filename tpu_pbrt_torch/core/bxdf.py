@@ -11,10 +11,17 @@ glass (microfacet reflection + transmission) override them per lane.
 All directions are in the local shading frame (z = shading normal);
 transmission carries the radiance-mode 1/eta^2 scale.
 
-Ported: the lobes that matte, plastic, metal, glass (smooth and rough)
-and mirror reach. The scene compiler rejects every other material, so
-none of the reference's other branches (uber, substrate, translucent,
-disney, hair, fourier, subsurface) has a lane to serve here.
+Ported: the lobes that matte, plastic, metal, glass (smooth and rough),
+mirror, uber (Lambertian + dielectric-Fresnel GGX, as the reference
+lowers it), substrate (FresnelBlend: Ashikhmin-Shirley diffuse and a
+Schlick-weighted GGX lobe, half the samples cosine) and translucent (a
+diffuse lobe split between reflection (kr) and transmission (kt) plus
+the GGX reflection lobe) reach; mix lanes resolve to one sub-material
+row before the gather (resolve_mix); the Beckmann distribution is here
+as the reference keeps it. The scene compiler rejects the other
+materials (disney, hair, fourier, subsurface), so the reference's
+branches for them, which it gates on their parameters being present,
+have no lane to serve here.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ MAT_PLASTIC = 2
 MAT_METAL = 3
 MAT_GLASS = 4
 MAT_MIRROR = 5
+MAT_UBER = 6
+MAT_SUBSTRATE = 7
+MAT_TRANSLUCENT = 8
 
 _INV_PI = 1.0 / np.pi
 
@@ -98,6 +108,56 @@ def fresnel_conductor(cos_i, eta, k):
 # -------------------------------------------------------------------------
 # Trowbridge-Reitz / GGX microfacet distribution (microfacet.cpp)
 # -------------------------------------------------------------------------
+
+# -------------------------------------------------------------------------
+# Beckmann distribution (microfacet.cpp BeckmannDistribution): D, Lambda
+# and the full-distribution half-vector sampling (the !sampleVisibleArea
+# branch, exact for isotropic and anisotropic alphas)
+# -------------------------------------------------------------------------
+
+def beckmann_d(wh, ax, ay):
+    t2 = tan2_theta(wh)
+    c2 = cos2_theta(wh)
+    c4 = c2 * c2
+    cp, sp = cos_phi(wh), sin_phi(wh)
+    e = torch.exp(-t2 * (cp * cp / torch.clamp(ax * ax, min=1e-12)
+                         + sp * sp / torch.clamp(ay * ay, min=1e-12)))
+    d = e / (torch.pi * ax * ay * torch.clamp(c4, min=1e-16))
+    return torch.where(torch.isfinite(t2) & (c4 > 1e-16), d, 0.0)
+
+
+def beckmann_lambda(w, ax, ay):
+    abs_tan = torch.abs(tan_theta(w))
+    cp, sp = cos_phi(w), sin_phi(w)
+    alpha = torch.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
+    a = 1.0 / torch.clamp(alpha * abs_tan, min=1e-12)
+    lam = (1.0 - 1.259 * a + 0.396 * a * a) / (3.535 * a + 2.181 * a * a)
+    return torch.where(torch.isfinite(abs_tan) & (a < 1.6), lam, 0.0)
+
+
+def beckmann_g(wo, wi, ax, ay):
+    return 1.0 / (1.0 + beckmann_lambda(wo, ax, ay) + beckmann_lambda(wi, ax, ay))
+
+
+def beckmann_sample_wh(u1, u2, ax, ay):
+    """Full-distribution Beckmann Sample_wh: tan2 = -a^2 log(1 - u1) with
+    the per-phi alpha of the anisotropic case."""
+    log_u = torch.log(torch.clamp(1.0 - u1, min=1e-12))
+    phi = torch.atan(ay / ax * torch.tan(2.0 * torch.pi * u2 + 0.5 * torch.pi))
+    phi = phi + torch.where(u2 > 0.5, torch.pi, 0.0)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    a2 = 1.0 / torch.clamp(cp * cp / torch.clamp(ax * ax, min=1e-12)
+                           + sp * sp / torch.clamp(ay * ay, min=1e-12), min=1e-12)
+    tan2 = -log_u * a2
+    ct = 1.0 / torch.sqrt(1.0 + tan2)
+    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    return torch.stack([st * cp, st * sp, ct], dim=-1)
+
+
+def beckmann_pdf(wh, ax, ay):
+    """pdf of wh under full-distribution sampling: D(wh) |cos wh|."""
+    return beckmann_d(wh, ax, ay) * abs_cos_theta(wh)
+
 
 def tr_roughness_to_alpha(rough):
     """TrowbridgeReitzDistribution::RoughnessToAlpha."""
@@ -220,9 +280,41 @@ class MatParams(NamedTuple):
     rough_raw: torch.Tensor  # (R,) raw roughness (max of u, v); 0 = smooth
 
 
-#: the material table's columns (lower_materials builds them)
+#: the material table's columns (lower_materials builds them), and the
+#: mix columns it adds when a scene has a mix material
 MAT_COLUMNS = ("type", "kd", "ks", "kr", "kt", "eta", "k", "rough_u", "rough_v", "sigma",
-               "opacity", "remap")
+               "opacity", "remap", "kd_tex", "ks_tex", "sigma_tex", "rough_tex", "opacity_tex",
+               "bump_tex")
+MIX_COLUMNS = ("mix_a", "mix_b", "mix_amt")
+
+
+def _take(table, idx):
+    """table[idx] with idx clamped to the table, as the reference's
+    small-table select clamps."""
+    return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
+def resolve_mix(mat: dict, mid, u):
+    """MixMaterial (mixmat.cpp) resolution: map a mix lane to ONE of its
+    sub-material rows with probability `amount` before the parameter
+    gather, the one-sample estimator of pbrt's scaled BSDF union. A no-op
+    for mix-free scenes (no mix columns) or without a draw. Nested mixes
+    resolve through a static 4-level loop; u is rescaled within the
+    picked branch (clipped to 0.9999999) so the levels stay independent."""
+    if "mix_a" not in mat or u is None:
+        return mid
+    for _ in range(4):
+        ma = _take(mat["mix_a"], mid)
+        mb = _take(mat["mix_b"], mid)
+        amt = _take(mat["mix_amt"], mid)
+        is_mix = ma >= 0
+        pick_a = u < amt
+        mid = torch.where(is_mix & pick_a, ma, torch.where(is_mix, mb, mid))
+        u = torch.clamp(
+            torch.where(pick_a, u / torch.clamp(amt, min=1e-8),
+                        (u - amt) / torch.clamp(1.0 - amt, min=1e-8)),
+            0.0, 0.9999999)
+    return mid
 
 
 def gather_mat(mat: dict, mid) -> MatParams:
@@ -253,8 +345,8 @@ def _lobe_flags(mp: MatParams):
     glossy: bsdf_eval/bsdf_sample override its lanes wholesale."""
     t = mp.mtype
     rg = _is_rough_glass(mp)
-    diffuse = (t == MAT_MATTE) | (t == MAT_PLASTIC)
-    glossy = (t == MAT_PLASTIC) | (t == MAT_METAL) | rg
+    diffuse = (t == MAT_MATTE) | (t == MAT_PLASTIC) | (t == MAT_UBER) | (t == MAT_TRANSLUCENT)
+    glossy = (t == MAT_PLASTIC) | (t == MAT_METAL) | (t == MAT_UBER) | (t == MAT_SUBSTRATE) | rg
     specular = ((t == MAT_GLASS) & ~rg) | (t == MAT_MIRROR)
     return diffuse, glossy, specular
 
@@ -264,7 +356,8 @@ def _lobe_flags(mp: MatParams):
 # -------------------------------------------------------------------------
 
 def _diffuse_f(mp: MatParams, wo, wi):
-    """Lambertian or Oren-Nayar by sigma; reflection hemisphere only."""
+    """Lambertian or Oren-Nayar by sigma on the reflection hemisphere;
+    translucent scales it by kr there and transmits kd kt / pi."""
     refl = same_hemisphere(wo, wi)
     sigma = torch.deg2rad(mp.sigma)
     s2 = sigma * sigma
@@ -286,20 +379,27 @@ def _diffuse_f(mp: MatParams, wo, wi):
     )
     on = a + b * max_cos * sin_alpha * tan_beta
     base = torch.where(mp.sigma > 0.0, on, 1.0)
-    # the reflection scale is 1 and there is no diffuse transmission
-    # (the reference's translucent branch)
-    f_refl = mp.kd * (_INV_PI * base)[..., None] * torch.ones_like(mp.kd)
-    return torch.where(refl[..., None], f_refl, 0.0)
+    transl = (mp.mtype == MAT_TRANSLUCENT)[..., None]
+    trans_scale = torch.where(transl, mp.kt, torch.zeros_like(mp.kt))
+    refl_scale = torch.where(transl, mp.kr, torch.ones_like(mp.kr))
+    f_refl = mp.kd * (_INV_PI * base)[..., None] * refl_scale
+    f_trans = mp.kd * _INV_PI * trans_scale
+    return torch.where(refl[..., None], f_refl, f_trans)
 
 
-def _diffuse_pdf(wo, wi):
+def _diffuse_pdf(mp: MatParams, wo, wi):
+    refl = same_hemisphere(wo, wi)
     pdf_r = cosine_hemisphere_pdf(abs_cos_theta(wi))
-    return torch.where(same_hemisphere(wo, wi), pdf_r, 0.0)
+    # translucent splits the cosine pdf across both hemispheres
+    transl = mp.mtype == MAT_TRANSLUCENT
+    half = 0.5 * pdf_r
+    return torch.where(refl, torch.where(transl, half, pdf_r),
+                       torch.where(transl, half, torch.zeros_like(pdf_r)))
 
 
 def _glossy_f(mp: MatParams, wo, wi):
     """Microfacet reflection lobe: the conductor Fresnel for metal, the
-    dielectric one (scaled by ks) for plastic."""
+    dielectric one (scaled by ks) otherwise; FresnelBlend for substrate."""
     refl = same_hemisphere(wo, wi)
     wh = wi + wo
     wh_len = torch.sqrt(dot(wh, wh))
@@ -316,7 +416,22 @@ def _glossy_f(mp: MatParams, wo, wi):
     scale = torch.where(is_metal[..., None], torch.ones_like(mp.ks), mp.ks)
     denom = 4.0 * abs_cos_theta(wi) * abs_cos_theta(wo)
     f_mf = scale * F * (d * g / torch.clamp(denom, min=1e-12))[..., None]
-    return torch.where(valid[..., None], f_mf, 0.0)
+
+    # FresnelBlend (substrate): Ashikhmin-Shirley diffuse + specular
+    is_sub = mp.mtype == MAT_SUBSTRATE
+
+    def pow5(v):
+        return (v * v) * (v * v) * v
+
+    ci, co = abs_cos_theta(wi), abs_cos_theta(wo)
+    diff = ((28.0 / (23.0 * np.pi)) * mp.kd * (1.0 - mp.ks)
+            * (1.0 - pow5(1.0 - 0.5 * ci))[..., None]
+            * (1.0 - pow5(1.0 - 0.5 * co))[..., None])
+    schlick = mp.ks + pow5(1.0 - cos_wh)[..., None] * (1.0 - mp.ks)
+    spec = (d / torch.clamp(4.0 * torch.abs(cos_wh) * torch.maximum(ci, co), min=1e-12)
+            )[..., None] * schlick
+    f = torch.where(is_sub[..., None], diff + spec, f_mf)
+    return torch.where(valid[..., None], f, 0.0)
 
 
 def _glossy_pdf(mp: MatParams, wo, wi):
@@ -326,6 +441,9 @@ def _glossy_pdf(mp: MatParams, wo, wi):
     wh = wh / torch.clamp(wh_len[..., None], min=1e-20)
     pdf_wh = tr_pdf(wo, wh, mp.ax, mp.ay)
     pdf = pdf_wh / torch.clamp(4.0 * dot(wo, wh), min=1e-12)
+    # FresnelBlend's pdf: the mean of the cosine and half-vector pdfs
+    pdf_sub = 0.5 * (cosine_hemisphere_pdf(abs_cos_theta(wi)) + pdf)
+    pdf = torch.where(mp.mtype == MAT_SUBSTRATE, pdf_sub, pdf)
     return torch.where(refl & (wh_len > 1e-12), pdf, 0.0)
 
 
@@ -406,7 +524,7 @@ def bsdf_eval(mp: MatParams, wo, wi):
     BSDF_ALL & ~SPECULAR: specular lobes contribute zero)."""
     has_d, has_g, is_spec = _lobe_flags(mp)
     fd = _diffuse_f(mp, wo, wi)
-    pd = _diffuse_pdf(wo, wi)
+    pd = _diffuse_pdf(mp, wo, wi)
     fg = _glossy_f(mp, wo, wi)
     pg = _glossy_pdf(mp, wo, wi)
     f = torch.where(has_d[..., None], fd, 0.0) + torch.where(has_g[..., None], fg, 0.0)
@@ -439,11 +557,21 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
 
     # --- diffuse candidate (cosine hemisphere on wo's side) ---------------
-    wi_d = cosine_sample_hemisphere(u1, u2)
+    # translucent: u2's lower half picks transmission, and u2 is remapped
+    # to [0, 1) so the pick and the disk coordinate stay independent
+    is_transl = mp.mtype == MAT_TRANSLUCENT
+    low = u2 < 0.5
+    flip_t = is_transl & low
+    u2d = torch.where(is_transl, torch.where(low, 2.0 * u2, 2.0 * (u2 - 0.5)), u2)
+    wi_d = cosine_sample_hemisphere(u1, u2d)
     wi_d = torch.where((cos_theta(wo) < 0.0)[..., None], wi_d * flip_z, wi_d)
+    wi_d = torch.where(flip_t[..., None], wi_d * flip_z, wi_d)
     # --- glossy candidate (VNDF half-vector) ------------------------------
     wh = tr_sample_wh(wo, u1, u2, mp.ax, mp.ay)
     wi_g = reflect(wo, wh)
+    # substrate: half the samples are cosine (FresnelBlend::Sample_f)
+    use_cos = (mp.mtype == MAT_SUBSTRATE) & (u_lobe < 0.5)
+    wi_g = torch.where(use_cos[..., None], wi_d, wi_g)
     wi = torch.where(pick_g[..., None], wi_g, wi_d)
 
     # --- combined f/pdf over the matching non-specular lobes -------------
@@ -506,7 +634,8 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     pdf = torch.where(rg, torch.where(ok_rg, pdf_rg, 0.0), pdf)
 
     is_specular = (is_glass & ~rg) | is_mirror
-    is_transmission = (is_glass & ~rg & ~reflect_g) | (rg & ~same_hemisphere(wo, wi))
+    is_transmission = ((is_glass & ~rg & ~reflect_g) | (flip_t & ~pick_g)
+                       | (rg & ~same_hemisphere(wo, wi)))
     dead = (mp.mtype == MAT_NONE) | (pdf <= 0.0)
     f = torch.where(dead[..., None], 0.0, f)
     pdf = torch.where(dead, 0.0, pdf)

@@ -162,7 +162,12 @@ class BDPTIntegrator(WavefrontIntegrator):
                 miss = alive & (hit.prim < 0)
                 l_env = l_env + _where(miss, beta * ld.env_lookup(dev, d), 0.0)
             pdf_area = _convert_density(pdf_dir, prev_p, it.p, it.ns, True)
-            mid = it.mat  # the port compiles no mix material: the row is the leaf
+            # mix materials resolve here (one draw per vertex) and the vertex
+            # stores the resolved sub-material, so every later MIS and
+            # connection evaluation shades the same leaf row; like the
+            # reference, BDPT gathers that row without evaluating textures
+            mid = bxdf.resolve_mix(dev["mat"], it.mat, uniform_float(px, py, s, salt + 11)
+                                   if "mix_a" in dev["mat"] else None)
             path.set(
                 i,
                 p=_where(found, it.p, 0.0),

@@ -3,7 +3,10 @@
 - Scene::Intersect / IntersectP dispatch to the stream tracer (or the
   brute feature product for scenes of at most BRUTE_MAX_TRIS triangles),
   and the fused camera+shadow closest hit of the 2R wave layout;
-- SurfaceInteraction construction from a Hit;
+- SurfaceInteraction construction from a Hit, and the material at a hit
+  (`textured_mat`: the mix resolution, the row gather and every textured
+  slot's evaluation, with the camera hits' ray-differential footprint of
+  `texture_footprint` driving the mip filter);
 - the chunk plan and the render loop on one device: the image x spp
   work domain is cut into chunks of camera rays; each chunk drains
   through the integrator's persistent pool (`pool_chunk`) or runs its
@@ -247,12 +250,99 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
                        light=light_id, wo=-d, valid=hit.prim >= 0)
 
 
-def textured_mat(dev, mid) -> bxdf.MatParams:
-    """Material::ComputeScatteringFunctions on the constant-parameter path:
-    the full compiled material row of each lane (every MatParams field,
-    the GGX alphas remapped). Textures are not ported; the compiler
-    rejects them, so no slot carries a texture id to evaluate."""
-    return bxdf.gather_mat(dev["mat"], mid)
+def texture_footprint(dev, it_prim, p_hit, ng, o, d, dox, ddx, doy, ddy):
+    """SurfaceInteraction::ComputeDifferentials (interaction.cpp) -> the
+    uv differentials for MIPMap::Lookup: the two pixel-offset rays meet
+    the tangent plane at the hit, and the 2x2 least-squares solve against
+    the triangle's dpdu/dpdv (dev["tri_difT"]) gives duv/dx and duv/dy.
+    Returns (R, 4) [dudx, dvdx, dudy, dvdy], clamped to +-0.5, 0 where
+    undefined (the level-0 fallback)."""
+    prim = it_prim.long().clamp(min=0)
+    rows = dev["tri_difT"][:, prim]  # (8, R)
+    dpdu = rows[0:3].transpose(0, 1)
+    dpdv = rows[3:6].transpose(0, 1)
+    n = ng
+    denom0 = dot(d, n)
+
+    def plane_hit(do_, dd_):
+        d_off = d + dd_
+        o_off = o + do_
+        den = dot(d_off, n)
+        t = dot(p_hit - o_off, n) / torch.where(torch.abs(den) < 1e-9, torch.ones_like(den), den)
+        return o_off + t[..., None] * d_off - p_hit
+
+    dpdx = plane_hit(dox, ddx)
+    dpdy = plane_hit(doy, ddy)
+    a00 = dot(dpdu, dpdu)
+    a01 = dot(dpdu, dpdv)
+    a11 = dot(dpdv, dpdv)
+    det = a00 * a11 - a01 * a01
+    ok = (torch.abs(det) > 1e-18) & (torch.abs(denom0) > 1e-9)
+    inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
+
+    def solve(dp):
+        b0 = dot(dp, dpdu)
+        b1 = dot(dp, dpdv)
+        return (a11 * b0 - a01 * b1) * inv, (a00 * b1 - a01 * b0) * inv
+
+    dudx, dvdx = solve(dpdx)
+    dudy, dvdy = solve(dpdy)
+    duv = torch.stack([dudx, dvdx, dudy, dvdy], dim=-1)
+    good = (ok & torch.isfinite(duv).all(dim=-1))[..., None]
+    # grazing footprints beyond half the texture take the coarsest level anyway
+    return torch.where(good, torch.clamp(duv, -0.5, 0.5), torch.zeros_like(duv))
+
+
+def _mean3(x):
+    """The reference's jnp.mean over an rgb axis: the sum, then / 3."""
+    s = (x[..., 0] + x[..., 1]) + x[..., 2]
+    return s / torch.full_like(s, 3.0)
+
+
+def textured_mat(dev, mid, uv, p, tex_eval, tex_used, width=None, u_mix=None,
+                 slot_ids=None) -> bxdf.MatParams:
+    """Material::ComputeScatteringFunctions' texture step (material.cpp):
+    resolve mix lanes to one sub-material (bxdf.resolve_mix, with the draw
+    u_mix), gather the constant-folded rows, then overwrite each slot that
+    carries a texture id with its evaluator's value at (uv, p) (width:
+    the optional (R, 4) footprint of a camera hit, for the mip filter).
+    tex_used is the scene's static set of textured slots; slot_ids the
+    texture ids each slot can hold."""
+    mid = bxdf.resolve_mix(dev["mat"], mid, u_mix)
+    mp = bxdf.gather_mat(dev["mat"], mid)
+    if tex_eval is None or "tex_atlas" not in dev or not tex_used:
+        return mp
+    mt = dev["mat"]
+    atlas = dev["tex_atlas"]
+    slot_ids = slot_ids or {}
+    idx = mid.long().clamp(0, mt["type"].shape[0] - 1)
+
+    def ev(slot, name):
+        tid = mt[slot][idx]
+        return tid, tex_eval(atlas, tid, uv, p, width, slot_ids.get(name))
+
+    kw = {}
+    with torch.profiler.record_function("textured_mat"):
+        for slot, name in (("kd_tex", "kd"), ("ks_tex", "ks"), ("opacity_tex", "opacity")):
+            if name in tex_used:
+                tid, v = ev(slot, name)
+                kw[name] = torch.where((tid >= 0)[..., None], v, getattr(mp, name))
+        if "sigma" in tex_used:
+            tid, v = ev("sigma_tex", "sigma")
+            kw["sigma"] = torch.where(tid >= 0, _mean3(v), mp.sigma)
+        if "rough" in tex_used:
+            # roughness feeds the GGX alphas through the remap: the
+            # override recomputes ax / ay as gather_mat derives them, and
+            # rough_raw, which gates the rough-glass lobes
+            tid, v = ev("rough_tex", "rough")
+            r = _mean3(v)
+            remap = mt["remap"][idx]
+            a_t = torch.where(remap > 0, bxdf.tr_roughness_to_alpha(r), torch.clamp(r, min=1e-3))
+            on = tid >= 0
+            kw["ax"] = torch.where(on, a_t, mp.ax)
+            kw["ay"] = torch.where(on, a_t, mp.ay)
+            kw["rough_raw"] = torch.where(on, r, mp.rough_raw)
+    return mp._replace(**kw)
 
 
 def estimate_direct(dev, light_distr, it: Interaction, mp, px, py, s, bounce: int,
@@ -406,6 +496,10 @@ class WavefrontIntegrator:
         # shadow rays walk through null-interface (MAT_NONE) surfaces only
         # in scenes that have them
         self.vis_segments = 4 if scene.has_null_materials else 1
+        # the compiled texture evaluators (None when every slot folded)
+        self.tex_eval = getattr(scene, "tex_eval", None)
+        self.tex_used = getattr(scene, "tex_used", frozenset())
+        self.tex_slot_ids = getattr(scene, "tex_slot_ids", None) or {}
         self.skind = normalize_sampler_name(scene.sampler.name)
         self.spp = int(scene.sampler.spp)
         self._prepare_sampler()
@@ -474,8 +568,12 @@ class WavefrontIntegrator:
         o, d, wt = generate_rays(cam, p_film, u_lens)
         return valid, px, py, s, p_film, o, d, wt
 
-    def mat_at(self, dev, it) -> bxdf.MatParams:
-        return textured_mat(dev, it.mat)
+    def mat_at(self, dev, it, width=None, u_mix=None) -> bxdf.MatParams:
+        """Textured material parameters at a surface interaction; width is
+        the optional (R, 4) ray-differential footprint (camera hits), u_mix
+        the optional mix-material draw (bxdf.resolve_mix)."""
+        return textured_mat(dev, it.mat, it.uv, it.p, self.tex_eval, self.tex_used, width,
+                            u_mix, self.tex_slot_ids)
 
     def li(self, dev, o, d, px, py, s):
         raise NotImplementedError

@@ -23,6 +23,7 @@ from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_lo
 from tpu_pbrt_torch.integrators.common import (
     DIM_BSDF_LOBE,
     DIM_BSDF_UV,
+    DIM_MIX,
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
     estimate_direct,
@@ -88,7 +89,9 @@ class DirectLightingIntegrator(WavefrontIntegrator):
                 dev, torch.where(it.valid, it.light, torch.full_like(it.light, -1)), it.wo, it.ng)
             L = L + beta * le
 
-            mp = self.mat_at(dev, it)
+            u_mix = (self.u1d(px, py, s, depth * 2000 + DIM_MIX) if "mix_a" in dev["mat"]
+                     else None)
+            mp = self.mat_at(dev, it, u_mix=u_mix)
             two = 2 * it.valid.to(torch.int32)
             if self.strategy == "all":
                 for li_i in range(self.n_light_loop):

@@ -115,7 +115,9 @@ class MLTIntegrator(WavefrontIntegrator):
             base = min(_DIMS_CAMERA + depth * _DIMS_PER_BOUNCE, U.shape[1] - _DIMS_PER_BOUNCE)
             Ub = U[:, base:base + _DIMS_PER_BOUNCE]
             scatter_ok = alive & (depth < self.max_depth)
-            mp = self.mat_at(dev, it)
+            # the mix draw rides its own primary-sample dimension, so f(U)
+            # stays a function of U
+            mp = self.mat_at(dev, it, u_mix=Ub[:, 7])
             wo_l = to_local(it.wo, it.ss, it.ts, it.ns)
             # NEE, the light-sampling half (MIS against the BSDF pdf, as path)
             ls = ld.sample_one_light(dev, self.light_distr, it.p, Ub[:, 0], Ub[:, 1], Ub[:, 2])

@@ -31,6 +31,12 @@ surface passes through it without counting a bounce (pbrt's
 `bounces--`), so the loop runs PASSTHROUGH_MARGIN more iterations. The
 reference's lax.while_loops are host loops here, with one host read per
 wave for their exit tests.
+
+In a textured scene a camera hit carries its ray-differential footprint
+(at the pixel centre, as the reference takes it) into the mip filter:
+the fixed batch computes it at bounce 0 only, the pool every wave,
+masked to its depth-0 lanes; deeper vertices look up with a zero
+footprint. Mix-material lanes resolve with the DIM_MIX draw.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_pbrt_torch.accel import stream
+from tpu_pbrt_torch.cameras import ray_differentials
 from tpu_pbrt_torch.core import bxdf
 from tpu_pbrt_torch.core import lights_dev as ld
 from tpu_pbrt_torch.core.film import nonfinite_mask
@@ -50,12 +57,14 @@ from tpu_pbrt_torch.integrators.common import (
     DIM_BSDF_UV,
     DIM_LIGHT_PICK,
     DIM_LIGHT_UV,
+    DIM_MIX,
     DIM_RR,
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
     make_interaction,
     scene_intersect,
     scene_intersect_fused,
+    texture_footprint,
     unoccluded_tr,
 )
 from tpu_pbrt_torch.obs import counters as obs_counters
@@ -199,7 +208,9 @@ class PathIntegrator(WavefrontIntegrator):
         can_scatter = depth < self.max_depth
 
         # ---- NEE: light-sampling half ---------------------------------
-        mp = self.mat_at(dev, it)
+        u_mix = (self.u1d(px, py, s, salt + DIM_MIX) if "mix_a" in dev["mat"] else None)
+        mp = self.mat_at(dev, it, self._camera_footprint(dev, px, py, salt, depth, o, d, hit, it),
+                         u_mix=u_mix)
         is_null = it.valid & (mp.mtype == bxdf.MAT_NONE) if self.margin else None
         u_pick = self.u1d(px, py, s, salt + DIM_LIGHT_PICK)
         u1, u2 = self.u2d(px, py, s, salt + DIM_LIGHT_UV)
@@ -283,6 +294,25 @@ class PathIntegrator(WavefrontIntegrator):
                                          rays_after=nrays)
         return LaneSt(o, d, L, beta, alive, depth, prev_pdf, specular, eta_scale,
                       prev_p, *pend), nrays, ctr
+
+    def _camera_footprint(self, dev, px, py, salt, depth, o, d, hit, it):
+        """The (R, 4) uv footprint of the camera hits (camera.cpp
+        GenerateRayDifferential + interaction.cpp ComputeDifferentials)
+        at the pixel centres, 0 on other lanes; None when the scene has no
+        texture or TORCH_PBRT_MIPFILTER is off. The fixed batch (an int
+        salt) computes it at bounce 0 only, the pool every wave, masked
+        to the lanes at depth 0."""
+        from tpu_pbrt_torch.config import cfg
+
+        if self.tex_eval is None or "tri_difT" not in dev or not cfg.mipfilter:
+            return None
+        if isinstance(salt, int) and salt // DIMS_PER_BOUNCE != 0:
+            return torch.zeros(o.shape[:-1] + (4,), dtype=torch.float32, device=o.device)
+        pf_c = torch.stack([px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5], dim=-1)
+        dox, ddx, doy, ddy = ray_differentials(self.scene.camera, pf_c)
+        w0 = texture_footprint(dev, hit.prim, it.p, it.ng, o, d, dox, ddx, doy, ddy)
+        keep = it.valid if isinstance(salt, int) else it.valid & (depth == 0)
+        return torch.where(keep[..., None], w0, torch.zeros_like(w0))
 
     # -- fixed-batch loop (TORCH_PBRT_REGEN=0) -------------------------------
     def li(self, dev, o, d, px, py, s):

@@ -41,6 +41,7 @@ from tpu_pbrt_torch.core.sampling import hash_u32, sobol_2d, uniform_float
 from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_local, to_world
 from tpu_pbrt_torch.integrators.common import (
     DIM_LENS,
+    DIM_MIX,
     DIMS_PER_BOUNCE,
     Interaction,
     RenderResult,
@@ -146,7 +147,9 @@ class SPPMIntegrator(WavefrontIntegrator):
                 ld_acc = ld_acc + _where(miss, beta * ld.env_lookup(dev, d), 0.0)
             le = ld.emitted_radiance(dev, torch.where(found, it.light, -1), it.wo, it.ng)
             ld_acc = ld_acc + _where(found & specular, beta * le, 0.0)
-            mp = self.mat_at(dev, it)
+            u_mix = (uniform_float(px, py, s, salt + DIM_MIX) if "mix_a" in dev["mat"]
+                     else None)
+            mp = self.mat_at(dev, it, u_mix=u_mix)
             # direct light at every real vertex (pixel.Ld); the sample index
             # is the iteration, so the sampler's domain is the iteration count
             it_masked = Interaction(it.p, it.ng, it.ns, it.ss, it.ts, it.uv, it.mat, it.light,
@@ -229,7 +232,7 @@ class SPPMIntegrator(WavefrontIntegrator):
             dep_d[:, depth] = d
             dep_beta[:, depth] = _where(dep_found, beta, 0.0)
             dep_valid[:, depth] = dep_found
-            mp = self.mat_at(dev, it)
+            mp = self.mat_at(dev, it, u_mix=u(salt + DIM_MIX) if "mix_a" in dev["mat"] else None)
             wo_l = to_local(it.wo, it.ss, it.ts, it.ns)
             bs = bxdf.bsdf_sample(mp, wo_l, u(salt + 7), u(salt + 8), u(salt + 9))
             wi_w = normalize(to_world(bs.wi, it.ss, it.ts, it.ns))
@@ -285,7 +288,10 @@ class SPPMIntegrator(WavefrontIntegrator):
         has_vp = vps.mat >= 0
         r = torch.sqrt(r2)
         base = cells(vps.p - lo - r[..., None])
-        mp_vp = textured_mat(dev, vps.mat.clamp(min=0))
+        # the visible point's stored (unresolved) material, textured at its
+        # uv and position, as the reference gathers it
+        mp_vp = textured_mat(dev, vps.mat.clamp(min=0), vps.uv, vps.p, self.tex_eval,
+                             self.tex_used, slot_ids=self.tex_slot_ids)
         wo_l = to_local(vps.wo, vps.ss, vps.ts, vps.ns)
 
         # the 8 overlapped cells' run windows: starts / ends (P, 8)

@@ -36,6 +36,7 @@ from tpu_pbrt_torch.integrators.common import (
     DIM_BSDF_UV,
     DIM_LIGHT_PICK,
     DIM_LIGHT_UV,
+    DIM_MIX,
     DIM_RR,
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
@@ -122,7 +123,8 @@ class VolPathIntegrator(WavefrontIntegrator):
                 break
 
             # ---- null material pass-through (a medium transition) ---------
-            mp = self.mat_at(dev, it)
+            u_mix = (self.u1d(px, py, s, salt + DIM_MIX) if "mix_a" in dev["mat"] else None)
+            mp = self.mat_at(dev, it, u_mix=u_mix)
             is_null = at_surface & (mp.mtype == bxdf.MAT_NONE)
             going_in_null = dot(d, it.ng) < 0.0
             prim = hit.prim.clamp(min=0).long()

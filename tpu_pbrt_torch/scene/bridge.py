@@ -16,18 +16,19 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
-from tpu_pbrt_torch.core.bxdf import MAT_COLUMNS
+from tpu_pbrt_torch.core.bxdf import MAT_COLUMNS, MIX_COLUMNS
 from tpu_pbrt_torch.core.media import MediumTable
 from tpu_pbrt_torch.core.sampling import Distribution2D
 
-#: per-light columns the port reads (per material: bxdf.MAT_COLUMNS)
+#: per-light columns the port reads (per material: bxdf.MAT_COLUMNS, and
+#: bxdf.MIX_COLUMNS where a scene has a mix material)
 LIGHT_KEYS = ("type", "p", "L", "dir", "cos0", "cos1", "tri", "twosided", "area", "w2l", "img",
               "tri_v")
 #: top-level tables the port reads (when present)
 DEV_KEYS = (
     "tri_verts", "tri_normals", "tri_uvs", "tri_mat", "tri_light",
     "world_center", "world_radius", "n_lights", "tri_sh16", "tri_verts9T",
-    "envmap", "env_w2l", "tri_med_in", "tri_med_out", "light_atlas",
+    "envmap", "env_w2l", "tri_med_in", "tri_med_out", "light_atlas", "tri_difT", "tex_atlas",
 )
 
 
@@ -78,7 +79,7 @@ def tables_from_numpy(dev_np: dict, device) -> dict:
     """The JAX package's compiled tables (numpy leaves) -> the port's
     device tables, holding exactly the keys compile_scene produces."""
     tab = {k: dev_np[k] for k in DEV_KEYS if k in dev_np}
-    tab["mat"] = {k: dev_np["mat"][k] for k in MAT_COLUMNS}
+    tab["mat"] = {k: dev_np["mat"][k] for k in MAT_COLUMNS + MIX_COLUMNS if k in dev_np["mat"]}
     tab["light"] = {k: dev_np["light"][k] for k in LIGHT_KEYS}
     if "tstream" in dev_np:
         tab["tstream"] = pack_tables(dev_np["tstream"])

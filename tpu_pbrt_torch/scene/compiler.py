@@ -10,9 +10,15 @@ directive set the port renders:
   normals and uvs; object instances expanded by baking each use's
   transform into its shapes; an unknown shape name is skipped with the
   reference's warning;
-- materials: "matte", "plastic", "metal", "glass" and "mirror" with
-  constant parameters (constant-folded as the reference folds them), and
-  "none" (a null interface: rays pass through it);
+- materials: "matte", "plastic", "metal", "glass", "mirror", "uber",
+  "substrate", "translucent" and "mix" (its two sub-materials appended
+  as real rows of the table, resolved per lane at shading time), and
+  "none" (a null interface: rays pass through it); constant parameters
+  fold as the reference folds them, every other texture gets an id in
+  a structurally deduplicated registry and goes to
+  core/texture_eval.py (the mip atlas and the compiled evaluators),
+  with the per-triangle dpdu/dpdv table the ray-differential footprint
+  needs; a bump map is parsed and not applied, as in the reference;
 - participating media: `MakeNamedMedium` "homogeneous" and "grid" (or
   "heterogeneous") rows with presets and scale, the shapes'
   `MediumInterface` as per-triangle inside/outside medium ids, and the
@@ -112,6 +118,13 @@ class CompiledScene:
     #: the scene holds null-interface (MAT_NONE) surfaces: shadow rays
     #: walk through them (integrators/common.py::unoccluded_tr)
     has_null_materials: bool = False
+    #: the compiled texture evaluators (core/texture_eval.TextureTable;
+    #: None when every parameter folded to a constant)
+    tex_eval: Any = None
+    #: the material slots that carry a texture id on some row
+    tex_used: frozenset = frozenset()
+    #: slot -> the texture ids that slot's column holds
+    tex_slot_ids: Optional[Dict[str, tuple]] = None
 
 
 def _not_ported(what: str):
@@ -125,26 +138,30 @@ def _rgb(v) -> np.ndarray:
     return a[:3]
 
 
-def _fold_const(node, default, what):
-    """A material parameter as a constant: plain values, const nodes and
-    scale/mix nodes of constants fold as the reference's _fold_const folds
-    them; any other texture is not ported."""
+def _fold_const(node, default):
+    """Try to reduce a texture node to a constant; returns (value, folded)
+    (the reference's folding: plain values, const nodes, and scale/mix
+    nodes of constants)."""
     if node is None:
-        return default
+        return default, True
     if isinstance(node, tuple):
         tag = node[0]
         if tag in ("const", "constf"):
-            return node[1]
+            return node[1], True
         if tag == "scale":
-            return (np.asarray(_fold_const(node[1], 1.0, what))
-                    * np.asarray(_fold_const(node[2], 1.0, what)))
+            a, fa = _fold_const(node[1], 1.0)
+            b, fb = _fold_const(node[2], 1.0)
+            if fa and fb:
+                return np.asarray(a) * np.asarray(b), True
         if tag == "mix":
-            a = np.asarray(_fold_const(node[1], 0.0, what))
-            b = np.asarray(_fold_const(node[2], 1.0, what))
-            t = np.asarray(_fold_const(node[3], 0.5, what))
-            return a * (1 - t) + b * t
-        _not_ported(f"texture {tag!r} on {what}")
-    return node
+            a, fa = _fold_const(node[1], 0.0)
+            b, fb = _fold_const(node[2], 1.0)
+            t, ft = _fold_const(node[3], 0.5)
+            if fa and fb and ft:
+                return np.asarray(a) * (1 - np.asarray(t)) + np.asarray(b) * np.asarray(t), True
+        return default, False
+    # a plain value (float or rgb array) captured directly by TextureParams
+    return node, True
 
 
 def _tess_mesh(params, scene_dir):
@@ -430,13 +447,44 @@ def _geometric_normals(verts: np.ndarray) -> np.ndarray:
 
 
 #: the materials lower_materials lowers, with their type enum values
+#: (a mix row is typed matte: its shading falls back to a diffuse blend
+#: only past the static nesting depth of bxdf.resolve_mix)
 _MAT_ENUM = {"none": bxdf.MAT_NONE, "matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT_PLASTIC,
-             "metal": bxdf.MAT_METAL, "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR}
+             "metal": bxdf.MAT_METAL, "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR,
+             "uber": bxdf.MAT_UBER, "substrate": bxdf.MAT_SUBSTRATE,
+             "translucent": bxdf.MAT_TRANSLUCENT, "mix": bxdf.MAT_MATTE}
+
+#: material slot -> its texture-id column, and the name tex_used gives it
+TEX_SLOTS = (("kd_tex", "kd"), ("ks_tex", "ks"), ("sigma_tex", "sigma"),
+             ("rough_tex", "rough"), ("opacity_tex", "opacity"))
 
 
-def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
+def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
     """MaterialRecords -> the SoA material table (bxdf.MAT_COLUMNS) with
-    the reference's defaults and constant folding."""
+    the reference's defaults and constant folding. tex_registry(node)
+    gives a non-constant texture its id (the reference's registry).
+
+    A mix row's two sub-materials are appended as real rows of the same
+    table and the mix row records (mix_a, mix_b, mix_amt); shading
+    resolves a mix lane to one sub-row by a sampler draw before the
+    gather (bxdf.resolve_mix). Nested mixes expand recursively. The mix
+    columns exist only when a scene has a mix (their presence is the
+    flag, as in the reference)."""
+    mat_records = list(mat_records)
+    mix_sub: Dict[int, tuple] = {}
+    i_scan = 0
+    while i_scan < len(mat_records):
+        rec = mat_records[i_scan]
+        if rec.type == "mix":
+            m1 = rec.params.get("material1")
+            m2 = rec.params.get("material2")
+            if m1 is not None and m2 is not None:
+                ia = len(mat_records)
+                mat_records.append(m1)
+                ib = len(mat_records)
+                mat_records.append(m2)
+                mix_sub[i_scan] = (ia, ib)
+        i_scan += 1
     m = len(mat_records)
     tab = {
         "type": np.zeros(m, np.int32),
@@ -451,36 +499,55 @@ def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
         "sigma": np.zeros(m, np.float32),
         "opacity": np.ones((m, 3), np.float32),
         "remap": np.ones(m, np.int32),
+        "mix_a": np.full(m, -1, np.int32),
+        "mix_b": np.full(m, -1, np.int32),
+        "mix_amt": np.full(m, 0.5, np.float32),
+        "kd_tex": np.full(m, -1, np.int32),
+        "ks_tex": np.full(m, -1, np.int32),
+        "sigma_tex": np.full(m, -1, np.int32),
+        "rough_tex": np.full(m, -1, np.int32),
+        "opacity_tex": np.full(m, -1, np.int32),
+        "bump_tex": np.full(m, -1, np.int32),
     }
+
     for i, rec in enumerate(mat_records):
         t = rec.type
         if t not in _MAT_ENUM:
             _not_ported(f'Material "{t}" (ported: {", ".join(map(repr, _MAT_ENUM))})')
-        p = rec.params
-        if p.get("bumpmap") is not None:
-            _not_ported("bump mapping")
         tab["type"][i] = _MAT_ENUM[t]
+        p = rec.params
 
-        def spec(key, default, slot):
-            tab[slot][i] = _rgb(_fold_const(p.get(key), default, f"{t} {key}"))
+        def spec(key, default, slot, tex_slot=None):
+            val, folded = _fold_const(p.get(key), default)
+            if not folded:
+                tid = tex_registry(p.get(key))
+                if tex_slot is not None:
+                    tab[tex_slot][i] = tid
+                val = default  # the default lies beneath the texture lookup
+            tab[slot][i] = _rgb(val)
 
-        def flt(key, default, slot):
-            v = _fold_const(p.get(key), default, f"{t} {key}")
-            tab[slot][i] = float(np.asarray(v, np.float64).reshape(-1).mean())
+        def flt(key, default, slot, tex_slot=None):
+            val, folded = _fold_const(p.get(key), default)
+            if not folded:
+                tid = tex_registry(p.get(key))
+                if tex_slot is not None:
+                    tab[tex_slot][i] = tid
+                val = default
+            tab[slot][i] = float(np.asarray(val, np.float64).reshape(-1).mean())
 
         if t == "matte":
-            spec("Kd", 0.5, "kd")
-            flt("sigma", 0.0, "sigma")
+            spec("Kd", 0.5, "kd", "kd_tex")
+            flt("sigma", 0.0, "sigma", "sigma_tex")
         elif t == "plastic":
-            spec("Kd", 0.25, "kd")
-            spec("Ks", 0.25, "ks")
-            flt("roughness", 0.1, "rough_u")
+            spec("Kd", 0.25, "kd", "kd_tex")
+            spec("Ks", 0.25, "ks", "ks_tex")
+            flt("roughness", 0.1, "rough_u", "rough_tex")
             tab["rough_v"][i] = tab["rough_u"][i]
             tab["remap"][i] = int(p.get("remaproughness", True))
         elif t == "metal":
             spec("eta", 1.0, "eta")
             spec("k", 1.0, "k")
-            flt("roughness", 0.01, "rough_u")
+            flt("roughness", 0.01, "rough_u", "rough_tex")
             tab["rough_v"][i] = tab["rough_u"][i]
             if p.get("uroughness") is not None:
                 flt("uroughness", 0.01, "rough_u")
@@ -495,12 +562,64 @@ def lower_materials(mat_records: List) -> Dict[str, np.ndarray]:
             flt("eta", 1.5, "eta")
             # nonzero uroughness or vroughness selects the microfacet lobes;
             # vroughness defaults to 0 on its own (glass.cpp)
-            flt("uroughness", 0.0, "rough_u")
+            flt("uroughness", 0.0, "rough_u", "rough_tex")
             flt("vroughness", 0.0, "rough_v")
             tab["remap"][i] = int(p.get("remaproughness", True))
             tab["eta"][i] = tab["eta"][i][:1].repeat(3)
-        else:  # mirror
+        elif t == "mirror":
             spec("Kr", 0.9, "kr")
+        elif t == "uber":
+            spec("Kd", 0.25, "kd", "kd_tex")
+            spec("Ks", 0.25, "ks", "ks_tex")
+            spec("Kr", 0.0, "kr")
+            spec("Kt", 0.0, "kt")
+            flt("roughness", 0.1, "rough_u", "rough_tex")
+            tab["rough_v"][i] = tab["rough_u"][i]
+            if p.get("uroughness") is not None:
+                flt("uroughness", 0.1, "rough_u")
+            if p.get("vroughness") is not None:
+                flt("vroughness", 0.1, "rough_v")
+            flt("eta", 1.5, "eta")
+            tab["eta"][i] = tab["eta"][i][:1].repeat(3)
+            spec("opacity", 1.0, "opacity", "opacity_tex")
+            tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "substrate":
+            spec("Kd", 0.5, "kd", "kd_tex")
+            spec("Ks", 0.5, "ks", "ks_tex")
+            flt("uroughness", 0.1, "rough_u", "rough_tex")
+            flt("vroughness", 0.1, "rough_v")
+            tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "translucent":
+            spec("Kd", 0.25, "kd", "kd_tex")
+            spec("Ks", 0.25, "ks", "ks_tex")
+            spec("reflect", 0.5, "kr")
+            spec("transmit", 0.5, "kt")
+            flt("roughness", 0.1, "rough_u", "rough_tex")
+            tab["rough_v"][i] = tab["rough_u"][i]
+            tab["remap"][i] = int(p.get("remaproughness", True))
+        else:  # mix (mixmat.cpp): sub-rows ia/ib, resolved by `amount`
+            amt, folded = _fold_const(p.get("amount"), 0.5)
+            a = _rgb(amt)
+            if not folded:
+                Warning("mix: textured `amount` is not supported; using "
+                        "its constant fallback for the selection probability")
+            if a.min() != a.max():
+                Warning("mix: colored `amount` selects by its channel MEAN "
+                        "(per-channel mix weights are approximated)")
+            if i in mix_sub:
+                ia, ib = mix_sub[i]
+                tab["mix_a"][i] = ia
+                tab["mix_b"][i] = ib
+                tab["mix_amt"][i] = float(np.clip(a.mean(), 0.0, 1.0))
+            # the row's own parameters: a diffuse blend, used only past
+            # the static nesting depth of the resolution
+            m1 = p.get("material1")
+            m2 = p.get("material2")
+            kd1, _ = _fold_const(m1.params.get("Kd") if m1 else None, 0.5)
+            kd2, _ = _fold_const(m2.params.get("Kd") if m2 else None, 0.5)
+            tab["kd"][i] = _rgb(kd1) * a + _rgb(kd2) * (1 - a)
+    if not (tab["mix_a"] >= 0).any():
+        del tab["mix_a"], tab["mix_b"], tab["mix_amt"]
     return tab
 
 
@@ -841,7 +960,33 @@ def compile_scene(api, device=None) -> CompiledScene:
             res=sd["res"],
         )
 
-    mtab = lower_materials(mat_records)
+    # -- materials: non-constant textures get ids in a registry that
+    # dedups them by structure, then become evaluators and one mip atlas
+    # (core/texture_eval.py)
+    deferred_textures: List = []
+    tex_ids: Dict[str, int] = {}
+
+    def tex_registry(node):
+        key = repr(node)
+        tid = tex_ids.get(key)
+        if tid is None:
+            tid = len(deferred_textures)
+            tex_ids[key] = tid
+            deferred_textures.append(node)
+        return tid
+
+    mtab = lower_materials(mat_records, tex_registry)
+    if any(rec.params.get("bumpmap") is not None for rec in mat_records):
+        Warning("bump textures are parsed but not applied (no shading-normal perturbation)")
+    tex_eval = tex_atlas = None
+    tex_used = set()
+    if deferred_textures:
+        from tpu_pbrt_torch.core.texture_eval import build_texture_table
+
+        tex_atlas, tex_eval = build_texture_table(deferred_textures)
+        tex_used = {name for slot, name in TEX_SLOTS if (mtab[slot] >= 0).any()}
+    tex_slot_ids = {name: tuple(int(v) for v in np.unique(mtab[slot][mtab[slot] >= 0]))
+                    for slot, name in TEX_SLOTS}
 
     # -- device upload -------------------------------------------------------
     from tpu_pbrt_torch.accel.wide import pad_tri_verts
@@ -888,6 +1033,24 @@ def compile_scene(api, device=None) -> CompiledScene:
         T9 = tab["tri_verts"].shape[0]
         tab["tri_verts9T"] = tab["tri_verts"].reshape(T9, 9).T.copy()
 
+    if tex_atlas is not None:
+        # the uv-parameterization derivatives per triangle (triangle.cpp
+        # dpdu/dpdv) for the ray-differential footprint, lane-major
+        # (8, T): dpdu (3), dpdv (3), padding (2)
+        duv02 = uvs[:, 0] - uvs[:, 2]
+        duv12 = uvs[:, 1] - uvs[:, 2]
+        dp02 = verts[:, 0] - verts[:, 2]
+        dp12 = verts[:, 1] - verts[:, 2]
+        det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+        safe = np.abs(det) > 1e-12
+        inv = 1.0 / np.where(safe, det, 1.0)
+        dpdu_raw = (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12) * inv[:, None]
+        dpdv_raw = (-duv12[:, 0:1] * dp02 + duv02[:, 0:1] * dp12) * inv[:, None]
+        dpdu_raw = np.where(safe[:, None], dpdu_raw, 0.0)
+        dpdv_raw = np.where(safe[:, None], dpdv_raw, 0.0)
+        tab["tri_difT"] = np.concatenate(
+            [dpdu_raw.T, dpdv_raw.T, np.zeros((2, len(verts)))], axis=0).astype(np.float32)
+        tab["tex_atlas"] = np.asarray(tex_atlas, np.float32)
     if light_atlas_chunks:
         tab["light_atlas"] = light_atlas
     if envmap is not None:
@@ -917,6 +1080,9 @@ def compile_scene(api, device=None) -> CompiledScene:
         has_envmap=envmap is not None,
         camera_medium_id=camera_medium_id,
         has_null_materials=bool(np.any(mtab["type"][mat_ids] == bxdf.MAT_NONE)),
+        tex_eval=tex_eval,
+        tex_used=frozenset(tex_used),
+        tex_slot_ids=tex_slot_ids,
     )
 
 

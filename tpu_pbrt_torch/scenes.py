@@ -1,11 +1,12 @@
 """Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
 killeroo-class mesh and the crown-class scene), and the cloud-class,
-caustic-glass-class and scene-breadth scenes.
+caustic-glass-class, scene-breadth and textured scenes.
 
 Same scene text and the same procedural meshes and sky as the reference,
 driven through the port's API, so both packages compile identical worlds.
-The reference has no cloud, caustic or breadth scene: `cloud_parts`,
-`caustic_parts` and `breadth_parts` hold their text and meshes, which the
+The reference has no cloud, caustic, breadth or textured scene:
+`cloud_parts`, `caustic_parts`, `breadth_parts` and `textured_parts`
+hold their text and meshes, which the
 port parses here and the JAX reference's generators (under
 tests/torch_golden/) parse through the JAX package's API.
 """
@@ -548,6 +549,206 @@ def make_breadth_like(res, spp, maxdepth=5, camera="perspective", filter="gaussi
                                     n_phi, n_height, n_curves, subdiv_levels)
     parse_string(head + f'Shape "plymesh" "string filename" ["{ply}"]\n' + tail, api,
                  render=False)
+    return api
+
+
+#: the sizes of the textured scene's images: ground albedo (sRGB PNG),
+#: ground roughness (linear PFM), the two panels (sRGB PNG)
+TEXTURED_IMAGES = dict(ground=2048, rough=512, panel=1024)
+#: the small textured scene (tests and goldens): its tessellation and images
+TEXTURED_SMALL = dict(n_theta=12, n_phi=24, n_height=17, ground=64, rough=16, panel=32)
+
+
+def _texture_images(ground: int, rough: int, panel: int, seed: int = 9) -> dict:
+    """The textured scene's images, made from `seed` with numpy: a brick
+    albedo (uint8 sRGB), a roughness map (f32 linear, 3 equal channels)
+    and two uint8 panels (a framed colour grid, a banded ramp)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:ground, 0:ground] / ground
+    row = np.floor(y * 16)
+    col = np.floor(x * 8 + 0.5 * (row % 2))
+    tint = rng.uniform(0.45, 0.9, (17, 9, 3))[row.astype(int) % 17, col.astype(int) % 9]
+    mortar = (np.minimum(y * 16 - row, 1 - (y * 16 - row)) < 0.06) | \
+        (np.minimum(x * 8 + 0.5 * (row % 2) - col, 1 - (x * 8 + 0.5 * (row % 2) - col)) < 0.03)
+    alb = np.where(mortar[..., None], 0.75, tint * np.array([0.85, 0.5, 0.35]))
+    alb = alb * rng.uniform(0.85, 1.0, (ground, ground, 1))
+    yr, xr = np.mgrid[0:rough, 0:rough] / rough
+    rgh = 0.15 + 0.7 * (0.5 + 0.5 * np.sin(2 * np.pi * (3 * xr + 2 * yr)))
+    rgh = rgh * rng.uniform(0.8, 1.0, (rough, rough))
+    yp, xp = np.mgrid[0:panel, 0:panel] / panel
+    cells = (np.floor(xp * 6) + np.floor(yp * 6)) % 3
+    grid = np.stack([0.2 + 0.3 * cells, 0.3 + 0.25 * (2 - cells), 0.6 - 0.2 * cells], -1)
+    edge = (np.minimum(xp, 1 - xp) < 0.04) | (np.minimum(yp, 1 - yp) < 0.04)
+    grid[edge] = 0.95
+    ramp = np.stack([xp, 0.5 + 0.4 * np.sin(12 * np.pi * yp), 1 - xp], -1)
+    u8 = lambda a: np.clip(np.rint(a * 255), 0, 255).astype(np.uint8)  # noqa: E731
+    return {"ground": u8(alb), "rough": np.repeat(rgh[..., None], 3, -1).astype(np.float32),
+            "panel_a": u8(grid), "panel_b": u8(np.clip(ramp, 0, 1))}
+
+
+def textured_files(n_theta: int = 180, n_phi: int = 360, ground: int = 2048, rough: int = 512,
+                   panel: int = 1024) -> dict:
+    """The textured scene's generated files, written once under
+    .torch_build/ by the port's imageio: the blob PLY (breadth_files), the
+    crown's sky, and the images of _texture_images as sRGB PNGs (ground,
+    panel_a, panel_b) and a linear PFM (rough). Returns their paths."""
+    from tpu_pbrt_torch.utils.imageio import write_pfm, write_png
+
+    tag = f"{ground}_{rough}_{panel}"
+    out = {"blob": breadth_files(n_theta, n_phi)["blob"], "env": _crown_envmap_path()}
+    imgs = None
+    for name, ext in (("ground", "png"), ("rough", "pfm"), ("panel_a", "png"),
+                      ("panel_b", "png")):
+        path = os.path.join(BUILD_DIR, f"textured_{name}_{tag}.{ext}")
+        if not os.path.exists(path) and imgs is None:
+            imgs = _texture_images(ground, rough, panel)
+        writer = write_png if ext == "png" else write_pfm
+        out[name] = _publish(path, lambda t, n=name, w=writer: w(t, imgs[n]))
+    return out
+
+
+#: the eight blob instances' materials, in instance order (their textures
+#: are declared in textured_parts)
+_TEXTURED_BLOB_MATERIALS = (
+    'Material "uber" "texture Kd" "checker2" "rgb Ks" [0.3 0.3 0.3] "float roughness" [0.08] '
+    '"texture opacity" "opac"',
+    'Material "translucent" "texture Kd" "marble" "rgb Ks" [0.2 0.2 0.2] '
+    '"rgb reflect" [0.6 0.6 0.6] "rgb transmit" [0.4 0.4 0.4] "float roughness" [0.2]',
+    'Material "mix" "string namedmaterial1" "mixuber" "string namedmaterial2" "mixmetal" '
+    '"rgb amount" [0.35 0.35 0.35]',
+    'Material "matte" "texture Kd" "wrinkled" "texture sigma" "windy"',
+    'Material "plastic" "texture Kd" "dots" "rgb Ks" [0.35 0.35 0.35] "float roughness" [0.05]',
+    'Material "substrate" "texture Kd" "bilerp" "rgb Ks" [0.06 0.06 0.06] '
+    '"float uroughness" [0.15] "float vroughness" [0.15]',
+    'Material "uber" "texture Kd" "checker3" "rgb Ks" [0.2 0.2 0.2] "float roughness" [0.15] '
+    '"texture bumpmap" "bumps"',
+    'Material "matte" "texture Kd" "fbm"',
+)
+
+
+def _instance_xform(i: int) -> tuple:
+    """(translate, rotate degrees, scale) of blob instance i."""
+    row, col = divmod(i, 4)
+    return ((-2.1 + 1.4 * col + 0.35 * (row % 2), -0.38, 0.2 + 1.3 * row), 37 * i,
+            0.42 + 0.02 * (i % 3))
+
+
+def textured_parts(res, spp, maxdepth=5, integrator="path", params="", n_theta=180, n_phi=360,
+                   n_height=257, ground=2048, rough=512, panel=1024):
+    """The textured scene as (texts, the blob's PLY path): the blob is
+    declared once between texts[k] and texts[k + 1] for each of its eight
+    `ObjectBegin`s, and texts[-1] follows the last. Its files are
+    textured_files'.
+
+    A stand-in for the material and texture mix of pbrt-v3-scenes'
+    san-miguel and villa: a `heightfield2` ground of n_height^2 heights in
+    `substrate` with an sRGB PNG `imagemap` albedo (uscale/vscale 8, wrap
+    repeat) and a `scale` of a linear PFM `imagemap` as its uroughness;
+    eight instances of the killeroo's blob, each its own `ObjectBegin`
+    with one material: `uber` (2D checkerboard, planar mapping, a `mix`
+    texture as opacity), `translucent` (marble), `mix` of `uber` and
+    `metal` (amount 0.35), `matte` (wrinkled Kd, windy sigma), `plastic`
+    (dots, spherical mapping), `substrate` (bilerp), `uber` (3D
+    checkerboard, with a bump map, which is parsed and not applied) and
+    `matte` (fbm); a sphere under a `uv` texture with cylindrical mapping
+    and two panels with PNG imagemaps under wrap black and wrap clamp.
+    The crown's HDR sky as an `infinite` light and a quad `diffuse` area
+    light; `perspective` camera, box filter, `zerotwosequence`;
+    `integrator` at `maxdepth` with `params` (more integrator parameters
+    as scene text). Textures under a transform are declared inside
+    `TransformBegin` (named textures are part of the graphics state that
+    `AttributeEnd` restores)."""
+    f = textured_files(n_theta, n_phi, ground, rough, panel)
+    head = f"""
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}] {params}
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.6 -4.4  0 0.0 1.2  0 1 0
+Camera "perspective" "float fov" [45]
+WorldBegin
+LightSource "infinite" "string mapname" ["{f['env']}"] "rgb scale" [0.6 0.6 0.6]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [7 6.6 6]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 3.2 0.5  1 3.2 0.5  1 3.2 2.5  -1 3.2 2.5]
+AttributeEnd
+Texture "groundkd" "spectrum" "imagemap" "string filename" ["{f['ground']}"] "bool gamma" "true" "string wrap" "repeat" "float uscale" [8] "float vscale" [8]
+Texture "roughmap" "float" "imagemap" "string filename" ["{f['rough']}"] "bool gamma" "false"
+Texture "groundrough" "float" "scale" "texture tex1" "roughmap" "float tex2" [0.3]
+Texture "checker2" "spectrum" "checkerboard" "string mapping" "planar" "vector v1" [4 0 1] "vector v2" [0 4 1] "rgb tex1" [0.85 0.8 0.7] "rgb tex2" [0.15 0.2 0.45]
+Texture "opacamt" "float" "fbm" "integer octaves" [4]
+Texture "opac" "spectrum" "mix" "rgb tex1" [1 1 1] "rgb tex2" [0.5 0.5 0.5] "texture amount" "opacamt"
+TransformBegin
+Scale 0.25 0.25 0.25
+Texture "marble" "spectrum" "marble" "float scale" [1.5] "float variation" [0.5]
+Texture "wrinkled" "spectrum" "wrinkled" "integer octaves" [6] "float roughness" [0.6]
+Texture "checker3" "spectrum" "checkerboard" "integer dimension" [3] "rgb tex1" [0.8 0.75 0.2] "rgb tex2" [0.2 0.3 0.6]
+Texture "fbm" "spectrum" "fbm" "integer octaves" [6]
+Texture "bumps" "float" "fbm" "integer octaves" [3]
+TransformEnd
+TransformBegin
+Scale 0.5 0.5 0.5
+Texture "windy" "float" "windy"
+TransformEnd
+TransformBegin
+Translate {_instance_xform(4)[0][0]:.3f} -0.38 {_instance_xform(4)[0][2]:.3f}
+Texture "dots" "spectrum" "dots" "string mapping" "spherical" "rgb inside" [0.9 0.2 0.1] "rgb outside" [0.9 0.85 0.75]
+TransformEnd
+Texture "bilerp" "spectrum" "bilerp" "rgb v00" [0.9 0.1 0.1] "rgb v01" [0.1 0.9 0.1] "rgb v10" [0.1 0.1 0.9] "rgb v11" [0.9 0.9 0.2]
+MakeNamedMaterial "mixuber" "string type" "uber" "texture Kd" "checker2" "rgb Ks" [0.2 0.2 0.2] "float roughness" [0.1]
+MakeNamedMaterial "mixmetal" "string type" "metal" "float roughness" [0.05]
+AttributeBegin
+Material "substrate" "texture Kd" "groundkd" "rgb Ks" [0.04 0.04 0.04] "texture uroughness" "groundrough" "float vroughness" [0.12]
+Translate -6 -0.8 6
+Rotate -90 1 0 0
+Scale 12 12 1
+{_heightfield_text(n_height)}
+AttributeEnd
+AttributeBegin
+Translate 2.6 -0.3 3.4
+Rotate -90 1 0 0
+Texture "uvcyl" "spectrum" "uv" "string mapping" "cylindrical"
+Material "matte" "texture Kd" "uvcyl"
+Shape "sphere" "float radius" [0.5]
+AttributeEnd
+Texture "panela" "spectrum" "imagemap" "string filename" ["{f['panel_a']}"] "string wrap" "black"
+Texture "panelb" "spectrum" "imagemap" "string filename" ["{f['panel_b']}"] "string wrap" "clamp"
+AttributeBegin
+Material "matte" "texture Kd" "panela"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-3.4 -0.8 4.6  -1.2 -0.8 4.6  -1.2 1.4 4.6  -3.4 1.4 4.6] "float uv" [-0.25 -0.25  1.25 -0.25  1.25 1.25  -0.25 1.25]
+AttributeEnd
+AttributeBegin
+Material "matte" "texture Kd" "panelb"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [0.6 -0.8 4.6  2.8 -0.8 4.6  2.8 1.4 4.6  0.6 1.4 4.6] "float uv" [-0.25 -0.25  1.25 -0.25  1.25 1.25  -0.25 1.25]
+AttributeEnd
+"""
+    texts = [head]
+    for i, mat in enumerate(_TEXTURED_BLOB_MATERIALS):
+        texts[-1] += f'ObjectBegin "blob{i}"\n{mat}\n'
+        texts.append("ObjectEnd\n")
+    for i in range(len(_TEXTURED_BLOB_MATERIALS)):
+        (x, y, z), rot, sc = _instance_xform(i)
+        texts[-1] += (f"AttributeBegin\nTranslate {x:.3f} {y:.3f} {z:.3f}\nRotate {rot} 0 1 0\n"
+                      f'Scale {sc:.3f} {sc:.3f} {sc:.3f}\nObjectInstance "blob{i}"\nAttributeEnd\n')
+    return texts, f["blob"]
+
+
+def make_textured_like(res=512, spp=16, maxdepth=5, integrator="path", params="", n_theta=180,
+                       n_phi=360, n_height=257, ground=2048, rough=512, panel=1024, options=None,
+                       device=None) -> PbrtAPI:
+    """The textured stand-in (`textured_parts`): every texture kind and
+    mapping and wrap mode, the uber, substrate, translucent and mix
+    materials; 1,166,214 triangles at the defaults (8 x 128,880 instanced
+    blob triangles, a 131,072-triangle heightfield, a 4,096-triangle
+    sphere, three quads) and an atlas of 8,738,132 texels (the 2048^2,
+    512^2 and two 1024^2 images with their pyramids). The blob is a
+    `Shape "plymesh"`. Parsed up to (not including) WorldEnd;
+    `make_textured_like(16, 4, **TEXTURED_SMALL)` is the small variant."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    texts, ply = textured_parts(res, spp, maxdepth, integrator, params, n_theta, n_phi,
+                                n_height, ground, rough, panel)
+    blob = f'Shape "plymesh" "string filename" ["{ply}"]\n'
+    parse_string(blob.join(texts), api, render=False)
     return api
 
 
