@@ -15,7 +15,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      S=2^17 with 10 entry-distance key bits, closest-hit), and the fixed
      batch's first 2^20-ray camera wave
      (flush F=16; expand in closest-hit and any-hit mode); a synthetic
-     F=64 (motion feature) flush, and the seeded exact-tie flush chunk of
+     F=64 (motion feature) flush on that wave's chunk with random ray
+     times (its plain version's and torch.bmm's times beside it, under
+     "synthetic_f64"), and the seeded exact-tie flush chunk of
      kernels/fixtures.py at L=512 (prim must match exactly); print each
      kernel's device time per call (torch.profiler, summed over its
      kernels), the wrapper's host time per call, the plain version's and
@@ -159,18 +161,43 @@ Phases, each fatal on failure (exit code 1, no result line):
      (TEXTURED_SMALL; MSE bar 1e-4, rays printed); `bdpt` (mix lanes
      resolved per vertex) at 32x32x16 against
      tests/torch_golden/textured_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4);
- 10. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+ 10. motion — motion blur, disney and hair on make_motion_like() at its
+     full geometry (1,042,004 triangles: 20,480 cubic-Bezier hair
+     segments in three `curve` shapes under `Material "hair"`, one per way
+     it resolves sigma_a, translating over the shutter; three
+     `ObjectInstance`s of the 128,880-triangle blob in disney, one of them
+     translating and one rotating; a disney ground, the crown's sky and a
+     quad area light; `path` at maxdepth 5, shutter [0, 1]):
+     [scene] its sizes, treelets, the F = 64 featT's bytes and compile
+     seconds;
+     [check] both kernels against their plain versions, EXACT, on the
+     512x512x16 render's pool wave 1 of its middle chunk (packed flush
+     key, F = 64, each lane's own shutter time in rayF row 7) and its
+     middle chunk's first fixed-batch 2^20-ray camera wave (unpacked key,
+     the camera samples' times), timed as in phase 2 (the bound, the
+     plain version and torch.bmm of the same 64-row contraction);
+     [render] that render through the pool and the fixed batch (the same
+     rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves,
+     the card's name and power limit), its launches counted as in phase 3
+     (the F = 64 flush must launch); `path` 64x64x64 through the pool and
+     the fixed batch against the JAX CPU reference
+     tests/torch_golden/motion_path_cpu_64x64_64spp.npz and `bdpt` (the
+     shutter-start frame, disney and hair shaded through BDPT) at
+     32x32x16 against motion_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4, no
+     pair dropped, rays printed beside the reference's); the card
+     against the CPU port at 32x32x4 on the small variant (MSE bar 1e-4);
+ 11. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
- 11. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 12. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
      caustic's connection and photon waves under "caustic"; the breadth
      scene's pool and fixed waves under "breadth", the textured scene's
-     under "textured"), the card's name and
+     under "textured", the motion scene's under "motion"), the card's name and
      power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -235,6 +262,14 @@ TEXTURED_RES, TEXTURED_SPP = 512, 16
 #: the profiled textured render: 2^18 camera rays (a trace's parse time
 #: follows its device ops, which follow its waves)
 TEXTURED_PROFILE = (256, 4)
+#: the JAX CPU references of the motion scene (path 64x64x64, bdpt 32x32x16;
+#: path at 64 spp: a few hair paths take another way at the last bits of
+#: the two libraries' transcendentals, a squared difference that falls as
+#: 1/spp, and 16 spp read 1.14e-4)
+MOTION_REF = os.path.join(GOLDEN, "motion_path_cpu_64x64_64spp.npz")
+MOTION_BDPT_REF = os.path.join(GOLDEN, "motion_bdpt_cpu_32x32_16spp.npz")
+#: the timed motion render, whose pool and fixed waves the kernels are checked on
+MOTION_RES, MOTION_SPP = 512, 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -261,11 +296,32 @@ def card_line() -> str:
         return "nvidia-smi: not available"
 
 
+def _event_ms(fn, reps: int) -> float:
+    """Device time per call from CUDA events around `reps` calls that the
+    host enqueues while the card sleeps in a spin kernel, so the calls run
+    back to back and no host launch gap enters (the device's own gaps
+    between kernels do)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms of device cycles: the host enqueues meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_time_ms(fn, reps: int, warmup: int = 2):
     """Device time per call of `fn`: the CUDA kernels (and copies) that
     `reps` calls launch, summed by name from a torch.profiler trace, over
     `reps`. Returns (ms per call, {kernel name: ms per call}). The host's
-    work around the launches is not in it (see host_ms)."""
+    work around the launches is not in it (see host_ms). The trace is
+    checked against CUDA events (_event_ms): where it holds less than
+    half of their time, it has lost kernels (seen after a long profiled
+    render earlier in the process) and the events' time is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,21 +338,13 @@ def device_time_ms(fn, reps: int, warmup: int = 2):
                 and not getattr(ev, "is_user_annotation", False)):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
     total = sum(by_name.values())
-    if total <= 0:
-        # the profiler can come back empty (seen once, late in a run after
-        # the CLI's subprocesses had used the card): time with CUDA events,
-        # which also count the device's idle gaps between the launches
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        total = start.elapsed_time(end) / reps
-        log(f"[timing] the profiler recorded no device time: CUDA events instead, {total:.4f} ms")
-        if total <= 0:
+    events = _event_ms(fn, reps)
+    if total < 0.5 * events:
+        log(f"[timing] the profiler holds {total:.4f} ms of {events:.4f} ms by CUDA events: "
+            f"the events' time instead")
+        if events <= 0:
             raise SmokeFailure("neither the profiler nor CUDA events recorded device time")
-        by_name = {"(CUDA events)": total}
+        total, by_name = events, {"(CUDA events)": events}
     return total, by_name
 
 
@@ -410,18 +458,24 @@ def _capture_wave_inputs(scene, integ, chunk: int = 0):
 
     from tpu_pbrt_torch.accel import stream
 
+    from tpu_pbrt_torch.integrators.common import DIM_TIME
+
     dev = scene.dev
     plan = integ.prepare_chunks(scene)
     x0, x1, y0, _ = plan.bounds
     k = torch.arange(plan.chunk, dtype=torch.int32, device=scene.device)
-    _, _, _, _, _, o, d, _ = integ.work_to_rays(
+    _, px, py, s, _, o, d, _ = integ.work_to_rays(
         scene.camera, plan.spp, x0, y0, x1 - x0, plan.npix, *plan.start(chunk), k
     )
+    # a motion scene's camera samples trace at their shutter times, as the
+    # fixed batch draws them
+    ray_time = integ.u1d(px, py, s, DIM_TIME) if "tri_verts1" in dev else None
     cap = {"rays": (o, d)}
     restore = _hook_kernels(cap, lambda: True)
     try:
         hit = stream.stream_intersect(dev["tstream"], dev["tri_verts"], o, d, float("inf"),
-                                      tv9T=dev["tri_verts9T"])
+                                      time=ray_time, tri_verts1=dev.get("tri_verts1"),
+                                      tv9T=dev["tri_verts9T"], tv9T1=dev.get("tri_verts1_9T"))
     finally:
         restore()
     missing = {"flush", "expand"} - set(cap)
@@ -601,21 +655,21 @@ def _flush_numbers(fa, count, label, exact=False):
 
     from tpu_pbrt_torch.kernels.flush import flush_chunk, flush_chunk_plain
 
-    CH = fa[1].shape[0]
-    err = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"{label}: flush F=16 CH={CH}",
+    CH, F = fa[1].shape[0], fa[0].shape[1]
+    err = _compare_flush(flush_chunk(*fa), flush_chunk_plain(*fa), f"{label}: flush F={F} CH={CH}",
                          exact=exact)
     ms, parts = device_time_ms(lambda: flush_chunk(*fa), reps=20)
     h_ms = host_ms(lambda: flush_chunk(*fa), reps=20)
     plain_ms, _ = device_time_ms(lambda: flush_chunk_plain(*fa), reps=3, warmup=1)
     tids = fa[1][:, 0].long()
     n_live = int((fa[1][:, 5] > 0).sum())
-    phiT = torch.randn(fa[1].shape[0], 128, 16, device=fa[0].device)
+    phiT = torch.randn(fa[1].shape[0], 128, F, device=fa[0].device)
     featg = fa[0][tids].contiguous()
     lib_ms, lib_parts = device_time_ms(lambda: torch.bmm(phiT, featg), reps=10)
     del phiT, featg
     bound, by = _flush_bound(fa, count)
     padded, _ = _flush_bound_padded(fa)
-    log(f"[check] {label}: flush F=16: kernel {ms:.4f} ms device ({_by_kernel(parts)}), host "
+    log(f"[check] {label}: flush F={F}: kernel {ms:.4f} ms device ({_by_kernel(parts)}), host "
         f"{h_ms:.4f} ms per call, plain {plain_ms:.4f} ms, torch.bmm contraction {lib_ms:.4f} ms "
         f"({_by_kernel(lib_parts)}), bound {bound:.4f} ms ({by}; {padded:.4f} with the zero "
         f"padding); live blocks {n_live}")
@@ -649,14 +703,17 @@ def _expand_numbers(ea, label):
 
 
 def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packed=True,
-                 extra=None):
+                 extra=None, features=16):
     """Both kernels at a scene's pool wave (the top-level numbers; its flush
     key must pack) and at its fixed batch's first camera wave of chunk
     `fixed_chunk` (under "at_fixed_wave"; its key packed iff
     `fixed_packed`), and the any-hit expand on that wave's slab.
     `extra(flush_args)` runs on the fixed wave's flush capture and returns
-    an error folded into max_abs_err. Returns (numbers, the camera wave's
-    rays)."""
+    numbers kept under "synthetic_f64", their max_abs_err folded into the
+    flush's.
+    Both waves' flush tables must have `features` rows (16, or 64 with the
+    cubic-in-time motion features, whose rays carry their shutter times in
+    rayF row 7). Returns (numbers, the camera wave's rays)."""
     import torch
 
     from tpu_pbrt_torch.accel.stream import _ray_bits, flush_geometry
@@ -679,6 +736,7 @@ def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packe
     if R != 2 * plan.pool or n_shadow == 0 or not packed(R):
         raise SmokeFailure(f"{label}pool wave: expected a packed 2x{plan.pool}-ray wave with "
                            f"live shadow rays, got {R} rays, {n_shadow} shadow rays live")
+    _check_features(pcap["flush"], features, f"{label}pool wave")
     out = {"flush_chunk": _flush_numbers(pcap["flush"], tp.count, f"{label}pool wave", exact),
            "expand": _expand_numbers(pcap["expand"], f"{label}pool wave")}
     del pcap
@@ -692,10 +750,12 @@ def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packe
     if packed(R) != fixed_packed:
         raise SmokeFailure(f"{label}fixed wave: expected a {'packed' if fixed_packed else 'unpacked'}"
                            " flush key")
+    _check_features(cap["flush"], features, f"{label}fixed wave")
     fixed = {"flush_chunk": _flush_numbers(cap["flush"], tp.count, f"{label}fixed wave", exact)}
     if extra is not None:
+        out["flush_chunk"]["synthetic_f64"] = extra(cap["flush"])
         out["flush_chunk"]["max_abs_err"] = max(out["flush_chunk"]["max_abs_err"],
-                                                extra(cap["flush"]))
+                                                out["flush_chunk"]["synthetic_f64"]["max_abs_err"])
     # expand closest-hit (timed) and any-hit (exactness only: the render
     # path traces closest-hit waves only)
     fixed["expand"] = _expand_numbers(cap["expand"], f"{label}fixed wave")
@@ -712,6 +772,21 @@ def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packe
     return out, rays
 
 
+def _check_features(fa, features, label):
+    """A captured flush chunk's table has `features` rows; at F = 64 its
+    live slots' rays carry shutter times (rayF row 7), not all zero."""
+    import torch
+
+    feat, meta, rows, rayF = fa[:4]
+    live = rows[(rows >= 0) & (meta[:, 5] > 0)[:, None]].long()
+    times = rayF[7, live]
+    log(f"[check] {label}: feature rows F = {feat.shape[1]}, {live.numel()} filled slots, ray "
+        f"times in [{float(times.min()):.4f}, {float(times.max()):.4f}]")
+    if feat.shape[1] != features or (features == 64) != bool(torch.any(times != 0)):
+        raise SmokeFailure(f"{label}: expected F = {features} with "
+                           f"{'real' if features == 64 else 'zero'} ray times")
+
+
 def phase_check(scene, integ):
     """Both kernels at the main path's shapes (_check_waves), plus the tie
     fixture and the F=64 (motion feature) flush on the fixed wave's chunk."""
@@ -722,15 +797,8 @@ def phase_check(scene, integ):
     def flush_f64(fa):
         t1 = time.perf_counter()
         fm = _motion_table(scene, fa)
-        err64 = _compare_flush(flush_chunk(*fm), flush_chunk_plain(*fm),
-                               f"flush F=64 CH={fa[1].shape[0]}")
-        ms64, parts64 = device_time_ms(lambda: flush_chunk(*fm), reps=10)
-        bound64, by64 = _flush_bound(fm, scene.dev["tstream"].count)
-        padded64, _ = _flush_bound_padded(fm)
-        log(f"[check] flush F=64: kernel {ms64:.4f} ms device ({_by_kernel(parts64)}), bound "
-            f"{bound64:.4f} ms ({by64}; {padded64:.4f} with the zero padding) "
-            f"(table built in {time.perf_counter() - t1:.1f} s)")
-        return err64
+        log(f"[check] synthetic F=64 table built in {time.perf_counter() - t1:.1f} s")
+        return _flush_numbers(fm, scene.dev["tstream"].count, "synthetic F=64 table")
 
     return _check_waves(scene, integ, extra=flush_f64)[0]
 
@@ -958,13 +1026,13 @@ def _capture_first_wave(run, any_hit: bool, label: str, when=lambda: True):
     state = {"in_wave": False, "flushes": 0, "expands": 0}
     real_trav, real_expand, real_flush = stream._traverse, stream.expand, stream.flush_chunk
 
-    def traverse(tp, o, d, t_max, mode):
+    def traverse(tp, o, d, t_max, mode, time=None):
         if mode != any_hit or state["in_wave"] or not when():
-            return real_trav(tp, o, d, t_max, mode)
+            return real_trav(tp, o, d, t_max, mode, time=time)
         live = t_max > 0
         state.update(in_wave=True, rays=o.shape[0], live=int(live.sum()),
                      finite=bool(torch.isfinite(t_max[live]).all()))
-        s = real_trav(tp, o, d, t_max, mode)
+        s = real_trav(tp, o, d, t_max, mode, time=time)
         state["hits"] = int((s.prim >= 0).sum())
         raise _Captured
 
@@ -1752,6 +1820,115 @@ def phase_textured():
 
 # -- phase 10 ------------------------------------------------------------------
 
+def _motion(res, spp, device, **kw):
+    from tpu_pbrt_torch.scenes import compile_api, make_motion_like
+
+    return compile_api(make_motion_like(res, spp, device=device, **kw))
+
+
+def phase_motion():
+    """Motion blur, disney and hair on the card (see the module doc, phase
+    10): the kernels on the 512x512x16 render's pool and fixed waves (F =
+    64, real ray times), that render timed through both, `path` 64x64x64
+    and `bdpt` 32x32x16 against the JAX CPU references, and the card
+    against the CPU port. Returns {kernel: numbers at the pool wave (the
+    fixed wave's under "at_fixed_wave"), with the timed renders' launches
+    and Mray/s}."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, integ = _motion(MOTION_RES, MOTION_SPP, "cuda")
+    secs = time.perf_counter() - t0
+    tp = scene.dev["tstream"]
+    types = np.unique(scene.dev["mat"]["type"].cpu().numpy()).tolist()
+    log(f"[scene] motion: {scene.n_tris} triangles, {tp.n_treelets} treelets of {tp.leaf_tris}, "
+        f"{tp.top.child_bmin.shape[0]} top-tree nodes, featT F = {tp.n_features} "
+        f"({tp.featT.numel() * 4 / 1e9:.3f} GB f32), tri_verts1 "
+        f"{'tri_verts1' in scene.dev}, tri_tanT {'tri_tanT' in scene.dev}, material types "
+        f"{types}, compiled in {secs:.2f} s")
+    if (scene.n_tris != 1_042_004 or tp.n_features != 64 or "tri_verts1" not in scene.dev
+            or "tri_tanT" not in scene.dev or not {9, 10} <= set(types)):
+        raise SmokeFailure("motion: expected 1,042,004 triangles with the F = 64 pack, the "
+                           "shutter-end keyframe, the hair tangents and disney + hair rows")
+
+    # [check] both kernels, exact, at the pool wave (real ray times per
+    # regenerated lane) and the middle chunk's first fixed-batch camera
+    # wave (2^20 rays: the unpacked flush key)
+    n_chunks = integ.prepare_chunks(scene).n_chunks
+    out, _ = _check_waves(scene, integ, "motion ", fixed_chunk=n_chunks // 2, exact=True,
+                          fixed_packed=False, features=64)
+
+    # [render] the 512x512x16 render through the pool and the fixed batch
+    pool, p_l = _render_counted(integ, scene, regen=True)
+    _log_render(f"motion pool {MOTION_RES}x{MOTION_RES}x{MOTION_SPP}", pool, p_l)
+    fixed, f_l = _render_counted(integ, scene, regen=False)
+    _log_render(f"motion fixed {MOTION_RES}x{MOTION_RES}x{MOTION_SPP}", fixed, f_l)
+    close = np.isclose(pool.image, fixed.image, rtol=1e-4, atol=1e-5)
+    log(f"[motion] {MOTION_RES}x{MOTION_RES}x{MOTION_SPP}: pool {pool.mray_per_sec:.4f} Mray/s, "
+        f"fixed {fixed.mray_per_sec:.4f} Mray/s (pool/fixed "
+        f"{pool.mray_per_sec / max(fixed.mray_per_sec, 1e-9):.3f}); rays {pool.rays_traced} / "
+        f"{fixed.rays_traced}; pool waves {pool.stats['n_waves']}, occupancy "
+        f"{pool.stats['mean_wave_occupancy']:.4f}; image mean {pool.image.mean():.6f}, pixel "
+        f"channels outside rtol 1e-4 / atol 1e-5 of the fixed batch: {int((~close).sum())}; "
+        f"dropped {pool.stats['n_drop']} / {fixed.stats['n_drop']}; {card_line()}")
+    if (not np.isfinite(pool.image).all() or not pool.image.mean() > 1e-6
+            or pool.rays_traced != fixed.rays_traced or not close.all()
+            or pool.stats["n_drop"] or fixed.stats["n_drop"]
+            or not p_l["flush_chunk"] > 0 or not f_l["flush_chunk"] > 0):
+        raise SmokeFailure("motion 512x512: the pool and the fixed batch disagree, the image is "
+                           "not a finite lit render, pairs dropped, or the F = 64 flush never ran")
+    for name in out:
+        out[name].update(launches=p_l[name], launches_fixed=f_l[name],
+                         mray_per_sec=pool.mray_per_sec, fixed_mray_per_sec=fixed.mray_per_sec,
+                         res=MOTION_RES, spp=MOTION_SPP)
+    del scene, integ, pool, fixed
+    torch.cuda.empty_cache()
+
+    # [render] path 64x64x64 against the JAX CPU reference, pool and fixed batch
+    ref = np.load(MOTION_REF)
+    t0 = time.perf_counter()
+    scene, integ = _motion(64, 64, "cuda")
+    secs = time.perf_counter() - t0
+    for regen in (True, False):
+        res, launches = _render_counted(integ, scene, regen=regen)
+        label = f"motion {'pool' if regen else 'fixed'} 64x64x64"
+        _log_render(f"{label} (compiled in {secs:.2f} s)", res, launches)
+        _against(label, res.image, res.rays_traced, ref, res.stats["n_drop"], tag="motion")
+    del scene, integ
+
+    # [render] bdpt (the shutter-start frame; disney and hair through BDPT)
+    ref = np.load(MOTION_BDPT_REF)
+    t0 = time.perf_counter()
+    scene, integ = _motion(32, 16, "cuda", integrator="bdpt")
+    res = integ.render(scene)
+    log(f"[motion] bdpt 32x32x16: {res.seconds:.3f} s, {res.mray_per_sec:.4f} Mray/s "
+        f"({time.perf_counter() - t0:.1f} s with the compile)")
+    _against("motion bdpt 32x32x16", res.image, res.rays_traced, ref, res.stats["n_drop"],
+             tag="motion")
+    del scene, integ, res
+
+    # the card against the CPU port on the small variant
+    t0 = time.perf_counter()
+    got = {}
+    for device in ("cuda", "cpu"):
+        scene, integ = _motion(32, 4, device, small=True)
+        r = integ.render(scene)
+        got[device] = (r.image, r.rays_traced)
+    (a, ra), (b, rb) = got["cuda"], got["cpu"]
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    log(f"[motion] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
+        f"{mse:.3e} (bar {MSE_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
+        f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
+    if not mse < MSE_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+        raise SmokeFailure(f"motion: the card and the CPU port differ (MSE {mse:.3e})")
+    log(f"[motion] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 11 ------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed, which
@@ -1819,6 +1996,7 @@ def main() -> int:
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
             and os.path.exists(CLOUD_REF) and os.path.exists(BREADTH_REF.format("realistic"))
             and os.path.exists(TEXTURED_REF) and os.path.exists(TEXTURED_BDPT_REF)
+            and os.path.exists(MOTION_REF) and os.path.exists(MOTION_BDPT_REF)
             and os.path.exists(os.path.join(GOLDEN, "make_caustic_reference.py"))):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
@@ -1867,6 +2045,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kt_t = phase_textured()
         torch.cuda.empty_cache()
+        kt_m = phase_motion()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -1876,12 +2056,13 @@ def main() -> int:
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
-                     breadth=kt_b[name], textured=kt_t[name])
+                     breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],
                                    kt_c[name]["photon"]["max_abs_err"],
-                                   kt_b[name]["max_abs_err"], kt_t[name]["max_abs_err"])
+                                   kt_b[name]["max_abs_err"], kt_t[name]["max_abs_err"],
+                                   kt_m[name]["max_abs_err"])
             return k
 
         kernels = [

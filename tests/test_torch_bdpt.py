@@ -227,63 +227,33 @@ def test_convert_density_matches_reference(surface):
            jbdpt._convert_density(*(x[0] for x in args), surface), what="_convert_density")
 
 
-def _cornell_pair():
-    sj, ij = jscenes.compile_api(jscenes.make_cornell(res=16, spp=4, integrator="bdpt",
-                                                      maxdepth=5))
-    st, it = tscenes.compile_api(tscenes.make_cornell(res=16, spp=4, integrator="bdpt",
-                                                      maxdepth=5, device="cpu"))
-    return sj, ij, st, it
-
-
 @pytest.mark.parametrize("mode", ["radiance", "importance"])
 def test_walk_matches_reference(mode):
-    sj, ij, st, it = _cornell_pair()
-    R = 1024
-    rng = np.random.default_rng(15)
-    px = rng.integers(0, 16, R).astype(np.int32)
-    py = rng.integers(0, 16, R).astype(np.int32)
-    s = rng.integers(0, 4, R).astype(np.int32)
-    if mode == "radiance":
-        pf = np.stack([px + rng.uniform(0, 1, R), py + rng.uniform(0, 1, R)], -1)
-        o, d, _ = jcam.generate_rays(sj.camera, jnp.asarray(pf.astype(np.float32)),
-                                     jnp.zeros((R, 2), jnp.float32))
-        o, d = np.asarray(o), np.asarray(d)
-        n0, beta, pdf_dir = d, np.ones((R, 3), np.float32), np.asarray(
-            jcam.camera_pdf_we(sj.camera, jnp.asarray(d))[1])
-        alive, surf = np.ones(R, bool), None
-    else:
-        u = rng.uniform(0, 1, (5, R)).astype(np.float32)
-        les = jld.sample_le(sj.dev, sj.light_distr, *map(jnp.asarray, u))
-        o = np.asarray(jnp.where(les.is_delta[:, None], les.p,
-                                 jbdpt.offset_ray_origin(les.p, les.n, les.d)))
-        d, n0 = np.asarray(les.d), np.asarray(les.n)
-        beta = np.asarray(les.le / (les.pmf * les.pdf_pos)[:, None])
-        pdf_dir, alive, surf = np.asarray(les.pdf_dir), np.asarray(les.supported), \
-            ~np.asarray(les.is_delta)
-    salt = 0 if mode == "radiance" else 3011
-    paths = []
-    for pkg, integ, dev, lib in (("jax", ij, sj.dev, jnp), ("torch", it, st.dev, torch)):
-        conv = (jnp.asarray if pkg == "jax" else
-                (lambda x: torch.from_numpy(np.array(x, copy=True))))
-        path = (jbdpt._Path(R, 6) if pkg == "jax" else tbdpt._Path(R, 6, "cpu"))
-        path.set(0, p=conv(o), ng=conv(n0), ns=conv(n0), valid=conv(alive))
-        nrays, l_env = integ._walk(
-            dev, path, conv(o), conv(d), conv(beta), conv(pdf_dir), conv(alive), conv(px),
-            conv(py), conv(s), salt, 5, mode,
-            origin_surface=None if surf is None else conv(surf))
-        paths.append((path, nrays))
-    (pa, na), (pb, nb) = paths
-    np.testing.assert_array_equal(nb.numpy(), np.asarray(na))
+    """BDPT's walk of 1,024 camera or light subpaths on the small Cornell
+    box against the reference's walk of the same inputs
+    (tests/torch_golden/make_module_reference.py: bdpt_walk_<mode>.npz,
+    the reference run as under pytest)."""
+    st, it = tscenes.compile_api(tscenes.make_cornell(res=16, spp=4, integrator="bdpt",
+                                                      maxdepth=5, device="cpu"))
+    ref = np.load(os.path.join(GOLDEN, f"bdpt_walk_{mode}.npz"))
+    x = {k[3:]: torch.from_numpy(np.array(ref[k])) for k in ref.files if k.startswith("in_")}
+    R = x["o"].shape[0]
+    path = tbdpt._Path(R, 6, "cpu")
+    path.set(0, p=x["o"], ng=x["n0"], ns=x["n0"], valid=x["alive"])
+    nb, _ = it._walk(st.dev, path, x["o"], x["d"], x["beta"], x["pdf_dir"], x["alive"], x["px"],
+                     x["py"], x["s"], 0 if mode == "radiance" else 3011, 5, mode,
+                     origin_surface=x.get("surf"))
+    np.testing.assert_array_equal(nb.numpy(), ref["nrays"])
     for f in ("mat", "light", "delta", "valid"):
-        np.testing.assert_array_equal(getattr(pb, f).numpy(), np.asarray(getattr(pa, f)), f)
-    assert np.asarray(pa.valid)[:, 2].mean() > 0.3
+        np.testing.assert_array_equal(getattr(path, f).numpy(), ref[f"path_{f}"], f)
+    assert ref["path_valid"][:, 2].mean() > 0.3
     for f in ("p", "ng", "ns", "beta"):
-        _close(getattr(pb, f), getattr(pa, f), rtol=2e-5, atol=2e-5, what=f"{mode} _walk.{f}")
+        _close(getattr(path, f), ref[f"path_{f}"], rtol=2e-5, atol=2e-5, what=f"{mode} _walk.{f}")
     # area densities divide by the squared distance between two vertices,
     # which cancels where a path hits two nearby surfaces (a corner): an
     # ulp of position there is a larger relative step in the density
     for f in ("pdf_fwd", "pdf_rev"):
-        a, b = np.asarray(getattr(pa, f)), getattr(pb, f).numpy()
+        a, b = ref[f"path_{f}"], getattr(path, f).numpy()
         rel = np.abs(b - a) / np.maximum(np.abs(a), 1e-6)
         assert rel.max() < WALK_PDF_RTOL and (rel < 2e-5).mean() > 0.99, (f, rel.max())
 

@@ -7,11 +7,13 @@
 - The chains lane for lane: from the same seeds, the first STEPS
   Metropolis steps of every chain (large and small mutations, the
   Kelemen-weighted splats, the accept test) against the reference's step,
-  restated here with its own f(U) and sample streams: every chain's
+  restated with its own f(U) and sample streams: every chain's
   accept decision must match EXACTLY at every step, the chain states and
   the splat plane to STATE_RTOL / STATE_ATOL. One accept that flips reroutes a chain
   for good (the chains are chaotic), so this is the check that holds the
-  port to the reference.
+  port to the reference. The reference's side of both is stored by
+  tests/torch_golden/make_module_reference.py (mlt_parts.npz), run as
+  the tests would run it.
 - The whole render against the JAX CPU golden `mlt_cornell`
   (tests/torch_golden/make_golden.py: 512 chains, 32 mutations per pixel,
   maxdepth 3) within GOLDEN_MSE (measured value beside it), with the
@@ -27,12 +29,8 @@ import sys
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
 import torch
 
-from tpu_pbrt import scenes as jscenes
-from tpu_pbrt.core.sampling import uniform_float as juniform
 from tpu_pbrt_torch import scenes as tscenes
 from tpu_pbrt_torch.integrators import mlt as tmlt
 from tpu_pbrt_torch.scene.api import Options as TOptions
@@ -59,18 +57,14 @@ C, STEPS = 512, 4
 GOLDEN_MSE = 1e-12
 
 
-def _pair(md=3):
-    sj, ij = jscenes.compile_api(jscenes.make_cornell(res=16, spp=1, integrator="mlt",
-                                                      maxdepth=md))
-    st, it = tscenes.compile_api(tscenes.make_cornell(res=16, spp=1, integrator="mlt",
-                                                      maxdepth=md, device="cpu"))
-    return sj, ij, st, it
-
-
 @pytest.fixture(scope="module")
-def pair():
-    sj, ij, st, it = _pair()
-    return sj, ij, jax.jit(ij._f), st, it
+def port():
+    """The port's Cornell box under `mlt` (maxdepth 3) and the reference's
+    outputs on it (tests/torch_golden/make_module_reference.py:
+    mlt_parts.npz, the reference run as under pytest)."""
+    st, it = tscenes.compile_api(tscenes.make_cornell(res=16, spp=1, integrator="mlt",
+                                                      maxdepth=3, device="cpu"))
+    return st, it, np.load(os.path.join(GOLDEN, "mlt_parts.npz"))
 
 
 def _close(t, j, what="", rtol=RTOL, atol=ATOL):
@@ -78,79 +72,49 @@ def _close(t, j, what="", rtol=RTOL, atol=ATOL):
 
 
 @pytest.mark.parametrize("kind", ["bootstrap", "uniform"])
-def test_f_matches_reference(pair, kind):
-    sj, ij, jf, st, it = pair
-    D = it.n_dims
+def test_f_matches_reference(port, kind):
+    st, it, ref = port
+    Uj = ref[f"f_{kind}_U"]
+    assert Uj.shape == (C, it.n_dims)
     if kind == "bootstrap":
-        bid = jnp.arange(C, dtype=jnp.int32)
-        Uj = jnp.stack([juniform(bid, bid * 7 + 3, jnp.int32(0x8F2), k) for k in range(D)], -1)
         Ut = it._bootstrap_u(C, "cpu")
-        np.testing.assert_array_equal(Ut.numpy(), np.asarray(Uj))
+        np.testing.assert_array_equal(Ut.numpy(), Uj)
     else:
-        U = np.random.default_rng(21).uniform(0, 1, (C, D)).astype(np.float32)
-        Uj, Ut = jnp.asarray(U), torch.from_numpy(U.copy())
-    pj, Lj = jf(sj.dev, Uj)
+        np.testing.assert_array_equal(
+            Uj, np.random.default_rng(21).uniform(0, 1, (C, it.n_dims)).astype(np.float32))
+        Ut = torch.from_numpy(Uj.copy())
     pt, Lt = it._f(st.dev, Ut)
-    _close(pt, pj, "p_film")
-    _close(Lt, Lj, "L")
-    assert (np.asarray(Lj).max(-1) > 0).mean() > 0.3
+    _close(pt, ref[f"f_{kind}_p"], "p_film")
+    _close(Lt, ref[f"f_{kind}_L"], "L")
+    assert (ref[f"f_{kind}_L"].max(-1) > 0).mean() > 0.3
 
 
-def test_chain_steps_match_reference(pair):
-    """The first STEPS steps of C chains, accept decisions lane for lane."""
-    sj, ij, jf, st, it = pair
-    D, pL, sigma = it.n_dims, it.large_step_prob, it.sigma
+def test_chain_steps_match_reference(port):
+    """The first STEPS steps of C chains, accept decisions lane for lane,
+    against the reference's mutation step (integrators/mlt.py, render's
+    `one`) with its own f(U) and sample streams."""
+    st, it, ref = port
     x0, x1, y0, y1 = st.film.sample_bounds()
     w, h = x1 - x0, y1 - y0
     npix = w * h
-    U = np.random.default_rng(22).uniform(0, 1, (C, D)).astype(np.float32)
     b = 0.25
-    # the reference's mutation step (integrators/mlt.py, render's `one`),
-    # with its own f(U) and sample streams
-    Uj = jnp.asarray(U)
-    pj, Lj = jf(sj.dev, Uj)
-    yj = tmlt._luminance(Lj)
-    splat_j = jnp.zeros((npix, 3), jnp.float32)
+    U = ref["chain_U0"]
+    np.testing.assert_array_equal(
+        U, np.random.default_rng(22).uniform(0, 1, (C, it.n_dims)).astype(np.float32))
     Ut = torch.from_numpy(U.copy())
     pt, Lt = it._f(st.dev, Ut)
     carry_t = (Ut, pt, Lt, tmlt._luminance(Lt))
     splat_t = torch.zeros((npix + 1, 3))
     n_accept = 0
     for step in range(STEPS):
-        cid = jnp.arange(C, dtype=jnp.int32)
-
-        def u(salt):
-            return juniform(cid, jnp.int32(step), jnp.int32(0x3D7), salt)
-
-        large = u(0) < pL
-        Un = jnp.stack([u(100 + k) for k in range(D)], -1)
-        eps = jnp.stack([u(300 + k) for k in range(D)], -1)
-        mag = sigma * jnp.exp(-jnp.log(1024.0) * eps)
-        U_prop = jnp.where(large[:, None], Un, (Uj + jnp.where(Un < 0.5, mag, -mag)) % 1.0)
-        p_prop, L_prop = jf(sj.dev, U_prop)
-        y_prop = tmlt._luminance(L_prop)
-        a = jnp.minimum(1.0, y_prop / jnp.maximum(yj, 1e-20))
-        w_new = (a + large.astype(jnp.float32)) / (y_prop / b + pL)
-        w_old = (1.0 - a) / (yj / b + pL)
-        for pf, val in ((p_prop, L_prop * w_new[:, None]), (pj, Lj * w_old[:, None])):
-            px = jnp.clip(pf[:, 0].astype(jnp.int32) - x0, 0, w - 1)
-            py = jnp.clip(pf[:, 1].astype(jnp.int32) - y0, 0, h - 1)
-            ok = jnp.isfinite(val).all(-1) & (jnp.max(val, -1) >= 0.0)
-            splat_j = splat_j.at[jnp.where(ok, py * w + px, npix)].add(
-                jnp.where(ok[:, None], val, 0.0), mode="drop")
-        accept = u(700) < a
-        Uj = jnp.where(accept[:, None], U_prop, Uj)
-        pj = jnp.where(accept[:, None], p_prop, pj)
-        Lj = jnp.where(accept[:, None], L_prop, Lj)
-        yj = jnp.where(accept, y_prop, yj)
-
+        accept = ref[f"chain_{step}_accept"]
         carry_t, accept_t = it._chain_step(st.dev, carry_t, splat_t, step, b, x0, y0, w, h)
-        np.testing.assert_array_equal(accept_t.numpy(), np.asarray(accept), f"step {step}")
-        n_accept += int(np.asarray(accept).sum())
-        for x, y, f in zip(carry_t, (Uj, pj, Lj, yj), ("U", "p_film", "L", "y")):
-            _close(x, y, f"step {step} {f}", STATE_RTOL, STATE_ATOL)
+        np.testing.assert_array_equal(accept_t.numpy(), accept, f"step {step}")
+        n_accept += int(accept.sum())
+        for x, f in zip(carry_t, ("U", "p", "L", "y")):
+            _close(x, ref[f"chain_{step}_{f}"], f"step {step} {f}", STATE_RTOL, STATE_ATOL)
     assert 0 < n_accept < STEPS * C
-    _close(splat_t[:npix], splat_j, "splat", STATE_RTOL, STATE_ATOL)
+    _close(splat_t[:npix], ref["chain_splat"], "splat", STATE_RTOL, STATE_ATOL)
 
 
 def test_render_matches_jax_golden():

@@ -113,7 +113,7 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
            shape="trianglemesh", filter="box", camera="perspective")
 
 
-@pytest.mark.parametrize("field,value", [("mat", "disney")])
+@pytest.mark.parametrize("field,value", [("mat", "subsurface")])
 def test_unported_directives_raise(field, value):
     text = _BASE.format(**{**_OK, field: value})
     with pytest.raises(PbrtError, match="not ported"):
@@ -141,8 +141,17 @@ _POINT = 'LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]'
                          'MakeNamedMaterial "b" "string type" "glass"\n'
                          'Material "mix" "string namedmaterial1" "a" "string namedmaterial2" "b"'),
     ('Material "matte"', 'Texture "t" "spectrum" "checkerboard"\nMaterial "plastic" "texture Kd" "t"'),
+    ('Material "matte"', 'Material "disney"'),
+    ('Material "matte"', 'Material "disney" "float metallic" [0.6] "float clearcoat" [1] '
+                         '"float spectrans" [0.3] "bool thin" "true"'),
+    ('Material "matte"', 'Material "hair"'),
+    ('Material "matte"', 'Material "hair" "rgb color" [0.5 0.3 0.2]'),
+    ('Camera "perspective"', 'ActiveTransform EndTime\nTranslate 0.2 0 0\nActiveTransform All\n'
+                             'Camera "perspective"'),
+    (_TRI, 'ActiveTransform EndTime\nTranslate 0.3 0 0\nActiveTransform All\n' + _TRI),
 ], ids=["disk", "spot", "gaussian", "orthographic", "goniometric", "spot_narrow", "uber",
-        "substrate", "translucent", "mix", "textured_plastic_kd"])
+        "substrate", "translucent", "mix", "textured_plastic_kd", "disney", "disney_lobes",
+        "hair", "hair_color", "animated_camera", "animated_shape"])
 def test_ported_directives_render(old, new):
     """Directives that used to raise "not ported" compile and render a
     finite, lit 8x8 image (a goniometric light without a map takes the
@@ -275,9 +284,8 @@ def test_environment_row_in_the_light_distributions():
 
 
 @pytest.mark.parametrize("directive", [
-    'Material "disney"', 'Material "hair"', 'Material "fourier" "string bsdffile" "x.bsdf"',
-    'Material "subsurface"',
-], ids=["disney", "hair", "fourier", "subsurface"])
+    'Material "fourier" "string bsdffile" "x.bsdf"', 'Material "subsurface"',
+], ids=["fourier", "subsurface"])
 def test_unported_materials_and_lights_raise(directive):
     text = f"""
 Integrator "path" "integer maxdepth" [2]

@@ -8,7 +8,8 @@ package, and the ray differentials that drive its mip filter.
   the same text through scene/bridge.py, bit for bit: the texture atlas,
   the (8, T) dpdu/dpdv table, the mix and texture-id columns and the
   opacity among them; the textured slots and the bump warning are the
-  reference's; disney, hair, fourier and subsurface still raise.
+  reference's; fourier and subsurface still raise, disney (its colour
+  textured) and hair render.
 - The 16x16x4 renders against the goldens of
   tests/torch_golden/make_textured_reference.py: `path` through the pool
   (256 slots) and the fixed batch, `directlighting` (at maxdepth 2),
@@ -130,17 +131,27 @@ def test_tables_equal_reference(jax_small, small_treelets, monkeypatch):
     assert set(got["mat.type"].tolist()) == {1, 2, 3, 6, 7, 8}
 
 
-@pytest.mark.parametrize("mat", ['"disney"', '"hair"', '"subsurface"',
-                                 '"fourier" "string bsdffile" "x.bsdf"'])
-def test_unported_materials_still_raise(mat):
-    text = ('Film "image" "integer xresolution" [4] "integer yresolution" [4]\n'
-            'Camera "perspective"\nWorldBegin\n'
+def _one_triangle(mat):
+    return ('Film "image" "integer xresolution" [4] "integer yresolution" [4]\n'
+            'LookAt 0 0 -3  0 0 0  0 1 0\nCamera "perspective"\nWorldBegin\n'
             'LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]\n'
             'Texture "t" "spectrum" "fbm"\n'
             f'Material {mat}\nShape "trianglemesh" "integer indices" [0 1 2] '
             '"point P" [-1 -1 0  1 -1 0  0 1 0]\nWorldEnd\n')
+
+
+@pytest.mark.parametrize("mat", ['"subsurface"', '"fourier" "string bsdffile" "x.bsdf"'])
+def test_unported_materials_still_raise(mat):
     with pytest.raises(PbrtError, match="not ported"):
-        parse_string(text, render=True, device="cpu")
+        parse_string(_one_triangle(mat), render=True, device="cpu")
+
+
+@pytest.mark.parametrize("mat", ['"disney" "texture color" "t"', '"hair"'])
+def test_ported_materials_render_beside_textures(mat):
+    """disney (its colour textured) and hair render a finite, lit image
+    beside a texture."""
+    img = parse_string(_one_triangle(mat), render=True, device="cpu").result.image
+    assert np.isfinite(img).all() and img.max() > 0
 
 
 @pytest.mark.parametrize("name", sorted(SMALL_CASES))

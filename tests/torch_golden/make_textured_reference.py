@@ -109,7 +109,8 @@ def _render(name, api, regen, commit, **extra):
         n_waves=np.int64(res.stats.get("n_waves", -1)),
         n_tris=np.int64(scene.n_tris),
         n_treelets=np.int64(scene.dev["tstream"].n_treelets),
-        atlas_texels=np.int64(scene.dev["tex_atlas"].shape[0]),
+        **({"atlas_texels": np.int64(scene.dev["tex_atlas"].shape[0])}
+           if "tex_atlas" in scene.dev else {}),
         compile_seconds=np.float64(compile_s),
         wall_seconds=np.float64(wall),
         jax_commit=np.array(commit),

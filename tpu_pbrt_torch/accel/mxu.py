@@ -104,6 +104,14 @@ def ray_features(o_c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.cat([od.reshape(od.shape[:-2] + (9,)), d, o_c, one], dim=-1)
 
 
+def ray_features_motion(o_c: torch.Tensor, d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """phi(o, d) (x) [1, t, t^2, t^3] -> (..., 64): the features a motion
+    table (tri_feature_weights_motion) contracts with."""
+    phi = ray_features(o_c, d)
+    tp = torch.stack([torch.ones_like(t), t, t * t, t * t * t], dim=-1)  # (..., 4)
+    return (tp[..., :, None] * phi[..., None, :]).reshape(phi.shape[:-1] + (64,))
+
+
 def decode_outputs(out: torch.Tensor, n_tris: int, t_max):
     """Product output (..., 4T) -> per-ray closest hit over the T columns.
 
@@ -140,17 +148,26 @@ def decode_outputs(out: torch.Tensor, n_tris: int, t_max):
 
 
 def brute_feature_intersect(feat, center, n_tris: int, o, d, t_max,
-                            chunk: int = 32768) -> Hit:
+                            chunk: int = 32768, time=None) -> Hit:
     """Closest hit of rays (R,3) against ALL n_tris triangles via one
     feature product per ray slab (the small-scene path: Cornell-class
-    scenes need no hierarchy). feat: (16, 4T) f32 tensor."""
+    scenes need no hierarchy). feat: (16, 4T) f32 tensor, or the (64, 4T)
+    motion table, which contracts the time features of each ray's
+    shutter time `time` (None: 0)."""
     t_max = torch.broadcast_to(
         torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:-1]
     )
+    motion = feat.shape[0] == 64
+    if motion:
+        time = torch.broadcast_to(torch.as_tensor(
+            0.0 if time is None else time, dtype=torch.float32, device=o.device), o.shape[:-1])
     ts, ps, b0s, b1s = [], [], [], []
     for i in range(0, o.shape[0], chunk):
         oo, dd, tt = o[i:i + chunk], d[i:i + chunk], t_max[i:i + chunk]
-        phi = ray_features(oo - center, dd)
+        if motion:
+            phi = ray_features_motion(oo - center, dd, time[i:i + chunk])
+        else:
+            phi = ray_features(oo - center, dd)
         out = phi @ feat
         t, k, b0, b1 = decode_outputs(out, n_tris, tt)
         ts.append(t)

@@ -335,7 +335,7 @@ def _flush(tp: TreeletPack, s: _SState, lb: int, any_hit: bool) -> _SState:
     )
 
 
-def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
+def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool, time=None) -> _SState:
     R = o.shape[0]
     dev = o.device
     tb = _tn_bits(R)
@@ -345,10 +345,13 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
 
     inv_d = 1.0 / d
     t_max = t_max.to(torch.float32)
-    # row 7: rayE's pad and rayF's ray time (static geometry: 0)
+    # row 7: rayE's pad and rayF's per-ray shutter time, which a motion
+    # pack's (F = 64) features take in powers (0 without a time)
     zrow = torch.zeros((1, R), dtype=torch.float32, device=dev)
+    trow = zrow if time is None else torch.broadcast_to(
+        torch.as_tensor(time, dtype=torch.float32, device=dev), (R,))[None, :]
     rayE = torch.cat([o.T, inv_d.T, t_max[None, :], zrow], dim=0).contiguous()
-    rayF = torch.cat([o.T, d.T, t_max[None, :], zrow], dim=0).contiguous()
+    rayF = torch.cat([o.T, d.T, t_max[None, :], trow], dim=0).contiguous()
     alive0 = t_max > 0.0
     rid0 = torch.arange(R, dtype=torch.int32, device=dev)
     # seed: one root pair per LIVE ray (tn = 0 -> complement = max); dead
@@ -398,15 +401,24 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool) -> _SState:
     return s
 
 
-def _finalize_hits(tri_verts, o, d, t_raw, prim, tv9T=None) -> Hit:
+def _finalize_hits(tri_verts, o, d, t_raw, prim, time=None, tri_verts1=None, tv9T=None,
+                   tv9T1=None) -> Hit:
     """(t, prim) -> full Hit: one vertex-row fetch per ray recovers the
-    winner's barycentrics; the vertices ride along in Hit.tv."""
+    winner's barycentrics; the vertices ride along in Hit.tv. A motion
+    scene (tri_verts1 and a time) lerps the two keyframes at each ray's
+    time."""
     hit = prim >= 0
     t = torch.where(hit, t_raw, torch.full_like(t_raw, float("inf")))
     T = tri_verts.shape[0]
     if tv9T is None:
         tv9T = tri_verts.reshape(T, 9).T
-    tv = tv9T[:, prim.clamp(min=0).long()].T.reshape(-1, 3, 3)  # (R, 3, 3)
+    pidx = prim.clamp(min=0).long()
+    tv = tv9T[:, pidx].T.reshape(-1, 3, 3)  # (R, 3, 3)
+    if tri_verts1 is not None and time is not None:
+        if tv9T1 is None:
+            tv9T1 = tri_verts1.reshape(T, 9).T
+        tv1 = tv9T1[:, pidx].T.reshape(-1, 3, 3)
+        tv = keyframe_lerp(tv, tv1, time)
     v0, v1, v2 = tv[:, 0], tv[:, 1], tv[:, 2]
     e1 = v1 - v0
     e2 = v2 - v0
@@ -421,6 +433,17 @@ def _finalize_hits(tri_verts, o, d, t_raw, prim, tv9T=None) -> Hit:
     b0 = torch.where(hit, 1.0 - u - v, zero)
     b1 = torch.where(hit, u, zero)
     return Hit(t, prim, b0, b1, tv)
+
+
+def keyframe_lerp(v0, v1, time):
+    """The vertices (R, 3, 3) at each ray's shutter time (R,): (1 - t) v0 +
+    t v1 rounded as the reference's compiled lerp rounds it, one fused
+    multiply-add fma(1 - t, v0, t v1): the f32 product (1 - t) v0 is exact
+    in f64, so one f64 sum rounded to f32 gives the fused result (but for
+    a double-rounding tie)."""
+    tm = torch.as_tensor(time, dtype=torch.float32, device=v0.device).reshape(-1, 1, 1)
+    fused = (1.0 - tm).double() * v0.double() + (tm * v1).double()
+    return fused.to(torch.float32)
 
 
 def _dot(a, b):
@@ -444,27 +467,33 @@ def _t_max_rows(o, t_max):
     ).contiguous()
 
 
-def stream_intersect(tp: TreeletPack, tri_verts, o, d, t_max, tv9T=None) -> Hit:
+def stream_intersect(tp: TreeletPack, tri_verts, o, d, t_max, time=None, tri_verts1=None,
+                     tv9T=None, tv9T1=None) -> Hit:
     """Closest hit for a flat ray batch. o, d: (R, 3); t_max scalar or (R,).
-    Returns Hit with global leaf-order triangle ids and the hit vertices."""
-    s = _traverse(tp, o, d, _t_max_rows(o, t_max), False)
-    return _finalize_hits(tri_verts, o, d, s.rayF[6], s.prim, tv9T=tv9T)
+    Returns Hit with global leaf-order triangle ids and the hit vertices.
+    time (R,) / tri_verts1: motion blur (each ray's shutter time; the
+    shutter-end keyframe its hit vertices lerp toward)."""
+    s = _traverse(tp, o, d, _t_max_rows(o, t_max), False, time=time)
+    return _finalize_hits(tri_verts, o, d, s.rayF[6], s.prim, time=time,
+                          tri_verts1=tri_verts1, tv9T=tv9T, tv9T1=tv9T1)
 
 
 def stream_intersect_split(tp: TreeletPack, tri_verts, o, d, t_max, n_finalize: int,
-                           tv9T=None):
+                           time=None, tri_verts1=None, tv9T=None, tv9T1=None):
     """Fused-wave closest hit: traverse ALL rays, but build the full Hit
     only for the first n_finalize; the tail (the integrator's queued
     shadow rays) returns its bare prim ids (R - n_finalize,)."""
-    s = _traverse(tp, o, d, _t_max_rows(o, t_max), False)
+    s = _traverse(tp, o, d, _t_max_rows(o, t_max), False, time=time)
     n = n_finalize
-    hit = _finalize_hits(tri_verts, o[:n], d[:n], s.rayF[6][:n], s.prim[:n], tv9T=tv9T)
+    hit = _finalize_hits(tri_verts, o[:n], d[:n], s.rayF[6][:n], s.prim[:n],
+                         time=None if time is None else time[:n], tri_verts1=tri_verts1,
+                         tv9T=tv9T, tv9T1=tv9T1)
     return hit, s.prim[n:]
 
 
-def stream_intersect_p(tp: TreeletPack, o, d, t_max):
+def stream_intersect_p(tp: TreeletPack, o, d, t_max, time=None):
     """Any-hit (shadow) predicate -> bool (R,)."""
-    return _traverse(tp, o, d, _t_max_rows(o, t_max), True).prim >= 0
+    return _traverse(tp, o, d, _t_max_rows(o, t_max), True, time=time).prim >= 0
 
 
 def stream_traverse_stats(tp: TreeletPack, o, d, t_max, any_hit: bool = False):

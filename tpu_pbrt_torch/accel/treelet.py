@@ -12,13 +12,15 @@ the upload produces torch tensors.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.build import BVHArrays, build_bvh
-from tpu_pbrt_torch.accel.mxu import tri_feature_weights_raw
+from tpu_pbrt_torch.accel.mxu import tri_feature_weights_motion, tri_feature_weights_raw
 from tpu_pbrt_torch.accel.wide import _LEAF_STRIDE, WideBVH, build_wide_numpy
 
 #: default triangles per treelet of build_treelet_pack (the stream path
@@ -106,10 +108,14 @@ def decode_top_leaf(code):
 
 def build_treelet_pack_numpy(
     tri_verts_leaf_order: np.ndarray, bvh: BVHArrays, leaf_tris: int = LEAF_TRIS,
+    tri_verts1: np.ndarray = None,
 ) -> dict:
-    """The reference's build_treelet_pack (static geometry: F = 16) as
-    numpy arrays: keys top_bmin, top_bmax, top_idx, featT, center,
-    offset, count."""
+    """The reference's build_treelet_pack as numpy arrays: keys top_bmin,
+    top_bmax, top_idx, featT, center, offset, count. tri_verts1 (same
+    leaf order): the shutter-end keyframe; each treelet is then centered
+    on the union of both keyframes' boxes and its features are the
+    64-row cubic-in-time tables of mxu.tri_feature_weights_motion (the
+    caller's bvh must be built over the union bounds)."""
     off, cnt, bmin, bmax = cut_treelets(bvh, leaf_tris)
     c = len(off)
 
@@ -127,25 +133,61 @@ def build_treelet_pack_numpy(
     valid = np.arange(leaf_tris)[None, :] < cnt[:, None]
     tv = verts[np.clip(gidx, 0, t_total - 1)]  # (C, L, 3, 3)
     tv[~valid] = 0.0  # zero pad: det == 0, never hits
-    vmin = np.where(valid[..., None], tv.min(axis=2), np.inf).min(axis=1)
-    vmax = np.where(valid[..., None], tv.max(axis=2), -np.inf).max(axis=1)
+    if tri_verts1 is not None:
+        tv1 = np.asarray(tri_verts1, np.float32)[np.clip(gidx, 0, t_total - 1)]
+        tv1[~valid] = 0.0
+        both = np.concatenate([tv, tv1], axis=1)
+        valid2 = np.tile(valid, (1, 2))[..., None]
+        vmin = np.where(valid2, both.min(axis=2), np.inf).min(axis=1)
+        vmax = np.where(valid2, both.max(axis=2), -np.inf).max(axis=1)
+    else:
+        vmin = np.where(valid[..., None], tv.min(axis=2), np.inf).min(axis=1)
+        vmax = np.where(valid[..., None], tv.max(axis=2), -np.inf).max(axis=1)
     center = (0.5 * (vmin + vmax)).astype(np.float32)  # (C, 3)
-    W = tri_feature_weights_raw(
-        tv.reshape(c * leaf_tris, 3, 3),
-        np.repeat(center, leaf_tris, axis=0)[:, None, :],
-    ).reshape(c, leaf_tris, 16, 4)
-    # (C, L, 16, 4) -> (C, 4, L, 16) -> (C, 4L, 16): rows grouped
-    # [det(L) | u*det(L) | v*det(L) | t*det(L)]
-    feat = np.ascontiguousarray(W.transpose(0, 3, 1, 2).reshape(c, 4 * leaf_tris, 16))
+    if tri_verts1 is not None:
+        featT = _motion_featT(tv, tv1, center)
+    else:
+        W = tri_feature_weights_raw(
+            tv.reshape(c * leaf_tris, 3, 3), np.repeat(center, leaf_tris, axis=0)[:, None, :],
+        ).reshape(c, leaf_tris, 16, 4)
+        # (C, L, 16, 4) -> (C, 4, L, 16) -> (C, 4L, 16): rows grouped
+        # [det(L) | u*det(L) | v*det(L) | t*det(L)]
+        feat = np.ascontiguousarray(W.transpose(0, 3, 1, 2).reshape(c, 4 * leaf_tris, 16))
+        featT = np.ascontiguousarray(feat.transpose(0, 2, 1))
     return {
         "top_bmin": cmin,
         "top_bmax": cmax,
         "top_idx": cidx,
-        "featT": np.ascontiguousarray(feat.transpose(0, 2, 1)),
+        "featT": featT,
         "center": center,
         "offset": np.asarray(off, np.int32),
         "count": np.asarray(cnt, np.int32),
     }
+
+
+def _motion_featT(tv: np.ndarray, tv1: np.ndarray, center: np.ndarray,
+                  group: int = 32) -> np.ndarray:
+    """The (C, 64, 4L) motion features of the treelets' (C, L, 3, 3)
+    keyframes: mxu.tri_feature_weights_motion per group of treelets on a
+    thread per core (numpy drops the GIL in its kernels), each element
+    computed as the whole-table call computes it, so the table is the
+    reference's bit for bit; the groups bound the f64 temporaries."""
+    c, L = tv.shape[:2]
+    featT = np.empty((c, 64, 4 * L), np.float32)
+
+    def work(lo):
+        hi = min(lo + group, c)
+        n = (hi - lo) * L
+        W = tri_feature_weights_motion(
+            tv[lo:hi].reshape(n, 3, 3), tv1[lo:hi].reshape(n, 3, 3),
+            np.repeat(center[lo:hi], L, axis=0)[:, None, :], raw=True,
+        ).reshape(hi - lo, L, 64, 4)
+        # [c, f, o * L + l] = W[c, l, f, o]: rows grouped [det | u*det | v*det | t*det]
+        featT[lo:hi] = W.transpose(0, 2, 3, 1).reshape(hi - lo, 64, 4 * L)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        list(ex.map(work, range(0, c, group)))
+    return featT
 
 
 def pack_from_numpy(tables: dict, device="cpu") -> TreeletPack:

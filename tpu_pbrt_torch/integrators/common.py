@@ -74,22 +74,33 @@ CPU_CHUNK = 1 << 17
 GPU_CHUNK = 1 << 20
 
 
-def scene_intersect(dev, o, d, t_max) -> Hit:
-    """Scene::Intersect over the acceleration structure the compiler chose."""
+def scene_intersect(dev, o, d, t_max, time=None) -> Hit:
+    """Scene::Intersect over the acceleration structure the compiler chose.
+    time: each ray's shutter time in [0, 1] on a motion scene (dev carries
+    tri_verts1), None for time 0 and the shutter-start vertices."""
     if "tstream" in dev:
         from tpu_pbrt_torch.accel.stream import stream_intersect
 
-        return stream_intersect(dev["tstream"], dev["tri_verts"], o, d, t_max,
-                                tv9T=dev.get("tri_verts9T"))
+        return stream_intersect(dev["tstream"], dev["tri_verts"], o, d, t_max, time=time,
+                                tri_verts1=dev.get("tri_verts1"), tv9T=dev.get("tri_verts9T"),
+                                tv9T1=dev.get("tri_verts1_9T"))
     from tpu_pbrt_torch.accel.mxu import brute_feature_intersect
 
     bf = dev["bfeat"]
-    return brute_feature_intersect(
-        bf["feat"], bf["center"], bf["feat"].shape[1] // 4, o, d, t_max
+    hit = brute_feature_intersect(
+        bf["feat"], bf["center"], bf["feat"].shape[1] // 4, o, d, t_max, time=time
     )
+    if "tri_verts1" in dev and time is not None:
+        # shading sees the triangle at the ray's time, not the
+        # shutter-start keyframe make_interaction would fetch
+        from tpu_pbrt_torch.accel.stream import keyframe_lerp
+
+        prim = hit.prim.clamp(min=0).long()
+        hit = hit._replace(tv=keyframe_lerp(dev["tri_verts"][prim], dev["tri_verts1"][prim], time))
+    return hit
 
 
-def scene_intersect_fused(dev, o, d, t_max, n_cam: int):
+def scene_intersect_fused(dev, o, d, t_max, n_cam: int, time=None):
     """Fused camera+shadow closest hit: the full Hit for the first n_cam
     rays, bare prim ids for the tail (queued shadow rays only need
     prim >= 0)."""
@@ -97,19 +108,21 @@ def scene_intersect_fused(dev, o, d, t_max, n_cam: int):
         from tpu_pbrt_torch.accel.stream import stream_intersect_split
 
         return stream_intersect_split(dev["tstream"], dev["tri_verts"], o, d, t_max, n_cam,
-                                      tv9T=dev.get("tri_verts9T"))
-    hit = scene_intersect(dev, o, d, t_max)
+                                      time=time, tri_verts1=dev.get("tri_verts1"),
+                                      tv9T=dev.get("tri_verts9T"),
+                                      tv9T1=dev.get("tri_verts1_9T"))
+    hit = scene_intersect(dev, o, d, t_max, time=time)
     return Hit(*(None if a is None else a[:n_cam] for a in hit)), hit.prim[n_cam:]
 
 
-def scene_intersect_p(dev, o, d, t_max):
+def scene_intersect_p(dev, o, d, t_max, time=None):
     """Scene::IntersectP, the shadow-ray predicate: the stream tracer's
-    any-hit traversal, or the brute product's closest hit tested for a
-    hit (as the reference does)."""
+    any-hit traversal at the rays' times, or the brute product's closest
+    hit tested for a hit, at time 0 (as the reference does)."""
     if "tstream" in dev:
         from tpu_pbrt_torch.accel.stream import stream_intersect_p
 
-        return stream_intersect_p(dev["tstream"], o, d, t_max)
+        return stream_intersect_p(dev["tstream"], o, d, t_max, time=time)
     return scene_intersect(dev, o, d, t_max).prim >= 0
 
 
@@ -245,7 +258,19 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
     ng = face_forward(ng, ns)
     uv = (b0[..., None] * tuv[..., 0, :] + b1[..., None] * tuv[..., 1, :]
           + b2[..., None] * tuv[..., 2, :])
-    ss, ts = coordinate_system(ns)
+    if "tri_tanT" in dev:
+        # the uv-aligned shading tangent (triangle.cpp dpdu), which the
+        # hair BSDF needs as its x axis (along the curve); built only for
+        # scenes with hair
+        tan = dev["tri_tanT"][:, prim].T
+        tan = tan - ns * dot(tan, ns)[..., None]
+        tl = torch.sqrt(dot(tan, tan))[..., None]
+        ss0, ts0 = coordinate_system(ns)
+        ok = tl[..., 0] > 1e-8
+        ss = torch.where(ok[..., None], tan / torch.clamp(tl, min=1e-20), ss0)
+        ts = torch.where(ok[..., None], cross(ns, ss), ts0)
+    else:
+        ss, ts = coordinate_system(ns)
     return Interaction(p=p, ng=ng, ns=ns, ss=ss, ts=ts, uv=uv, mat=mat_id,
                        light=light_id, wo=-d, valid=hit.prim >= 0)
 
@@ -310,6 +335,11 @@ def textured_mat(dev, mid, uv, p, tex_eval, tex_used, width=None, u_mix=None,
     texture ids each slot can hold."""
     mid = bxdf.resolve_mix(dev["mat"], mid, u_mix)
     mp = bxdf.gather_mat(dev["mat"], mid)
+    if mp.hz is not None:
+        # hair: the across-width offset h = -1 + 2v of the ribbon's uv
+        # (curve.cpp's flat-curve parameterization)
+        h = torch.clamp(-1.0 + 2.0 * uv[..., 1], -0.9995, 0.9995)
+        mp = mp._replace(hz=mp.hz._replace(h=h))
     if tex_eval is None or "tex_atlas" not in dev or not tex_used:
         return mp
     mt = dev["mat"]

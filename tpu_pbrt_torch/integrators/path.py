@@ -32,6 +32,11 @@ surface passes through it without counting a bounce (pbrt's
 reference's lax.while_loops are host loops here, with one host read per
 wave for their exit tests.
 
+On a motion scene (a shape's transform animated over an open shutter)
+each camera sample draws its shutter time (DIM_TIME), which every wave
+of its path, and its queued shadow rays, trace at; the pool draws it
+for each regenerated lane.
+
 In a textured scene a camera hit carries its ray-differential footprint
 (at the pixel centre, as the reference takes it) into the mip filter:
 the fixed batch computes it at bounce 0 only, the pool every wave,
@@ -54,6 +59,7 @@ from tpu_pbrt_torch.core.sampling import power_heuristic, uniform_float
 from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_local, to_world
 from tpu_pbrt_torch.integrators.common import (
     DIM_BSDF_LOBE,
+    DIM_TIME,
     DIM_BSDF_UV,
     DIM_LIGHT_PICK,
     DIM_LIGHT_UV,
@@ -145,7 +151,7 @@ class PathIntegrator(WavefrontIntegrator):
         return cfg.regen and self.fused and self.skind != "halton"
 
     # -- one wavefront step ------------------------------------------------
-    def _bounce_wave(self, dev, px, py, s, salt, st: LaneSt, nrays, ctr=None):
+    def _bounce_wave(self, dev, px, py, s, salt, st: LaneSt, nrays, ctr=None, ray_time=None):
         """Advance every lane one bounce. Fused layout: trace the
         continuation rays and the pending shadow rays as one 2R wave,
         settling the previous bounce's NEE, and queue this bounce's shadow
@@ -158,8 +164,11 @@ class PathIntegrator(WavefrontIntegrator):
         DIMS_PER_BOUNCE (an int) in the fixed batch, the per-lane depth *
         DIMS_PER_BOUNCE (a tensor) in the pool; both give a live lane the
         same value. `ctr` is the optional wave-counter block
-        (obs/counters.py). Returns (LaneSt, nrays + this wave's per-lane
-        traced-ray counts, ctr)."""
+        (obs/counters.py). `ray_time` (R,): each lane's shutter time on a
+        motion scene (None: static); a queued shadow ray takes its lane's
+        time in the fused wave, while the split layout's shadow walk, as
+        in the reference, takes none. Returns (LaneSt, nrays + this wave's
+        per-lane traced-ray counts, ctr)."""
         nrays_in = nrays
         o, d, L, beta, alive = st.o, st.d, st.L, st.beta, st.alive
         depth, prev_pdf, specular = st.depth, st.prev_pdf, st.specular
@@ -173,13 +182,14 @@ class PathIntegrator(WavefrontIntegrator):
             hit, sh_prim = scene_intersect_fused(
                 dev, torch.cat([o, st.sh_o]), torch.cat([d, st.sh_d]),
                 torch.cat([t_max, st.sh_dist]), n_cam=o.shape[0],
+                time=None if ray_time is None else torch.cat([ray_time, ray_time]),
             )
             # settle the previous bounce's NEE with its visibility
             vis_prev = (st.sh_dist > 0.0) & (sh_prim < 0)
             L = L + torch.where(vis_prev[..., None], st.ld_pend, torch.zeros_like(st.ld_pend))
             nrays = nrays + (st.sh_dist > 0.0).to(torch.int32)
         else:
-            hit = scene_intersect(dev, o, d, t_max)
+            hit = scene_intersect(dev, o, d, t_max, time=ray_time)
         nrays = nrays + alive.to(torch.int32)
         it = make_interaction(dev, hit, o, d)
         it.valid = it.valid & alive
@@ -324,6 +334,10 @@ class PathIntegrator(WavefrontIntegrator):
         lane = fresh_lanes(o, d)
         nrays = torch.zeros(o.shape[:-1], dtype=torch.int32, device=o.device)
         fused = self.fused
+        # motion blur: one shutter time per camera sample, kept along the
+        # whole path (CameraSample::time); the keyframes are the shutter's
+        # ends, so the normalized time is the sample itself
+        ray_time = self.u1d(px, py, s, DIM_TIME) if "tri_verts1" in dev else None
         for bounce in range(self.max_depth + 1 + self.margin + int(fused)):
             live = lane.alive.any()
             if fused:
@@ -332,7 +346,7 @@ class PathIntegrator(WavefrontIntegrator):
             if not bool(live):  # the loop test: one host read per wave
                 break
             lane, nrays, _ = self._bounce_wave(
-                dev, px, py, s, bounce * DIMS_PER_BOUNCE, lane, nrays
+                dev, px, py, s, bounce * DIMS_PER_BOUNCE, lane, nrays, ray_time=ray_time
             )
         return lane.L, nrays
 
@@ -368,6 +382,7 @@ class PathIntegrator(WavefrontIntegrator):
         w = x1 - x0
         npix = w * (y1 - y0)
         spp = self.spp
+        motion = "tri_verts1" in dev
         seg = int(cfg.deposit_seg)
         if seg == 0:
             seg = pool // 4 if pool >= 256 else pool
@@ -391,6 +406,7 @@ class PathIntegrator(WavefrontIntegrator):
         py = torch.zeros((pool,), **i32)
         s = torch.zeros((pool,), **i32)
         wt = torch.zeros((pool,), dtype=torch.float32, device=device)
+        tl = torch.zeros((pool,), dtype=torch.float32, device=device)  # lane shutter times
         has_work = torch.zeros((pool,), dtype=torch.bool, device=device)
         cursor = torch.zeros((), **i32)  # work items consumed so far
         nrays = torch.zeros((), dtype=torch.int64, device=device)
@@ -403,7 +419,7 @@ class PathIntegrator(WavefrontIntegrator):
             key = torch.where(has_work, lane_idx, lane_idx + free_bit)
             perm = (torch.sort(key).values & lane_mask).long()
             lane = LaneSt(*(a[perm] for a in lane))
-            px, py, s, wt = px[perm], py[perm], s[perm], wt[perm]
+            px, py, s, wt, tl = px[perm], py[perm], s[perm], wt[perm], tl[perm]
             active = has_work[perm]
             n_live = active.sum(dtype=torch.int32)
 
@@ -423,6 +439,9 @@ class PathIntegrator(WavefrontIntegrator):
             py = torch.where(can, pyn, py)
             s = torch.where(can, sn, s)
             wt = torch.where(can, wt_n, wt)
+            if motion:
+                # a regenerated lane draws its camera sample's time
+                tl = torch.where(can, self.u1d(pxn, pyn, sn, DIM_TIME), tl)
             # the counter also consumes work items past the frame (the
             # final chunk's tail), which `valid` kept out of the pool
             consumed = torch.minimum(torch.clamp(n_work - cursor, min=0), pool - n_live)
@@ -433,7 +452,7 @@ class PathIntegrator(WavefrontIntegrator):
             # ---- one bounce wave ---------------------------------------
             lane, nray_d, ctr = self._bounce_wave(
                 dev, px, py, s, lane.depth * DIMS_PER_BOUNCE, lane,
-                torch.zeros((pool,), **i32), ctr=ctr,
+                torch.zeros((pool,), **i32), ctr=ctr, ray_time=tl if motion else None,
             )
 
             # ---- scatter-on-terminate film deposit ----------------------

@@ -313,7 +313,7 @@ class SPPMIntegrator(WavefrontIntegrator):
         start8 = torch.stack(starts, dim=1)
         end8 = torch.stack(ends, dim=1)
 
-        mp_b = bxdf.MatParams(*(a[:, None] if a.dim() == 1 else a[:, None, :] for a in mp_vp))
+        mp_b = bxdf.map_params(lambda a: a[:, None] if a.dim() == 1 else a[:, None, :], mp_vp)
         wo_b = wo_l[:, None, :]
         koff = torch.arange(K, dtype=torch.int64, device=dv)
         phi = torch.zeros((P, 3), dtype=torch.float32, device=dv)

@@ -1,6 +1,6 @@
 """Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic|breadth|textured]
+    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic|breadth|textured|motion]
         [--res 128] [--spp 64]
         [--integrator path|directlighting|whitted|ao|volpath|bdpt|sppm|mlt]
         [--params '"integer numiterations" [4] ...'] [--no-regen] [--out DIR]
@@ -9,8 +9,9 @@ Compiles `scenes.make_killeroo_like` (or, with `--scene crown`,
 `scenes.make_crown_like`, with `--scene cloud`, `scenes.make_cloud_like`,
 with `--scene caustic`, `scenes.make_caustic_like`, with `--scene
 breadth`, `scenes.make_breadth_like`: perspective camera, gaussian
-filter, with `--scene textured`, `scenes.make_textured_like`) at its
-full geometry
+filter, with `--scene textured`, `scenes.make_textured_like`, with
+`--scene motion`, `scenes.make_motion_like`: hair and disney under a
+moving shutter, the F = 64 flush) at its full geometry
 under the integrator (default `path`; the cloud's own is `volpath`, the
 caustic's `bdpt`), with `--params` as more integrator parameters of the
 caustic (scene text, e.g. sppm's iterations and photons or mlt's
@@ -160,7 +161,7 @@ def measure(integ, scene) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("killeroo", "crown", "cloud", "caustic", "breadth",
-                                        "textured"),
+                                        "textured", "motion"),
                     default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
@@ -183,8 +184,9 @@ def main() -> int:
     cfg.regen = not args.no_regen
     args.integrator = args.integrator or {"cloud": "volpath", "caustic": "bdpt"}.get(
         args.scene, "path")
-    if args.scene in ("breadth", "textured"):
-        make = {"breadth": scenes.make_breadth_like, "textured": scenes.make_textured_like}
+    if args.scene in ("breadth", "textured", "motion"):
+        make = {"breadth": scenes.make_breadth_like, "textured": scenes.make_textured_like,
+                "motion": scenes.make_motion_like}
         api = make[args.scene](args.res, args.spp, device="cuda")
         if args.integrator != "path" or args.params:
             raise SystemExit(f"profile_render: the {args.scene} scene renders under path")

@@ -9,9 +9,16 @@ directive set the port renders:
   reference's grid sizes), one world-space triangle soup with shading
   normals and uvs; object instances expanded by baking each use's
   transform into its shapes; an unknown shape name is skipped with the
-  reference's warning;
+  reference's warning; an animated transform (motion blur over an open
+  shutter) bakes a second, shutter-end keyframe of the vertices
+  (tri_verts1), which rays lerp linearly at their time, as the reference
+  does (pbrt decomposes and slerps), under a BVH over the union of both
+  keyframes' bounds and the 64-row cubic-in-time treelet features; an
+  animated camera takes its shutter-start keyframe, with a warning;
 - materials: "matte", "plastic", "metal", "glass", "mirror", "uber",
-  "substrate", "translucent" and "mix" (its two sub-materials appended
+  "substrate", "translucent", "disney" (its parameters in d_* columns),
+  "hair" (h_* columns; the per-triangle dpdu shading tangent tri_tanT)
+  and "mix" (its two sub-materials appended
   as real rows of the table, resolved per lane at shading time), and
   "none" (a null interface: rays pass through it); constant parameters
   fold as the reference folds them, every other texture gets an id in
@@ -382,33 +389,36 @@ def _tess_curve(params, scene_dir):
     w0 = params.find_one_float("width0", params.find_one_float("width", 1.0))
     w1 = params.find_one_float("width1", params.find_one_float("width", 1.0))
     n_seg_pts = 16
-    verts_all, uvs_all = [], []
-    n_curves = (len(cps) - 1) // 3
-    for ci in range(max(n_curves, 1)):
-        p0, p1, p2, p3 = cps[3 * ci: 3 * ci + 4]
-        t = np.linspace(0.0, 1.0, n_seg_pts + 1)[:, None]
-        b = ((1 - t) ** 3 * p0 + 3 * (1 - t) ** 2 * t * p1 + 3 * (1 - t) * t * t * p2
-             + t ** 3 * p3)
-        tan = 3 * (1 - t) ** 2 * (p1 - p0) + 6 * (1 - t) * t * (p2 - p1) + 3 * t * t * (p3 - p2)
-        tan /= np.maximum(np.linalg.norm(tan, axis=-1, keepdims=True), 1e-12)
-        # side = tangent x reference axis, with a second axis where the
-        # tangent turns parallel to the first
-        ref = np.eye(3)[np.argmin(np.abs(tan[0]))]
-        side = np.cross(tan, ref)
-        nrm = np.linalg.norm(side, axis=-1, keepdims=True)
-        alt = np.eye(3)[(np.argmin(np.abs(tan[0])) + 1) % 3]
-        side = np.where(nrm < 1e-6, np.cross(tan, alt), side)
-        side /= np.maximum(np.linalg.norm(side, axis=-1, keepdims=True), 1e-12)
-        u_glob = (ci + t[:, 0]) / max(n_curves, 1)
-        half_w = 0.5 * ((1 - u_glob) * w0 + u_glob * w1)[:, None]
-        pts = np.stack([b - side * half_w, b + side * half_w], axis=1)  # (n+1, 2, 3)
-        for k in range(n_seg_pts):
-            a0, a1 = pts[k, 0], pts[k, 1]
-            b0_, b1_ = pts[k + 1, 0], pts[k + 1, 1]
-            verts_all += [[a0, a1, b1_], [a0, b1_, b0_]]
-            ua, ub = u_glob[k], u_glob[k + 1]
-            uvs_all += [[[ua, 0], [ua, 1], [ub, 1]], [[ua, 0], [ub, 1], [ub, 0]]]
-    return np.asarray(verts_all, np.float64), None, np.asarray(uvs_all, np.float64)
+    n_curves = max((len(cps) - 1) // 3, 1)
+    # every segment at once, with the reference's per-segment arithmetic
+    # (the same elementwise operations in the same order: bit-identical)
+    idx = 3 * np.arange(n_curves)[:, None] + np.arange(4)[None, :]
+    p0, p1, p2, p3 = (cps[idx[:, i]][:, None, :] for i in range(4))  # (C, 1, 3)
+    t = np.linspace(0.0, 1.0, n_seg_pts + 1)[None, :, None]  # (1, n+1, 1)
+    b = ((1 - t) ** 3 * p0 + 3 * (1 - t) ** 2 * t * p1 + 3 * (1 - t) * t * t * p2
+         + t ** 3 * p3)
+    tan = 3 * (1 - t) ** 2 * (p1 - p0) + 6 * (1 - t) * t * (p2 - p1) + 3 * t * t * (p3 - p2)
+    tan /= np.maximum(np.linalg.norm(tan, axis=-1, keepdims=True), 1e-12)
+    # side = tangent x reference axis, with a second axis where the
+    # tangent turns parallel to the first
+    axis = np.argmin(np.abs(tan[:, 0]), axis=-1)
+    ref = np.eye(3)[axis][:, None, :]
+    side = np.cross(tan, ref)
+    nrm = np.linalg.norm(side, axis=-1, keepdims=True)
+    alt = np.eye(3)[(axis + 1) % 3][:, None, :]
+    side = np.where(nrm < 1e-6, np.cross(tan, alt), side)
+    side /= np.maximum(np.linalg.norm(side, axis=-1, keepdims=True), 1e-12)
+    u_glob = (np.arange(n_curves)[:, None] + t[:, :, 0]) / n_curves  # (C, n+1)
+    half_w = 0.5 * ((1 - u_glob) * w0 + u_glob * w1)[..., None]
+    lo, hi = b - side * half_w, b + side * half_w  # the ribbon's two edges
+    a0, a1, b0_, b1_ = lo[:, :-1], hi[:, :-1], lo[:, 1:], hi[:, 1:]
+    verts = np.stack([np.stack([a0, a1, b1_], 2), np.stack([a0, b1_, b0_], 2)], 2)
+    ua, ub = u_glob[:, :-1], u_glob[:, 1:]
+    zero, one = np.zeros_like(ua), np.ones_like(ua)
+    uv1 = np.stack([np.stack([ua, zero], -1), np.stack([ua, one], -1), np.stack([ub, one], -1)], 2)
+    uv2 = np.stack([np.stack([ua, zero], -1), np.stack([ub, one], -1), np.stack([ub, zero], -1)], 2)
+    uvs = np.stack([uv1, uv2], 2)
+    return verts.reshape(-1, 3, 3), None, uvs.reshape(-1, 3, 2)
 
 
 #: shape type -> tessellator (ShapeRecord params, scene dir -> verts, normals, uvs)
@@ -452,7 +462,35 @@ def _geometric_normals(verts: np.ndarray) -> np.ndarray:
 _MAT_ENUM = {"none": bxdf.MAT_NONE, "matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT_PLASTIC,
              "metal": bxdf.MAT_METAL, "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR,
              "uber": bxdf.MAT_UBER, "substrate": bxdf.MAT_SUBSTRATE,
-             "translucent": bxdf.MAT_TRANSLUCENT, "mix": bxdf.MAT_MATTE}
+             "translucent": bxdf.MAT_TRANSLUCENT, "mix": bxdf.MAT_MATTE,
+             "disney": bxdf.MAT_DISNEY, "hair": bxdf.MAT_HAIR}
+
+#: the disney parameter slots, added to the table only when a scene uses
+#: the material (every other scene's gather stays as it was)
+_DISNEY_SLOTS = ("d_metallic", "d_spectint", "d_aniso", "d_sheen", "d_sheentint",
+                 "d_clearcoat", "d_ccgloss", "d_strans", "d_flat", "d_dtrans")
+
+
+def _ensure_disney_slots(tab, m):
+    if "d_metallic" not in tab:
+        for slot in _DISNEY_SLOTS:
+            tab[slot] = np.zeros(m, np.float32)
+        tab["d_thin"] = np.zeros(m, np.int32)
+
+
+def _ensure_hair_slots(tab, m):
+    if "h_beta_m" not in tab:
+        tab["h_sigma_a"] = np.zeros((m, 3), np.float32)
+        tab["h_beta_m"] = np.full(m, 0.3, np.float32)
+        tab["h_beta_n"] = np.full(m, 0.3, np.float32)
+        tab["h_alpha"] = np.full(m, 2.0, np.float32)
+
+
+def _hair_sigma_a_from_reflectance(c, beta_n):
+    """HairBSDF::SigmaAFromReflectance (hair.cpp)."""
+    denom = (5.969 - 0.215 * beta_n + 2.532 * beta_n**2 - 10.73 * beta_n**3
+             + 5.574 * beta_n**4 + 0.245 * beta_n**5)
+    return (np.log(np.maximum(np.asarray(c, np.float64), 1e-4)) / denom) ** 2
 
 #: material slot -> its texture-id column, and the name tex_used gives it
 TEX_SLOTS = (("kd_tex", "kd"), ("ks_tex", "ks"), ("sigma_tex", "sigma"),
@@ -597,6 +635,57 @@ def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
             flt("roughness", 0.1, "rough_u", "rough_tex")
             tab["rough_v"][i] = tab["rough_u"][i]
             tab["remap"][i] = int(p.get("remaproughness", True))
+        elif t == "disney":
+            # the Disney 2015 lobe set (disney.cpp): its parameters in the
+            # d_* slots; the shared slots carry color, roughness and eta
+            _ensure_disney_slots(tab, m)
+            spec("color", 0.5, "kd", "kd_tex")
+            flt("roughness", 0.5, "rough_u", "rough_tex")
+            tab["rough_v"][i] = tab["rough_u"][i]
+            flt("eta", 1.5, "eta")
+            tab["eta"][i] = tab["eta"][i][:1].repeat(3)
+            tab["remap"][i] = 0
+            for key, slot, dflt in (
+                ("metallic", "d_metallic", 0.0), ("speculartint", "d_spectint", 0.0),
+                ("anisotropic", "d_aniso", 0.0), ("sheen", "d_sheen", 0.0),
+                ("sheentint", "d_sheentint", 0.5), ("clearcoat", "d_clearcoat", 0.0),
+                ("clearcoatgloss", "d_ccgloss", 1.0), ("spectrans", "d_strans", 0.0),
+                ("flatness", "d_flat", 0.0), ("difftrans", "d_dtrans", 1.0),
+            ):
+                flt(key, dflt, slot)
+            thin, _ = _fold_const(p.get("thin"), False)
+            tab["d_thin"][i] = 1 if thin else 0
+            sd, _ = _fold_const(p.get("scatterdistance"), 0.0)
+            if np.any(np.asarray(sd, np.float64) > 0):
+                Warning("disney scatterdistance > 0 (subsurface) is not supported; shading "
+                        "as the solid Disney BSDF")
+        elif t == "hair":
+            # Chiang et al.'s HairBSDF (hair.cpp): sigma_a resolves in
+            # HairMaterial::ComputeScatteringFunctions' order
+            _ensure_hair_slots(tab, m)
+            bn, _ = _fold_const(p.get("beta_n"), 0.3)
+            bn = float(np.asarray(bn, np.float64).reshape(-1).mean())
+            if p.get("sigma_a") is not None:
+                sa, _ = _fold_const(p.get("sigma_a"), 1.3)
+                sa = _rgb(sa)
+            elif p.get("color") is not None:
+                col, _ = _fold_const(p.get("color"), 0.5)
+                sa = _hair_sigma_a_from_reflectance(_rgb(col), bn)
+            else:
+                eu, _ = _fold_const(p.get("eumelanin"), 1.3)
+                ph, _ = _fold_const(p.get("pheomelanin"), 0.0)
+                eu = float(np.asarray(eu, np.float64).reshape(-1).mean())
+                ph = float(np.asarray(ph, np.float64).reshape(-1).mean())
+                # the eumelanin and pheomelanin absorption spectra
+                sa = eu * np.array([0.419, 0.697, 1.37]) + ph * np.array([0.187, 0.4, 1.05])
+            tab["h_sigma_a"][i] = np.asarray(sa, np.float32)
+            flt("beta_m", 0.3, "h_beta_m")
+            tab["h_beta_n"][i] = bn
+            flt("alpha", 2.0, "h_alpha")
+            flt("eta", 1.55, "eta")
+            tab["eta"][i] = tab["eta"][i][:1].repeat(3)
+            # the colour of integrators that store only a diffuse albedo
+            tab["kd"][i] = np.exp(-np.asarray(sa, np.float64) * 0.5)
         else:  # mix (mixmat.cpp): sub-rows ia/ib, resolved by `amount`
             amt, folded = _fold_const(p.get("amount"), 0.5)
             a = _rgb(amt)
@@ -660,8 +749,6 @@ def _check_directives(api, ro):
         _not_ported(f'Film "{ro.film_name}" (ported: "image")')
     if ro.accelerator_name != "bvh":
         _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
-    if api.render_options.camera_to_world.is_animated():
-        _not_ported("an animated camera transform (motion blur)")
 
 
 def compile_scene(api, device=None) -> CompiledScene:
@@ -672,6 +759,10 @@ def compile_scene(api, device=None) -> CompiledScene:
     ro = api.render_options
     opts = api.options
     _check_directives(api, ro)
+    if ro.camera_to_world.is_animated():
+        # the reference builds its camera from the shutter-start keyframe
+        Warning("the camera transform is animated: rendering with its shutter-start "
+                "keyframe (the end keyframe is ignored)")
 
     # -- film / filter / camera / sampler --------------------------------
     filt = make_filter(ro.filter_name, ro.filter_params)
@@ -701,6 +792,8 @@ def compile_scene(api, device=None) -> CompiledScene:
             shape_list.append(r2)
 
     all_verts, all_normals, all_uvs = [], [], []
+    all_verts1 = []  # the shutter-end keyframe of every shape
+    any_motion = False
     all_mat, all_light = [], []
     mat_records: List = []
     mat_index: Dict[int, int] = {}
@@ -726,9 +819,16 @@ def compile_scene(api, device=None) -> CompiledScene:
             continue
         verts, normals, uvs = tess
         o2w = rec.object_to_world[0]
-        if not np.allclose(o2w.m, rec.object_to_world[1].m):
-            _not_ported("animated shape transforms (motion blur)")
+        o2w1 = rec.object_to_world[1]
         wverts = o2w.apply_point(verts.reshape(-1, 3)).reshape(-1, 3, 3)
+        # the shutter-end keyframe: vertices lerp LINEARLY in the ray's
+        # time, as in the reference (pbrt's AnimatedTransform decomposes
+        # and slerps, which differs for large rotations)
+        if not np.allclose(o2w.m, o2w1.m):
+            wverts1 = o2w1.apply_point(verts.reshape(-1, 3)).reshape(-1, 3, 3)
+            any_motion = True
+        else:
+            wverts1 = wverts
         if normals is not None:
             wn = o2w.apply_normal(normals.reshape(-1, 3)).reshape(-1, 3, 3)
             ln = np.linalg.norm(wn, axis=-1, keepdims=True)
@@ -746,6 +846,7 @@ def compile_scene(api, device=None) -> CompiledScene:
         base = sum(len(v) for v in all_verts)
         shape_tri_counts.append((rec, n_t))
         all_verts.append(wverts)
+        all_verts1.append(wverts1)
         all_normals.append(wn)
         all_uvs.append(uvs)
         all_mat.append(np.full(n_t, mid, np.int32))
@@ -769,29 +870,40 @@ def compile_scene(api, device=None) -> CompiledScene:
 
     if not all_verts:
         _not_ported("a scene without geometry")
+    # motion blur is on only where something moves AND the shutter is open
+    any_motion = any_motion and shutter[1] > shutter[0]
     verts = np.concatenate(all_verts).astype(np.float64)
+    verts1 = np.concatenate(all_verts1).astype(np.float64) if any_motion else None
     normals = np.concatenate(all_normals).astype(np.float32)
     uvs = np.concatenate(all_uvs).astype(np.float32)
     mat_ids = np.concatenate(all_mat)
     light_ids = np.concatenate(all_light)
 
-    # -- world bounds ------------------------------------------------------
-    finite = np.abs(verts).max(axis=(1, 2)) < 1e29
+    # -- world bounds (the union over the shutter where anything moves) -----
+    vb = verts if verts1 is None else np.concatenate([verts, verts1])
+    finite = np.abs(vb).max(axis=(1, 2)) < 1e29
     if finite.any():
-        wmin = verts[finite].min(axis=(0, 1))
-        wmax = verts[finite].max(axis=(0, 1))
+        wmin = vb[finite].min(axis=(0, 1))
+        wmax = vb[finite].max(axis=(0, 1))
     else:
         wmin = np.full(3, -1.0)
         wmax = np.full(3, 1.0)
     wcenter = 0.5 * (wmin + wmax)
     wradius = float(np.linalg.norm(wmax - wcenter)) + 1e-6
 
-    # -- BVH and leaf order -------------------------------------------------
+    # -- BVH (each triangle's bounds the union over both keyframes) and
+    # leaf order ------------------------------------------------------------
     bmin, bmax = triangle_bounds(verts)
+    if verts1 is not None:
+        bmin1, bmax1 = triangle_bounds(verts1)
+        bmin = np.minimum(bmin, bmin1)
+        bmax = np.maximum(bmax, bmax1)
     bvh = build_bvh(bmin, bmax, method=ro.accelerator_params.find_one_string(
         "splitmethod", "auto"))
     order = bvh.prim_order
     verts = verts[order]
+    if verts1 is not None:
+        verts1 = verts1[order]
     normals = normals[order]
     uvs = uvs[order]
     mat_ids = mat_ids[order]
@@ -921,6 +1033,14 @@ def compile_scene(api, device=None) -> CompiledScene:
     lv = np.asarray(verts, np.float32)[np.clip(lt_tri, 0, len(verts) - 1)]
     lv[lt_tri < 0] = 0.0
     lt["tri_v"] = lv
+    if verts1 is not None:
+        # light sampling takes the shutter-start keyframe (the reference's
+        # approximation; pbrt samples lights at the reference point's time)
+        lv1 = np.asarray(verts1, np.float32)[np.clip(lt_tri, 0, len(verts) - 1)]
+        moving = (lt_tri >= 0) & (np.abs(lv1 - lv).max(axis=(1, 2)) > 1e-7)
+        if np.any(moving):
+            Warning(f"{int(moving.sum())} area light(s) sit on ANIMATED shapes: direct-light "
+                    "sampling uses the shutter-start keyframe (approximation; MIS pdfs likewise)")
 
     # power-weighted pick distribution (lightdistrib.cpp PowerLightDistribution)
     power = np.zeros(max(n_lights, 1))
@@ -993,6 +1113,7 @@ def compile_scene(api, device=None) -> CompiledScene:
 
     tab = {
         "tri_verts": pad_tri_verts(verts),
+        **({"tri_verts1": pad_tri_verts(verts1)} if verts1 is not None else {}),
         "tri_normals": normals,
         "tri_uvs": uvs,
         "tri_mat": mat_ids.astype(np.int32),
@@ -1017,11 +1138,13 @@ def compile_scene(api, device=None) -> CompiledScene:
             [normals.reshape(len(normals), 9), uvs.reshape(len(uvs), 6), pack], axis=1
         ).T.copy()
 
-    from tpu_pbrt_torch.accel.mxu import BRUTE_MAX_TRIS, tri_feature_weights
+    from tpu_pbrt_torch.accel.mxu import (BRUTE_MAX_TRIS, tri_feature_weights,
+                                          tri_feature_weights_motion)
 
     if len(verts) <= BRUTE_MAX_TRIS:
         tab["bfeat"] = {
-            "feat": tri_feature_weights(verts, wcenter),
+            "feat": (tri_feature_weights(verts, wcenter) if verts1 is None
+                     else tri_feature_weights_motion(verts, verts1, wcenter)),
             "center": np.asarray(wcenter, np.float32),
         }
     else:
@@ -1029,14 +1152,20 @@ def compile_scene(api, device=None) -> CompiledScene:
         from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy
 
         leaf_tris = int(cfg.leaf_tris if cfg.leaf_tris is not None else STREAM_LEAF_TRIS)
-        tab["tstream"] = build_treelet_pack_numpy(verts, bvh, leaf_tris=leaf_tris)
+        tab["tstream"] = build_treelet_pack_numpy(verts, bvh, leaf_tris=leaf_tris,
+                                                  tri_verts1=verts1)
+        # the lane-major (9, T) vertex tables of _finalize_hits' winner fetch
         T9 = tab["tri_verts"].shape[0]
         tab["tri_verts9T"] = tab["tri_verts"].reshape(T9, 9).T.copy()
+        if verts1 is not None:
+            tab["tri_verts1_9T"] = tab["tri_verts1"].reshape(T9, 9).T.copy()
 
-    if tex_atlas is not None:
+    if "h_beta_m" in mtab or tex_atlas is not None:
         # the uv-parameterization derivatives per triangle (triangle.cpp
-        # dpdu/dpdv) for the ray-differential footprint, lane-major
-        # (8, T): dpdu (3), dpdv (3), padding (2)
+        # dpdu/dpdv): hair shades in the frame of the normalized dpdu
+        # (tri_tanT, (3, T)); textures take both raw vectors for the
+        # ray-differential footprint (tri_difT, (8, T): dpdu (3), dpdv
+        # (3), padding (2)); each lane-major, built only when used
         duv02 = uvs[:, 0] - uvs[:, 2]
         duv12 = uvs[:, 1] - uvs[:, 2]
         dp02 = verts[:, 0] - verts[:, 2]
@@ -1048,8 +1177,14 @@ def compile_scene(api, device=None) -> CompiledScene:
         dpdv_raw = (-duv12[:, 0:1] * dp02 + duv02[:, 0:1] * dp12) * inv[:, None]
         dpdu_raw = np.where(safe[:, None], dpdu_raw, 0.0)
         dpdv_raw = np.where(safe[:, None], dpdv_raw, 0.0)
-        tab["tri_difT"] = np.concatenate(
-            [dpdu_raw.T, dpdv_raw.T, np.zeros((2, len(verts)))], axis=0).astype(np.float32)
+        if "h_beta_m" in mtab:
+            ln = np.linalg.norm(dpdu_raw, axis=-1, keepdims=True)
+            dpdu_n = np.where(ln > 1e-12, dpdu_raw / np.maximum(ln, 1e-20), 0.0)
+            tab["tri_tanT"] = np.asarray(dpdu_n.T.copy(), np.float32)
+        if tex_atlas is not None:
+            tab["tri_difT"] = np.concatenate(
+                [dpdu_raw.T, dpdv_raw.T, np.zeros((2, len(verts)))], axis=0).astype(np.float32)
+    if tex_atlas is not None:
         tab["tex_atlas"] = np.asarray(tex_atlas, np.float32)
     if light_atlas_chunks:
         tab["light_atlas"] = light_atlas

@@ -1,12 +1,12 @@
 """Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
 killeroo-class mesh and the crown-class scene), and the cloud-class,
-caustic-glass-class, scene-breadth and textured scenes.
+caustic-glass-class, scene-breadth, textured and motion scenes.
 
 Same scene text and the same procedural meshes and sky as the reference,
 driven through the port's API, so both packages compile identical worlds.
-The reference has no cloud, caustic, breadth or textured scene:
-`cloud_parts`, `caustic_parts`, `breadth_parts` and `textured_parts`
-hold their text and meshes, which the
+The reference has no cloud, caustic, breadth, textured or motion scene:
+`cloud_parts`, `caustic_parts`, `breadth_parts`, `textured_parts` and
+`motion_parts` hold their text and meshes, which the
 port parses here and the JAX reference's generators (under
 tests/torch_golden/) parse through the JAX package's API.
 """
@@ -749,6 +749,141 @@ def make_textured_like(res=512, spp=16, maxdepth=5, integrator="path", params=""
                                 n_height, ground, rough, panel)
     blob = f'Shape "plymesh" "string filename" ["{ply}"]\n'
     parse_string(blob.join(texts), api, render=False)
+    return api
+
+
+#: the motion scene's hair: one `curve` shape per way `hair` resolves its
+#: absorption (explicit sigma_a, a colour, melanin concentrations)
+_MOTION_HAIR_MATERIALS = (
+    'Material "hair" "rgb sigma_a" [0.84 1.39 2.74] "float beta_m" [0.25] "float beta_n" [0.3]',
+    'Material "hair" "rgb color" [0.55 0.32 0.16] "float beta_m" [0.35] "float alpha" [3]',
+    'Material "hair" "float eumelanin" [0.9] "float pheomelanin" [0.6] "float eta" [1.6]',
+)
+#: the three blob instances' disney materials, and each instance's
+#: shutter-end motion (None: static)
+_MOTION_BLOBS = (
+    ('Material "disney" "rgb color" [0.85 0.6 0.3] "float metallic" [0.85] '
+     '"float anisotropic" [0.6] "float roughness" [0.35] "float clearcoat" [0.7] '
+     '"float clearcoatgloss" [0.8]', None),
+    ('Material "disney" "rgb color" [0.7 0.85 0.9] "float spectrans" [0.8] "bool thin" "true" '
+     '"float roughness" [0.2] "float eta" [1.45]', "Translate 0.35 0 0"),
+    ('Material "disney" "rgb color" [0.5 0.25 0.55] "float sheen" [1] "float sheentint" [0.6] '
+     '"float difftrans" [0.7] "bool thin" "true" "float flatness" [0.4] "float roughness" [0.6]',
+     "Rotate 6 0 1 0"),
+)
+#: the small motion scene (tests and goldens): its hair and tessellation
+MOTION_SMALL = dict(n_segments=240, n_theta=12, n_phi=24)
+
+
+def _hair_curve_text(n_seg: int, x0: float, x1: float, seed: int) -> str:
+    """One `curve` shape of n_seg cubic Bezier segments over the patch
+    x in [x0, x1], z in [-0.7, 0.1]: the segments of one curve share their
+    end points, so the curve's points alternate between a root on the
+    ground (y = -0.8) and a tip above it, and each segment is one strand,
+    bent by a seeded offset; the points run through rows of the patch that
+    alternate direction."""
+    rng = np.random.default_rng(seed)
+    m = n_seg + 1
+    n_rows = max(1, int(round(np.sqrt(m * 0.8 / max(x1 - x0, 1e-6)))))
+    per_row = -(-m // n_rows)
+    j = np.arange(m)
+    row, col = j // per_row, j % per_row
+    col = np.where(row % 2 == 1, per_row - 1 - col, col)
+    x = x0 + (x1 - x0) * (col + rng.uniform(0.3, 0.7, m)) / per_row
+    z = -0.7 + 0.8 * (row + rng.uniform(0.3, 0.7, m)) / n_rows
+    y = np.where(j % 2 == 0, -0.8, -0.8 + rng.uniform(0.45, 0.75, m))
+    P = np.stack([x, y, z], -1)
+    a, b = P[:-1], P[1:]
+    bend = rng.uniform(-0.06, 0.06, (n_seg, 3)) * np.array([1.0, 0.0, 1.0])
+    ctrl = np.stack([a + (b - a) / 3 + bend, a + 2 * (b - a) / 3 - bend, b], 1).reshape(-1, 3)
+    vals = " ".join(f"{v:.5f}" for v in np.concatenate([P[:1], ctrl]).reshape(-1))
+    return f'Shape "curve" "point P" [{vals}] "float width0" [0.01] "float width1" [0.01]'
+
+
+def motion_parts(res, spp, maxdepth=5, integrator="path", params="", n_segments=20480,
+                 n_theta=180, n_phi=360):
+    """The motion scene as (texts, the blob's PLY path): the blob is
+    declared once between texts[k] and texts[k + 1] for each of its three
+    `ObjectBegin`s, and texts[-1] follows the last. The PLY is the breadth
+    scene's blob (breadth_files).
+
+    A stand-in for pbrt-v3-scenes' `hair/` scenes (curves under `Material
+    "hair"`) under a moving shutter, with the disney material:
+
+        Integrator "<integrator>" "integer maxdepth" [<maxdepth>] <params>
+        Sampler "zerotwosequence" "integer pixelsamples" [<spp>]
+        PixelFilter "box"
+        Film "image" "integer xresolution" [<res>] "integer yresolution" [<res>]
+        LookAt 0 0.8 -3.3  0 -0.25 0.8  0 1 0
+        Camera "perspective" "float fov" [45] "float shutteropen" [0] "float shutterclose" [1]
+        WorldBegin
+        LightSource "infinite" (the crown's sky, scale 0.5)
+        AttributeBegin AreaLightSource "diffuse" [8 7.6 7]  (a quad at y = 3.2)  AttributeEnd
+        Material "disney" (roughness 0.7)  (the ground quad at y = -0.8)
+        AttributeBegin
+          ActiveTransform EndTime  Translate 0.25 0 0  ActiveTransform All
+          three `Shape "curve"`s of n_segments / 3 segments each, under
+          `Material "hair"` by sigma_a, by colour and by melanin
+        AttributeEnd
+        ObjectBegin "blob<i>"  Material "disney" ...  Shape (the blob)  ObjectEnd,  i = 0, 1, 2:
+          metallic + anisotropic + clearcoat; spectrans + thin; sheen + difftrans + thin
+        three `ObjectInstance`s, the first static, the second translated by
+        0.35 over the shutter, the third rotated by 6 degrees
+
+    Each curve segment is 32 triangles (the reference's 16 ribbon quads),
+    so 20,480 segments are 655,360 triangles; with 3 x 128,880 blob
+    triangles and two quads the scene holds 1,042,004 triangles."""
+    f = {"blob": breadth_files(n_theta, n_phi)["blob"], "env": _crown_envmap_path()}
+    head = f"""
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}] {params}
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 0.8 -3.3  0 -0.25 0.8  0 1 0
+Camera "perspective" "float fov" [45] "float shutteropen" [0] "float shutterclose" [1]
+WorldBegin
+LightSource "infinite" "string mapname" ["{f['env']}"] "rgb scale" [0.5 0.5 0.5]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [8 7.6 7]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 3.2 -0.5  1 3.2 -0.5  1 3.2 1.5  -1 3.2 1.5]
+AttributeEnd
+AttributeBegin
+Material "disney" "rgb color" [0.5 0.47 0.42] "float roughness" [0.7]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-8 -0.8 -6  -8 -0.8 8  8 -0.8 8  8 -0.8 -6]
+AttributeEnd
+AttributeBegin
+ActiveTransform EndTime
+Translate 0.25 0 0
+ActiveTransform All
+"""
+    per = [n_segments // 3 + (1 if i < n_segments % 3 else 0) for i in range(3)]
+    for i, (mat, n) in enumerate(zip(_MOTION_HAIR_MATERIALS, per)):
+        head += f"{mat}\n{_hair_curve_text(n, -2.4 + 1.6 * i, -0.8 + 1.6 * i, 40 + i)}\n"
+    head += "AttributeEnd\n"
+    texts = [head]
+    for i, (mat, _) in enumerate(_MOTION_BLOBS):
+        texts[-1] += f'ObjectBegin "blob{i}"\n{mat}\n'
+        texts.append("ObjectEnd\n")
+    for i, (_, move) in enumerate(_MOTION_BLOBS):
+        motion = f"ActiveTransform EndTime\n{move}\nActiveTransform All\n" if move else ""
+        texts[-1] += (f"AttributeBegin\nTranslate {-1.5 + 1.5 * i:.3f} -0.22 1.300\n"
+                      f"{motion}Rotate {50 * i + 20} 0 1 0\nScale 0.6 0.6 0.6\n"
+                      f'ObjectInstance "blob{i}"\nAttributeEnd\n')
+    return texts, f["blob"]
+
+
+def make_motion_like(res=512, spp=16, maxdepth=5, integrator="path", params="", small=False,
+                     options=None, device=None) -> PbrtAPI:
+    """The motion stand-in (`motion_parts`): hair under a moving shutter
+    and the disney material; 1,042,004 triangles, or with `small=True`
+    (MOTION_SMALL: 240 hair segments, a 528-triangle blob; 9,268
+    triangles) for CPU tests. The blob is a `Shape "plymesh"`. Parsed up
+    to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    texts, ply = motion_parts(res, spp, maxdepth, integrator, params,
+                              **(MOTION_SMALL if small else {}))
+    parse_string(f'Shape "plymesh" "string filename" ["{ply}"]\n'.join(texts), api,
+                 render=False)
     return api
 
 
