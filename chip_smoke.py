@@ -179,25 +179,50 @@ Phases, each fatal on failure (exit code 1, no result line):
      [render] that render through the pool and the fixed batch (the same
      rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves,
      the card's name and power limit), its launches counted as in phase 3
-     (the F = 64 flush must launch); `path` 64x64x64 through the pool and
-     the fixed batch against the JAX CPU reference
-     tests/torch_golden/motion_path_cpu_64x64_64spp.npz and `bdpt` (the
+     (the F = 64 flush must launch); `path` 64x64x16 through the pool
+     against tests/torch_golden/motion_path_cpu_64x64_16spp.npz, its MSE
+     printed beside the 1e-4 bar with its verdict (the hair paths that
+     branch apart at the reference's fused multiply-adds: ROADMAP Queue 3
+     item 12, open); `path` 64x64x64 through the pool and the fixed batch
+     against motion_path_cpu_64x64_64spp.npz and `bdpt` (the
      shutter-start frame, disney and hair shaded through BDPT) at
      32x32x16 against motion_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4, no
      pair dropped, rays printed beside the reference's); the card
-     against the CPU port at 32x32x4 on the small variant (MSE bar 1e-4);
- 11. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+     against the CPU port at 32x32x4 on the small variant (MSE bar 1e-4,
+     printed beside 1e-8);
+ 11. subsurface — the BSSRDF probe wave and the fourier material on
+     make_subsurface_like() at its full geometry (1,126,884 triangles: the
+     displaced-sphere blob at the crown's tessellation in `subsurface`
+     (the Skin2 preset at scale 500), a 128,880-triangle blob instance in
+     `kdsubsurface`, a ground in `fourier` (a 3-channel table written at
+     build time), the crown's sky and a quad area light; `path` at
+     maxdepth 5):
+     [scene] its sizes, material types, BSSRDF radii and compile seconds;
+     [check] both kernels against their plain versions, EXACT, on the
+     512x512x16 render's first probe-chord wave (the first chord of its
+     middle chunk's first probe through the pool: closest hit, each
+     chord's short t_max, most chords missing), timed as in phase 2;
+     [render] that render through the pool and the fixed batch (the same
+     rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves,
+     launches, the card's name and power limit); `path` 64x64x16 through
+     the pool and the fixed batch against the JAX CPU reference
+     tests/torch_golden/subsurface_path_cpu_64x64_16spp.npz (MSE bar
+     1e-4, no pair dropped, rays printed beside the reference's); the
+     card against the CPU port at 32x32x4 on the small variant (MSE below
+     1e-8);
+ 12. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
- 12. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 13. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
      caustic's connection and photon waves under "caustic"; the breadth
      scene's pool and fixed waves under "breadth", the textured scene's
-     under "textured", the motion scene's under "motion"), the card's name and
+     under "textured", the motion scene's under "motion", the subsurface
+     scene's probe-chord wave under "subsurface"), the card's name and
      power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -252,8 +277,9 @@ BREADTH_RES, BREADTH_SPP = 512, 16
 BREADTH_REFS = {"perspective": "gaussian", "realistic": "mitchell"}
 #: the cameras held against the CPU port at 32x32x4 on the small tessellation
 BREADTH_PORT = {"orthographic": "triangle", "environment": "sinc"}
-#: the card against the CPU port on the breadth scene: the MSE bar
-BREADTH_PORT_BAR = 1e-8
+#: the card against the CPU port on the breadth and subsurface scenes: the
+#: MSE bar (the motion scene's card-vs-port MSE is printed beside it)
+PORT_BAR = 1e-8
 #: the JAX CPU references of the textured scene (path 64x64x16, bdpt 32x32x16)
 TEXTURED_REF = os.path.join(GOLDEN, "textured_path_cpu_64x64_16spp.npz")
 TEXTURED_BDPT_REF = os.path.join(GOLDEN, "textured_bdpt_cpu_32x32_16spp.npz")
@@ -262,14 +288,22 @@ TEXTURED_RES, TEXTURED_SPP = 512, 16
 #: the profiled textured render: 2^18 camera rays (a trace's parse time
 #: follows its device ops, which follow its waves)
 TEXTURED_PROFILE = (256, 4)
-#: the JAX CPU references of the motion scene (path 64x64x64, bdpt 32x32x16;
-#: path at 64 spp: a few hair paths take another way at the last bits of
-#: the two libraries' transcendentals, a squared difference that falls as
-#: 1/spp, and 16 spp read 1.14e-4)
+#: the JAX CPU references of the motion scene (path 64x64x16 and 64x64x64,
+#: bdpt 32x32x16). A few hair paths take another way than the reference's:
+#: its compiled program fuses multiplies and adds across operations in
+#: the hair lobes, which the port rounds apart (ROADMAP Queue 3 item 12).
+#: Their squared difference falls as 1/spp: the 64x64x64 render is held
+#: to the bar, the 64x64x16 one is printed beside it with its verdict
 MOTION_REF = os.path.join(GOLDEN, "motion_path_cpu_64x64_64spp.npz")
+MOTION_REF16 = os.path.join(GOLDEN, "motion_path_cpu_64x64_16spp.npz")
 MOTION_BDPT_REF = os.path.join(GOLDEN, "motion_bdpt_cpu_32x32_16spp.npz")
+
 #: the timed motion render, whose pool and fixed waves the kernels are checked on
 MOTION_RES, MOTION_SPP = 512, 16
+#: the JAX CPU reference of the subsurface scene (path 64x64x16)
+SUBSURFACE_REF = os.path.join(GOLDEN, "subsurface_path_cpu_64x64_16spp.npz")
+#: the timed subsurface render, whose first probe-chord wave the kernels are checked on
+SUBSURFACE_RES, SUBSURFACE_SPP = 512, 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -1655,10 +1689,10 @@ def phase_breadth():
         (a, ra), (b, rb) = img["cuda"], img["cpu"]
         mse = float(np.mean((a.astype(np.float64) - b) ** 2))
         log(f"[breadth] card vs CPU port, {camera}/{filt} 32x32x4 (small tessellation): rays "
-            f"{ra} / {rb}, MSE {mse:.3e} (bar {BREADTH_PORT_BAR:g}), max |diff| "
+            f"{ra} / {rb}, MSE {mse:.3e} (bar {PORT_BAR:g}), max |diff| "
             f"{np.abs(a - b).max():.3e}, image mean {a.mean():.6f} "
             f"({time.perf_counter() - t0:.1f} s with the CPU render)")
-        if ra != rb or not mse < BREADTH_PORT_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+        if ra != rb or not mse < PORT_BAR or not np.isfinite(a).all() or not a.mean() > 0:
             raise SmokeFailure(f"breadth {camera}: the card and the CPU port differ (rays {ra} / "
                                f"{rb}, MSE {mse:.3e})")
     log(f"[breadth] phase wall time {time.perf_counter() - t_phase:.1f} s")
@@ -1886,7 +1920,23 @@ def phase_motion():
     del scene, integ, pool, fixed
     torch.cuda.empty_cache()
 
-    # [render] path 64x64x64 against the JAX CPU reference, pool and fixed batch
+    # [render] path 64x64x16 against its JAX CPU reference at the bar,
+    # printed with its verdict (the open fault of ROADMAP Queue 3 item 12);
+    # then 64x64x64 through the pool and the fixed batch, held to the bar
+    ref = np.load(MOTION_REF16)
+    scene, integ = _motion(64, 16, "cuda")
+    res, launches = _render_counted(integ, scene, regen=True)
+    _log_render("motion pool 64x64x16", res, launches)
+    want = ref["image"]
+    mse16 = float(np.mean((res.image.astype(np.float64) - want) ** 2))
+    log(f"[motion] motion pool 64x64x16: image mean {res.image.mean():.6f} (JAX CPU "
+        f"{want.mean():.6f}), MSE {mse16:.3e} (bar {MSE_BAR:g}: "
+        f"{'within' if mse16 <= MSE_BAR else 'OVER, the open fault of ROADMAP Queue 3 item 12'}),"
+        f" rays {res.rays_traced} (JAX CPU {int(ref['rays_traced'])}, "
+        f"{res.rays_traced - int(ref['rays_traced']):+d}), dropped {res.stats['n_drop']}")
+    if not np.isfinite(res.image).all() or res.stats["n_drop"]:
+        raise SmokeFailure("motion 64x64x16: non-finite image or pairs dropped")
+    del scene, integ, res
     ref = np.load(MOTION_REF)
     t0 = time.perf_counter()
     scene, integ = _motion(64, 64, "cuda")
@@ -1919,7 +1969,8 @@ def phase_motion():
     (a, ra), (b, rb) = got["cuda"], got["cpu"]
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     log(f"[motion] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
-        f"{mse:.3e} (bar {MSE_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
+        f"{mse:.3e} (bar {MSE_BAR:g}; {'below' if mse < PORT_BAR else 'above'} the other "
+        f"scenes' {PORT_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
         f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
     if not mse < MSE_BAR or not np.isfinite(a).all() or not a.mean() > 0:
         raise SmokeFailure(f"motion: the card and the CPU port differ (MSE {mse:.3e})")
@@ -1928,6 +1979,150 @@ def phase_motion():
 
 
 # -- phase 11 ------------------------------------------------------------------
+
+def _subsurface(res, spp, device, **kw):
+    from tpu_pbrt_torch.scenes import compile_api, make_subsurface_like
+
+    return compile_api(make_subsurface_like(res, spp, device=device, **kw))
+
+
+def _capture_probe_wave(scene, integ):
+    """The first probe-chord wave of the render's middle chunk through the
+    pool: the BSSRDF probe traces its chords with `scene_intersect`, which
+    the fused layout calls for nothing else (closest hit, each chord's own
+    short t_max, the dead lanes' < 0)."""
+    from tpu_pbrt_torch.integrators import path as tpath
+
+    real, in_probe = tpath.scene_intersect, [False]
+
+    def chord(*args, **kw):
+        in_probe[0] = True
+        try:
+            return real(*args, **kw)
+        finally:
+            in_probe[0] = False
+
+    plan = integ.prepare_chunks(scene)
+    if not plan.use_regen:
+        raise SmokeFailure("subsurface: the render plan does not take the persistent pool")
+    chunk = plan.n_chunks // 2
+    tpath.scene_intersect = chord
+    try:
+        cap, state = _capture_first_wave(
+            lambda: integ.pool_chunk(scene.dev, scene.film.init_state(scene.device),
+                                     *plan.start(chunk), plan.chunk, plan.pool),
+            False, "subsurface", when=lambda: in_probe[0])
+    finally:
+        tpath.scene_intersect = real
+    if not state["finite"] or not state["live"]:
+        raise SmokeFailure(f"subsurface: the probe-chord wave has no live finite chords ({state})")
+    state["chunk"] = chunk
+    return cap, state
+
+
+def phase_subsurface():
+    """The subsurface scene on the card (see the module doc, phase 11):
+    both kernels on the first probe-chord wave, the 512x512x16 render
+    timed through the pool and the fixed batch, `path` 64x64x16 against
+    the JAX CPU reference and the card against the CPU port. Returns
+    {kernel: numbers at the probe-chord wave, with the timed renders'
+    launches and Mray/s}."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, integ = _subsurface(SUBSURFACE_RES, SUBSURFACE_SPP, "cuda")
+    secs = time.perf_counter() - t0
+    tp = scene.dev["tstream"]
+    mat = scene.dev["mat"]
+    types = np.unique(mat["type"].cpu().numpy()).tolist()
+    bs = scene.dev.get("bssrdf")
+    log(f"[scene] subsurface: {scene.n_tris} triangles, {tp.n_treelets} treelets of "
+        f"{tp.leaf_tris}, {tp.top.child_bmin.shape[0]} top-tree nodes, material types {types}, "
+        f"sub_id {mat['sub_id'].tolist() if 'sub_id' in mat else None}, Fourier table "
+        f"{tuple(mat['_fourier'].mu.shape) if '_fourier' in mat else None} x "
+        f"{mat['_fourier'].n_channels if '_fourier' in mat else 0} channels, r_max "
+        f"{bs.r_max.cpu().numpy().round(4).tolist() if bs is not None else None}, compiled in "
+        f"{secs:.2f} s")
+    if (scene.n_tris != 1_126_884 or bs is None or "_fourier" not in mat
+            or not {11, 12} <= set(types)):
+        raise SmokeFailure("subsurface: expected 1,126,884 triangles with the BSSRDF rows and "
+                           "the Fourier table")
+
+    # [check] both kernels, exact, on the first probe-chord wave
+    t0 = time.perf_counter()
+    cap, wave = _capture_probe_wave(scene, integ)
+    log(f"[subsurface] probe-chord wave: the first chord of chunk {wave['chunk']}'s first probe "
+        f"({wave['rays']} rays, {wave['live']} live chords, all with a finite t_max: "
+        f"{wave['finite']}; {wave['hits']} hit, {wave['live'] - wave['hits']} missed; "
+        f"{wave['expands']} expand steps, {wave['flushes']} flush chunks; expand captured after "
+        f"a flush: {wave['expand_after_flush']}, flush chunk after that expand: "
+        f"{wave['flush_after_expand']}) in {time.perf_counter() - t0:.2f} s")
+    out = {"flush_chunk": _flush_numbers(cap["flush"], tp.count, "subsurface probe-chord wave",
+                                         exact=True),
+           "expand": _expand_numbers(cap["expand"], "subsurface probe-chord wave")}
+    del cap
+
+    # [render] the 512x512x16 render through the pool and the fixed batch
+    pool, p_l = _render_counted(integ, scene, regen=True)
+    _log_render(f"subsurface pool {SUBSURFACE_RES}x{SUBSURFACE_RES}x{SUBSURFACE_SPP}", pool, p_l)
+    fixed, f_l = _render_counted(integ, scene, regen=False)
+    _log_render(f"subsurface fixed {SUBSURFACE_RES}x{SUBSURFACE_RES}x{SUBSURFACE_SPP}", fixed,
+                f_l)
+    close = np.isclose(pool.image, fixed.image, rtol=1e-4, atol=1e-5)
+    log(f"[subsurface] {SUBSURFACE_RES}x{SUBSURFACE_RES}x{SUBSURFACE_SPP}: pool "
+        f"{pool.mray_per_sec:.4f} Mray/s, fixed {fixed.mray_per_sec:.4f} Mray/s (pool/fixed "
+        f"{pool.mray_per_sec / max(fixed.mray_per_sec, 1e-9):.3f}); rays {pool.rays_traced} / "
+        f"{fixed.rays_traced}; pool waves {pool.stats['n_waves']}, occupancy "
+        f"{pool.stats['mean_wave_occupancy']:.4f}; launches flush {p_l['flush_chunk']} / "
+        f"{f_l['flush_chunk']}, expand {p_l['expand']} / {f_l['expand']}; image mean "
+        f"{pool.image.mean():.6f}, pixel channels outside rtol 1e-4 / atol 1e-5 of the fixed "
+        f"batch: {int((~close).sum())}; dropped {pool.stats['n_drop']} / "
+        f"{fixed.stats['n_drop']}; {card_line()}")
+    if (not np.isfinite(pool.image).all() or not pool.image.mean() > 1e-6
+            or pool.rays_traced != fixed.rays_traced or not close.all()
+            or pool.stats["n_drop"] or fixed.stats["n_drop"]):
+        raise SmokeFailure("subsurface 512x512: the pool and the fixed batch disagree, the image "
+                           "is not a finite lit render, or pairs dropped")
+    for name in out:
+        out[name].update(launches=p_l[name], launches_fixed=f_l[name],
+                         mray_per_sec=pool.mray_per_sec, fixed_mray_per_sec=fixed.mray_per_sec,
+                         res=SUBSURFACE_RES, spp=SUBSURFACE_SPP)
+    del scene, integ, pool, fixed
+    torch.cuda.empty_cache()
+
+    # [render] path 64x64x16 against the JAX CPU reference, pool and fixed batch
+    ref = np.load(SUBSURFACE_REF)
+    t0 = time.perf_counter()
+    scene, integ = _subsurface(64, 16, "cuda")
+    secs = time.perf_counter() - t0
+    for regen in (True, False):
+        res, launches = _render_counted(integ, scene, regen=regen)
+        label = f"subsurface {'pool' if regen else 'fixed'} 64x64x16"
+        _log_render(f"{label} (compiled in {secs:.2f} s)", res, launches)
+        _against(label, res.image, res.rays_traced, ref, res.stats["n_drop"], tag="subsurface")
+    del scene, integ
+
+    # the card against the CPU port on the small variant
+    t0 = time.perf_counter()
+    got = {}
+    for device in ("cuda", "cpu"):
+        scene, integ = _subsurface(32, 4, device, small=True)
+        r = integ.render(scene)
+        got[device] = (r.image, r.rays_traced)
+    (a, ra), (b, rb) = got["cuda"], got["cpu"]
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    log(f"[subsurface] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
+        f"{mse:.3e} (bar {PORT_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
+        f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
+    if not mse < PORT_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+        raise SmokeFailure(f"subsurface: the card and the CPU port differ (MSE {mse:.3e})")
+    log(f"[subsurface] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 12 ------------------------------------------------------------------
 
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
@@ -1997,6 +2192,7 @@ def main() -> int:
             and os.path.exists(CLOUD_REF) and os.path.exists(BREADTH_REF.format("realistic"))
             and os.path.exists(TEXTURED_REF) and os.path.exists(TEXTURED_BDPT_REF)
             and os.path.exists(MOTION_REF) and os.path.exists(MOTION_BDPT_REF)
+            and os.path.exists(MOTION_REF16) and os.path.exists(SUBSURFACE_REF)
             and os.path.exists(os.path.join(GOLDEN, "make_caustic_reference.py"))):
         print("chip_smoke: run from a checkout of the repo (tpu_pbrt_torch/, refimg/ and "
               "tests/torch_golden/ must sit beside this script)", file=sys.stderr)
@@ -2047,6 +2243,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kt_m = phase_motion()
         torch.cuda.empty_cache()
+        kt_s = phase_subsurface()
+        torch.cuda.empty_cache()
         phase_cli()
 
         def kernel(name, source, replaces):
@@ -2056,13 +2254,14 @@ def main() -> int:
             k = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
-                     breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name])
+                     breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name],
+                     subsurface=kt_s[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],
                                    kt_c[name]["photon"]["max_abs_err"],
                                    kt_b[name]["max_abs_err"], kt_t[name]["max_abs_err"],
-                                   kt_m[name]["max_abs_err"])
+                                   kt_m[name]["max_abs_err"], kt_s[name]["max_abs_err"])
             return k
 
         kernels = [

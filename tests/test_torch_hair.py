@@ -10,13 +10,13 @@ Covered:
   `_hair_setup`, `_hair_f_pdf`, `_hair_sample_wi`) on 4,096 lanes of
   seeded parameters (beta_m, beta_n in [0.1, 0.9], alpha in [0, 4]
   degrees, h in (-1, 1), sigma_a in [0, 3]) and directions over the whole
-  sphere: f and pdf within EVAL_RTOL relative + 2e-6 absolute on every
-  lane (measured: 3.3e-5 relative where a value exceeds 1e-3, 0.94 of the
-  bound: XLA's exp, log, asin, atan2 and sinh round an ulp or two apart
-  from torch's, and the Mp lobe of a small beta_m amplifies that), the
-  sampled directions within SAMPLE_RTOL + SAMPLE_ATOL (measured: 5.8e-5
-  absolute, 0.23 of the bound: an ulp of the longitudinal cosine near 1
-  moves sqrt(1 - cos^2) by far more; most lanes are bit-equal);
+  sphere: every output bit for bit (0 ulp) against the reference's
+  functions as pytest runs them (each jnp operation compiled on its own):
+  the lobes take core/xla_math.py's copies of XLA's log, exp and sinh,
+  glibc's atan2f, asinf (XLA's 2 atan2 form), sinf and cosf, the
+  correctly rounded square root and jnp's remainder (torch's versions
+  round 1-5 ulps apart, which the longitudinal sampling near cos = 1
+  amplified to 5.8e-5 of a direction);
 - `_hair_sigma_a_from_reflectance` and the three ways the compiler
   resolves sigma_a (`sigma_a`, `color`, `eumelanin`/`pheomelanin`), with
   every hair column, bit-equal to the reference's lowering;
@@ -47,9 +47,14 @@ from tpu_pbrt_torch.core import bxdf as tb
 torch.set_num_threads(1)
 
 N = 4096
-EVAL_RTOL = 2e-5
-SAMPLE_RTOL, SAMPLE_ATOL = 1e-3, 2e-5
 N_SPHERE = 65536
+
+
+def _same(a_t, a_j):
+    """Bit for bit (0 ulp), NaN payloads aside."""
+    a = np.asarray(a_t.numpy() if torch.is_tensor(a_t) else a_t, np.float32)
+    b = np.asarray(a_j, np.float32)
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
 
 
 def _hair_mp(mod, n, *, sigma_a=(0.0, 0.0, 0.0), beta_m=0.3, beta_n=0.3, alpha=0.0, eta=1.55,
@@ -87,29 +92,27 @@ def lanes():
 def test_scalar_functions_match_reference():
     rng = np.random.default_rng(2)
     x = np.concatenate([rng.uniform(0, 12, 2048), rng.uniform(12, 60, 2048)]).astype(np.float32)
-    _close(tb._i0(_t(x[:2048])), jb._i0(jnp.asarray(x[:2048])), rtol=EVAL_RTOL)
-    _close(tb._log_i0(_t(x)), jb._log_i0(jnp.asarray(x)), rtol=EVAL_RTOL)
+    _same(tb._i0(_t(x[:2048])), jb._i0(jnp.asarray(x[:2048])))
+    _same(tb._log_i0(_t(x)), jb._log_i0(jnp.asarray(x)))
     s = rng.uniform(0.05, 1.5, 4096).astype(np.float32)
     phi = rng.uniform(-8, 8, 4096).astype(np.float32)
     u = rng.uniform(0, 1, 4096).astype(np.float32)
-    _close(tb._logistic(_t(phi), _t(s)), jb._logistic(jnp.asarray(phi), jnp.asarray(s)),
-           rtol=EVAL_RTOL)
-    _close(tb._logistic_cdf(_t(phi), _t(s)), jb._logistic_cdf(jnp.asarray(phi), jnp.asarray(s)),
-           rtol=EVAL_RTOL)
-    _close(tb._trimmed_logistic(_t(phi), _t(s)),
-           jb._trimmed_logistic(jnp.asarray(phi), jnp.asarray(s)), rtol=EVAL_RTOL)
-    _close(tb._sample_trimmed_logistic(_t(u), _t(s)),
-           jb._sample_trimmed_logistic(jnp.asarray(u), jnp.asarray(s)),
-           rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL)
-    _close(tb._wrap_pi(_t(phi)), jb._wrap_pi(jnp.asarray(phi)), rtol=EVAL_RTOL)
+    _same(tb._logistic(_t(phi), _t(s)), jb._logistic(jnp.asarray(phi), jnp.asarray(s)))
+    _same(tb._logistic_cdf(_t(phi), _t(s)), jb._logistic_cdf(jnp.asarray(phi), jnp.asarray(s)))
+    _same(tb._logistic_cdf(np.pi, _t(s)), jb._logistic_cdf(jnp.pi, jnp.asarray(s)))
+    _same(tb._trimmed_logistic(_t(phi), _t(s)),
+          jb._trimmed_logistic(jnp.asarray(phi), jnp.asarray(s)))
+    _same(tb._sample_trimmed_logistic(_t(u), _t(s)),
+          jb._sample_trimmed_logistic(jnp.asarray(u), jnp.asarray(s)))
+    _same(tb._wrap_pi(_t(phi)), jb._wrap_pi(jnp.asarray(phi)))
     g_o, g_t = (rng.uniform(-1.5, 1.5, 4096).astype(np.float32) for _ in range(2))
     for p in range(4):
-        _close(tb._hair_phi_p(p, _t(g_o), _t(g_t)),
-               jb._hair_phi_p(p, jnp.asarray(g_o), jnp.asarray(g_t)), rtol=EVAL_RTOL)
+        _same(tb._hair_phi_p(p, _t(g_o), _t(g_t)),
+              jb._hair_phi_p(p, jnp.asarray(g_o), jnp.asarray(g_t)))
     ct, co, st, so = (rng.uniform(-1, 1, 4096).astype(np.float32) for _ in range(4))
     v = rng.uniform(0.005, 0.9, 4096).astype(np.float32)
     args = (np.abs(ct), np.abs(co), st, so, v)
-    _close(tb._mp(*map(_t, args)), jb._mp(*map(jnp.asarray, args)), rtol=EVAL_RTOL, atol=ATOL)
+    _same(tb._mp(*map(_t, args)), jb._mp(*map(jnp.asarray, args)))
 
 
 def test_hair_bsdf_matches_reference(lanes):
@@ -122,15 +125,15 @@ def test_hair_bsdf_matches_reference(lanes):
     flat_j = [want[0], want[1], *want[2], want[3], want[4], want[5], want[6], want[7], *want[8],
               *want[9], *(x for t in want[10] for x in t)]
     for a, b in zip(flat_t, flat_j):
-        _close(a, b, rtol=EVAL_RTOL, atol=ATOL)
+        _same(a, b)
     ft, pt = tb._hair_f_pdf(mt, _t(wo), _t(wi))
     fj, pj = jb._hair_f_pdf(mj, jnp.asarray(wo), jnp.asarray(wi))
-    _close(ft, fj, rtol=EVAL_RTOL, atol=ATOL)
-    _close(pt, pj, rtol=EVAL_RTOL, atol=ATOL)
+    _same(ft, fj)
+    _same(pt, pj)
     assert (pt.numpy() > 0).mean() > 0.9
     wst = tb._hair_sample_wi(mt, _t(wo), *map(_t, u))
     wsj = jb._hair_sample_wi(mj, jnp.asarray(wo), *map(jnp.asarray, u))
-    _close(wst, wsj, rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL)
+    _same(wst, wsj)
     # through the public dispatch: eval overrides, sampling draws from the
     # hair lobes and flags no transmission
     (fe, pe), bs = tb.bsdf_eval(mt, _t(wo), _t(wi)), tb.bsdf_sample(mt, _t(wo), *map(_t, u))

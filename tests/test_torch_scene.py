@@ -9,9 +9,11 @@ must equal the bridge's conversion of the reference's tables exactly:
 integers bit-equal, floats bit-equal — both sides run the same numpy host
 code (BVH build, leaf order, treelet cut, feature weights, material rows,
 light rows, the environment map and its 2D distribution, the light-pick
-distributions). Directives the port does not implement must raise
-PbrtError instead of being substituted; the shapes, filters, cameras and
-lights that used to raise compile and render.
+distributions). The shapes, filters, cameras, lights and materials that
+used to raise compile and render; where the reference substitutes (an
+unknown film or accelerator, a non-diffuse area light, an empty scene,
+an unknown light-sample strategy) the port compiles the reference's
+tables, with the reference's warning.
 """
 
 import os
@@ -34,7 +36,6 @@ from tpu_pbrt_torch.scene.bridge import flat_tables, tables_from_numpy
 from tpu_pbrt_torch.scene.compiler import compile_scene as tcompile
 from tpu_pbrt_torch.scene.api import Options as TOptions
 from tpu_pbrt_torch.scene.api import parse_string, pbrt_init
-from tpu_pbrt_torch.utils.error import PbrtError
 from tpu_pbrt_torch.utils.imageio import write_image
 
 SMALL = dict(res=16, spp=4, n_theta=12, n_phi=24)
@@ -115,9 +116,16 @@ _OK = dict(integ="path", sampler="zerotwosequence", light="point", mat="matte",
 
 @pytest.mark.parametrize("field,value", [("mat", "subsurface")])
 def test_unported_directives_raise(field, value):
+    """The last directive that used to raise "not ported" here, the
+    subsurface material, now compiles (a sub_id row and its baked
+    profile) and renders a finite 8x8 image through the probe wave (its
+    probe chords are traced rays beyond the camera rays; the triangle
+    faces away from the light, so the exits see none of it, as in the
+    reference)."""
     text = _BASE.format(**{**_OK, field: value})
-    with pytest.raises(PbrtError, match="not ported"):
-        parse_string(text, render=True, device="cpu")
+    api = parse_string(text, render=True, device="cpu")
+    assert api.result.image.shape == (8, 8, 3) and np.isfinite(api.result.image).all()
+    assert api.result.rays_traced > 8 * 8 * 2
 
 
 _TRI = 'Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]'
@@ -146,18 +154,29 @@ _POINT = 'LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]'
                          '"float spectrans" [0.3] "bool thin" "true"'),
     ('Material "matte"', 'Material "hair"'),
     ('Material "matte"', 'Material "hair" "rgb color" [0.5 0.3 0.2]'),
+    ('Material "matte"', 'ReverseOrientation\n'
+                         'Material "subsurface" "string name" ["Skin2"] "float scale" [50]'),
+    ('Material "matte"', 'ReverseOrientation\n'
+                         'Material "kdsubsurface" "rgb Kd" [0.8 0.5 0.3] "rgb mfp" [0.01 0.01 0.01]'),
+    ('Material "matte"', 'Material "fourier" "string bsdffile" ["{bsdf}"]'),
     ('Camera "perspective"', 'ActiveTransform EndTime\nTranslate 0.2 0 0\nActiveTransform All\n'
                              'Camera "perspective"'),
     (_TRI, 'ActiveTransform EndTime\nTranslate 0.3 0 0\nActiveTransform All\n' + _TRI),
 ], ids=["disk", "spot", "gaussian", "orthographic", "goniometric", "spot_narrow", "uber",
         "substrate", "translucent", "mix", "textured_plastic_kd", "disney", "disney_lobes",
-        "hair", "hair_color", "animated_camera", "animated_shape"])
-def test_ported_directives_render(old, new):
+        "hair", "hair_color", "subsurface", "kdsubsurface", "fourier", "animated_camera",
+        "animated_shape"])
+def test_ported_directives_render(old, new, tmp_path):
     """Directives that used to raise "not ported" compile and render a
     finite, lit 8x8 image (a goniometric light without a map takes the
-    reference's constant map)."""
+    reference's constant map; the fourier material reads a 3-channel
+    table the test writes)."""
     text = _BASE.format(**_OK)
     assert old in text
+    if "{bsdf}" in new:
+        bsdf = str(tmp_path / "t.bsdf")
+        tscenes.write_fourier_bsdf(bsdf)
+        new = new.replace("{bsdf}", bsdf)
     api = parse_string(text.replace(old, new), render=True, device="cpu")
     assert api.result.image.shape == (8, 8, 3)
     assert np.isfinite(api.result.image).all() and api.result.image.max() > 0
@@ -286,7 +305,12 @@ def test_environment_row_in_the_light_distributions():
 @pytest.mark.parametrize("directive", [
     'Material "fourier" "string bsdffile" "x.bsdf"', 'Material "subsurface"',
 ], ids=["fourier", "subsurface"])
-def test_unported_materials_and_lights_raise(directive):
+def test_unported_materials_and_lights_raise(directive, caplog):
+    """The two materials that used to raise "not ported" here compile and
+    render: the subsurface one with its defaults (finite; its exits face
+    away from the light), the fourier one naming a table that does not
+    exist as the reference's loud 0.5 diffuse fallback (a lit matte row,
+    with its warning)."""
     text = f"""
 Integrator "path" "integer maxdepth" [2]
 Sampler "zerotwosequence" "integer pixelsamples" [1]
@@ -299,8 +323,64 @@ LightSource "point" "rgb I" [1 1 1] "point from" [0 0 -2]
 Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
 WorldEnd
 """
-    with pytest.raises(PbrtError, match="not ported"):
-        parse_string(text, render=True, device="cpu")
+    api = parse_string(text, render=True, device="cpu")
+    img = api.result.image
+    assert img.shape == (4, 4, 3) and np.isfinite(img).all()
+    if "fourier" in directive:
+        assert img.max() > 0
+        assert 'could not read "x.bsdf"' in caplog.text
+        assert "SUBSTITUTING a 0.5 diffuse BSDF" in caplog.text
+
+
+_SUBSTITUTIONS = {
+    # name -> (the scene text's change, the reference's warning or None)
+    "film": (('Film "image"', 'Film "rgbfilm"'), 'Film "rgbfilm" unknown; using "image"'),
+    "accelerator": (('Camera "perspective" "float fov" [40]',
+                     'Camera "perspective" "float fov" [40]\nAccelerator "kdtree"'), None),
+    "area_light": ((_TRI, 'AttributeBegin\nAreaLightSource "blackbody" "rgb L" [2 2 2]\n'
+                          + _TRI + '\nAttributeEnd\nMaterial "matte"\n' + _TRI.replace("0 1 0", "0 0.5 1")),
+                   None),
+    "no_geometry": ((_TRI, ""), None),
+    "light_strategy": (('Integrator "path" "integer maxdepth" [2]',
+                        'Integrator "path" "integer maxdepth" [2] '
+                        '"string lightsamplestrategy" "mostrelevant"'), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SUBSTITUTIONS))
+def test_reference_substitutions_render(name, caplog):
+    """Five directives the port used to refuse where the reference renders:
+    an unknown film (warned, "image"), pbrt's "kdtree" accelerator (the
+    BVH, silently), a non-diffuse area light (a diffuse one per triangle),
+    a scene without geometry (one degenerate far-away triangle of a null
+    material) and an unknown light-sample strategy (lights picked by
+    power). Each compiles to the reference's tables through the bridge,
+    warns as the reference does, and renders a finite 8x8 image."""
+    (old, new), warning = _SUBSTITUTIONS[name]
+    text = _BASE.format(**_OK)
+    assert old in text
+    text = text.replace(old, new).replace(_POINT, 'LightSource "point" "rgb I" [1 1 1] '
+                                                  '"point from" [0 0 -2]\n' + _POINT.replace(
+                                                      "0 0 -2", "0.5 0.5 -2"))
+    body = text.rsplit("WorldEnd", 1)[0]
+    sj, st = _compile_both(lambda _: body)
+    _assert_tables_equal(sj, st)
+    if warning:
+        tcompile(parse_string(body, pbrt_init(TOptions(), device="cpu")))
+        assert warning in caplog.text
+    if name == "no_geometry":
+        assert st.n_tris == sj.n_tris == 1 and st.has_null_materials == sj.has_null_materials
+    if name == "area_light":
+        assert st.n_lights == sj.n_lights == 3
+    from tpu_pbrt_torch.integrators import make_integrator
+
+    integ = make_integrator(st.integrator_name, st.integrator_params, st, TOptions(quiet=True))
+    if name == "light_strategy":
+        assert st.light_distribution_name == sj.light_distribution_name == "mostrelevant"
+        assert integ.light_distr is st.light_distr  # the power distribution
+    img = integ.render(st).image
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert (img.max() > 0) == (name != "no_geometry")
 
 
 def test_crown_materials_render():

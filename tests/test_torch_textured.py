@@ -41,7 +41,6 @@ from tpu_pbrt_torch import parse_string
 from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.scene.bridge import flat_tables, tables_from_numpy
 from tpu_pbrt_torch.scenes import TEXTURED_SMALL, compile_api, make_textured_like
-from tpu_pbrt_torch.utils.error import PbrtError
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -141,9 +140,15 @@ def _one_triangle(mat):
 
 
 @pytest.mark.parametrize("mat", ['"subsurface"', '"fourier" "string bsdffile" "x.bsdf"'])
-def test_unported_materials_still_raise(mat):
-    with pytest.raises(PbrtError, match="not ported"):
-        parse_string(_one_triangle(mat), render=True, device="cpu")
+def test_unported_materials_still_raise(mat, caplog):
+    """The two materials that used to raise "not ported" beside a texture
+    now render a finite image: subsurface through the probe wave, and a
+    fourier material whose table cannot be read as the reference's loud
+    0.5 diffuse fallback (lit, with its warning)."""
+    img = parse_string(_one_triangle(mat), render=True, device="cpu").result.image
+    assert np.isfinite(img).all()
+    if "fourier" in mat:
+        assert img.max() > 0 and "SUBSTITUTING a 0.5 diffuse BSDF" in caplog.text
 
 
 @pytest.mark.parametrize("mat", ['"disney" "texture color" "t"', '"hair"'])

@@ -54,6 +54,7 @@ SMALL_CASES = {
 SMALL_RES, SMALL_SPP, LEAF_TRIS, POOL = 16, 4, 64, 256
 #: full references: name -> (integrator, resolution, spp)
 FULL_CASES = {
+    "motion_path_cpu_64x64_16spp": ("path", 64, 16),
     "motion_path_cpu_64x64_64spp": ("path", 64, 64),
     "motion_bdpt_cpu_32x32_16spp": ("bdpt", 32, 16),
 }

@@ -21,19 +21,23 @@ row before the gather (resolve_mix); the Beckmann distribution is here
 as the reference keeps it. Disney (the eight lobes of disney.cpp) and
 hair (Chiang et al.'s HairBSDF of hair.cpp) override their lanes
 wholesale, gated, as in the reference, on their parameter columns being
-in the table (MatParams.dz / .hz). The scene compiler rejects fourier
-and subsurface, so the reference's branches for them have no lane to
-serve here.
+in the table (MatParams.dz / .hz); so do the tabulated Fourier BSDF
+(core/fourierbsdf.py, MatParams.fz, the scene's one table) and the
+hemisphere-crossing transmission flag of its two-sided sampler. A
+subsurface material shades its surface as smooth glass; its lanes carry
+their BSSRDF row (MatParams.sub) to the path integrator's probe wave.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from tpu_pbrt_torch.core.sampling import cosine_hemisphere_pdf, cosine_sample_hemisphere
+from tpu_pbrt_torch.core import xla_math as xm
+from tpu_pbrt_torch.core.fourierbsdf import fourier_f_pdf, fourier_sample_wi
 from tpu_pbrt_torch.core.spectrum import luminance
 from tpu_pbrt_torch.core.vecmath import (
     abs_cos_theta,
@@ -63,6 +67,8 @@ MAT_SUBSTRATE = 7
 MAT_TRANSLUCENT = 8
 MAT_DISNEY = 9
 MAT_HAIR = 10
+MAT_FOURIER = 11
+MAT_SUBSURFACE = 12
 
 _INV_PI = 1.0 / np.pi
 
@@ -75,16 +81,17 @@ ROUGH_GLASS_MIN = 1e-4
 # Fresnel (reflection.cpp FrDielectric / FrConductor)
 # -------------------------------------------------------------------------
 
-def fresnel_dielectric(cos_i, eta_i, eta_t):
-    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i."""
+def fresnel_dielectric(cos_i, eta_i, eta_t, sqrt=torch.sqrt):
+    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i
+    (`sqrt`: the hair lobes pass the correctly rounded one)."""
     cos_i = torch.clamp(cos_i, -1.0, 1.0)
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = torch.abs(cos_i)
-    sin_t = ei / et * torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    sin_t = ei / et * sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
     tir = sin_t >= 1.0
-    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    ct = sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
     r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
     r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
     fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
@@ -314,6 +321,8 @@ class MatParams(NamedTuple):
     rough_raw: torch.Tensor  # (R,) raw roughness (max of u, v); 0 = smooth
     dz: Optional[DisneyParams] = None
     hz: Optional[HairParams] = None
+    fz: Any = None  # the scene's FourierTable (core/fourierbsdf.py), shared by every lane
+    sub: Optional[torch.Tensor] = None  # (R,) the lane's BSSRDF table row; -1: none
 
 
 #: the material table's columns (lower_materials builds them), and the
@@ -325,6 +334,8 @@ MIX_COLUMNS = ("mix_a", "mix_b", "mix_amt")
 DISNEY_COLUMNS = ("d_metallic", "d_spectint", "d_aniso", "d_sheen", "d_sheentint",
                   "d_clearcoat", "d_ccgloss", "d_strans", "d_flat", "d_dtrans", "d_thin")
 HAIR_COLUMNS = ("h_sigma_a", "h_beta_m", "h_beta_n", "h_alpha")
+#: the BSSRDF row of each material (a scene with a subsurface material)
+SUB_COLUMNS = ("sub_id",)
 
 
 def _take(table, idx):
@@ -361,13 +372,22 @@ def gather_mat(mat: dict, mid) -> MatParams:
     reference's small-table select clamps, with the roughness remap."""
     n = mat["type"].shape[0]
     idx = mid.long().clamp(0, n - 1)
+    mtype = mat["type"][idx]
+    sub = None
+    if "sub_id" in mat:
+        # a subsurface surface's BSDF is exactly smooth glass (Fresnel
+        # reflection + transmission, subsurface.cpp's specular interface):
+        # its lanes shade as MAT_GLASS and the BSSRDF transport is keyed
+        # on `sub` (integrators/path.py's probe wave)
+        sub = mat["sub_id"][idx]
+        mtype = torch.where(mtype == MAT_SUBSURFACE, torch.full_like(mtype, MAT_GLASS), mtype)
     remap = mat["remap"][idx]
     ru = mat["rough_u"][idx]
     rv = mat["rough_v"][idx]
     ax = torch.where(remap > 0, tr_roughness_to_alpha(ru), torch.clamp(ru, min=1e-3))
     ay = torch.where(remap > 0, tr_roughness_to_alpha(rv), torch.clamp(rv, min=1e-3))
     return MatParams(
-        mtype=mat["type"][idx], kd=mat["kd"][idx], ks=mat["ks"][idx], kr=mat["kr"][idx],
+        mtype=mtype, kd=mat["kd"][idx], ks=mat["ks"][idx], kr=mat["kr"][idx],
         kt=mat["kt"][idx], eta=mat["eta"][idx], k=mat["k"][idx], ax=ax, ay=ay,
         sigma=mat["sigma"][idx], opacity=mat["opacity"][idx],
         # glass.cpp turns the microfacet lobes on when EITHER axis is rough
@@ -386,12 +406,16 @@ def gather_mat(mat: dict, mid) -> MatParams:
             beta_n=mat["h_beta_n"][idx], alpha=mat["h_alpha"][idx],
             h=torch.zeros_like(mat["h_beta_m"][idx]),
         ) if "h_beta_m" in mat else None,
+        fz=mat.get("_fourier"),
+        sub=sub,
     )
 
 
 def map_params(fn, mp: MatParams) -> MatParams:
-    """MatParams with fn applied to every tensor, the disney and hair
-    parameters included (the reference's jax.tree.map; None stays None)."""
+    """MatParams with fn applied to every per-lane tensor, the disney and
+    hair parameters and `sub` included (the reference's jax.tree.map; None
+    stays None). The Fourier table is the scene's, not a lane's, and is
+    kept as it is (the reference's tree map would reshape its arrays)."""
     def leaf(a):
         if a is None:
             return None
@@ -399,7 +423,7 @@ def map_params(fn, mp: MatParams) -> MatParams:
             return type(a)(*(leaf(x) for x in a))
         return fn(a)
 
-    return leaf(mp)
+    return MatParams(*(a if name == "fz" else leaf(a) for name, a in zip(MatParams._fields, mp)))
 
 
 def _is_rough_glass(mp: MatParams):
@@ -412,7 +436,7 @@ def _lobe_flags(mp: MatParams):
     t = mp.mtype
     rg = _is_rough_glass(mp)
     diffuse = ((t == MAT_MATTE) | (t == MAT_PLASTIC) | (t == MAT_UBER) | (t == MAT_TRANSLUCENT)
-               | (t == MAT_DISNEY) | (t == MAT_HAIR))
+               | (t == MAT_DISNEY) | (t == MAT_HAIR) | (t == MAT_FOURIER) | (t == MAT_SUBSURFACE))
     glossy = ((t == MAT_PLASTIC) | (t == MAT_METAL) | (t == MAT_UBER) | (t == MAT_SUBSTRATE)
               | (t == MAT_DISNEY) | rg)
     specular = ((t == MAT_GLASS) & ~rg) | (t == MAT_MIRROR)
@@ -843,11 +867,11 @@ _SQRT_PI_OVER_8 = 0.626657069
 
 
 def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return xm.sqrt(torch.clamp(x, min=0.0))
 
 
 def _safe_asin(x):
-    return torch.asin(torch.clamp(x, -1.0, 1.0))
+    return xm.asin(torch.clamp(x, -1.0, 1.0))
 
 
 def _i0(x):
@@ -859,21 +883,23 @@ def _i0(x):
     for i in range(10):
         if i > 1:
             ifact *= i
-        val = val + x2i / (i4 * ifact * ifact)
+        # a tensor divisor: CUDA divides by a host scalar as a multiply
+        # by its reciprocal
+        val = val + x2i / torch.full_like(x2i, i4 * ifact * ifact)
         x2i = x2i * x * x
         i4 *= 4.0
     return val
 
 
 #: log(2 pi) as the reference's f32 log of the f32 constant
-_LOG_2PI = float(np.log(np.float32(2.0 * np.pi)))
+_LOG_2PI = float(xm.log(torch.tensor(2.0 * np.pi)))
 
 
 def _log_i0(x):
     big = x > 12.0
     xc = torch.clamp(x, min=1e-12)
-    lb = x + 0.5 * (-_LOG_2PI + torch.log(1.0 / xc) + 1.0 / (8.0 * xc))
-    ls = torch.log(torch.clamp(_i0(torch.clamp(x, max=12.0)), min=1e-38))
+    lb = x + 0.5 * (-_LOG_2PI + xm.log(1.0 / xc) + 1.0 / (8.0 * xc))
+    ls = xm.log(torch.clamp(_i0(torch.clamp(x, max=12.0)), min=1e-38))
     return torch.where(big, lb, ls)
 
 
@@ -881,21 +907,24 @@ def _mp(cos_ti, cos_to, sin_ti, sin_to, v):
     a = cos_ti * cos_to / v
     b = sin_ti * sin_to / v
     small = v <= 0.1
-    m_small = torch.exp(_log_i0(a) - b - 1.0 / v + 0.6931 + torch.log(1.0 / (2.0 * v)))
+    m_small = xm.exp(_log_i0(a) - b - 1.0 / v + 0.6931 + xm.log(1.0 / (2.0 * v)))
     vb = torch.clamp(v, min=0.05)  # keeps the large-v branch finite under the select
-    m_big = (torch.exp(-torch.clamp(b, max=80.0)) * _i0(torch.clamp(a, max=12.0))) / (
-        torch.sinh(torch.clamp(1.0 / vb, max=80.0)) * 2.0 * vb)
+    m_big = (xm.exp(-torch.clamp(b, max=80.0)) * _i0(torch.clamp(a, max=12.0))) / (
+        xm.sinh(torch.clamp(1.0 / vb, max=80.0)) * 2.0 * vb)
     return torch.where(small, m_small, m_big)
 
 
 def _logistic(x, s):
     x = torch.abs(x)
-    e = torch.exp(-x / s)
-    return e / (s * _ipow(1.0 + e, 2))
+    e = xm.exp(-x / s)
+    return xm.ftz(e / (s * _ipow(1.0 + e, 2)))
 
 
 def _logistic_cdf(x, s):
-    return 1.0 / (1.0 + torch.exp(-x / s))
+    # an f32 tensor numerator: torch divides a Python number by a tensor
+    # as number * (1 / tensor), which rounds twice
+    x = torch.as_tensor(x, dtype=s.dtype, device=s.device)
+    return xm.ftz(1.0 / (1.0 + xm.exp(-x / s)))
 
 
 def _trimmed_logistic(x, s):
@@ -905,7 +934,7 @@ def _trimmed_logistic(x, s):
 
 def _sample_trimmed_logistic(u, s):
     k = _logistic_cdf(np.pi, s) - _logistic_cdf(-np.pi, s)
-    x = -s * torch.log(1.0 / torch.clamp(u * k + _logistic_cdf(-np.pi, s), min=1e-12) - 1.0)
+    x = -s * xm.log(1.0 / torch.clamp(u * k + _logistic_cdf(-np.pi, s), min=1e-12) - 1.0)
     return torch.clamp(x, -np.pi, np.pi)
 
 
@@ -914,7 +943,7 @@ def _hair_phi_p(p, gamma_o, gamma_t):
 
 
 def _wrap_pi(x):
-    return torch.remainder(x + np.pi, 2.0 * np.pi) - np.pi
+    return xm.remainder(x + np.pi, 2.0 * np.pi) - np.pi
 
 
 def _hair_setup(mp: MatParams, wo):
@@ -928,7 +957,7 @@ def _hair_setup(mp: MatParams, wo):
     vs = [v0, 0.25 * v0, 4.0 * v0, 4.0 * v0]
     s = _SQRT_PI_OVER_8 * (0.265 * bn + 1.194 * bn * bn + 5.372 * _ipow(bn, 22))
     a_rad = torch.deg2rad(hz.alpha)
-    sin2k = [torch.sin(a_rad)]
+    sin2k = [xm.sin(a_rad)]
     cos2k = [_safe_sqrt(1.0 - _ipow(sin2k[0], 2))]
     for i in range(1, 3):
         sin2k.append(2.0 * cos2k[i - 1] * sin2k[i - 1])
@@ -936,7 +965,7 @@ def _hair_setup(mp: MatParams, wo):
 
     sin_to = wo[..., 0]
     cos_to = _safe_sqrt(1.0 - sin_to * sin_to)
-    phi_o = torch.atan2(wo[..., 2], wo[..., 1])
+    phi_o = xm.atan2(wo[..., 2], wo[..., 1])
     sin_tt = sin_to / eta
     cos_tt = _safe_sqrt(1.0 - sin_tt * sin_tt)
     etap = _safe_sqrt(eta * eta - sin_to * sin_to) / torch.clamp(cos_to, min=1e-6)
@@ -945,10 +974,10 @@ def _hair_setup(mp: MatParams, wo):
     gamma_t = _safe_asin(sin_gt)
     gamma_o = _safe_asin(h)
     # the transmittance of one internal segment
-    T = torch.exp(-hz.sigma_a * (2.0 * cos_gt / torch.clamp(cos_tt, min=1e-6))[..., None])
+    T = xm.exp(-hz.sigma_a * (2.0 * cos_gt / torch.clamp(cos_tt, min=1e-6))[..., None])
     # the attenuation Ap (hair.cpp Ap())
     cos_go = _safe_sqrt(1.0 - h * h)
-    fr = fresnel_dielectric(cos_to * cos_go, torch.ones_like(eta), eta)[..., None]
+    fr = fresnel_dielectric(cos_to * cos_go, torch.ones_like(eta), eta, sqrt=xm.sqrt)[..., None]
     ap0 = torch.broadcast_to(fr, T.shape)
     ap1 = _ipow(1.0 - fr, 2) * T
     ap2 = ap1 * T * fr
@@ -982,7 +1011,7 @@ def _hair_f_pdf(mp: MatParams, wo, wi):
      tilts) = _hair_setup(mp, wo)
     sin_ti = wi[..., 0]
     cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
-    phi_i = torch.atan2(wi[..., 2], wi[..., 1])
+    phi_i = xm.atan2(wi[..., 2], wi[..., 1])
     phi = phi_i - phi_o
     fsum = torch.zeros_like(mp.kd)
     pdf = torch.zeros_like(sin_to)
@@ -1029,17 +1058,17 @@ def _hair_sample_wi(mp: MatParams, wo, u_lobe, u1, u2):
     st_p = sel([t[0] for t in tilts])
     ct_p = sel([t[1] for t in tilts])
     u1c = torch.clamp(u1, min=1e-5)
-    cos_t = 1.0 + v_p * torch.log(
-        u1c + (1.0 - u1c) * torch.exp(-torch.clamp(2.0 / torch.clamp(v_p, min=1e-6), max=80.0)))
+    cos_t = 1.0 + v_p * xm.log(
+        u1c + (1.0 - u1c) * xm.exp(-torch.clamp(2.0 / torch.clamp(v_p, min=1e-6), max=80.0)))
     sin_t = _safe_sqrt(1.0 - cos_t * cos_t)
-    cos_phi_s = torch.cos(2.0 * np.pi * u2)
+    cos_phi_s = xm.cos(2.0 * np.pi * u2)
     sin_ti = -cos_t * st_p + sin_t * cos_phi_s * ct_p
     cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
     dphi_smooth = sel([_hair_phi_p(p, gamma_o, gamma_t) for p in range(4)]) \
         + _sample_trimmed_logistic(u_np, s)
     dphi = torch.where(p_idx < _H_PMAX, dphi_smooth, 2.0 * np.pi * u_np)
     phi_i = phi_o + dphi
-    return torch.stack([sin_ti, cos_ti * torch.cos(phi_i), cos_ti * torch.sin(phi_i)], dim=-1)
+    return torch.stack([sin_ti, cos_ti * xm.cos(phi_i), cos_ti * xm.sin(phi_i)], dim=-1)
 
 
 # -------------------------------------------------------------------------
@@ -1073,6 +1102,11 @@ def bsdf_eval(mp: MatParams, wo, wi):
         f_h, pdf_h = _hair_f_pdf(mp, wo, wi)
         f = torch.where(hl[..., None], f_h, f)
         pdf = torch.where(hl, pdf_h, pdf)
+    if mp.fz is not None:
+        fl = mp.mtype == MAT_FOURIER
+        f_fo, pdf_fo = fourier_f_pdf(mp.fz, wo, wi)
+        f = torch.where(fl[..., None], f_fo, f)
+        pdf = torch.where(fl, pdf_fo, pdf)
     dead = (is_spec & ~rg) | (mp.mtype == MAT_NONE)
     return torch.where(dead[..., None], 0.0, f), torch.where(dead, 0.0, pdf)
 
@@ -1120,6 +1154,9 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     if mp.hz is not None:
         wi = torch.where((mp.mtype == MAT_HAIR)[..., None], _hair_sample_wi(mp, wo, u_lobe, u1, u2),
                          wi)
+    if mp.fz is not None:
+        wi = torch.where((mp.mtype == MAT_FOURIER)[..., None],
+                         fourier_sample_wi(wo, u_lobe, u1, u2), wi)
 
     # --- combined f/pdf over the matching non-specular lobes -------------
     f_ns, pdf_ns = bsdf_eval(mp, wo, wi)
@@ -1190,6 +1227,11 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     if mp.hz is not None:
         # hair scales no radiance on transmission: eta_scale stays as it is
         is_transmission = is_transmission & (mp.mtype != MAT_HAIR)
+    if mp.fz is not None:
+        # the two-sided fourier sampler crosses hemispheres: medium
+        # interfaces switch as for any transmitted ray
+        is_transmission = torch.where(mp.mtype == MAT_FOURIER, ~same_hemisphere(wo, wi),
+                                      is_transmission)
     dead = (mp.mtype == MAT_NONE) | (pdf <= 0.0)
     f = torch.where(dead[..., None], 0.0, f)
     pdf = torch.where(dead, 0.0, pdf)

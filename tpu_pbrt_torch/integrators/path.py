@@ -48,6 +48,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel import stream
@@ -280,6 +281,11 @@ class PathIntegrator(WavefrontIntegrator):
         depth = depth + cont.to(torch.int32)
         alive = cont
 
+        if "bssrdf" in dev:
+            (o, d, L, beta, alive, prev_p, prev_pdf, specular, nrays) = self._probe_wave(
+                dev, px, py, s, salt, ray_time, it, mp, bs, cont, can_scatter,
+                o, d, L, beta, alive, prev_p, prev_pdf, specular, nrays)
+
         # ---- null pass-through: not a bounce (path.cpp bounces--); d,
         # beta and the MIS state stay those of the last real vertex -------
         if is_null is not None:
@@ -304,6 +310,126 @@ class PathIntegrator(WavefrontIntegrator):
                                          rays_after=nrays)
         return LaneSt(o, d, L, beta, alive, depth, prev_pdf, specular, eta_scale,
                       prev_p, *pend), nrays, ctr
+
+    def _probe_wave(self, dev, px, py, s, salt, ray_time, it, mp, bs, cont, can_scatter,
+                    o, d, L, beta, alive, prev_p, prev_pdf, specular, nrays):
+        """The BSSRDF probe wave (bssrdf.cpp Sample_S / Sample_Sp and
+        path.cpp's BSSRDF block, as the reference lays them out), on a
+        scene with a subsurface material. A lane whose interface sample
+        was the smooth transmission into its subsurface material
+        re-emerges at an exit vertex found by a probe chord: the chord's
+        axis (the shading normal w.p. 1/2, each tangent 1/4) and channel
+        come from dims salt + 12, 13, its radius from the baked diffusion
+        CDF (salt + 14) and angle (salt + 15); the chord is traced as up
+        to four closest-hit waves through the stream tracer, keeping one
+        hit of the same material by reservoir selection (salt + 4000 + k).
+        Beta gains Sp * nFound / Pdf_Sp (the 3 axes x 3 channels MIS) and
+        the eta^2 of the exit crossing; the exit vertex adds its NEE under
+        the Sw lobe (one any-hit shadow ray at the shutter start, as the
+        reference traces it) and continues along a cosine sample weighted
+        by Sw pi. The entry Fresnel rides the interface sample (the
+        specular transmission's f cos / pdf is 1). Returns the updated
+        lane state and ray counts."""
+        from tpu_pbrt_torch.core import xla_math as xm
+        from tpu_pbrt_torch.core.bssrdf import pdf_sp, sample_sr, sr_eval, sw_eval
+        from tpu_pbrt_torch.core.sampling import cosine_sample_hemisphere
+        from tpu_pbrt_torch.integrators.common import scene_intersect_p
+
+        tab = dev["bssrdf"]
+        sub = torch.clamp(mp.sub, min=0)
+        sss = cont & (mp.sub >= 0) & bs.is_transmission
+        ua = self.u1d(px, py, s, salt + 12)
+        uc = self.u1d(px, py, s, salt + 13)
+        ur = self.u1d(px, py, s, salt + 14)
+        uphi = self.u1d(px, py, s, salt + 15)
+        # the probe frame: the shading normal w.p. 1/2, ss and ts 1/4 each
+        ax0 = (ua < 0.5)[..., None]
+        ax1 = ((ua >= 0.5) & (ua < 0.75))[..., None]
+        vz = torch.where(ax0, it.ns, torch.where(ax1, it.ss, it.ts))
+        vx = torch.where(ax0, it.ss, torch.where(ax1, it.ts, it.ns))
+        vy = torch.where(ax0, it.ts, torch.where(ax1, it.ns, it.ss))
+        ch = torch.clamp((uc * 3.0).to(torch.int32), 0, 2)
+        r_s = sample_sr(tab, sub, ch, ur)
+        rmax = torch.gather(tab.r_max[sub.long()], 1, ch.long()[:, None])[:, 0]
+        l_ch = 2.0 * xm.sqrt(torch.clamp(rmax * rmax - r_s * r_s, min=0.0))
+        phi = 2.0 * np.pi * uphi
+        start = (it.p + r_s[..., None] * (xm.cos(phi)[..., None] * vx + xm.sin(phi)[..., None] * vy)
+                 + (0.5 * l_ch)[..., None] * vz)
+        pdir = -vz
+        ok_r = sss & (r_s < rmax) & (l_ch > 0.0)
+
+        cur_o = start
+        t_rem = torch.where(ok_r, l_ch, torch.full_like(l_ch, -1.0))
+        n_found = torch.zeros_like(sub)
+        sel_p, sel_ng, sel_ns, sel_ss, sel_ts = it.p, it.ng, it.ns, it.ss, it.ts
+        sub_col = dev["mat"]["sub_id"]
+        inf = torch.full_like(t_rem, float("inf"))
+        for k in range(4):
+            hitk = scene_intersect(dev, cur_o, pdir, t_rem, time=ray_time)
+            itk = make_interaction(dev, hitk, cur_o, pdir)
+            nrays = nrays + (t_rem > 0.0).to(torch.int32)
+            m_sub = sub_col[itk.mat.long().clamp(0, sub_col.shape[0] - 1)]
+            matchk = itk.valid & (m_sub == sub) & ok_r
+            n_found = n_found + matchk.to(n_found.dtype)
+            u_res = uniform_float(px, py, s, salt + 4000 + k)
+            tk = (matchk & (u_res * n_found.to(torch.float32) < 1.0))[..., None]
+            sel_p = torch.where(tk, itk.p, sel_p)
+            sel_ng = torch.where(tk, itk.ng, sel_ng)
+            sel_ns = torch.where(tk, itk.ns, sel_ns)
+            sel_ss = torch.where(tk, itk.ss, sel_ss)
+            sel_ts = torch.where(tk, itk.ts, sel_ts)
+            adv = torch.where(itk.valid, hitk.t + 1e-4, inf)
+            cur_o = cur_o + adv[..., None] * pdir
+            t_rem = torch.where(itk.valid, t_rem - adv, torch.full_like(t_rem, -1.0))
+
+        ok_exit = ok_r & (n_found > 0)
+        dvec = sel_p - it.p
+        dist = xm.sqrt(dvec[..., 0] * dvec[..., 0] + dvec[..., 1] * dvec[..., 1]
+                       + dvec[..., 2] * dvec[..., 2])
+        sp = sr_eval(tab, sub, dist)  # (R, 3)
+        pdf_tot = pdf_sp(tab, sub, it.ss, it.ts, it.ns, dvec, sel_ns)
+        ok_exit = ok_exit & (pdf_tot > 0.0) & (sp.amax(dim=-1) > 0.0)
+        w_sss = sp * (n_found.to(torch.float32) / torch.clamp(pdf_tot, min=1e-20))[..., None]
+        beta = torch.where(ok_exit[..., None], beta * w_sss, beta)
+        # the exit crossing's eta^2 (the Sw adapter's radiance-mode factor),
+        # once, so the NEE term and the continuation both carry it
+        eta_sub = tab.eta[sub.long()]
+        beta = torch.where(ok_exit[..., None], beta * (eta_sub * eta_sub)[..., None], beta)
+
+        # ---- the exit vertex's NEE under the Sw lobe ---------------------
+        ls2 = ld.sample_one_light(dev, self.light_distr, sel_p,
+                                  uniform_float(px, py, s, salt + 4100),
+                                  uniform_float(px, py, s, salt + 4101),
+                                  uniform_float(px, py, s, salt + 4102))
+        cos_l = dot(ls2.wi, sel_ns)
+        f_sw = sw_eval(eta_sub, cos_l) * torch.clamp(cos_l, min=0.0)
+        do2 = (ok_exit & can_scatter & (ls2.pdf > 0.0) & (cos_l > 1e-6)
+               & (ls2.li.amax(dim=-1) > 0.0))
+        occ2 = scene_intersect_p(dev, offset_ray_origin(sel_p, sel_ng, ls2.wi), ls2.wi,
+                                 torch.where(do2, ls2.dist * 0.999, torch.full_like(ls2.dist, -1.0)))
+        nrays = nrays + do2.to(torch.int32)
+        pi32 = torch.full_like(cos_l, float(np.float32(np.pi)))
+        w_l2 = torch.where(ls2.is_delta, torch.ones_like(cos_l),
+                           power_heuristic(1.0, ls2.pdf, 1.0, cos_l / pi32))
+        contrib = beta * f_sw[..., None] * ls2.li * (w_l2 / torch.clamp(ls2.pdf, min=1e-20))[..., None]
+        L = L + torch.where((do2 & ~occ2)[..., None], contrib, torch.zeros_like(contrib))
+
+        # ---- the cosine continuation from the exit: beta *= Sw pi --------
+        wloc = cosine_sample_hemisphere(uniform_float(px, py, s, salt + 4103),
+                                        uniform_float(px, py, s, salt + 4104))
+        wi2 = normalize(wloc[..., 0:1] * sel_ss + wloc[..., 1:2] * sel_ts
+                        + wloc[..., 2:3] * sel_ns)
+        cos2 = torch.clamp(dot(wi2, sel_ns), min=1e-6)
+        beta = torch.where(ok_exit[..., None], beta * (sw_eval(eta_sub, cos2) * np.pi)[..., None],
+                           beta)
+        ok3 = ok_exit[..., None]
+        o = torch.where(ok3, offset_ray_origin(sel_p, sel_ng, wi2), o)
+        d = torch.where(ok3, wi2, d)
+        prev_p = torch.where(ok3, sel_p, prev_p)
+        prev_pdf = torch.where(ok_exit, cos2 / pi32, prev_pdf)
+        specular = specular & ~ok_exit
+        alive = torch.where(sss, ok_exit, alive)
+        return o, d, L, beta, alive, prev_p, prev_pdf, specular, nrays
 
     def _camera_footprint(self, dev, px, py, salt, depth, o, d, hit, it):
         """The (R, 4) uv footprint of the camera hits (camera.cpp

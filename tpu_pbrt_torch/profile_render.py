@@ -1,6 +1,7 @@
 """Where a render's time goes on the GPU.
 
-    python -m tpu_pbrt_torch.profile_render [--scene killeroo|crown|cloud|caustic|breadth|textured|motion]
+    python -m tpu_pbrt_torch.profile_render
+        [--scene killeroo|crown|cloud|caustic|breadth|textured|motion|subsurface]
         [--res 128] [--spp 64]
         [--integrator path|directlighting|whitted|ao|volpath|bdpt|sppm|mlt]
         [--params '"integer numiterations" [4] ...'] [--no-regen] [--out DIR]
@@ -11,7 +12,9 @@ with `--scene caustic`, `scenes.make_caustic_like`, with `--scene
 breadth`, `scenes.make_breadth_like`: perspective camera, gaussian
 filter, with `--scene textured`, `scenes.make_textured_like`, with
 `--scene motion`, `scenes.make_motion_like`: hair and disney under a
-moving shutter, the F = 64 flush) at its full geometry
+moving shutter, the F = 64 flush, with `--scene subsurface`,
+`scenes.make_subsurface_like`: subsurface and kdsubsurface blobs over a
+fourier ground, the BSSRDF probe wave's chords) at its full geometry
 under the integrator (default `path`; the cloud's own is `volpath`, the
 caustic's `bdpt`), with `--params` as more integrator parameters of the
 caustic (scene text, e.g. sppm's iterations and photons or mlt's
@@ -33,6 +36,9 @@ fixed batch (sppm and mlt run their own iteration loops), and prints:
 - the texture evaluation's share: the device time and the device
   operations launched inside `integrators/common.py::textured_mat`'s
   profiler range, and the device operations per wave without them;
+- the BSSRDF probe wave's share on a scene with a subsurface material
+  (`PathIntegrator._probe_wave` under a profiler range): its chords, its
+  shadow rays and its shading;
 - the host reads per wave from the render's stats: the traversal's and
   the render loop's (one per pool wave or fixed-batch bounce), and the
   waves by mode (closest-hit, any-hit).
@@ -57,6 +63,8 @@ import torch
 DEPOSIT = "film_deposit"
 #: the profiler range integrators/common.py::textured_mat opens
 TEXTURES = "textured_mat"
+#: the profiler range of path's BSSRDF probe wave (integrators/path.py)
+PROBE = "bssrdf_probe"
 #: kernel-name patterns -> group, first match wins
 GROUPS = (
     ("flush (hand-written)", r"flush_blocks_kernel|seed_kernel|finalize_kernel"),
@@ -110,23 +118,27 @@ def measure(integ, scene) -> dict:
     its kernel launches counted: the result, its wall time, the device's
     busy time, idle share and operations (per traversal wave), the device
     time by group and by kernel, and the film deposit's and the texture
-    evaluation's ranges (_range). Film deposits are wrapped in their
-    range here; textured_mat opens its own."""
+    evaluation's and the BSSRDF probe wave's ranges (_range). Film
+    deposits and the probe wave are wrapped in their ranges here;
+    textured_mat opens its own."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_pbrt_torch.core.film import Film
+    from tpu_pbrt_torch.integrators.path import PathIntegrator
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
 
-    def _ranged(fn):
-        def deposit(*a, **k):
-            with torch.profiler.record_function(DEPOSIT):
+    def _ranged(fn, label):
+        def ranged(*a, **k):
+            with torch.profiler.record_function(label):
                 return fn(*a, **k)
-        return deposit
+        return ranged
 
-    saved = {n: getattr(Film, n) for n in ("add_samples", "add_samples_pixel",
-                                           "add_samples_aligned")}
-    for n, fn in saved.items():
-        setattr(Film, n, _ranged(fn))
+    wrapped = [(Film, n, DEPOSIT) for n in ("add_samples", "add_samples_pixel",
+                                            "add_samples_aligned")]
+    wrapped.append((PathIntegrator, "_probe_wave", PROBE))
+    saved = [(cls, n, getattr(cls, n)) for cls, n, _ in wrapped]
+    for (cls, n, label), (_, _, fn) in zip(wrapped, saved):
+        setattr(cls, n, _ranged(fn, label))
     try:
         reset_launches()
         torch.cuda.synchronize()
@@ -137,8 +149,8 @@ def measure(integ, scene) -> dict:
             wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
     finally:
-        for n, fn in saved.items():
-            setattr(Film, n, fn)
+        for cls, n, fn in saved:
+            setattr(cls, n, fn)
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
@@ -155,13 +167,13 @@ def measure(integ, scene) -> dict:
     return dict(res=res, wall=wall, by_name=by_name, prof=prof, launches=launches,
                 device_us=dev_us, idle_share=1 - dev_us / 1e6 / wall, ops=n_ops,
                 ops_per_wave=n_ops / waves, groups=dict(groups),
-                ranges={n: _range(prof, n) for n in (DEPOSIT, TEXTURES)})
+                ranges={n: _range(prof, n) for n in (DEPOSIT, TEXTURES, PROBE)})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("killeroo", "crown", "cloud", "caustic", "breadth",
-                                        "textured", "motion"),
+                                        "textured", "motion", "subsurface"),
                     default="killeroo")
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
@@ -184,9 +196,9 @@ def main() -> int:
     cfg.regen = not args.no_regen
     args.integrator = args.integrator or {"cloud": "volpath", "caustic": "bdpt"}.get(
         args.scene, "path")
-    if args.scene in ("breadth", "textured", "motion"):
+    if args.scene in ("breadth", "textured", "motion", "subsurface"):
         make = {"breadth": scenes.make_breadth_like, "textured": scenes.make_textured_like,
-                "motion": scenes.make_motion_like}
+                "motion": scenes.make_motion_like, "subsurface": scenes.make_subsurface_like}
         api = make[args.scene](args.res, args.spp, device="cuda")
         if args.integrator != "path" or args.params:
             raise SystemExit(f"profile_render: the {args.scene} scene renders under path")
@@ -236,7 +248,8 @@ def main() -> int:
     print("device time by group:")
     for g, us in sorted(m["groups"].items(), key=lambda kv: -kv[1]):
         print(f"  {g:24s} {us / 1e3:10.2f} ms  {us / dev_us:6.3f}")
-    for label, name in (("film deposit", DEPOSIT), ("texture evaluation", TEXTURES)):
+    for label, name in (("film deposit", DEPOSIT), ("texture evaluation", TEXTURES),
+                        ("BSSRDF probe wave", PROBE)):
         r = m["ranges"][name]
         if r["calls"] and r["device_us"]:
             print(f"{label}: {r['calls']} calls, {r['device_us'] / 1e3:.2f} ms device "

@@ -16,13 +16,17 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
-from tpu_pbrt_torch.core.bxdf import DISNEY_COLUMNS, HAIR_COLUMNS, MAT_COLUMNS, MIX_COLUMNS
+from tpu_pbrt_torch.core.bssrdf import BakedBSSRDF
+from tpu_pbrt_torch.core.bxdf import (DISNEY_COLUMNS, HAIR_COLUMNS, MAT_COLUMNS, MIX_COLUMNS,
+                                      SUB_COLUMNS)
+from tpu_pbrt_torch.core.fourierbsdf import FourierTable
 from tpu_pbrt_torch.core.media import MediumTable
 from tpu_pbrt_torch.core.sampling import Distribution2D
 
 #: per-light columns the port reads (per material: bxdf.MAT_COLUMNS, and
-#: bxdf.MIX_COLUMNS, DISNEY_COLUMNS, HAIR_COLUMNS where a scene has a mix,
-#: a disney or a hair material)
+#: bxdf.MIX_COLUMNS, DISNEY_COLUMNS, HAIR_COLUMNS, SUB_COLUMNS where a scene
+#: has a mix, a disney, a hair or a subsurface material, and the Fourier
+#: table "_fourier" where it has a fourier one)
 LIGHT_KEYS = ("type", "p", "L", "dir", "cos0", "cos1", "tri", "twosided", "area", "w2l", "img",
               "tri_v")
 #: top-level tables the port reads (when present)
@@ -42,7 +46,8 @@ def upload(tab: dict, device) -> dict:
     """Numpy tables (as compile_scene builds them) -> device tables:
     arrays become tensors, "tstream" becomes a TreeletPack, "env_distr"
     (its six tables in field order) a Distribution2D, "media" (its eight
-    fields in order) a MediumTable, nested dicts recurse."""
+    fields in order) a MediumTable, "bssrdf" (its six) a BakedBSSRDF, a
+    FourierTable moves its arrays, nested dicts recurse."""
     out = {}
     for k, v in tab.items():
         if k == "tstream":
@@ -51,6 +56,10 @@ def upload(tab: dict, device) -> dict:
             out[k] = Distribution2D(*(_tensor(a, device) for a in v))
         elif k == "media":
             out[k] = MediumTable(*(_tensor(a, device) for a in v))
+        elif k == "bssrdf":
+            out[k] = BakedBSSRDF(*(_tensor(a, device) for a in v))
+        elif isinstance(v, FourierTable):
+            out[k] = v.to(device)
         elif isinstance(v, dict):
             out[k] = upload(v, device)
         else:
@@ -82,8 +91,14 @@ def tables_from_numpy(dev_np: dict, device) -> dict:
     device tables, holding exactly the keys compile_scene produces."""
     tab = {k: dev_np[k] for k in DEV_KEYS if k in dev_np}
     tab["mat"] = {k: dev_np["mat"][k]
-                  for k in MAT_COLUMNS + MIX_COLUMNS + DISNEY_COLUMNS + HAIR_COLUMNS
+                  for k in MAT_COLUMNS + MIX_COLUMNS + DISNEY_COLUMNS + HAIR_COLUMNS + SUB_COLUMNS
                   if k in dev_np["mat"]}
+    if "_fourier" in dev_np["mat"]:
+        ft = dev_np["mat"]["_fourier"]
+        tab["mat"]["_fourier"] = FourierTable(*(getattr(ft, f) for f in FourierTable.FIELDS),
+                                              ft.eta, ft.n_channels, ft.m_max)
+    if "bssrdf" in dev_np:
+        tab["bssrdf"] = tuple(getattr(dev_np["bssrdf"], f) for f in BakedBSSRDF._fields)
     tab["light"] = {k: dev_np["light"][k] for k in LIGHT_KEYS}
     if "tstream" in dev_np:
         tab["tstream"] = pack_tables(dev_np["tstream"])
@@ -108,8 +123,13 @@ def flat_tables(dev: dict, prefix: str = "") -> dict:
                 "offset": v.offset, "count": v.count,
             }
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in parts.items()})
-        elif isinstance(v, (Distribution2D, MediumTable)):
+        elif isinstance(v, (Distribution2D, MediumTable, BakedBSSRDF)):
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in v._asdict().items()})
+        elif isinstance(v, FourierTable):
+            out.update({f"{name}.{p}": getattr(v, p).detach().cpu().numpy()
+                        for p in FourierTable.FIELDS})
+            out.update({f"{name}.{p}": np.asarray(getattr(v, p))
+                        for p in ("eta", "n_channels", "m_max")})
         elif isinstance(v, dict):
             out.update(flat_tables(v, name + "."))
         else:

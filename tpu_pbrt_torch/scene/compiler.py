@@ -17,8 +17,10 @@ directive set the port renders:
   animated camera takes its shutter-start keyframe, with a warning;
 - materials: "matte", "plastic", "metal", "glass", "mirror", "uber",
   "substrate", "translucent", "disney" (its parameters in d_* columns),
-  "hair" (h_* columns; the per-triangle dpdu shading tangent tri_tanT)
-  and "mix" (its two sub-materials appended
+  "hair" (h_* columns; the per-triangle dpdu shading tangent tri_tanT),
+  "fourier" (the scene's one .bsdf table, mat["_fourier"]), "subsurface"
+  and "kdsubsurface" (a sub_id per row and one baked radial profile per
+  material and channel in dev["bssrdf"]) and "mix" (its two sub-materials appended
   as real rows of the table, resolved per lane at shading time), and
   "none" (a null interface: rays pass through it); constant parameters
   fold as the reference folds them, every other texture gets an id in
@@ -38,14 +40,18 @@ directive set the port renders:
   one gets a row and the last map is the scene's, as in the reference),
   with the spatial (default), power or uniform light-pick strategy;
 - cameras "perspective", "orthographic", "environment" and "realistic",
-  the pixel filters of core/filters.py, film "image", accelerator "bvh",
+  the pixel filters of core/filters.py, film "image" (any other name
+  warns and takes it), any accelerator name (the BVH is built for all),
   every sampler the reference dispatches ("zerotwosequence" and its
   aliases, "random", "stratified", "halton", "sobol"), and the
   integrators of integrators.PORTED ("path", "directlighting",
   "whitted", "ao", "volpath", "bdpt", "sppm", "mlt").
 
-Anything else raises PbrtError naming what is not ported yet. The
-substitutions are the reference's own, each with its warning: a map
+An integrator outside integrators.PORTED raises PbrtError naming it. The
+substitutions are the reference's own, each with its warning where the
+reference gives one: an area light of any name is diffuse, a scene
+without geometry gets one degenerate far-away triangle, an unknown
+lightsamplestrategy picks lights by power, a map
 that cannot be read becomes a constant map, an unknown shape is
 skipped, an unknown light is ignored, an unknown camera becomes
 "perspective" and an unknown filter box(0.5), and "maxmindist" or an
@@ -88,7 +94,7 @@ from tpu_pbrt_torch.core.lights_dev import (
 from tpu_pbrt_torch.core.sampling import Distribution1D, Distribution2D
 from tpu_pbrt_torch.core.spectrum import luminance
 from tpu_pbrt_torch.integrators import check_ported
-from tpu_pbrt_torch.utils.error import Error, PbrtError, Warning
+from tpu_pbrt_torch.utils.error import Error, Warning
 from tpu_pbrt_torch.utils.fileutil import resolve_filename
 
 
@@ -132,10 +138,6 @@ class CompiledScene:
     tex_used: frozenset = frozenset()
     #: slot -> the texture ids that slot's column holds
     tex_slot_ids: Optional[Dict[str, tuple]] = None
-
-
-def _not_ported(what: str):
-    raise PbrtError(f"{what} is not ported to tpu_pbrt_torch yet")
 
 
 def _rgb(v) -> np.ndarray:
@@ -463,7 +465,8 @@ _MAT_ENUM = {"none": bxdf.MAT_NONE, "matte": bxdf.MAT_MATTE, "plastic": bxdf.MAT
              "metal": bxdf.MAT_METAL, "glass": bxdf.MAT_GLASS, "mirror": bxdf.MAT_MIRROR,
              "uber": bxdf.MAT_UBER, "substrate": bxdf.MAT_SUBSTRATE,
              "translucent": bxdf.MAT_TRANSLUCENT, "mix": bxdf.MAT_MATTE,
-             "disney": bxdf.MAT_DISNEY, "hair": bxdf.MAT_HAIR}
+             "disney": bxdf.MAT_DISNEY, "hair": bxdf.MAT_HAIR, "fourier": bxdf.MAT_FOURIER,
+             "subsurface": bxdf.MAT_SUBSURFACE, "kdsubsurface": bxdf.MAT_SUBSURFACE}
 
 #: the disney parameter slots, added to the table only when a scene uses
 #: the material (every other scene's gather stays as it was)
@@ -492,15 +495,38 @@ def _hair_sigma_a_from_reflectance(c, beta_n):
              + 5.574 * beta_n**4 + 0.245 * beta_n**5)
     return (np.log(np.maximum(np.asarray(c, np.float64), 1e-4)) / denom) ** 2
 
+
+#: classic measured subsurface media (Jensen, Marschner, Levoy & Hanrahan,
+#: "A Practical Model for Subsurface Light Transport", SIGGRAPH 2001,
+#: table 1): name -> (sigma_prime_s, sigma_a) in 1/mm, the reference's
+#: rows of pbrt's GetMediumScatteringProperties catalog
+_SSS_PRESETS = {
+    "Skimmilk": ([0.70, 1.22, 1.90], [0.0014, 0.0025, 0.0142]),
+    "Wholemilk": ([2.55, 3.21, 3.77], [0.0011, 0.0024, 0.014]),
+    "Skin1": ([0.74, 0.88, 1.01], [0.032, 0.17, 0.48]),
+    "Skin2": ([1.09, 1.59, 1.79], [0.013, 0.070, 0.145]),
+    "Marble": ([2.19, 2.62, 3.00], [0.0021, 0.0041, 0.0071]),
+    "Ketchup": ([0.18, 0.07, 0.03], [0.061, 0.97, 1.45]),
+    "Cream": ([7.38, 5.47, 3.15], [0.0002, 0.0028, 0.0163]),
+    "Spectralon": ([11.6, 20.4, 14.9], [0.00, 0.00, 0.00]),
+}
+
 #: material slot -> its texture-id column, and the name tex_used gives it
 TEX_SLOTS = (("kd_tex", "kd"), ("ks_tex", "ks"), ("sigma_tex", "sigma"),
              ("rough_tex", "rough"), ("opacity_tex", "opacity"))
 
 
-def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
+def lower_materials(mat_records: List, tex_registry, scene_dir: str = ".") -> Dict[str, Any]:
     """MaterialRecords -> the SoA material table (bxdf.MAT_COLUMNS) with
     the reference's defaults and constant folding. tex_registry(node)
     gives a non-constant texture its id (the reference's registry).
+
+    A fourier material reads its `bsdffile` (relative to scene_dir) into
+    the table's one "_fourier" entry (one table per scene, as in the
+    reference); a subsurface or kdsubsurface row gets a "sub_id" and its
+    medium (sigma_s, sigma_a, g, eta) goes to "_sss_rows", which
+    compile_scene bakes into the BSSRDF profiles. Every substitution
+    warns as the reference's does.
 
     A mix row's two sub-materials are appended as real rows of the same
     table and the mix row records (mix_a, mix_b, mix_amt); shading
@@ -540,6 +566,7 @@ def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
         "mix_a": np.full(m, -1, np.int32),
         "mix_b": np.full(m, -1, np.int32),
         "mix_amt": np.full(m, 0.5, np.float32),
+        "sub_id": np.full(m, -1, np.int32),
         "kd_tex": np.full(m, -1, np.int32),
         "ks_tex": np.full(m, -1, np.int32),
         "sigma_tex": np.full(m, -1, np.int32),
@@ -548,11 +575,13 @@ def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
         "bump_tex": np.full(m, -1, np.int32),
     }
 
+    #: (sigma_s, sigma_a, g, eta) of each subsurface material, in sub_id order
+    sss_rows: List[tuple] = []
+
     for i, rec in enumerate(mat_records):
         t = rec.type
-        if t not in _MAT_ENUM:
-            _not_ported(f'Material "{t}" (ported: {", ".join(map(repr, _MAT_ENUM))})')
-        tab["type"][i] = _MAT_ENUM[t]
+        # (the material factory has already turned an unknown name into matte)
+        tab["type"][i] = _MAT_ENUM.get(t, bxdf.MAT_MATTE)
         p = rec.params
 
         def spec(key, default, slot, tex_slot=None):
@@ -686,6 +715,78 @@ def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
             tab["eta"][i] = tab["eta"][i][:1].repeat(3)
             # the colour of integrators that store only a diffuse albedo
             tab["kd"][i] = np.exp(-np.asarray(sa, np.float64) * 0.5)
+        elif t == "fourier":
+            # the tabulated FourierBSDF when its .bsdf file loads
+            # (core/fourierbsdf.py); a loud 0.5 diffuse fallback otherwise
+            fn, _ = _fold_const(p.get("bsdffile"), "")
+            prev = tab.get("_fourier")
+            tab_obj = None
+            if fn and prev is not None and prev[1] == str(fn):
+                tab_obj = prev[0]  # the same file: reuse it
+            elif fn and prev is not None:
+                Warning("multiple distinct fourier bsdffiles in one scene are not supported; "
+                        "reusing the first table")
+                tab_obj = prev[0]
+            elif fn:
+                from tpu_pbrt_torch.core.fourierbsdf import read_bsdf_file
+
+                try:
+                    tab_obj = read_bsdf_file(resolve_filename(str(fn), scene_dir))
+                    tab["_fourier"] = (tab_obj, str(fn))
+                except Exception as e:  # noqa: BLE001 - any unreadable file falls back
+                    Warning(f'fourier: could not read "{fn}" ({e}); '
+                            "SUBSTITUTING a 0.5 diffuse BSDF")
+            else:
+                Warning('fourier material without "bsdffile"; SUBSTITUTING a 0.5 diffuse BSDF')
+            if tab_obj is None:
+                tab["type"][i] = bxdf.MAT_MATTE
+            tab["kd"][i] = 0.5
+        elif t in ("subsurface", "kdsubsurface"):
+            # BSSRDF transport (core/bssrdf.py): the surface is the smooth
+            # Fresnel interface (glass kr / kt; gather_mat remaps the type),
+            # the medium's beam-diffusion profile is baked per channel in
+            # compile_scene, and `path` runs the Sample_Sp probe wave
+            spec("Kr", 1.0, "kr")
+            spec("Kt", 1.0, "kt")
+            flt("eta", 1.33, "eta")
+            tab["eta"][i] = tab["eta"][i][:1].repeat(3)
+            eta_v = float(tab["eta"][i][0])
+            g_v = 0.0
+            if t == "subsurface":
+                g_v = float(_fold_const(p.get("g"), 0.0)[0])
+                preset = str(p.get("preset") or "")
+                if preset and preset in _SSS_PRESETS:
+                    sig_sp, sig_a = (np.asarray(v, np.float64) for v in _SSS_PRESETS[preset])
+                elif preset:
+                    Warning(f'subsurface: unknown medium preset "{preset}"; '
+                            "using the sigma_a/sigma_prime_s parameters")
+                    preset = ""
+                if not preset:
+                    sa, fold_a = _fold_const(p.get("sigma_a"), np.array([0.0011, 0.0024, 0.014]))
+                    ss_, fold_s = _fold_const(p.get("sigma_s"), np.array([2.55, 3.21, 3.77]))
+                    if not (fold_a and fold_s):
+                        Warning("subsurface: textured sigma_a/sigma_prime_s are not supported "
+                                "(the diffusion profile bakes per material); using constants")
+                    sig_a = _rgb(sa).astype(np.float64)
+                    sig_sp = _rgb(ss_).astype(np.float64)
+                scale = float(_fold_const(p.get("scale"), 1.0)[0])
+                sig_a = sig_a * scale
+                sigma_s = sig_sp * scale / max(1.0 - g_v, 1e-3)
+            else:
+                from tpu_pbrt_torch.core.bssrdf import subsurface_from_diffuse
+
+                kd_v, _ = _fold_const(p.get("Kd"), 0.5)
+                mfp_v, _ = _fold_const(p.get("mfp"), 1.0)
+                sigma_s, sig_a = subsurface_from_diffuse(_rgb(kd_v), _rgb(mfp_v), g_v, eta_v)
+            ur, _ = _fold_const(p.get("uroughness"), 0.0)
+            if np.max(np.asarray(ur, np.float64)) > 0:
+                Warning("subsurface: rough interface not supported; using the smooth "
+                        "specular interface")
+            tab["sub_id"][i] = len(sss_rows)
+            sss_rows.append((sigma_s, sig_a, g_v, eta_v))
+            # the albedo of integrators without the probe wave (bdpt, sppm,
+            # mlt shade the interface only, as in the reference)
+            tab["kd"][i] = 0.5
         else:  # mix (mixmat.cpp): sub-rows ia/ib, resolved by `amount`
             amt, folded = _fold_const(p.get("amount"), 0.5)
             a = _rgb(amt)
@@ -709,7 +810,37 @@ def lower_materials(mat_records: List, tex_registry) -> Dict[str, np.ndarray]:
             tab["kd"][i] = _rgb(kd1) * a + _rgb(kd2) * (1 - a)
     if not (tab["mix_a"] >= 0).any():
         del tab["mix_a"], tab["mix_b"], tab["mix_amt"]
+    if sss_rows:
+        tab["_sss_rows"] = sss_rows
+    else:
+        del tab["sub_id"]
     return tab
+
+
+def bake_bssrdf(sss_rows) -> "Any":
+    """Each subsurface material's per-channel beam-diffusion profile
+    (core/bssrdf.py: the albedo is constant per material, so bssrdf.cpp's
+    (rho, r) spline table collapses to one radial profile per (material,
+    channel)), as a BakedBSSRDF of numpy arrays."""
+    from tpu_pbrt_torch.core.bssrdf import N_RADII, BakedBSSRDF, bake_profile
+
+    M = len(sss_rows)
+    b_radii = np.zeros((M, 3, N_RADII), np.float32)
+    b_prof = np.zeros((M, 3, N_RADII), np.float32)
+    b_cdf = np.zeros((M, 3, N_RADII), np.float32)
+    b_rho = np.zeros((M, 3), np.float32)
+    b_rmax = np.zeros((M, 3), np.float32)
+    b_eta = np.zeros((M,), np.float32)
+    for mrow, (sigma_s, sigma_a, g_v, eta_v) in enumerate(sss_rows):
+        b_eta[mrow] = eta_v
+        for c in range(3):
+            ra, pr, cd, re, rm = bake_profile(
+                float(np.asarray(sigma_s).reshape(-1)[c]),
+                float(np.asarray(sigma_a).reshape(-1)[c]), g_v, eta_v)
+            b_radii[mrow, c], b_prof[mrow, c], b_cdf[mrow, c] = ra, pr, cd
+            b_rho[mrow, c], b_rmax[mrow, c] = re, rm
+    return BakedBSSRDF(radii=b_radii, profile=b_prof, cdf=b_cdf, rho_eff=b_rho, r_max=b_rmax,
+                       eta=b_eta)
 
 
 def _read_envmap(path: str, L) -> np.ndarray:
@@ -743,14 +874,6 @@ def _read_light_map(fn: str, scene_dir: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3], np.float32)
 
 
-def _check_directives(api, ro):
-    check_ported(ro.integrator_name)
-    if ro.film_name != "image":
-        _not_ported(f'Film "{ro.film_name}" (ported: "image")')
-    if ro.accelerator_name != "bvh":
-        _not_ported(f'Accelerator "{ro.accelerator_name}" (ported: "bvh")')
-
-
 def compile_scene(api, device=None) -> CompiledScene:
     """Compile the API's world into tables on `device` (default: the API's
     device, which defaults to CUDA; see config.resolve_device)."""
@@ -758,7 +881,7 @@ def compile_scene(api, device=None) -> CompiledScene:
         api, "device", None) or resolve_device(None)
     ro = api.render_options
     opts = api.options
-    _check_directives(api, ro)
+    check_ported(ro.integrator_name)
     if ro.camera_to_world.is_animated():
         # the reference builds its camera from the shutter-start keyframe
         Warning("the camera transform is animated: rendering with its shutter-start "
@@ -852,8 +975,8 @@ def compile_scene(api, device=None) -> CompiledScene:
         all_mat.append(np.full(n_t, mid, np.int32))
         lids = np.full(n_t, -1, np.int32)
         if rec.area_light is not None:
-            if rec.area_light_name != "diffuse":
-                _not_ported(f'AreaLightSource "{rec.area_light_name}" (ported: "diffuse")')
+            # one diffuse area light per triangle, whatever the light's
+            # name (pbrt has no other area light)
             L = _rgb(rec.area_light.find_one_spectrum("L", np.array([1.0, 1.0, 1.0])))
             sc = _rgb(rec.area_light.find_one_spectrum("scale", np.array([1.0, 1.0, 1.0])))
             two = rec.area_light.find_one_bool("twosided", False)
@@ -868,16 +991,28 @@ def compile_scene(api, device=None) -> CompiledScene:
                 ))
         all_light.append(lids)
 
-    if not all_verts:
-        _not_ported("a scene without geometry")
     # motion blur is on only where something moves AND the shutter is open
     any_motion = any_motion and shutter[1] > shutter[0]
-    verts = np.concatenate(all_verts).astype(np.float64)
-    verts1 = np.concatenate(all_verts1).astype(np.float64) if any_motion else None
-    normals = np.concatenate(all_normals).astype(np.float32)
-    uvs = np.concatenate(all_uvs).astype(np.float32)
-    mat_ids = np.concatenate(all_mat)
-    light_ids = np.concatenate(all_light)
+    if all_verts:
+        verts = np.concatenate(all_verts).astype(np.float64)
+        verts1 = np.concatenate(all_verts1).astype(np.float64) if any_motion else None
+        normals = np.concatenate(all_normals).astype(np.float32)
+        uvs = np.concatenate(all_uvs).astype(np.float32)
+        mat_ids = np.concatenate(all_mat)
+        light_ids = np.concatenate(all_light)
+    else:
+        # no geometry: one degenerate far-away triangle of a null material
+        # keeps every table non-empty, as in the reference
+        from tpu_pbrt_torch.scene.api import MaterialRecord
+
+        verts = np.full((1, 3, 3), 1e30)
+        verts1 = None
+        normals = np.zeros((1, 3, 3), np.float32)
+        normals[:, :, 2] = 1.0
+        uvs = np.zeros((1, 3, 2), np.float32)
+        mat_ids = np.zeros(1, np.int32)
+        light_ids = np.full(1, -1, np.int32)
+        mat_records.append(MaterialRecord("none", {}))
 
     # -- world bounds (the union over the shutter where anything moves) -----
     vb = verts if verts1 is None else np.concatenate([verts, verts1])
@@ -898,8 +1033,10 @@ def compile_scene(api, device=None) -> CompiledScene:
         bmin1, bmax1 = triangle_bounds(verts1)
         bmin = np.minimum(bmin, bmin1)
         bmax = np.maximum(bmax, bmax1)
+    # every accelerator name builds the BVH (pbrt's "kdtree" included);
+    # only "bvh" reads its split method
     bvh = build_bvh(bmin, bmax, method=ro.accelerator_params.find_one_string(
-        "splitmethod", "auto"))
+        "splitmethod", "auto") if ro.accelerator_name == "bvh" else "auto")
     order = bvh.prim_order
     verts = verts[order]
     if verts1 is not None:
@@ -1067,9 +1204,8 @@ def compile_scene(api, device=None) -> CompiledScene:
     # -- spatial light distribution: dense per-voxel CDFs, importance at the
     # voxel centers (the reference's simplification of pbrt's lazy hash)
     spatial_distr = None
+    # an unknown strategy name picks lights by power (WavefrontIntegrator)
     strategy = ro.integrator_params.find_one_string("lightsamplestrategy", "spatial")
-    if strategy not in ("spatial", "power", "uniform"):
-        _not_ported(f'lightsamplestrategy "{strategy}"')
     if n_lights > 1 and strategy == "spatial" and n_lights <= 4096:
         sd = spatial_tables(light_rows, verts, wmin, wmax, power)
         spatial_distr = SpatialLightDistribution(
@@ -1095,7 +1231,10 @@ def compile_scene(api, device=None) -> CompiledScene:
             deferred_textures.append(node)
         return tid
 
-    mtab = lower_materials(mat_records, tex_registry)
+    mtab = lower_materials(mat_records, tex_registry, getattr(api, "scene_dir", "."))
+    sss_rows = mtab.pop("_sss_rows", None)
+    if "_fourier" in mtab:
+        mtab["_fourier"] = mtab["_fourier"][0]  # the table (the file name keyed its reuse)
     if any(rec.params.get("bumpmap") is not None for rec in mat_records):
         Warning("bump textures are parsed but not applied (no shading-normal perturbation)")
     tex_eval = tex_atlas = None
@@ -1127,6 +1266,8 @@ def compile_scene(api, device=None) -> CompiledScene:
         "world_radius": np.float32(wradius),
         "n_lights": np.int32(n_lights),
     }
+    if sss_rows:
+        tab["bssrdf"] = bake_bssrdf(sss_rows)
     if len(mtab["type"]) < 4096 and n_lights < 4095:
         # (16, T) lane-major shading rows [n0 n1 n2 | uv0 uv1 uv2 | mat*4096 + light+1],
         # where the ids fit the exact-f32 packing (else make_interaction

@@ -1,12 +1,13 @@
 """Built-in scenes (port of tpu_pbrt/scenes.py: the Cornell box, the
 killeroo-class mesh and the crown-class scene), and the cloud-class,
-caustic-glass-class, scene-breadth, textured and motion scenes.
+caustic-glass-class, scene-breadth, textured, motion and subsurface scenes.
 
 Same scene text and the same procedural meshes and sky as the reference,
 driven through the port's API, so both packages compile identical worlds.
-The reference has no cloud, caustic, breadth, textured or motion scene:
-`cloud_parts`, `caustic_parts`, `breadth_parts`, `textured_parts` and
-`motion_parts` hold their text and meshes, which the
+The reference has no cloud, caustic, breadth, textured, motion or
+subsurface scene: `cloud_parts`, `caustic_parts`, `breadth_parts`,
+`textured_parts`, `motion_parts` and `subsurface_parts` hold their text
+and meshes, which the
 port parses here and the JAX reference's generators (under
 tests/torch_golden/) parse through the JAX package's API.
 """
@@ -884,6 +885,166 @@ def make_motion_like(res=512, spp=16, maxdepth=5, integrator="path", params="", 
                               **(MOTION_SMALL if small else {}))
     parse_string(f'Shape "plymesh" "string filename" ["{ply}"]\n'.join(texts), api,
                  render=False)
+    return api
+
+
+def write_fourier_bsdf(path: str) -> None:
+    """Write the subsurface scene's ground table: a 3-channel (Y, R, B)
+    SCATFUN v1 .bsdf file in the layout of tests/test_fourier.py::_write_bsdf
+    (16 zenith knots, eta 1.5): a diffuse part of albedo (0.55, 0.42,
+    0.3) plus a glossy lobe around the mirror configuration (mu_i = -mu_o,
+    pbrt's muI = cos(-wi)) whose azimuthal cosine series has 4 orders
+    (a_k ~ exp(-k^2 / 4)); reflection pairs only. Each nonzero pair's run
+    is its Y, R and B coefficients, 4 each."""
+    import struct
+
+    n_mu, m, eta, gloss = 16, 4, 1.5, 0.35
+    mu = np.linspace(-1.0, 1.0, n_mu).astype(np.float32)
+    rho = np.array([0.55, 0.42, 0.3])
+    lum_w = np.array([0.212671, 0.715160, 0.072169])
+    g_rgb = np.array([rho[0], (rho @ lum_w - 0.212671 * rho[0] - 0.072169 * rho[2]) / 0.715160,
+                      rho[2]])
+    y_rho = float(g_rgb @ lum_w)
+    k = np.arange(m)
+    offsets, orders, coeffs = [], [], []
+    for o in range(n_mu):
+        for i in range(n_mu):
+            offsets.append(len(coeffs))
+            if mu[i] * mu[o] >= 0.0:
+                orders.append(0)
+                continue
+            ai = abs(float(mu[i]))
+            lobe = gloss * ai * np.exp(-((float(mu[i]) + float(mu[o])) ** 2) / 0.05) \
+                * np.exp(-(k ** 2) / 4.0)
+            for ch_rho in (y_rho, rho[0], rho[2]):
+                run = lobe * ch_rho / y_rho
+                run[0] += ch_rho / np.pi * ai
+                coeffs.extend(run.tolist())
+            orders.append(m)
+    a = np.asarray(coeffs, np.float32)
+    ol = np.stack([np.asarray(offsets, np.int32), np.asarray(orders, np.int32)], 1)
+    with open(path, "wb") as f:
+        f.write(b"SCATFUN\x01")
+        f.write(struct.pack("<9i", 1, n_mu, len(a), m, 3, 1, 0, 0, 0))
+        f.write(struct.pack("<f", eta))
+        f.write(struct.pack("<4i", 0, 0, 0, 0))
+        f.write(mu.tobytes())
+        f.write(np.zeros((n_mu, n_mu), np.float32).tobytes())
+        f.write(ol.astype(np.int32).tobytes())
+        f.write(a.tobytes())
+
+
+#: the small subsurface scene (tests and goldens): both blobs' tessellations
+SUBSURFACE_SMALL = dict(n_theta=24, n_phi=48, n_theta_small=12, n_phi_small=24)
+
+
+def subsurface_files(n_theta: int = 500, n_phi: int = 1000, n_theta_small: int = 180,
+                     n_phi_small: int = 360) -> dict:
+    """The subsurface scene's generated files, written once under
+    .torch_build/: the large blob (`_displaced_sphere(n_theta, n_phi)`)
+    as a binary PLY, the small one (the breadth scene's blob at its
+    tessellation) and the ground's Fourier table (`write_fourier_bsdf`).
+    Returns their paths as {"blob", "small", "bsdf", "env"}."""
+    from tpu_pbrt_torch.scene.plyreader import write_ply
+
+    return {
+        "blob": _publish(os.path.join(BUILD_DIR, f"subsurface_blob_{n_theta}x{n_phi}.ply"),
+                         lambda t: write_ply(t, *_displaced_sphere(n_theta, n_phi))),
+        "small": breadth_files(n_theta_small, n_phi_small)["blob"],
+        "bsdf": _publish(os.path.join(BUILD_DIR, "subsurface_ground.bsdf"), write_fourier_bsdf),
+        "env": _crown_envmap_path(),
+    }
+
+
+def subsurface_parts(res, spp, maxdepth=5, integrator="path", n_theta=500, n_phi=1000,
+                     n_theta_small=180, n_phi_small=360):
+    """The subsurface scene as (texts, [the large blob's PLY, the small
+    blob's PLY]): blob k is declared between texts[k] and texts[k + 1].
+
+    A stand-in for pbrt-v3-scenes' `sssdragon` (a scanned mesh in a
+    measured subsurface medium), with the other two materials of the
+    slice:
+
+        Integrator "<integrator>" "integer maxdepth" [<maxdepth>]
+        Sampler "zerotwosequence" "integer pixelsamples" [<spp>]
+        PixelFilter "box"
+        Film "image" "integer xresolution" [<res>] "integer yresolution" [<res>]
+        LookAt 0 1.0 -3.4  0 0 0.5  0 1 0
+        Camera "perspective" "float fov" [40]
+        WorldBegin
+        LightSource "infinite" (the crown's sky, scale 0.5)
+        AttributeBegin AreaLightSource "diffuse" [10 9.5 9]  (a quad at y = 3)  AttributeEnd
+        AttributeBegin Material "fourier" (the written 3-channel table)  (the ground at y = -0.8)
+        AttributeEnd
+        AttributeBegin
+          Material "subsurface" "string name" ["Skin2"] "float scale" [500]
+          Translate -0.35 0.1 0.6  Scale 0.8 0.8 0.8
+          Shape (the large blob)
+        AttributeEnd
+        ObjectBegin "small"
+          Material "kdsubsurface" "rgb Kd" [0.8 0.45 0.3] "rgb mfp" [0.0006 0.0004 0.0003]
+          Shape (the small blob)
+        ObjectEnd
+        AttributeBegin Translate 1.0 -0.45 0.3  Scale 0.35 0.35 0.35  ObjectInstance "small"
+        AttributeEnd
+
+    The preset's coefficients are per millimetre; the scale of 500 puts
+    the 0.999-quantile sampling radius at 0.049 / 0.021 / 0.014 (R, G, B),
+    2-6% of the large blob's radius of 0.8, and the small blob's mean free
+    paths put its radii at about 0.026 / 0.007 / 0.004 of its 0.35, so the
+    probe chords find exits on the blob they start in. At the default
+    tessellations the scene holds 998,000 + 128,880 + 4 triangles."""
+    f = subsurface_files(n_theta, n_phi, n_theta_small, n_phi_small)
+    head = f"""
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}]
+Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}] "string filename" [""]
+LookAt 0 1.0 -3.4  0 0 0.5  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "infinite" "string mapname" ["{f['env']}"] "rgb scale" [0.5 0.5 0.5]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [10 9.5 9]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-1 3 -0.5  1 3 -0.5  1 3 1.5  -1 3 1.5]
+AttributeEnd
+AttributeBegin
+Material "fourier" "string bsdffile" ["{f['bsdf']}"]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-8 -0.8 -6  -8 -0.8 8  8 -0.8 8  8 -0.8 -6]
+AttributeEnd
+AttributeBegin
+Material "subsurface" "string name" ["Skin2"] "float scale" [500]
+Translate -0.35 0.1 0.6
+Scale 0.8 0.8 0.8
+"""
+    mid = """AttributeEnd
+ObjectBegin "small"
+Material "kdsubsurface" "rgb Kd" [0.8 0.45 0.3] "rgb mfp" [0.0006 0.0004 0.0003]
+"""
+    tail = """ObjectEnd
+AttributeBegin
+Translate 1.0 -0.45 0.3
+Scale 0.35 0.35 0.35
+ObjectInstance "small"
+AttributeEnd
+"""
+    return [head, mid, tail], [f["blob"], f["small"]]
+
+
+def make_subsurface_like(res, spp, maxdepth=5, integrator="path", small=False, options=None,
+                         device=None) -> PbrtAPI:
+    """The subsurface stand-in (`subsurface_parts`): a `subsurface` blob at
+    the crown's tessellation, a smaller `kdsubsurface` instance and a
+    `fourier` ground; 1,126,884 triangles, or with `small=True`
+    (SUBSURFACE_SMALL) 2,740 for CPU tests. Each blob is a
+    `Shape "plymesh"`. Parsed up to (not including) WorldEnd."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    texts, plys = subsurface_parts(res, spp, maxdepth, integrator,
+                                   **(SUBSURFACE_SMALL if small else {}))
+    text = texts[0]
+    for ply, more in zip(plys, texts[1:]):
+        text += f'Shape "plymesh" "string filename" ["{ply}"]\n' + more
+    parse_string(text, api, render=False)
     return api
 
 
