@@ -39,8 +39,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      [scene] its sizes and compile seconds, and the 64x128 sky (not the
      constant fallback map);
      [check] both kernels against their plain versions on the pool's
-     wave 1 of the middle chunk (2^19 rays: the packed flush key) and on
-     the fixed batch's first 2^20-ray camera wave of the middle chunk
+     first wave with live shadow rays (2^19 rays: the packed flush key)
+     and on the fixed batch's first 2^20-ray camera wave of the middle chunk
      (the unpacked 2-array sort), EXACT: t 0 ulp, no prim flip; the
      expand bit-exact in closest-hit and any-hit mode; times and bounds
      as in phase 2;
@@ -51,7 +51,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      package's CPU render tests/torch_golden/crown_cpu_64x64_64spp.npz
      (MSE bar 1e-4, finite, no pair dropped), the fixed batch at the same
      size (the same rays; images within rtol 1e-4 / atol 1e-5), and the
-     512x512 crown at CROWN_SPP (16) through the pool, its kernel launches
+     512x512 crown at CROWN_SPP (4) through the pool, its kernel launches
      counted as in phase 3;
   5. direct — the direct-lighting family (fixed batch, shadow rays as
      any-hit waves):
@@ -145,7 +145,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      crown's sky and a quad area light; `path` at maxdepth 5):
      [scene] its sizes, textures, atlas and compile seconds;
      [check] both kernels against their plain versions, EXACT, on the
-     512x512x16 render's pool wave 1 of its middle chunk (packed flush
+     512x512x4 render's pool wave with live shadow rays (packed flush
      key) and its middle chunk's first fixed-batch 2^20-ray camera wave
      (unpacked key), timed as in phase 2;
      [render] that render through the pool and the fixed batch (the same
@@ -171,7 +171,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      [scene] its sizes, treelets, the F = 64 featT's bytes and compile
      seconds;
      [check] both kernels against their plain versions, EXACT, on the
-     512x512x16 render's pool wave 1 of its middle chunk (packed flush
+     512x512x4 render's pool wave with live shadow rays (packed flush
      key, F = 64, each lane's own shutter time in rayF row 7) and its
      middle chunk's first fixed-batch 2^20-ray camera wave (unpacked key,
      the camera samples' times), timed as in phase 2 (the bound, the
@@ -181,11 +181,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      the card's name and power limit), its launches counted as in phase 3
      (the F = 64 flush must launch); `path` 64x64x16 through the pool
      against tests/torch_golden/motion_path_cpu_64x64_16spp.npz, its MSE
-     printed beside the 1e-4 bar with its verdict (the hair paths that
-     branch apart at the reference's fused multiply-adds: ROADMAP Queue 3
-     item 12, open); `path` 64x64x64 through the pool and the fixed batch
-     against motion_path_cpu_64x64_64spp.npz and `bdpt` (the
-     shutter-start frame, disney and hair shaded through BDPT) at
+     printed beside the 1e-4 bar with its verdict (paths that branch
+     apart where the reference's compiled bounce fuses multiplies into
+     adds in its shared vector math: ROADMAP Queue 3 item 12, open);
+     `path` 64x64x64 through the pool and the fixed batch against
+     motion_path_cpu_64x64_64spp.npz and `bdpt` (the shutter-start
+     frame, disney and hair shaded through BDPT) at
      32x32x16 against motion_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4, no
      pair dropped, rays printed beside the reference's); the card
      against the CPU port at 32x32x4 on the small variant (MSE bar 1e-4,
@@ -268,7 +269,7 @@ SPPM_SMALL = '"integer numiterations" [2] "integer photonsperiteration" [4096] "
 #: MLT on the card against its JAX CPU reference: the image means' bar
 MLT_MEAN_BAR = 0.02
 #: spp of the 512x512 crown render (the bench's 256 would not fit the time box)
-CROWN_SPP = 16
+CROWN_SPP = 4
 #: the JAX CPU references of the breadth scene at 64x64x16, by camera
 BREADTH_REF = os.path.join(GOLDEN, "breadth_{}_cpu_64x64_16spp.npz")
 #: the timed breadth render, whose pool and fixed waves the kernels are checked on
@@ -284,22 +285,27 @@ PORT_BAR = 1e-8
 TEXTURED_REF = os.path.join(GOLDEN, "textured_path_cpu_64x64_16spp.npz")
 TEXTURED_BDPT_REF = os.path.join(GOLDEN, "textured_bdpt_cpu_32x32_16spp.npz")
 #: the timed textured render, whose pool and fixed waves the kernels are checked on
-TEXTURED_RES, TEXTURED_SPP = 512, 16
+TEXTURED_RES, TEXTURED_SPP = 512, 4
 #: the profiled textured render: 2^18 camera rays (a trace's parse time
 #: follows its device ops, which follow its waves)
 TEXTURED_PROFILE = (256, 4)
 #: the JAX CPU references of the motion scene (path 64x64x16 and 64x64x64,
-#: bdpt 32x32x16). A few hair paths take another way than the reference's:
-#: its compiled program fuses multiplies and adds across operations in
-#: the hair lobes, which the port rounds apart (ROADMAP Queue 3 item 12).
+#: bdpt 32x32x16). A few paths take another way than the reference's: its
+#: compiled program fuses multiplies into adds across operations (in the
+#: hit point's interpolation and the continuation direction, not in the
+#: hair lobes: tests/torch_golden/fma_study.py), which the port rounds
+#: apart (ROADMAP Queue 3 item 12).
 #: Their squared difference falls as 1/spp: the 64x64x64 render is held
 #: to the bar, the 64x64x16 one is printed beside it with its verdict
 MOTION_REF = os.path.join(GOLDEN, "motion_path_cpu_64x64_64spp.npz")
 MOTION_REF16 = os.path.join(GOLDEN, "motion_path_cpu_64x64_16spp.npz")
 MOTION_BDPT_REF = os.path.join(GOLDEN, "motion_bdpt_cpu_32x32_16spp.npz")
+#: the motion scene's card-vs-CPU-port MSE at 32x32x4 as PERF.md records it,
+#: printed beside this run's
+MOTION_PORT_GAP = 2.424e-7
 
 #: the timed motion render, whose pool and fixed waves the kernels are checked on
-MOTION_RES, MOTION_SPP = 512, 16
+MOTION_RES, MOTION_SPP = 512, 4
 #: the JAX CPU reference of the subsurface scene (path 64x64x16)
 SUBSURFACE_REF = os.path.join(GOLDEN, "subsurface_path_cpu_64x64_16spp.npz")
 #: the timed subsurface render, whose first probe-chord wave the kernels are checked on
@@ -759,11 +765,24 @@ def _check_waves(scene, integ, label="", fixed_chunk=0, exact=False, fixed_packe
         return tp.n_treelets < (1 << (31 - _ray_bits(R)))
 
     t0 = time.perf_counter()
-    pcap, plan = _capture_pool_wave(scene, integ)
-    R = pcap["flush"][3].shape[1]
-    # the flush's rayF row 6 is the t_max row: > 0 for a live ray
-    n_shadow = int((pcap["flush"][3][6, plan.pool:] > 0).sum())
-    log(f"[check] {label}pool wave: captured wave 1 of chunk {pcap['chunk']} of "
+    # wave 1 of the middle chunk; a one-chunk render's first pool-full is
+    # the top rows of the frame (often sky, no shadow rays), so take the
+    # first later wave whose shadow half is live
+    for wave in range(1, 9):
+        try:
+            pcap, plan = _capture_pool_wave(scene, integ, wave)
+        except SmokeFailure:
+            # a wave whose traversal ends after its first flush has no
+            # expand step to capture
+            if wave == 8 or integ.prepare_chunks(scene).n_chunks > 1:
+                raise
+            continue
+        R = pcap["flush"][3].shape[1]
+        # the flush's rayF row 6 is the t_max row: > 0 for a live ray
+        n_shadow = int((pcap["flush"][3][6, plan.pool:] > 0).sum())
+        if n_shadow or plan.n_chunks > 1:
+            break
+    log(f"[check] {label}pool wave: captured wave {wave} of chunk {pcap['chunk']} of "
         f"{plan.n_chunks} (pool {plan.pool} slots, {R} rays: camera + shadow; {n_shadow} "
         f"shadow rays live; flush key packed: {packed(R)}) in {time.perf_counter() - t0:.2f} s; "
         f"flush geometry {flush_geometry(R, tp.n_treelets)}")
@@ -1740,7 +1759,7 @@ def _profile_line(label, scene, integ, regen: bool):
 
 def phase_textured():
     """Textures and the layered materials on the card (see the module doc,
-    phase 9): the kernels on the 512x512x16 render's pool and fixed waves,
+    phase 9): the kernels on the 512x512x4 render's pool and fixed waves,
     that render timed through both, one chunk of each profiled, 64x64x16
     against the JAX CPU reference, the card against the CPU port, and
     `bdpt` against its JAX CPU reference. Returns {kernel: numbers at the
@@ -1774,7 +1793,7 @@ def phase_textured():
     out, _ = _check_waves(scene, integ, "textured ", fixed_chunk=n_chunks // 2, exact=True,
                           fixed_packed=False)
 
-    # [render] the 512x512x16 render through the pool and the fixed batch
+    # [render] the 512x512x4 render through the pool and the fixed batch
     pool, p_l = _render_counted(integ, scene, regen=True)
     _log_render(f"textured pool {TEXTURED_RES}x{TEXTURED_RES}x{TEXTURED_SPP}", pool, p_l)
     fixed, f_l = _render_counted(integ, scene, regen=False)
@@ -1862,7 +1881,7 @@ def _motion(res, spp, device, **kw):
 
 def phase_motion():
     """Motion blur, disney and hair on the card (see the module doc, phase
-    10): the kernels on the 512x512x16 render's pool and fixed waves (F =
+    10): the kernels on the 512x512x4 render's pool and fixed waves (F =
     64, real ray times), that render timed through both, `path` 64x64x64
     and `bdpt` 32x32x16 against the JAX CPU references, and the card
     against the CPU port. Returns {kernel: numbers at the pool wave (the
@@ -1894,7 +1913,7 @@ def phase_motion():
     out, _ = _check_waves(scene, integ, "motion ", fixed_chunk=n_chunks // 2, exact=True,
                           fixed_packed=False, features=64)
 
-    # [render] the 512x512x16 render through the pool and the fixed batch
+    # [render] the 512x512x4 render through the pool and the fixed batch
     pool, p_l = _render_counted(integ, scene, regen=True)
     _log_render(f"motion pool {MOTION_RES}x{MOTION_RES}x{MOTION_SPP}", pool, p_l)
     fixed, f_l = _render_counted(integ, scene, regen=False)
@@ -1970,7 +1989,8 @@ def phase_motion():
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     log(f"[motion] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
         f"{mse:.3e} (bar {MSE_BAR:g}; {'below' if mse < PORT_BAR else 'above'} the other "
-        f"scenes' {PORT_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
+        f"scenes' {PORT_BAR:g}; PERF.md records {MOTION_PORT_GAP:.3e}), max |diff| "
+        f"{np.abs(a - b).max():.3e}, image mean "
         f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
     if not mse < MSE_BAR or not np.isfinite(a).all() or not a.mean() > 0:
         raise SmokeFailure(f"motion: the card and the CPU port differ (MSE {mse:.3e})")
@@ -2124,10 +2144,156 @@ def phase_subsurface():
 
 # -- phase 12 ------------------------------------------------------------------
 
+class _Crash(Exception):
+    """A process death at a chunk dispatch (raised by a chaos hook)."""
+
+
+def phase_infra():
+    """The render infrastructure on the main path (see the module doc,
+    phase 12): the killeroo at 128x128x256 through the dispatch window at
+    depth 1 and 2, the chaos recoveries and the strict firewall at
+    128x128x32 in chunks of 2^17, and the capacity audit. Returns
+    {kernel: launches at each depth, with Mray/s and overlap}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.chaos import CHAOS
+    from tpu_pbrt_torch.config import cfg
+    from tpu_pbrt_torch.integrators.common import NonFiniteRadianceError
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.obs.metrics import host_overlap_fraction
+    from tpu_pbrt_torch.parallel.checkpoint import load_checkpoint
+    from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
+    from tpu_pbrt_torch.utils.clock import VirtualClock
+
+    t_phase = time.perf_counter()
+    scene, integ = compile_api(make_killeroo_like(res=128, spp=256, maxdepth=5, device="cuda"))
+    ref = np.load(REF_IMAGE)["image"]
+    saved = {k: getattr(cfg, k) for k in ("pipeline", "chunk", "nonfinite", "retry_backoff")}
+    runs, out = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_infra_")
+    try:
+        for depth in (1, 2):
+            cfg.pipeline = depth
+            reset_launches()
+            res = integ.render(scene)
+            launches = dict(LAUNCHES)
+            ph = res.stats["phase_seconds"]
+            ovl = host_overlap_fraction(ph, res.seconds)
+            mse = float(np.mean((res.image.astype(np.float64) - ref) ** 2))
+            runs[depth] = res
+            log(f"[infra] killeroo 128x128x256 at depth {res.stats['pipeline_depth']}: "
+                f"{res.seconds:.3f} s, {res.rays_traced} rays, {res.mray_per_sec:.4f} Mray/s, "
+                f"host_overlap_fraction {ovl}, device_wait {ph.get('device_wait', 0.0):.6f} s, "
+                f"phases {json.dumps(ph)}, MSE vs ref {mse:.3e} (bar {MSE_BAR:g}), launches "
+                f"{json.dumps(launches)}; {card_line()}")
+            if (res.stats["pipeline_depth"] != depth or not np.isfinite(res.image).all()
+                    or mse > MSE_BAR or min(launches.values()) <= 0):
+                raise SmokeFailure(f"infra: depth {depth}: MSE {mse:.3e}, launches {launches}")
+            for name, n in launches.items():
+                out.setdefault(name, {})[f"launches_depth{depth}"] = n
+                out[name][f"mray_per_sec_depth{depth}"] = res.mray_per_sec
+                out[name][f"host_overlap_fraction_depth{depth}"] = ovl
+        same = all(torch.equal(a, b) for a, b in zip(runs[1].film_state, runs[2].film_state))
+        drops = integ._audit_memo[(id(scene), runs[1].stats["chunk"])][1]
+        log(f"[infra] depth 1 vs 2: film bit-identical {same}, rays {runs[1].rays_traced} / "
+            f"{runs[2].rays_traced}; capacity audit of the {runs[1].stats['chunk']}-ray camera "
+            f"wave: {drops} pairs dropped")
+        if not same or runs[1].rays_traced != runs[2].rays_traced or drops != 0:
+            raise SmokeFailure("infra: depths 1 and 2 differ, or the capacity audit saw drops")
+        del runs
+
+        # the ladder at 128x128x32 in 4 chunks of 2^17, a checkpoint after
+        # each, the backoff on a virtual clock
+        cfg.chunk, cfg.pipeline, cfg.retry_backoff = 1 << 17, 2, 0.25
+        small, sinteg = compile_api(make_killeroo_like(res=128, spp=32, maxdepth=5,
+                                                       device="cuda"))
+        sinteg.clock = VirtualClock()
+
+        def render(name, plan="", **kw):
+            CHAOS.install(plan)
+            try:
+                r = sinteg.render(small, checkpoint_path=os.path.join(tmp, name + ".npz"),
+                                  checkpoint_every=1, **kw)
+            finally:
+                CHAOS.clear()
+            return r
+
+        clean = render("clean")
+        if clean.stats["chunks"] != 4:
+            raise SmokeFailure(f"infra: expected 4 chunks, got {clean.stats['chunks']}")
+        cases = [("dispatch:poison@chunk=2 (rollback)", "poison", "dispatch:poison@chunk=2",
+                  "scrub"),
+                 ("nan:wave@1&chunk=1 under nonfinite=retry", "nan", "nan:wave@1&chunk=1",
+                  "retry")]
+        for label, name, plan, mode in cases:
+            cfg.nonfinite = mode
+            r = render(name, plan)
+            cfg.nonfinite = "scrub"
+            same = all(torch.equal(a, b) for a, b in zip(r.film_state, clean.film_state))
+            log(f"[infra] {label}: recovery {json.dumps(r.stats.get('recovery'))}, film "
+                f"bit-identical to the clean render {same}, rays {r.rays_traced} / "
+                f"{clean.rays_traced}")
+            if not same or r.rays_traced != clean.rays_traced or not r.stats.get("recovery"):
+                raise SmokeFailure(f"infra: {label} did not recover to the clean render")
+        # a torn second write, the process dies in chunk 2's dispatch; the
+        # resume reads the .prev file (cursor 1)
+        CHAOS.install("ckpt:torn@write=2")
+
+        def crash(c, attempt):
+            if c == 2:
+                raise _Crash
+
+        CHAOS.register_hook(crash)
+        path = os.path.join(tmp, "torn.npz")
+        try:
+            sinteg.render(small, checkpoint_path=path, checkpoint_every=1)
+            raise SmokeFailure("infra: the crash hook did not fire")
+        except _Crash:
+            pass
+        finally:
+            fired = CHAOS.report()
+            CHAOS.clear()
+        cursor = load_checkpoint(path)[1]
+        r = sinteg.render(small, checkpoint_path=path, checkpoint_every=1)
+        same = all(torch.equal(a, b) for a, b in zip(r.film_state, clean.film_state))
+        log(f"[infra] ckpt:torn@write=2, crashed at chunk 2, resumed: faults {json.dumps(fired)},"
+            f" resumed at cursor {cursor} (the .prev file), recovery "
+            f"{json.dumps(r.stats.get('recovery'))}, film bit-identical {same}, rays "
+            f"{r.rays_traced} / {clean.rays_traced}")
+        if cursor != 1 or not same or r.rays_traced != clean.rays_traced or \
+                fired[0]["fired"] != 1:
+            raise SmokeFailure("infra: the resume after a torn checkpoint differs")
+        cfg.nonfinite = "raise"
+        CHAOS.install("nan:wave@1&chunk=1")
+        try:
+            sinteg.render(small)
+            raise SmokeFailure("infra: nonfinite=raise did not raise")
+        except NonFiniteRadianceError as e:
+            log(f"[infra] nonfinite=raise: NonFiniteRadianceError: {e}")
+        finally:
+            CHAOS.clear()
+            cfg.nonfinite = "scrub"
+    finally:
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+        CHAOS.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[infra] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- phase 13 ------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
-    render, and one killed after its first checkpoint then resumed, which
-    must end bit-identical to the first."""
+    render, and one killed after its first checkpoint then resumed with
+    --trace, --metrics-path and a fault plan that poisons its first
+    dispatch: it must end bit-identical to the first, and its files must
+    validate."""
     import shutil
     import tempfile
 
@@ -2141,7 +2307,7 @@ def phase_cli(device: str = "cuda") -> None:
         def cmd(name):
             return [sys.executable, "-m", "tpu_pbrt_torch.main",
                     os.path.join(HERE, "scenes", "cornell-path.pbrt"), "--quick", "--quiet",
-                    "--device", device, "--spp-chunk", "2048", "--checkpoint-every", "1",
+                    "--device", device, "--spp-chunk", "8192", "--checkpoint-every", "1",
                     "-o", os.path.join(tmp, f"{name}.exr"),
                     "--checkpoint", os.path.join(tmp, f"{name}.npz")]
 
@@ -2171,17 +2337,43 @@ def phase_cli(device: str = "cuda") -> None:
             f"({time.perf_counter() - t0:.1f} s)")
         if not 1 <= cursor < n_chunks or os.path.exists(os.path.join(tmp, "b.exr")):
             raise SmokeFailure(f"cli: the second render was not stopped mid-way (cursor {cursor})")
-        r = subprocess.run(cmd("b"), cwd=HERE, capture_output=True, text=True, timeout=600)
+        # the resume also exports the span trace and the metrics file, and
+        # its first dispatch is poisoned: it rolls back to the checkpoint
+        from tpu_pbrt_torch.obs.metrics import validate_exposition
+        from tpu_pbrt_torch.obs.trace import validate_trace
+
+        t0 = time.perf_counter()
+        trace, prom = os.path.join(tmp, "b.json"), os.path.join(tmp, "b.prom")
+        r = subprocess.run(cmd("b") + ["--trace", trace, "--metrics-path", prom,
+                                       "--faults", f"dispatch:poison@chunk={cursor}"],
+                           cwd=HERE, capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             raise SmokeFailure(f"cli resume: exit {r.returncode}: {r.stderr[-2000:]}")
-        resumed, n2, rays2, _ = load_checkpoint(ck)
+        resumed, n2, rays2, ctr2 = load_checkpoint(ck)
         same_film = all(np.array_equal(x.numpy(), y.numpy()) for x, y in zip(full, resumed))
         with open(os.path.join(tmp, "a.exr"), "rb") as fa, open(os.path.join(tmp, "b.exr"), "rb") as fb:
             same_img = fa.read() == fb.read()
-        log(f"[cli] resumed: cursor {n2}, {rays2} rays; film bit-identical {same_film}, "
-            f"image file identical {same_img}")
+        with open(trace) as f:
+            doc = json.load(f)
+        problems = validate_trace(doc)
+        ev = doc["traceEvents"]
+        begins = sum(1 for e in ev if e.get("name") == "render/slice" and e.get("ph") == "b")
+        ends = sum(1 for e in ev if e.get("name") == "render/slice" and e.get("ph") == "e")
+        backoffs = sum(1 for e in ev if e.get("name") == "render/backoff")
+        with open(prom) as f:
+            text = f.read()
+        mproblems = validate_exposition(text)
+        log(f"[cli] resumed with --trace --metrics-path --faults dispatch:poison@chunk={cursor}: "
+            f"{time.perf_counter() - t0:.1f} s, cursor {n2}, {rays2} rays, chunks re-dispatched "
+            f"{ctr2.get('chunks_redispatched', 0)}; film bit-identical {same_film}, image file "
+            f"identical {same_img}; trace {len(ev)} events, problems {problems}, render/slice "
+            f"spans {begins} opened / {ends} closed, backoff spans {backoffs}; metrics "
+            f"{len(text)} bytes, problems {mproblems}")
         if not (same_film and same_img and n2 == n_chunks and rays2 == rays):
             raise SmokeFailure("cli: the resumed render differs from the uninterrupted one")
+        if problems or mproblems or not begins or begins != ends or backoffs != 1 \
+                or 'phase="device_wait"' not in text or ctr2.get("chunks_redispatched") != 1:
+            raise SmokeFailure("cli: the trace, the metrics file or the injected fault is wrong")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2218,34 +2410,44 @@ def main() -> int:
         log(f"[scene] killeroo: {scene.n_tris} triangles, {scene.dev['tstream'].n_treelets} "
             f"treelets of {scene.dev['tstream'].leaf_tris}, compiled in {time.perf_counter() - t1:.2f} s")
 
-        kt = phase_check(scene, integ)
-        launches, flaunches = phase_render(scene, integ)
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            log(f"[time] {name}: {time.perf_counter() - t:.1f} s (total "
+                f"{time.perf_counter() - t0:.1f} s)")
+            return out
+
+        kt = timed("check", phase_check, scene, integ)
+        launches, flaunches = timed("render", phase_render, scene, integ)
         del scene, integ
         torch.cuda.empty_cache()
 
-        cscene, cinteg = crown_scene()
-        ct, rays = phase_crown_check(cscene, cinteg)
-        phase_branch(cscene, rays)
+        cscene, cinteg = timed("crown scene", crown_scene)
+        ct, rays = timed("crown check", phase_crown_check, cscene, cinteg)
+        timed("branch", phase_branch, cscene, rays)
         del rays
-        claunches, c64_pool, c64_fixed, cres = phase_crown_render(cscene, cinteg)
+        claunches, c64_pool, c64_fixed, cres = timed("crown render", phase_crown_render, cscene,
+                                                     cinteg)
         del cscene, cinteg
         torch.cuda.empty_cache()
-        dt = phase_direct()
+        dt = timed("direct", phase_direct)
         torch.cuda.empty_cache()
-        phase_samplers()
-        lt = phase_cloud()
+        timed("samplers", phase_samplers)
+        lt = timed("cloud", phase_cloud)
         torch.cuda.empty_cache()
-        kt_c = phase_caustic()
+        kt_c = timed("caustic", phase_caustic)
         torch.cuda.empty_cache()
-        kt_b = phase_breadth()
+        kt_b = timed("breadth", phase_breadth)
         torch.cuda.empty_cache()
-        kt_t = phase_textured()
+        kt_t = timed("textured", phase_textured)
         torch.cuda.empty_cache()
-        kt_m = phase_motion()
+        kt_m = timed("motion", phase_motion)
         torch.cuda.empty_cache()
-        kt_s = phase_subsurface()
+        kt_s = timed("subsurface", phase_subsurface)
         torch.cuda.empty_cache()
-        phase_cli()
+        kt_i = timed("infra", phase_infra)
+        torch.cuda.empty_cache()
+        timed("cli", phase_cli)
 
         def kernel(name, source, replaces):
             crown = dict(ct[name], launches=claunches[name], launches_64_pool=c64_pool[name],
@@ -2255,7 +2457,7 @@ def main() -> int:
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
                      breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name],
-                     subsurface=kt_s[name])
+                     subsurface=kt_s[name], infra=kt_i[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],

@@ -11,6 +11,15 @@ WavefrontIntegrator.render) against the reference's on-disk format.
 - A small render stopped after its second checkpoint and resumed equals
   the uninterrupted render bit for bit (image, film state, rays and
   counters), and a checkpoint from another chunk size is refused.
+- The chaos seams `ckpt:crash|torn|bitflip@write=N` leave the on-disk
+  states the reference's leave (tests/test_chaos.py::test_chaos_ckpt_faults),
+  each read back through the `.prev` fallback to the same cursor in both
+  packages; write observers see every published file and none of the
+  faulted ones.
+- `begin_host_copy` snapshots the film as it stands: later in-place
+  deposits do not reach it. A render at depth 2 stopped while its
+  deferred checkpoint at cursor 3 waits on chunk 2 writes that file once
+  the slice retires, and the resume equals the uninterrupted render.
 """
 
 import os
@@ -19,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_pbrt.chaos import CHAOS as JCHAOS
 from tpu_pbrt.core.film import FilmState as JFilmState
 from tpu_pbrt.parallel import checkpoint as jck
+from tpu_pbrt_torch.chaos import CHAOS as TCHAOS
 from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.core.film import FilmState
 from tpu_pbrt_torch.integrators.common import ChunkPlan
@@ -161,3 +172,91 @@ def test_resumed_render_is_bit_identical(tmp_path, monkeypatch):
     assert tck.load_checkpoint(path)[1] == 4  # the final write covers every chunk
     with pytest.raises(ValueError, match="different render configuration"):
         integ.render(scene, chunk=128, checkpoint_path=path)
+
+
+@pytest.mark.parametrize("kind,published", [("crash", [1]), ("torn", [1]), ("bitflip", [1, 2])])
+def test_chaos_checkpoint_faults_match_reference(kind, published, tmp_path):
+    """Two writes, the second faulted: both packages read back cursor 1
+    (the crash never published; the torn and flipped files fall back to
+    .prev), the observers saw the same publications (a bit-flip is
+    published: only its checksum tells) and both leave the same files."""
+    got = []
+    for chaos, ck, state in ((TCHAOS, tck, lambda a: FilmState(*(torch.from_numpy(x) for x in a))),
+                             (JCHAOS, jck, lambda a: JFilmState(*a))):
+        d = tmp_path / ("port" if ck is tck else "ref")
+        d.mkdir()
+        path = str(d / "ck.npz")
+        seen = []
+        obs = lambda p, nxt, rays: seen.append(nxt)  # noqa: E731
+        ck.register_write_observer(obs)
+        try:
+            chaos.install(f"ckpt:{kind}@write=2", seed=3)
+            ck.save_checkpoint(path, state(_film_arrays(8)), 1, 10, FP)
+            ck.save_checkpoint(path, state(_film_arrays(9)), 2, 20, FP)
+            st, nxt, rays, _ = ck.load_checkpoint(path, FP)
+        finally:
+            ck.unregister_write_observer(obs)
+            chaos.clear()
+        assert np.array_equal(np.asarray(st.rgb), _film_arrays(8)[0])
+        got.append((nxt, rays, seen, sorted(os.listdir(d))))
+    assert got[0] == got[1] and got[0][:3] == (1, 10, published)
+
+
+def test_write_observers_and_clean_writes(tmp_path):
+    path = str(tmp_path / "ck.npz")
+    seen = []
+    obs = lambda p, nxt, rays: seen.append((os.path.basename(p), nxt, rays))  # noqa: E731
+    tck.register_write_observer(obs)
+    try:
+        for i in range(3):
+            tck.save_checkpoint(path, FilmState(*(torch.from_numpy(x) for x in _film_arrays(i))),
+                                i + 1, 10 * i, FP)
+    finally:
+        tck.unregister_write_observer(obs)
+        tck.unregister_write_observer(obs)  # a second removal is a no-op
+    tck.save_checkpoint(path, FilmState(*(torch.from_numpy(x) for x in _film_arrays(5))), 9, 9, FP)
+    assert seen == [("ck.npz", 1, 0), ("ck.npz", 2, 10), ("ck.npz", 3, 20)]
+    assert tck.load_checkpoint(path + ".prev", FP)[1] == 3
+
+
+def test_begin_host_copy_is_a_snapshot():
+    st = FilmState(*(torch.from_numpy(x.copy()) for x in _film_arrays(3)))
+    snap = tck.begin_host_copy(st)
+    for a in st:
+        a.add_(1.0)  # a later deposit, in place
+    got = snap.wait()
+    for a, b in zip(got, _film_arrays(3)):
+        assert np.array_equal(a.numpy(), b)
+
+
+def test_resume_from_a_deferred_checkpoint(tmp_path, monkeypatch):
+    """Depth 2, a checkpoint every chunk: the one at cursor 3 is deferred
+    to chunk 2's retire. Stopped in chunk 3's dispatch, the loop lets the
+    window finish, so the file holds cursor 3 and chunks [0, 3) only."""
+    monkeypatch.setattr(tcfg, "leaf_tris", 64)
+    monkeypatch.setattr(tcfg, "pipeline", 2)
+    scene, integ = compile_api(make_killeroo_like(**TINY, device="cpu"))
+    full = integ.render(scene, chunk=64)
+    path = str(tmp_path / "deferred.npz")
+    real = ChunkPlan.dispatch
+    writes = []
+    obs = lambda p, nxt, rays: writes.append(nxt)  # noqa: E731
+
+    def stop_at_3(plan, state, c):
+        if c == 3:
+            raise _Stop
+        return real(plan, state, c)
+
+    monkeypatch.setattr(ChunkPlan, "dispatch", stop_at_3)
+    tck.register_write_observer(obs)
+    try:
+        with pytest.raises(_Stop):
+            integ.render(scene, chunk=64, checkpoint_path=path, checkpoint_every=1)
+    finally:
+        tck.unregister_write_observer(obs)
+    monkeypatch.setattr(ChunkPlan, "dispatch", real)
+    assert writes == [1, 2, 3]
+    resumed = integ.render(scene, chunk=64, checkpoint_path=path, checkpoint_every=1)
+    for a, b in zip(resumed.film_state, full.film_state):
+        assert torch.equal(a, b)
+    assert resumed.rays_traced == full.rays_traced

@@ -3,8 +3,13 @@
 - `main([scene, "--quick", "--device", "cpu", "-o", out.pfm, ...])`
   returns 0 and writes the render's developed image: the PFM holds float32,
   so the file read back must equal `RenderResult.image` bit for bit;
-- each of the reference's flags that the port does not run exits 2 and
-  says "not ported";
+- each of the reference's flags that the port does not run (--serve,
+  --mesh, --multihost) exits 2 and says "not ported";
+- `--trace`, `--metrics-path` and `--faults` run: the trace file passes
+  the trace validator with every `render/slice` span closed, the metrics
+  file passes the exposition validator with the render's phases in it,
+  and a render under `dispatch:poison@chunk=1` writes the same image as
+  the uninterrupted one;
 - `--spp-chunk N` sets the chunk, and with it the checkpoint's resume
   fingerprint: the one the reference writes under TPU_PBRT_CHUNK=N (the
   reference's CLI parses --spp-chunk without reading it);
@@ -13,6 +18,7 @@
   fallback).
 """
 
+import json
 import os
 
 import numpy as np
@@ -78,11 +84,51 @@ def test_spp_chunk_sets_the_chunk_and_the_fingerprint(tmp_path, monkeypatch):
         tck.load_checkpoint(ck, fp.replace("chunk=512", "chunk=131072"))
 
 
-@pytest.mark.parametrize("flag", ["--serve", "--mesh=8", "--multihost", "--trace=t.json",
-                                  "--metrics-path=m.prom", "--faults=dispatch:fail@chunk=1"])
+@pytest.mark.parametrize("flag", ["--serve", "--mesh=8", "--multihost"])
 def test_unported_flag_exits_2(flag, capsys):
     assert cli.main([CORNELL, flag, "--device", "cpu"]) == 2
     assert "is not ported" in capsys.readouterr().err
+
+
+QUICK = ["--quick", "--device", "cpu", "--quiet", "--spp-chunk", "512",
+         "--cropwindow", "0.25", "0.5", "0.25", "0.5"]
+
+
+@pytest.fixture(scope="module")
+def quick_image(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("clean") / "clean.pfm")
+    assert cli.main([CORNELL, *QUICK, "-o", out]) == 0
+    return read_pfm(out)
+
+
+@pytest.mark.parametrize("flag", ["--trace", "--metrics-path", "--faults"])
+def test_observability_and_fault_flags_run(flag, quick_image, tmp_path):
+    from tpu_pbrt_torch.chaos import CHAOS
+    from tpu_pbrt_torch.obs.metrics import METRICS, validate_exposition
+    from tpu_pbrt_torch.obs.trace import TRACE, validate_trace
+
+    out = str(tmp_path / "img.pfm")
+    arg = {"--trace": str(tmp_path / "t.json"), "--metrics-path": str(tmp_path / "m.prom"),
+           "--faults": "dispatch:poison@chunk=1"}[flag]
+    try:
+        assert cli.main([CORNELL, *QUICK, "-o", out, flag, arg]) == 0
+        if flag == "--trace":
+            doc = json.load(open(arg))
+            assert validate_trace(doc) == []
+            slices = [e for e in doc["traceEvents"] if e.get("name") == "render/slice"]
+            assert len(slices) == 8  # 4 chunks: a begin and an end each
+            assert "main/render_file" in {e.get("name") for e in doc["traceEvents"]}
+        elif flag == "--metrics-path":
+            text = open(arg).read()
+            assert validate_exposition(text) == [] and 'phase="device_wait"' in text
+        else:
+            assert CHAOS.report() == [{"fault": arg, "fired": 1, "times": 1}]
+    finally:
+        CHAOS.clear()
+        TRACE.configure(None)
+        TRACE.reset()
+        METRICS.configure(None)
+    assert np.array_equal(read_pfm(out), quick_image)
 
 
 def test_malformed_scene_exits_1_with_file_and_line(tmp_path, capsys):

@@ -1,0 +1,125 @@
+"""Which of the reference's compiled operations make the motion cell's
+`path` render differ from the port's: the reference's render of the
+small motion stand-in (16x16, 4 spp, the pool of 256 slots, 64-triangle
+treelets: tests/torch_golden/motion_path_pool.npz) with named functions
+computed eagerly, one operation at a time, through a host callback
+(jax.pure_callback), against the port's render of the same scene.
+
+XLA's CPU backend contracts a multiply whose one use is an add or a
+subtract in the same loop fusion into one fused multiply-add; eager JAX
+and the port round every operation apart. A function that, computed
+eagerly inside the reference's program, brings the reference's rays and
+image to the port's is where the renders part.
+
+Run from the repository root (about 30 s per line, most of it XLA
+compiling; the port's render once, first):
+
+    JAX_PLATFORMS=cpu python tests/torch_golden/fma_study.py [module.function ...]
+
+e.g. `tpu_pbrt.core.bxdf.bsdf_eval tpu_pbrt.core.bxdf.bsdf_sample` (every
+BSDF, the hair lobes included) or `tpu_pbrt.integrators.path.make_interaction`.
+With no argument it renders the reference as compiled. Prints the rays,
+the MSE against the port and against the stored golden, and how often
+each callback ran.
+"""
+
+import importlib
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+RES, SPP, LEAF_TRIS, POOL = 16, 4, 64, 256
+
+
+def eager(fn, name, calls):
+    """fn computed op by op on the host inside the jitted program."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpu_pbrt.integrators.common import Interaction
+
+    def pack(o):
+        return ("__I__", tuple(getattr(o, k) for k in Interaction.__slots__)) \
+            if isinstance(o, Interaction) else o
+
+    def wrapped(*args, **kw):
+        leaves, tree = jax.tree_util.tree_flatten((args, kw))
+        idx = [i for i, x in enumerate(leaves) if isinstance(x, (jax.Array, np.ndarray))
+               or hasattr(x, "aval")]
+
+        def rebuild(xs):
+            out = list(leaves)
+            for i, x in zip(idx, xs):
+                out[i] = x
+            return jax.tree_util.tree_unflatten(tree, out)
+
+        is_it = {}
+
+        def run(*xs):
+            a, k = rebuild(xs)
+            out = pack(fn(*a, **k))
+            if isinstance(out, tuple) and len(out) == 2 and out[0] == "__I__":
+                is_it["I"] = True
+                return out[1]
+            return out
+
+        shapes = jax.eval_shape(run, *[leaves[i] for i in idx])
+
+        def host(*xs):
+            calls[name] = calls.get(name, 0) + 1
+            with jax.disable_jit():
+                out = run(*[jnp.asarray(x) for x in xs])
+            return jax.tree_util.tree_map(np.asarray, out)
+
+        res = jax.pure_callback(host, shapes, *[leaves[i] for i in idx])
+        return Interaction(*res) if is_it.get("I") else res
+
+    return wrapped
+
+
+def port_render():
+    import torch
+
+    from tpu_pbrt_torch.config import cfg
+    from tpu_pbrt_torch.scenes import compile_api, make_motion_like
+
+    cfg.leaf_tris, cfg.regen, cfg.pool = LEAF_TRIS, True, POOL
+    scene, integ = compile_api(make_motion_like(RES, SPP, 5, "path", small=True, device="cpu"))
+    torch.set_num_threads(os.cpu_count() or 1)
+    res = integ.render(scene)
+    return res.image, res.rays_traced
+
+
+def main(targets):
+    import numpy as np
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    os.environ["TPU_PBRT_REGEN"] = "1"
+    os.environ["TPU_PBRT_POOL"] = str(POOL)
+    from tpu_pbrt import config
+
+    config.reload()
+    port_img, port_rays = port_render()
+    calls = {}
+    for target in targets:
+        mod, attr = target.rsplit(".", 1)
+        m = importlib.import_module(mod)
+        setattr(m, attr, eager(getattr(m, attr), target, calls))
+    from make_motion_reference import jax_motion_api
+    from tpu_pbrt.scenes import compile_api
+
+    scene, integ = compile_api(jax_motion_api(RES, SPP, 5, "path", small=True))
+    res = integ.render(scene)
+    img = np.asarray(res.image, np.float64)
+    gold = np.load(os.path.join(HERE, "motion_path_pool.npz"))
+    print(f"eager {targets or 'nothing'}: rays {res.rays_traced} (port {port_rays}, golden "
+          f"{int(gold['rays_traced'])}); MSE against the port {np.mean((img - port_img) ** 2):.4e}, "
+          f"against the golden {np.mean((img - gold['image']) ** 2):.4e}; callbacks {calls}")
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, HERE)
+    main(sys.argv[1:])

@@ -21,10 +21,23 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
   the mip filtering of image textures (on by default; 0 looks every
   texture up at its finest level);
 - PBRT_PROGRESS_FREQUENCY: seconds between progress-bar updates (pbrt's
-  own knob, read by utils/stats.py::ProgressReporter; 0: every update).
+  own knob, read by utils/stats.py::ProgressReporter; 0: every update);
+- TORCH_PBRT_PIPELINE: chunk-slices kept in flight by the render loop's
+  dispatch window (default 2; 1 is the synchronous loop);
+- TORCH_PBRT_AUDIT_DROPS / TORCH_PBRT_ALLOW_DROPS: the pre-render
+  capacity audit (on) and its downgrade to a warning (off);
+- TORCH_PBRT_FAULTS: the chaos fault plan (chaos/, empty: none);
+- TORCH_PBRT_NONFINITE: the film firewall (scrub | raise | retry);
+- TORCH_PBRT_RETRY_MAX / _RETRY_BACKOFF / _RETRY_BACKOFF_CAP /
+  _RETRY_DEADLINE_S: the recovery ladder's attempt budget, backoff base
+  and ceiling in seconds, and its deadline (8, 0.25, 30, 600);
+- TORCH_PBRT_METRICS / _METRICS_PATH / _METRICS_EXEMPLARS,
+  TORCH_PBRT_TRACE_PATH, TORCH_PBRT_FLIGHT_PATH / _FLIGHT_MAX_MB: the
+  host-side metrics registry, the Chrome-trace file and the flight
+  recorder (obs/).
 
-These are the reference's TPU_PBRT_CHUNK/_REGEN/_POOL/_DEPOSIT_SEG/
-_TELEMETRY/_MIPFILTER under the port's prefix.
+These are the reference's TPU_PBRT_* knobs of the same names under the
+port's prefix, with the reference's defaults.
 
 There is no switch between the hand-written kernels and their plain
 versions: a CUDA tensor always goes through the kernel, a CPU tensor
@@ -62,7 +75,10 @@ def _float(name: str, default: float) -> float:
 
 class Config:
     __slots__ = ("leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
-                 "telemetry", "mipfilter", "progress_frequency")
+                 "telemetry", "mipfilter", "progress_frequency", "pipeline", "audit_drops",
+                 "allow_drops", "faults", "nonfinite", "retry_max", "retry_backoff",
+                 "retry_backoff_cap", "retry_deadline", "metrics", "metrics_path",
+                 "metrics_exemplars", "trace_path", "flight_path", "flight_max_mb")
 
     def _load(self) -> "Config":
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
@@ -85,6 +101,37 @@ class Config:
         self.mipfilter: bool = _flag("TORCH_PBRT_MIPFILTER", True)
         #: progress-bar update interval in seconds (None -> 0.25)
         self.progress_frequency: Optional[float] = _float("PBRT_PROGRESS_FREQUENCY", None)
+        #: in-flight dispatch window depth (parallel/mesh.py
+        #: resolve_pipeline_depth; the strict firewall modes force 1)
+        self.pipeline: int = _int("TORCH_PBRT_PIPELINE", 2)
+        #: pre-render stream-capacity audit (an overflow raises)
+        self.audit_drops: bool = _flag("TORCH_PBRT_AUDIT_DROPS", True)
+        #: downgrade a detected capacity overflow to a warning
+        self.allow_drops: bool = _flag("TORCH_PBRT_ALLOW_DROPS", False)
+        #: chaos fault plan, installed once at chaos-package import
+        self.faults: str = os.environ.get("TORCH_PBRT_FAULTS", "").strip()
+        #: non-finite film firewall: scrub (zero + count), raise, retry
+        nf = os.environ.get("TORCH_PBRT_NONFINITE", "").strip().lower()
+        self.nonfinite: str = nf if nf in ("scrub", "raise", "retry") else "scrub"
+        #: re-dispatch attempts per chunk before the render gives up
+        self.retry_max: int = _int("TORCH_PBRT_RETRY_MAX", 8)
+        #: re-dispatch backoff base and ceiling, seconds
+        self.retry_backoff: float = _float("TORCH_PBRT_RETRY_BACKOFF", 0.25)
+        self.retry_backoff_cap: float = _float("TORCH_PBRT_RETRY_BACKOFF_CAP", 30.0)
+        #: seconds of one failure streak before the render gives up (0: none)
+        self.retry_deadline: float = _float("TORCH_PBRT_RETRY_DEADLINE_S", 600.0)
+        #: host-side metrics registry (obs/metrics.py; 0 records nothing)
+        self.metrics: bool = _flag("TORCH_PBRT_METRICS", True)
+        #: Prometheus text file the registry exports to (--metrics-path)
+        self.metrics_path: Optional[str] = os.environ.get("TORCH_PBRT_METRICS_PATH") or None
+        #: exemplars kept per histogram series
+        self.metrics_exemplars: int = _int("TORCH_PBRT_METRICS_EXEMPLARS", 4)
+        #: Chrome-trace JSON path of the span recorder (--trace)
+        self.trace_path: Optional[str] = os.environ.get("TORCH_PBRT_TRACE_PATH") or None
+        #: append-only JSONL flight-recorder path
+        self.flight_path: Optional[str] = os.environ.get("TORCH_PBRT_FLIGHT_PATH") or None
+        #: flight-recorder size cap in MB (None: unbounded)
+        self.flight_max_mb: Optional[float] = _float("TORCH_PBRT_FLIGHT_MAX_MB", None)
         return self
 
 

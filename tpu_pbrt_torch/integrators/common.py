@@ -11,8 +11,12 @@
   work domain is cut into chunks of camera rays; each chunk drains
   through the integrator's persistent pool (`pool_chunk`) or runs its
   fixed batch (`li`) to completion, and deposits into the film; the loop
-  checkpoints at a cadence, resumes from a checkpoint, stops at a time
-  box, and writes the image.
+  keeps a window of chunk-slices in flight (DispatchWindow), checkpoints
+  at a cadence (deferred under the window), resumes from a checkpoint,
+  recovers from failed dispatches (re-dispatch, rollback, restart, with
+  backoff), runs the film firewall's scrub/raise/retry modes, reports to
+  STATS, FLIGHT, TRACE and METRICS, stops at a time box, and writes the
+  image.
 
 Every sampler dimension is a pure function of (px, py, s, dimension
 salt), so the port draws the reference's sample streams.
@@ -21,6 +25,7 @@ salt), so the port draws the reference's sample streams.
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -53,6 +58,7 @@ from tpu_pbrt_torch.core.vecmath import (
     to_local,
     to_world,
 )
+from tpu_pbrt_torch.utils.clock import WALL
 
 # dimension salts (one stream per logical sampler dimension; bounce-shifted)
 DIM_FILM_X = 0
@@ -459,6 +465,185 @@ def estimate_direct(dev, light_distr, it: Interaction, mp, px, py, s, bounce: in
                            torch.zeros_like(contrib_b))
 
 
+class ChunkDispatchError(RuntimeError):
+    """A chunk dispatch failed. poisons_state=True means the film
+    accumulator cannot be trusted (the port deposits in place, so a
+    dispatch that died part-way has written part of its chunk) and
+    recovery must roll back to the last checkpoint or restart; False
+    means the dispatch never ran and a plain re-dispatch is exact."""
+
+    def __init__(self, msg="chunk dispatch failed", poisons_state=False):
+        super().__init__(msg)
+        self.poisons_state = poisons_state
+
+
+class NonFiniteWaveError(ChunkDispatchError):
+    """The film firewall scrubbed deposits of a chunk under
+    TORCH_PBRT_NONFINITE=retry: the film holds zeroed contributions where
+    radiance belonged, so the chunk poisons the state and recovery
+    re-renders it exactly."""
+
+    def __init__(self, msg):
+        super().__init__(msg, poisons_state=True)
+
+
+class NonFiniteRadianceError(RuntimeError):
+    """TORCH_PBRT_NONFINITE=raise: a chunk deposited NaN/Inf radiance (the
+    firewall scrubbed it; strict mode makes any contamination fatal)."""
+
+
+#: the errors of a device dispatch that enter the recovery ladder: the
+#: CUDA runtime's error type, and only that. A kernel that fails to build,
+#: a failed launch and a wrapper that refuses its inputs raise other
+#: types and reach the caller at once, never retried.
+DEVICE_ERRORS = tuple(e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
+
+
+def redispatch_backoff(chunk: int, attempt: int) -> float:
+    """Seconds to wait before re-dispatch `attempt` (1-based) of `chunk`:
+    min(base * 2^(attempt-1), cap) scaled into [0.5, 1.0] by a hash of
+    (chunk, attempt), so recoveries are reproducible while retries of
+    different chunks still spread apart (the reference's function)."""
+    base = float(cfg.retry_backoff)
+    cap = float(cfg.retry_backoff_cap)
+    if base <= 0.0:
+        return 0.0
+    b = min(base * (2.0 ** max(attempt - 1, 0)), cap)
+    frac = (zlib.crc32(f"{chunk}:{attempt}".encode()) & 0xFFFF) / 65535.0
+    return b * (0.5 + 0.5 * frac)
+
+
+def live_film_carries(depth: int) -> int:
+    """Worst-case film-sized buffers live at once for one render through
+    a depth-N window: at depth 1 the film alone (written in place); at
+    depth > 1 each in-flight slice may hold a deferred checkpoint's
+    snapshot, plus the live film: depth + 1 (the reference's count)."""
+    d = max(1, int(depth))
+    return 1 if d == 1 else d + 1
+
+
+def _block(handle) -> None:
+    """Wait for a slice's sync handle: a torch.cuda.Event (recorded after
+    the chunk's last op) is synchronized; anything else (a CPU chunk's
+    handle) is complete already."""
+    sync = getattr(handle, "synchronize", None)
+    if sync is not None:
+        sync()
+
+
+class DispatchWindow:
+    """Bounded in-flight window of dispatched chunk-slices (the
+    reference's DispatchWindow on CUDA events).
+
+    Keep up to ``depth`` slices dispatched ahead and retire the oldest
+    (block on its event) only when the window is full, so the host work
+    between dispatches (bookkeeping, progress, deferred checkpoint
+    writes, trace and metrics recording) runs under the device work of
+    the slices still in flight. Depth 1 is the synchronous loop. The
+    window moves sync points, never the dispatched work or its order, so
+    every depth gives the same film bit for bit.
+
+    Deferred actions (``defer``) run once their cursor's slice has
+    retired. A CUDA error at a retire is re-raised as
+    ``ChunkDispatchError(poisons_state=True)``; on any ChunkDispatchError
+    the caller calls ``flush`` before its ladder: a poisoning failure
+    discards the window, a clean one quiesces it (waits for the
+    survivors and runs the deferred writes)."""
+
+    __slots__ = ("depth", "slices", "deferred", "on_wait", "span_name", "clock")
+
+    def __init__(self, depth: int, on_wait=None, span_name: str = "", clock=None):
+        self.depth = max(1, int(depth))
+        #: [(chunk index, sync handle, trace span | None)]
+        self.slices: list = []
+        #: [(cursor, fn)]: fn() runs once chunk cursor-1 has retired
+        self.deferred: list = []
+        self.on_wait = on_wait  # dt -> None (device_wait attribution)
+        self.span_name = span_name
+        if clock is None:
+            from tpu_pbrt_torch.utils.clock import WALL as clock  # noqa: N811
+        self.clock = clock
+
+    def __len__(self) -> int:
+        return len(self.slices)
+
+    def push(self, chunk: int, handle, span=None) -> None:
+        """`span`: the async-span descriptor opened at dispatch ({"name",
+        "id", "cat", optional "flow", "trace_id", "span_id"}), closed at
+        the slice's retire or discard."""
+        self.slices.append((chunk, handle, span))
+
+    @staticmethod
+    def _close_span(span, ok: bool) -> None:
+        if not span:
+            return
+        from tpu_pbrt_torch.obs.trace import TRACE
+
+        fid = span.get("flow")
+        if fid:
+            TRACE.flow_finish(span.get("flow_name", "slice_flow"), id=fid, ok=ok)
+        TRACE.async_end(span["name"], id=span["id"], cat=span.get("cat", "slice"), ok=ok)
+
+    def defer(self, cursor: int, fn) -> None:
+        self.deferred.append((cursor, fn))
+
+    def full(self) -> bool:
+        return len(self.slices) >= self.depth
+
+    def retire_one(self) -> int:
+        """Block on the oldest slice (the device_wait phase), then run every
+        deferred action whose cursor has retired. Returns its chunk."""
+        chunk, handle, span = self.slices.pop(0)
+        from tpu_pbrt_torch.obs.trace import TRACE
+
+        targs = {k: span[k] for k in ("trace_id", "span_id") if span and k in span}
+        t0 = self.clock.monotonic()
+        ok = False
+        try:
+            if self.span_name:
+                with TRACE.span(self.span_name, chunk=chunk, **targs):
+                    _block(handle)
+            else:
+                _block(handle)
+            ok = True
+        except DEVICE_ERRORS as e:
+            raise ChunkDispatchError(f"in-flight slice {chunk} failed: {e}",
+                                     poisons_state=True) from e
+        finally:
+            if self.on_wait is not None:
+                self.on_wait(self.clock.monotonic() - t0)
+            self._close_span(span, ok)
+        while self.deferred and self.deferred[0][0] <= chunk + 1:
+            self.deferred.pop(0)[1]()
+        return chunk
+
+    def drain(self) -> None:
+        """Retire everything in flight and run every deferred action."""
+        while self.slices:
+            self.retire_one()
+        while self.deferred:
+            self.deferred.pop(0)[1]()
+
+    def flush(self, discard: bool = False) -> None:
+        """Error-path teardown: discard=True drops the slices (closing their
+        spans) and the deferred actions without touching the device;
+        discard=False drains, and a latent device failure surfaces here
+        as a poisoning ChunkDispatchError with the window cleared."""
+        if discard:
+            for _, _, span in self.slices:
+                self._close_span(span, ok=False)
+            self.slices.clear()
+            self.deferred.clear()
+            return
+        try:
+            self.drain()
+        finally:
+            for _, _, span in self.slices:
+                self._close_span(span, ok=False)
+            self.slices.clear()
+            self.deferred.clear()
+
+
 @dataclass
 class ChunkPlan:
     """The chunked decomposition of one render's work domain on one
@@ -487,6 +672,13 @@ class ChunkPlan:
     #: hand-written kernels, on CUDA) or "plain" (their plain versions,
     #: on the CPU; the reference calls this mode "jnp")
     tracer: str
+    #: the in-flight window depth the render loop runs this plan at
+    #: (parallel/mesh.py resolve_pipeline_depth)
+    pipeline_depth: int = 1
+    #: a chaos nan:wave plan is installed: each pool dispatch asks the
+    #: registry which wave (if any) to contaminate
+    chaos_nan: bool = False
+    integrator: Any = field(repr=False, default=None)
     _dispatch: Callable = field(repr=False, default=None)
 
     def start(self, c: int):
@@ -495,6 +687,65 @@ class ChunkPlan:
 
     def dispatch(self, state, c: int):
         return self._dispatch(state, c)
+
+    def aux_parts(self, aux):
+        """Split a dispatch's aux into (nrays, occ, ctr, spread, nf): occ =
+        (live, waves, truncated) on the pool, ctr the wave counters (None
+        with telemetry killed), spread always None on one device, nf the
+        fixed batch's firewall scrub count."""
+        if self.use_regen:
+            return aux[0], tuple(aux[1:4]), aux[4], None, None
+        return aux[0], None, None, None, aux[1]
+
+    def capacity_audit(self):
+        """Pre-render stream-capacity audit (on by default: an overflow
+        must fail in seconds, not after the render): trace one chunk of
+        camera rays (pixel centres, lens centre) through the stream
+        tracer's stats variant and raise if any traversal pair was
+        dropped to capacity. The camera wave bounds the live worklist of
+        every later wave. TORCH_PBRT_AUDIT_DROPS=0 opts out,
+        TORCH_PBRT_ALLOW_DROPS=1 downgrades the raise to a warning; the
+        drop count is memoized per (scene, chunk)."""
+        dev = self.scene.dev
+        if not cfg.audit_drops or "tstream" not in dev:
+            return
+        integ = self.integrator
+        memo = getattr(integ, "_audit_memo", None)
+        if memo is None:
+            memo = integ._audit_memo = {}
+        # keyed by identity; the value keeps the scene alive so the id
+        # cannot be recycled under the memo
+        memo_key = (id(self.scene), self.chunk)
+        if memo_key in memo:
+            drops = memo[memo_key][1]
+        else:
+            from tpu_pbrt_torch.accel.stream import stream_traverse_stats
+            from tpu_pbrt_torch.cameras import generate_rays
+            from tpu_pbrt_torch.obs.trace import TRACE
+
+            x0, x1, y0, _ = self.bounds
+            w = x1 - x0
+            with TRACE.span("render/capacity_audit"):
+                k = torch.arange(min(self.chunk, self.total), dtype=torch.int32,
+                                 device=self.scene.device)
+                pix = torch.div(k, self.spp, rounding_mode="floor")
+                p_film0 = torch.stack(
+                    [(x0 + pix % w).to(torch.float32) + 0.5,
+                     (y0 + torch.div(pix, w, rounding_mode="floor")).to(torch.float32) + 0.5],
+                    dim=-1)
+                o0, d0, _ = generate_rays(self.scene.camera, p_film0, torch.zeros_like(p_film0))
+                drops = stream_traverse_stats(dev["tstream"], o0, d0, float("inf"))[2]
+            memo[memo_key] = (self.scene, drops)
+        if drops > 0:
+            msg = (f"stream tracer dropped {drops} traversal pairs to capacity on the "
+                   "camera wave; the render may have false misses: lower "
+                   "TORCH_PBRT_CHUNK or raise TORCH_PBRT_HEADROOM")
+            if cfg.allow_drops:
+                from tpu_pbrt_torch.utils.error import Warning as _W
+
+                _W(msg)
+            else:
+                raise RuntimeError(msg)
 
 
 def _fixed_batch_nonfinite(valid, L):
@@ -511,6 +762,11 @@ def _fixed_batch_nonfinite(valid, L):
 
 class WavefrontIntegrator:
     """Base class: the chunk plan and the render loop."""
+
+    #: the time source of the recovery ladder's backoff (utils/clock.py):
+    #: WALL sleeps; a VirtualClock turns the backoff into a virtual-time
+    #: advance (tests)
+    clock = WALL
 
     def __init__(self, params, scene, options):
         self.params = params
@@ -618,7 +874,9 @@ class WavefrontIntegrator:
         TORCH_PBRT_CHUNK knob, or the device default; the pool holds a
         quarter of it, at least min(chunk, 4096) slots, unless
         TORCH_PBRT_POOL sets it."""
+        from tpu_pbrt_torch.chaos import CHAOS
         from tpu_pbrt_torch.parallel.checkpoint import render_fingerprint
+        from tpu_pbrt_torch.parallel.mesh import resolve_pipeline_depth
 
         scene = scene or self.scene
         film, cam = scene.film, scene.camera
@@ -646,13 +904,16 @@ class WavefrontIntegrator:
             bounds=(x0, x1, y0, y1), pool=pool, use_regen=use_regen,
             fingerprint=render_fingerprint(chunk=chunk, spp=spp, total=total, scene=scene),
             tracer="fused" if scene.device.type == "cuda" else "plain",
+            pipeline_depth=resolve_pipeline_depth(), chaos_nan=CHAOS.has_nan() and use_regen,
+            integrator=self,
         )
         if use_regen:
 
             def dispatch(state, c):
                 start_pix, start_s = plan.start(c)
+                kw = {"nan_wave": CHAOS.nan_wave_for(c)} if plan.chaos_nan else {}
                 _, nrays, live, waves, trunc, ctr = self.pool_chunk(
-                    scene.dev, state, start_pix, start_s, chunk, pool, film=film, cam=cam)
+                    scene.dev, state, start_pix, start_s, chunk, pool, film=film, cam=cam, **kw)
                 return nrays, live, waves, trunc, ctr
 
         else:
@@ -691,101 +952,365 @@ class WavefrontIntegrator:
     def render(self, scene=None, chunk: Optional[int] = None, checkpoint_path=None,
                checkpoint_every: int = 0, max_seconds: float = 0.0) -> RenderResult:
         """SamplerIntegrator::Render on one device: every chunk through
-        the pool (or the fixed batch), deposited into the film.
+        the pool (or the fixed batch), deposited into the film, through
+        the reference's render loop.
+
+        - The dispatch window keeps TORCH_PBRT_PIPELINE chunk-slices in
+          flight (DispatchWindow), and a cadence checkpoint that falls
+          while slices are in flight is written from a host snapshot
+          taken at enqueue time (parallel/checkpoint.begin_host_copy),
+          once its slice has retired.
+        - The recovery ladder: a failed dispatch (ChunkDispatchError: a
+          chaos fault, a CUDA runtime error, the retry firewall) is
+          re-dispatched after a backoff on `self.clock`; one that poisons
+          the film rolls back to the checkpoint, or restarts the render
+          without one. Past TORCH_PBRT_RETRY_MAX attempts or the retry
+          deadline it writes an emergency checkpoint (unless the
+          failure poisoned the film) and raises.
+        - The film firewall: scrub (count NaN/Inf deposits), raise
+          (NonFiniteRadianceError), retry (re-render the chunk).
+        - Reporting: STATS, the progress bar, FLIGHT heartbeats, TRACE
+          spans, the METRICS phase histogram; stats["recovery"] when a
+          failure was survived and stats["phase_seconds"].
 
         Checkpoint/resume: a checkpoint is the film state plus the chunk
-        cursor (chunks are pure functions of their work range and the
-        film sums associatively), so a resumed render is bit-identical to
-        an uninterrupted one. It is read from and written to
-        `checkpoint_path` (default: the options' checkpoint_path) every
-        `checkpoint_every` chunks and at the end. max_seconds > 0 stops
-        at the first chunk boundary past the budget and returns a partial
-        render with completed_fraction < 1 (pixel-major, so the trailing
-        pixels are unsampled). Writes the image when the film names a
-        file. The wall time ends in a device synchronize."""
+        cursor, so a resumed render is bit-identical to an uninterrupted
+        one. It is read from and written to `checkpoint_path` (default:
+        the options' checkpoint_path) every `checkpoint_every` chunks and
+        at the end. max_seconds > 0 stops at a chunk boundary past the
+        budget and returns a partial render with completed_fraction < 1.
+        Writes the image when the film names a file. The wall time ends
+        in a device synchronize."""
         from tpu_pbrt_torch.accel import stream
+        from tpu_pbrt_torch.chaos import CHAOS
         from tpu_pbrt_torch.obs import counters as obs_counters
+        from tpu_pbrt_torch.obs.flight import FLIGHT
+        from tpu_pbrt_torch.obs.metrics import METRICS, phase_histogram
+        from tpu_pbrt_torch.obs.trace import TRACE
         from tpu_pbrt_torch.parallel.checkpoint import (
+            begin_host_copy,
             checkpoint_exists,
             load_checkpoint,
             save_checkpoint,
         )
         from tpu_pbrt_torch.utils.error import Warning as _W
+        from tpu_pbrt_torch.utils.stats import STATS, ProgressReporter
 
         plan = self.prepare_chunks(scene, chunk)
         scene, film, device = plan.scene, plan.film, plan.scene.device
+        n_chunks, spp, total = plan.n_chunks, plan.spp, plan.total
+        use_regen, fp = plan.use_regen, plan.fingerprint
+        cuda = device.type == "cuda"
         ckpt_path = checkpoint_path or getattr(self.options, "checkpoint_path", None)
         checkpoint_every = checkpoint_every or getattr(self.options, "checkpoint_every", 0)
         first_chunk, prev_rays, prev_ctr = 0, 0, {}
         if ckpt_path and checkpoint_exists(ckpt_path):
             state, first_chunk, prev_rays, prev_ctr = load_checkpoint(
-                ckpt_path, plan.fingerprint, device=device)
+                ckpt_path, fp, device=device)
         else:
             state = film.init_state(device)
+
+        # per-phase wall-time attribution into the METRICS phase
+        # histogram (labels: phase, tracer); nothing with TORCH_PBRT_METRICS=0
+        metrics_on = METRICS.enabled
+        phase_s: Dict[str, float] = {}
+
+        def _phase(name: str, dt: float) -> None:
+            if not metrics_on:
+                return
+            phase_s[name] = phase_s.get(name, 0.0) + dt
+            phase_histogram().observe(dt, phase=name, tracer=plan.tracer)
+
+        plan.capacity_audit()
+
+        quiet = bool(getattr(self.options, "quiet", False))
+        progress = ProgressReporter(n_chunks, "Rendering", quiet=quiet)
         ray_counts, occ_counts, ctr_counts, nf_counts = [], [], [], []
+        recovery = {"redispatches": 0, "rollbacks": 0, "restarts": 0,
+                    "nonfinite_retries": 0, "backoff_ms": 0}
+        # the retry extras a resume brought in from earlier processes: a
+        # rollback reloads a snapshot this loop wrote, whose counters
+        # already hold part of `recovery`, so only the unbaked rest is added
+        prior_rec = {k: int(prev_ctr.get(k, 0))
+                     for k in ("chunks_redispatched", "retry_backoff_ms")}
 
-        def rays_so_far() -> int:
-            return prev_rays + (int(torch.stack(ray_counts).sum()) if ray_counts else 0)
-
-        def ctr_snapshot() -> Dict[str, Any]:
-            """Cumulative host counters: the resumed snapshot + every chunk
-            so far (one device read each)."""
-            snap = obs_counters.merge_host(prev_ctr, obs_counters.to_host(ctr_counts))
-            if nf_counts:
+        def ctr_snapshot(n_ctr=None, n_nf=None, rec=None) -> Dict[str, Any]:
+            """Cumulative host counters: the resumed snapshot, every chunk so
+            far (or the list prefixes a deferred checkpoint captured), the
+            fixed batch's scrub counts and the retry accounting."""
+            snap = obs_counters.merge_host(prev_ctr, obs_counters.to_host(ctr_counts[:n_ctr]))
+            nf = nf_counts[:n_nf]
+            if nf:
                 snap = obs_counters.merge_host(
-                    snap, {"nonfinite_deposits": int(torch.stack(nf_counts).sum())})
-            return snap
+                    snap, {"nonfinite_deposits": int(torch.stack(nf).sum())})
+            rec = recovery if rec is None else rec
+            extra = {}
+            for key, cur in (("chunks_redispatched", rec["redispatches"]),
+                             ("retry_backoff_ms", rec["backoff_ms"])):
+                baked = max(0, int(snap.get(key, 0)) - prior_rec[key])
+                if cur > baked:
+                    extra[key] = cur - baked
+            return obs_counters.merge_host(snap, extra)
+
+        def rays_of(n_ray=None) -> int:
+            r = ray_counts[:n_ray]
+            return prev_rays + (int(torch.stack(r).sum()) if r else 0)
+
+        chunks_done = first_chunk
+        FLIGHT.heartbeat("render", chunks=n_chunks, resumed_at=first_chunk, spp=spp)
+        hb_every = max(1, n_chunks // 16)
+        retry_max = int(cfg.retry_max)
+        retry_deadline = float(cfg.retry_deadline)
+        firewall_mode = cfg.nonfinite  # scrub | raise | retry
+        if firewall_mode != "scrub" and not obs_counters.enabled():
+            # the strict modes read the scrub count the telemetry carries;
+            # without it they would silently degrade to scrub
+            raise ValueError(
+                f"TORCH_PBRT_NONFINITE={firewall_mode} needs the telemetry counters (the "
+                "firewall's scrub count), but TORCH_PBRT_TELEMETRY=0 disabled them; "
+                "re-enable telemetry or use the default scrub mode")
+
+        def chunk_nonfinite(aux):
+            """The chunk's firewall scrub count (device scalar), or None."""
+            if use_regen:
+                return None if aux[4] is None else aux[4].nonfinite
+            return aux[1]
+
+        depth = plan.pipeline_depth
+        window = DispatchWindow(depth, on_wait=lambda dt: _phase("device_wait", dt),
+                                span_name="render/chunk_retire")
+        rloop_tid = TRACE.trace_id("render")
+
+        def _write_checkpoint(st, cursor, n_ray, n_ctr, n_nf, rec=None):
+            """One cadence write: chunks [0, cursor) of `st`, the counters
+            restricted to the captured list prefixes."""
+            t_ph = time.perf_counter()
+            with TRACE.span("render/checkpoint", chunk=cursor):
+                save_checkpoint(ckpt_path, st, cursor, rays_of(n_ray), fingerprint=fp,
+                                counters=ctr_snapshot(n_ctr, n_nf, rec))
+            _phase("checkpoint", time.perf_counter() - t_ph)
+
+        def _queue_checkpoint(cursor):
+            """Cadence checkpoint at `cursor`: written at once with an empty
+            window; with slices in flight, the film (written in place by
+            the next dispatches) is copied to the host now, ordered after
+            this chunk on the device, and written once the slice retires."""
+            lens = (len(ray_counts), len(ctr_counts), len(nf_counts))
+            if not len(window):
+                _write_checkpoint(state, cursor, *lens)
+                return
+            snap = begin_host_copy(state)
+            rec = dict(recovery)
+            window.defer(cursor, lambda: _write_checkpoint(snap.wait(), cursor, *lens, rec=rec))
+
+        def _reset_lists():
+            ray_counts.clear()
+            occ_counts.clear()
+            ctr_counts.clear()
+            nf_counts.clear()
 
         prev_det = torch.are_deterministic_algorithms_enabled()
         prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-        if device.type == "cuda":
+        if cuda:
             # the film's scatter-adds accumulate in a fixed order
             torch.use_deterministic_algorithms(True, warn_only=True)
         stream.WAVES.reset()
         c = first_chunk
+        attempt = 0
+        retry_t0 = None  # wall clock of the current failure streak
+        timed_out = False
         try:
-            if device.type == "cuda":
+            if cuda:
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            while c < plan.n_chunks:
-                aux = plan.dispatch(state, c)
-                c += 1
-                ray_counts.append(aux[0])
-                if plan.use_regen:
-                    occ_counts.append(aux[1:4])
-                    if aux[4] is not None:
-                        ctr_counts.append(aux[4])
-                elif aux[1] is not None:
-                    nf_counts.append(aux[1])
-                if ckpt_path and checkpoint_every and c % checkpoint_every == 0:
-                    save_checkpoint(ckpt_path, state, c, rays_so_far(),
-                                    fingerprint=plan.fingerprint, counters=ctr_snapshot())
-                if max_seconds > 0 and time.perf_counter() - t0 > max_seconds:
-                    break
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with STATS.phase("Integrator/Render loop"):
+                while c < n_chunks or len(window):
+                    try:
+                        if c < n_chunks:
+                            # the failure seam: chaos faults fire here; a
+                            # chunk is a pure function of its work range,
+                            # so a re-dispatch is exact
+                            CHAOS.dispatch(c, attempt)
+                            if c == first_chunk:
+                                ph_name, span = "dispatch_compile", "render/chunk_dispatch+compile"
+                            elif len(window):
+                                ph_name, span = "dispatch_ahead", "render/chunk_dispatch_ahead"
+                            else:
+                                ph_name, span = "dispatch", "render/chunk_dispatch"
+                            t_ph = time.perf_counter()
+                            try:
+                                with TRACE.span(span, chunk=c, tracer=plan.tracer):
+                                    aux = plan.dispatch(state, c)
+                                    handle = None
+                                    if cuda:
+                                        handle = torch.cuda.Event()
+                                        handle.record()
+                            except DEVICE_ERRORS as e:
+                                # a CUDA runtime error part-way: the film,
+                                # written in place, cannot be trusted
+                                raise ChunkDispatchError(f"device dispatch failed: {e}",
+                                                         poisons_state=True) from e
+                            _phase(ph_name, time.perf_counter() - t_ph)
+                            if firewall_mode != "scrub":
+                                # strict firewall: this chunk's scrub count
+                                # (one device read per chunk; the window runs
+                                # at depth 1 in these modes)
+                                nf_dev = chunk_nonfinite(aux)
+                                nf_ct = 0 if nf_dev is None else int(nf_dev)
+                                if nf_ct:
+                                    if firewall_mode == "raise":
+                                        raise NonFiniteRadianceError(
+                                            f"chunk {c} deposited {nf_ct} non-finite radiance "
+                                            "sample(s) (scrubbed to zero); "
+                                            "TORCH_PBRT_NONFINITE=raise treats this as fatal")
+                                    recovery["nonfinite_retries"] += 1
+                                    raise NonFiniteWaveError(
+                                        f"non-finite firewall: chunk {c} scrubbed {nf_ct} "
+                                        "deposit(s)")
+                            attempt = 0
+                            retry_t0 = None
+                            c += 1
+                            nrays, occ, ctr, _, nf_dep = plan.aux_parts(aux)
+                            if use_regen:
+                                occ_counts.append(occ)
+                                if ctr is not None:
+                                    ctr_counts.append(ctr)
+                            elif nf_dep is not None:
+                                nf_counts.append(nf_dep)
+                            ray_counts.append(nrays)
+                            progress.update()
+                            chunks_done = c
+                            if c == first_chunk + 1 or c % hb_every == 0:
+                                FLIGHT.heartbeat("render", chunk=c, of=n_chunks,
+                                                 render_s=round(time.perf_counter() - t0, 3))
+                            if ckpt_path and checkpoint_every and c % checkpoint_every == 0:
+                                _queue_checkpoint(c)
+                            sid = f"{rloop_tid}/c{c - 1}"
+                            TRACE.async_begin("render/slice", id=sid, cat="slice", chunk=c - 1,
+                                              trace_id=rloop_tid, span_id=sid)
+                            TRACE.flow_start("slice_flow", id=sid)
+                            window.push(c - 1, handle, span={
+                                "name": "render/slice", "id": sid, "cat": "slice", "flow": sid,
+                                "trace_id": rloop_tid, "span_id": sid})
+                        # retire the oldest slice(s) when the window is full,
+                        # and all of them once the work is dispatched
+                        while len(window) and (window.full() or c >= n_chunks):
+                            window.retire_one()
+                        if max_seconds > 0:
+                            # drain early when the remaining budget cannot
+                            # absorb the window, so the overshoot stays
+                            # about one chunk
+                            elapsed = time.perf_counter() - t0
+                            rate = elapsed / max(len(ray_counts) - len(window), 1)
+                            if max_seconds - elapsed < (depth + 2) * rate:
+                                window.drain()
+                            if time.perf_counter() - t0 > max_seconds:
+                                timed_out = True
+                    except ChunkDispatchError as e:
+                        # flush the window before the ladder: a poisoning
+                        # failure discards it, a clean one quiesces it so
+                        # the deferred writes land
+                        try:
+                            window.flush(discard=e.poisons_state)
+                        except ChunkDispatchError as e2:
+                            e = e2
+                            window.flush(discard=True)
+                        attempt += 1
+                        recovery["redispatches"] += 1
+                        STATS.counter("Distribution/Chunks re-dispatched", 1)
+                        now = time.time()
+                        if retry_t0 is None:
+                            retry_t0 = now
+                        deadline_hit = retry_deadline > 0 and now - retry_t0 > retry_deadline
+                        if attempt > retry_max or deadline_hit:
+                            # unrecoverable: an emergency checkpoint keeps the
+                            # completed work, unless this failure poisoned
+                            # the film (then the last durable file holds all
+                            # that can be trusted)
+                            if ckpt_path and not e.poisons_state:
+                                save_checkpoint(ckpt_path, state, c, rays_of(), fingerprint=fp,
+                                                counters=ctr_snapshot())
+                                FLIGHT.heartbeat("render_emergency_checkpoint", chunk=c,
+                                                 attempt=attempt)
+                            reason = (f"retry deadline ({retry_deadline:.0f}s) exceeded"
+                                      if deadline_hit else f"failed {attempt} times")
+                            raise RuntimeError(f"chunk {c} {reason}") from e
+                        if e.poisons_state and ckpt_path and checkpoint_exists(ckpt_path):
+                            state, c, prev_rays, prev_ctr = load_checkpoint(ckpt_path, fp,
+                                                                            device=device)
+                            recovery["rollbacks"] += 1
+                            _reset_lists()
+                        elif e.poisons_state:
+                            # nothing durable to roll back to: restart
+                            state = film.init_state(device)
+                            c, prev_rays, prev_ctr = 0, 0, {}
+                            prior_rec = {k: 0 for k in prior_rec}
+                            recovery["restarts"] += 1
+                            _reset_lists()
+                        backoff_s = redispatch_backoff(c, attempt)
+                        recovery["backoff_ms"] += int(backoff_s * 1000)
+                        FLIGHT.heartbeat("render_redispatch", chunk=c, attempt=attempt,
+                                         poisoned=e.poisons_state, backoff_s=round(backoff_s, 3),
+                                         backoff_total_ms=recovery["backoff_ms"],
+                                         error=str(e)[:200])
+                        if backoff_s > 0:
+                            TRACE.complete("render/backoff", backoff_s * 1e6, chunk=c,
+                                           attempt=attempt, trace_id=rloop_tid)
+                            self.clock.sleep(backoff_s)
+                        continue
+                    except BaseException:
+                        # an error that ends the render (a kernel that does
+                        # not build, an interrupt): let the in-flight slices
+                        # finish and their deferred checkpoints land first
+                        try:
+                            window.flush()
+                        except Exception:  # noqa: BLE001 - the first error wins
+                            pass
+                        raise
+                    if timed_out:
+                        break
+                t_ph = time.perf_counter()
+                with TRACE.span("render/wave_drain+film_merge"):
+                    if cuda:
+                        torch.cuda.synchronize(device)
+                _phase("device_wait", time.perf_counter() - t_ph)
             secs = time.perf_counter() - t0
         finally:
             torch.use_deterministic_algorithms(prev_det, warn_only=prev_warn)
-        completed_fraction = c / max(plan.n_chunks, 1)
-        rays = rays_so_far()
+        progress.done()
+        completed_fraction = chunks_done / max(n_chunks, 1)
+        rays = rays_of()
+        STATS.counter("Integrator/Rays traced", rays)
+        STATS.counter("Integrator/Camera rays traced", total)
+        STATS.distribution("Integrator/Rays per camera ray", rays / max(total, 1))
         ctr_total = ctr_snapshot()
+        if obs_counters.enabled() and ctr_total:
+            FLIGHT.counters(ctr_total, phase="render_done")
+        else:
+            FLIGHT.heartbeat("render_done", rays=rays, seconds=round(secs, 3))
         if ckpt_path:
-            save_checkpoint(ckpt_path, state, c, rays, fingerprint=plan.fingerprint,
+            t_ph = time.perf_counter()
+            save_checkpoint(ckpt_path, state, chunks_done, rays, fingerprint=fp,
                             counters=ctr_total)
+            _phase("checkpoint", time.perf_counter() - t_ph)
         # pbrt film.cpp splatScale: splats divide by the samples taken
-        splat_scale = 1.0 / max(plan.spp * completed_fraction, 1e-9)
-        img = film.develop(state, splat_scale=splat_scale)
+        splat_scale = 1.0 / max(spp * completed_fraction, 1e-9)
+        t_ph = time.perf_counter()
+        with TRACE.span("render/develop"):
+            img = film.develop(state, splat_scale=splat_scale)
+        FLIGHT.heartbeat("develop")
         if film.filename:
-            try:
-                film.write_image(state, splat_scale=splat_scale)
-            except OSError as e:
-                _W(f"could not write image {film.filename}: {e}")
+            with TRACE.span("render/write_image"):
+                try:
+                    film.write_image(state, splat_scale=splat_scale)
+                except OSError as e:
+                    _W(f"could not write image {film.filename}: {e}")
+        _phase("deposit_develop", time.perf_counter() - t_ph)
 
         waves = stream.WAVES
         per_wave = max(waves.waves, 1)
         stats: Dict[str, Any] = {
-            "chunks": plan.n_chunks,
+            "chunks": n_chunks,
             "chunk": plan.chunk,
             "waves": waves.waves,
             "iters_per_wave_mean": waves.iters / per_wave,
@@ -798,11 +1323,14 @@ class WavefrontIntegrator:
             # closest-hit and any-hit waves apart: waves, iterations, host
             # reads and kernel-wrapper calls, with their per-wave means
             "wave_modes": waves.mode_stats(),
+            "pipeline_depth": depth,
         }
         if "tstream" in scene.dev:
             stats["tracer_mode"] = plan.tracer
+        if any(recovery.values()):
+            stats["recovery"] = dict(recovery)
         wave_counts = []
-        if plan.use_regen and occ_counts:
+        if use_regen and occ_counts:
             live_t = int(torch.stack([lv for lv, _, _ in occ_counts]).sum())
             wave_counts = [int(wv) for _, wv, _ in occ_counts]
             trunc_t = sum(int(t) for _, _, t in occ_counts)
@@ -819,14 +1347,17 @@ class WavefrontIntegrator:
                 "pool": plan.pool,
                 "regen": True,
             }
+            STATS.distribution("Integrator/Wave occupancy", stats["mean_wave_occupancy"])
         if obs_counters.enabled() and ctr_total:
             stats["telemetry"] = {
                 "counters": ctr_total,
                 "wave_spread": obs_counters.spread_stats([sum(wave_counts)] if wave_counts else []),
             }
+        if metrics_on and phase_s:
+            stats["phase_seconds"] = {k: round(v, 6) for k, v in sorted(phase_s.items())}
+        TRACE.maybe_export()
         return RenderResult(
             image=img, film_state=state, seconds=secs, rays_traced=rays,
-            mray_per_sec=rays / max(secs, 1e-9) / 1e6, spp=plan.spp,
+            mray_per_sec=rays / max(secs, 1e-9) / 1e6, spp=spp,
             completed_fraction=completed_fraction, stats=stats,
         )
-

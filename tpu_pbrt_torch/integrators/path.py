@@ -46,7 +46,7 @@ footprint. Mix-material lanes resolve with the DIM_MIX draw.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -478,7 +478,7 @@ class PathIntegrator(WavefrontIntegrator):
 
     # -- persistent wavefront: compaction + regeneration --------------------
     def pool_chunk(self, dev, fs, start_pix: int, start_s: int, n_work: int, pool: int,
-                   film=None, cam=None):
+                   film=None, cam=None, nan_wave: Optional[int] = None):
         """Drain work items [start, start + n_work) through a resident pool
         of `pool` path slots, one bounce per wave, depositing into the film
         state `fs` in place.
@@ -498,7 +498,12 @@ class PathIntegrator(WavefrontIntegrator):
         counters): mean wave occupancy = live_lane_waves / (n_waves *
         pool); truncated is 1 if the max_waves safety bound stopped the
         drain with work outstanding (render() warns); counters is the
-        WaveCounters block (None with telemetry killed)."""
+        WaveCounters block (None with telemetry killed).
+
+        nan_wave is the chaos seam (`nan:wave`): on that wave (counted
+        from 0; None or -1: none) every lane with work gets NaN radiance,
+        which its deposit carries to the film firewall (scrubbed and
+        counted)."""
         from tpu_pbrt_torch.config import cfg
 
         assert pool < (1 << _POOL_LANE_BITS)
@@ -580,6 +585,8 @@ class PathIntegrator(WavefrontIntegrator):
                 dev, px, py, s, lane.depth * DIMS_PER_BOUNCE, lane,
                 torch.zeros((pool,), **i32), ctr=ctr, ray_time=tl if motion else None,
             )
+            if nan_wave is not None and waves == nan_wave:
+                lane = lane._replace(L=torch.where(has_work[..., None], float("nan"), lane.L))
 
             # ---- scatter-on-terminate film deposit ----------------------
             done = has_work & ~lane.alive & ~(lane.sh_dist > 0.0)

@@ -9,9 +9,13 @@ pbrt-v3's flags (--outfile, --quick, --quiet, --verbose, --cropwindow,
 for the CPU (the counterpart of the reference's JAX_PLATFORMS=cpu); with
 no GPU and no such request it exits with code 1. `--spp-chunk N` sets
 the camera samples per render chunk (the reference parses it without
-reading it). The reference's --serve, --mesh, --multihost, --trace,
---metrics-path and --faults are accepted and refused with exit code 2:
-they are not ported yet. A scene error exits with code 1.
+reading it). `--trace OUT.json` exports the render phases' span timeline
+as a Chrome trace, `--metrics-path OUT.prom` the host metrics registry
+as Prometheus text on exit, and `--faults PLAN` installs a chaos fault
+plan (tpu_pbrt_torch/chaos grammar) before either comes online. The
+reference's --serve, --mesh and --multihost are accepted and refused
+with exit code 2: they are not ported yet. A scene error exits with
+code 1.
 """
 
 from __future__ import annotations
@@ -24,9 +28,6 @@ _NOT_PORTED = (
     ("--serve", False),
     ("--mesh", True),
     ("--multihost", False),
-    ("--trace", True),
-    ("--metrics-path", True),
-    ("--faults", True),
 )
 
 
@@ -52,6 +53,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=16, help="chunks between checkpoint writes")
     p.add_argument("--device", default=None,
                    help="torch device to render on: cuda (the default) or cpu")
+    p.add_argument("--trace", default="", metavar="OUT.json",
+                   help="export a Chrome-trace span timeline of the render phases "
+                   "(also TORCH_PBRT_TRACE_PATH)")
+    p.add_argument("--metrics-path", default="", metavar="OUT.prom",
+                   help="write a Prometheus text snapshot of the host metrics registry "
+                   "on exit (also TORCH_PBRT_METRICS_PATH; TORCH_PBRT_METRICS=0 disables)")
+    p.add_argument("--faults", default="", metavar="PLAN",
+                   help="chaos fault plan, e.g. 'dispatch:poison@chunk=3,ckpt:torn@write=2' "
+                   "(also TORCH_PBRT_FAULTS)")
     for flag, takes_value in _NOT_PORTED:
         if takes_value:
             p.add_argument(flag, default=None, help="not ported (exits 2)")
@@ -89,13 +99,33 @@ def main(argv=None) -> int:
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
     )
-    for scene in args.scenes:
-        try:
-            render_file(scene, opts, device=device)
-        except PbrtError as e:
-            print(f"tpu-pbrt-torch: {e}", file=sys.stderr)
-            return 1
-    return 0
+    from tpu_pbrt_torch.obs.metrics import METRICS
+    from tpu_pbrt_torch.obs.trace import TRACE
+
+    # chaos before the telemetry: a plan that targets the first dispatch
+    # must be installed when the instrumentation comes online
+    if args.faults:
+        from tpu_pbrt_torch.chaos import CHAOS
+
+        CHAOS.install(args.faults)
+    if args.trace:
+        TRACE.configure(args.trace)
+    if args.metrics_path:
+        METRICS.configure(args.metrics_path)
+    try:
+        for scene in args.scenes:
+            try:
+                with TRACE.span("main/render_file", scene=scene):
+                    render_file(scene, opts, device=device)
+            except PbrtError as e:
+                print(f"tpu-pbrt-torch: {e}", file=sys.stderr)
+                return 1
+        return 0
+    finally:
+        # render() exports as it ends; this export adds the outer span,
+        # on the failure path too
+        TRACE.maybe_export()
+        METRICS.maybe_export()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,16 @@ previous good file is kept as `<path>.prev` (hard-linked, so `path`
 never goes missing). A torn or bit-flipped current file (checksum
 mismatch, unreadable archive) falls back to `.prev`; a version or
 fingerprint mismatch is misconfiguration and raises at once.
+
+Chaos seams (tpu_pbrt_torch/chaos): `ckpt:torn|crash|bitflip@write=N`
+faults are applied in `save_checkpoint` (a torn final file, a crash
+between the tmp write and the rename, a seeded bit-flip), so the `.prev`
+fallback is testable on the CPU. Write observers see every valid file
+once it is published.
+
+Deferred writes: the port deposits into the film in place, so a
+checkpoint written after later chunks were dispatched must be taken from
+a snapshot of the film as its cursor left it: `begin_host_copy`.
 """
 
 from __future__ import annotations
@@ -31,11 +41,28 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from tpu_pbrt_torch.chaos import CHAOS
 from tpu_pbrt_torch.core.film import FilmState
 
 _FORMAT_VERSION = 4
 #: versions load_checkpoint still understands
 _COMPAT_VERSIONS = (2, 3, 4)
+
+#: write observers: fn(path, next_chunk, rays) called whenever a valid
+#: checkpoint is durably published (after the rename; never for the
+#: crash or torn chaos outcomes, which publish nothing usable)
+_WRITE_OBSERVERS: list = []
+
+
+def register_write_observer(fn) -> None:
+    _WRITE_OBSERVERS.append(fn)
+
+
+def unregister_write_observer(fn) -> None:
+    try:
+        _WRITE_OBSERVERS.remove(fn)
+    except ValueError:
+        pass
 
 
 class CorruptCheckpointError(ValueError):
@@ -89,6 +116,43 @@ def _rotate_prev(path: str) -> None:
         os.replace(path, prev)
 
 
+class FilmSnapshot:
+    """The film state as it stood when `begin_host_copy` was called, on
+    the host once `wait()` returns."""
+
+    __slots__ = ("_state", "_event")
+
+    def __init__(self, state: FilmState, event=None):
+        self._state = state
+        self._event = event
+
+    def wait(self) -> FilmState:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._state
+
+
+def begin_host_copy(state: FilmState) -> FilmSnapshot:
+    """Snapshot a film state for a deferred checkpoint write. On CUDA the
+    copy into pinned host memory is enqueued with non_blocking on the
+    current stream, so it reads the film after every op already enqueued
+    (the chunk the cursor covers) and before any op enqueued later (the
+    next chunks, which write the film in place), and streams out under
+    their compute; a CUDA event marks its end. On the CPU the film is
+    cloned at once."""
+    if state.rgb.device.type != "cuda":
+        return FilmSnapshot(FilmState(*(a.clone() for a in state)))
+    host = []
+    for a in state:
+        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        h.copy_(a, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return FilmSnapshot(FilmState(*host), event)
+
+
 def checkpoint_exists(path: str) -> bool:
     """True when `path` OR its `.prev` rotation holds a resumable file
     (load_checkpoint recovers through `.prev` when `path` is gone)."""
@@ -124,11 +188,46 @@ def save_checkpoint(path: str, state: FilmState, next_chunk: int, rays_so_far: i
     )
     # np.savez appends .npz when missing
     actual_tmp = tmp if tmp.endswith(".npz") else tmp + ".npz"
+
+    fault = CHAOS.checkpoint_fault()
+    if fault == "bitflip":
+        # seeded single-byte corruption: the checksum (or the zip parse)
+        # must catch it at load time
+        with open(actual_tmp, "r+b") as f:
+            off = CHAOS.bitflip_offset(os.path.getsize(actual_tmp))
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0xFF]))
+
     # the data must be on disk before the rename publishes it
     _fsync_path(actual_tmp)
+
+    if fault == "crash":
+        # a process death between the tmp write and the rename: the tmp
+        # file stays behind and the previous checkpoint stays current
+        return
+
+    if fault == "torn":
+        # a torn write: rotate the good previous file, then publish a
+        # truncated current one through its own tmp + replace (after the
+        # hard-link rotation an in-place truncate would tear .prev too)
+        with open(actual_tmp, "rb") as f:
+            data = f.read()
+        _rotate_prev(path)
+        torn_tmp = actual_tmp + ".torn"
+        with open(torn_tmp, "wb") as f:
+            f.write(data[: max(len(data) // 3, 1)])
+        os.replace(torn_tmp, path)
+        os.remove(actual_tmp)
+        _fsync_dir(path)
+        return
+
     _rotate_prev(path)
     os.replace(actual_tmp, path)
     _fsync_dir(path)
+    for obs in _WRITE_OBSERVERS:
+        obs(path, int(next_chunk), int(rays_so_far))
 
 
 def delete_checkpoint(path: str) -> None:

@@ -14,7 +14,7 @@ import sys
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, Optional
 
 
 class StatsRegistry:
@@ -103,6 +103,28 @@ class StatsRegistry:
 
 
 STATS = StatsRegistry()
+
+
+@contextmanager
+def profile_trace(log_dir: Optional[str] = None):
+    """torch.profiler trace context (CPU and CUDA activities) that exports
+    a Chrome trace (`trace.json`) into log_dir on exit: the reference's
+    jax.profiler context. No-op when log_dir is None."""
+    if not log_dir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class ProgressReporter:
