@@ -150,10 +150,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      (unpacked key), timed as in phase 2;
      [render] that render through the pool and the fixed batch (the same
      rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves),
-     its launches counted as in phase 3; one 256x256x4 chunk of each
-     under torch.profiler (profile_render.measure: the idle share, the
-     device operations per wave with and without the texture
-     evaluation, and its share of the device time); 64x64x16 through
+     its launches counted as in phase 3 (the texture evaluation's
+     device share is `python -m tpu_pbrt_torch.profile_render --scene
+     textured`'s, not this script's: a profiled chunk's trace takes
+     minutes to read); 64x64x16 through
      the pool and the fixed batch against the JAX CPU reference
      tests/torch_golden/textured_path_cpu_64x64_16spp.npz (MSE bar 1e-4,
      no pair dropped, rays printed beside the reference's); the card
@@ -211,24 +211,54 @@ Phases, each fatal on failure (exit code 1, no result line):
      1e-4, no pair dropped, rays printed beside the reference's); the
      card against the CPU port at 32x32x4 on the small variant (MSE below
      1e-8);
- 12. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
+ 12. infra  — the render infrastructure on the main path: the killeroo
+     at 128x128x256 through the dispatch window at depth 1 and 2
+     (bit-identical), the capacity audit, three chaos recoveries and the
+     strict firewall at 128x128x32;
+ 13. serve  — the serving stack on the main path's scene at full
+     geometry (scenes.killeroo_file: the killeroo as a .pbrt file with
+     its blob as a PLY), `path` 128x128x64 in slices of 2^18 work items
+     (4 a job): the solo render; two tenants on one RenderService (one
+     scene compile), bob preempted after 3 slices (a checkpoint-v4 park,
+     his film dropped), resumed after 2 more, drained: both films
+     bit-identical to the solo render, rays equal; under max_active=1 a
+     priority-5 job displaces a running one (three films bit-identical);
+     a warm resubmit with 0 scene compiles, 0 kernel builds and one more
+     residency hit; a cancel that releases the pin and the spool file;
+     the metrics exposition valid, `health` ok, the FLIGHT files valid;
+     `python -m tpu_pbrt_torch.serve` and `python -m tpu_pbrt_torch.main
+     --serve` as subprocesses on a JSONL session (submit, poll, preview,
+     result, metrics, health, shutdown), each result equal to the solo
+     render; a fleet of two LocalReplicas: two same-scene submits routed
+     to one replica, that replica drained mid-render, both jobs resumed
+     on the other from the spool, bit-identical; prints each job's
+     Mray/s beside the solo's, slices, preemptions, parks, the queue-wait
+     p90, scene_hbm_bytes beside the compile's memory_allocated delta,
+     the flush and expand launches, and the phase's wall time;
+ 14. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
- 13. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 15. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
      caustic's connection and photon waves under "caustic"; the breadth
      scene's pool and fixed waves under "breadth", the textured scene's
      under "textured", the motion scene's under "motion", the subsurface
-     scene's probe-chord wave under "subsurface"), the card's name and
-     power limit (nvidia-smi), and as the last line
+     scene's probe-chord wave under "subsurface", the infra phase's under
+     "infra", the serve phase's under "serve"), the whole script's time,
+     the card's name and power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX or of the JAX package, and it fails without a
 CUDA device or outside a checkout of the repo.
+
+`python3 chip_smoke.py PHASE ...` (build, check, render, crown, direct,
+samplers, cloud, caustic, breadth, textured, motion, subsurface, infra,
+serve, cli) runs the build and the named phases only, for development,
+and prints no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -286,9 +316,6 @@ TEXTURED_REF = os.path.join(GOLDEN, "textured_path_cpu_64x64_16spp.npz")
 TEXTURED_BDPT_REF = os.path.join(GOLDEN, "textured_bdpt_cpu_32x32_16spp.npz")
 #: the timed textured render, whose pool and fixed waves the kernels are checked on
 TEXTURED_RES, TEXTURED_SPP = 512, 4
-#: the profiled textured render: 2^18 camera rays (a trace's parse time
-#: follows its device ops, which follow its waves)
-TEXTURED_PROFILE = (256, 4)
 #: the JAX CPU references of the motion scene (path 64x64x16 and 64x64x64,
 #: bdpt 32x32x16). A few paths take another way than the reference's: its
 #: compiled program fuses multiplies into adds across operations (in the
@@ -310,6 +337,8 @@ MOTION_RES, MOTION_SPP = 512, 4
 SUBSURFACE_REF = os.path.join(GOLDEN, "subsurface_path_cpu_64x64_16spp.npz")
 #: the timed subsurface render, whose first probe-chord wave the kernels are checked on
 SUBSURFACE_RES, SUBSURFACE_SPP = 512, 16
+#: the served killeroo: 128x128x64 = 2^20 work items in slices of 2^18, 4 a job
+SERVE_RES, SERVE_SPP, SERVE_CHUNK = 128, 64, 262144
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
@@ -1726,41 +1755,10 @@ def _textured(res, spp, device, **kw):
     return compile_api(make_textured_like(res, spp, device=device, **kw))
 
 
-def _profile_line(label, scene, integ, regen: bool):
-    """One render under torch.profiler (profile_render.measure): its idle
-    share, device operations per wave with and without the texture
-    evaluation, and the texture evaluation's share of the device time."""
-    from tpu_pbrt_torch.config import cfg
-    from tpu_pbrt_torch.profile_render import TEXTURES, measure
-
-    saved = cfg.regen
-    cfg.regen = regen
-    try:
-        m = measure(integ, scene)
-    finally:
-        cfg.regen = saved
-    waves = max(m["res"].stats["waves"], 1)
-    tex = m["ranges"][TEXTURES]
-    share = tex["device_us"] / max(m["device_us"], 1e-9)
-    log(f"[textured] profile {label}: wall {m['wall']:.3f} s (profiler on), traversal waves "
-        f"{waves}, device busy {m['device_us'] / 1e6:.3f} s, idle share {m['idle_share']:.3f}; "
-        f"device ops {m['ops']}, {m['ops_per_wave']:.0f} per wave, {(m['ops'] - tex['ops']) / waves:.0f} "
-        f"per wave without the texture evaluation; texture evaluation {tex['calls']} calls, "
-        f"{tex['ops']} ops ({tex['ops'] / waves:.0f} per wave), {tex['device_us'] / 1e3:.2f} ms "
-        f"device = {share:.4f} of the device time, {tex['host_us'] / 1e3:.2f} ms host")
-    log(f"[textured] profile {label}: device time by group "
-        f"{json.dumps({k: round(v / 1e3, 2) for k, v in m['groups'].items()})} ms")
-    if m["device_us"] <= 0 or not tex["calls"]:
-        raise SmokeFailure(f"textured profile {label}: no device time or no texture range")
-    return dict(idle_share=m["idle_share"], ops_per_wave=m["ops_per_wave"],
-                ops_per_wave_without_textures=(m["ops"] - tex["ops"]) / waves,
-                texture_device_share=share, waves=waves)
-
-
 def phase_textured():
     """Textures and the layered materials on the card (see the module doc,
     phase 9): the kernels on the 512x512x4 render's pool and fixed waves,
-    that render timed through both, one chunk of each profiled, 64x64x16
+    that render timed through both, 64x64x16
     against the JAX CPU reference, the card against the CPU port, and
     `bdpt` against its JAX CPU reference. Returns {kernel: numbers at the
     pool wave (the fixed wave's under "at_fixed_wave"), with the timed
@@ -1817,16 +1815,6 @@ def phase_textured():
                          res=TEXTURED_RES, spp=TEXTURED_SPP)
     del scene, integ, pool, fixed
     torch.cuda.empty_cache()
-
-    # [profile] one chunk through the pool and the fixed batch (the kernels,
-    # the allocator and the texture constants are warm from the renders above)
-    res_p, spp_p = TEXTURED_PROFILE
-    scene, integ = _textured(res_p, spp_p, "cuda")
-    prof = {"pool": _profile_line(f"pool {res_p}x{res_p}x{spp_p}", scene, integ, True),
-            "fixed": _profile_line(f"fixed {res_p}x{res_p}x{spp_p}", scene, integ, False)}
-    for name in out:
-        out[name]["profile"] = prof
-    del scene, integ
 
     # [render] 64x64x16 against the JAX CPU reference, pool and fixed batch
     ref = np.load(TEXTURED_REF)
@@ -2288,6 +2276,267 @@ def phase_infra():
 
 # -- phase 13 ------------------------------------------------------------------
 
+def _jsonl_session(argv, scene_path, image_out, tag, chunk=SERVE_CHUNK):
+    """Drive one JSONL daemon (argv) on the card: submit the scene, wait
+    for its done event, then preview, result (writing `image_out`),
+    metrics, health and shutdown. Returns the answers by op and the
+    exit code; fails on any {"ok": false} answer."""
+    proc = subprocess.Popen(argv, cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, bufsize=1)
+    answers, events = {}, []
+
+    def rpc(req):
+        proc.stdin.write(json.dumps(req) + "\n")
+        proc.stdin.flush()
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                raise SmokeFailure(f"serve: {tag} closed its pipe at {req['op']}: "
+                                   f"{proc.stderr.read()[-2000:]}")
+            msg = json.loads(line)
+            if "event" in msg:
+                events.append(msg)
+                continue
+            if not msg.get("ok"):
+                raise SmokeFailure(f"serve: {tag} answered {req['op']} with {msg}")
+            answers[req["op"]] = msg
+            return msg
+
+    try:
+        rpc({"op": "submit", "scene": scene_path, "job": "dj", "tenant": "daemon",
+             "chunk": chunk})
+        deadline = time.monotonic() + 300
+        while not any(e.get("job") == "dj" for e in events):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"serve: {tag}: no done event in 300 s")
+            rpc({"op": "poll", "job": "dj"})
+            time.sleep(0.2)
+        if events[-1]["event"] != "done":
+            raise SmokeFailure(f"serve: {tag}: {events[-1]}")
+        rpc({"op": "preview", "job": "dj"})
+        rpc({"op": "result", "job": "dj", "out": image_out})
+        rpc({"op": "metrics"})
+        rpc({"op": "health"})
+        proc.stdin.write(json.dumps({"op": "shutdown", "drain": True}) + "\n")
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return answers, events, rc
+
+
+def phase_serve(device="cuda", res=SERVE_RES, spp=SERVE_SPP, chunk=SERVE_CHUNK, blob=(180, 360)):
+    """The serving stack over the main path (see the module doc, phase
+    13). Returns {kernel: {"launches": n, ...}} for the phase. The
+    arguments shrink it for a dry run on the CPU (device="cpu" and a
+    small blob tessellation)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.fleet import FleetRouter, LocalReplica
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.kernels.build import BUILDS
+    from tpu_pbrt_torch.obs.flight import FLIGHT, validate_flight
+    from tpu_pbrt_torch.obs.health import evaluate
+    from tpu_pbrt_torch.obs.metrics import METRICS, validate_exposition
+    from tpu_pbrt_torch.parallel.checkpoint import checkpoint_exists
+    from tpu_pbrt_torch.scene.api import Options, compile_file
+    from tpu_pbrt_torch.scenes import killeroo_file
+    from tpu_pbrt_torch.serve import RenderService
+    from tpu_pbrt_torch.utils.imageio import read_pfm
+
+    t_phase = time.perf_counter()
+    path = killeroo_file(res, spp, n_theta=blob[0], n_phi=blob[1])
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", device]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    FLIGHT.configure(os.path.join(tmp, "flight.jsonl"))
+    METRICS.reset()
+    reset_launches()
+    # the two daemons run beside the in-process work (the pool is bound by
+    # its host; the daemons use other cores) and are read at the end
+    from concurrent.futures import ThreadPoolExecutor
+
+    outs = {k: os.path.join(tmp, f"{k}.pfm") for k in ("serve", "main")}
+    argvs = {"serve": [sys.executable, "-m", "tpu_pbrt_torch.serve", "--quiet",
+                       "--spool", os.path.join(tmp, "dspool"), *dev_args],
+             "main": [sys.executable, "-m", "tpu_pbrt_torch.main", "--serve", "--quiet",
+                      *dev_args]}
+    pool = ThreadPoolExecutor(2)
+    futs = {k: pool.submit(_jsonl_session, argvs[k], path, outs[k], k, chunk) for k in argvs}
+    try:
+        scene, integ = compile_file(path, Options(quiet=True), device=device)
+        solo = integ.render(scene, chunk=chunk)
+        solo_launches = dict(LAUNCHES)
+        log(f"[serve] solo {res}x{res}x{spp} ({scene.n_tris} triangles, "
+            f"chunk {chunk}, {solo.stats['chunks']} chunks): {solo.rays_traced} rays, "
+            f"{solo.mray_per_sec:.4f} Mray/s, launches {json.dumps(solo_launches)}; "
+            f"{card_line()}")
+        if solo.stats["chunks"] != 4 or not np.isfinite(solo.image).all():
+            raise SmokeFailure(f"serve: solo render {solo.stats['chunks']} chunks")
+        del scene, integ
+
+        def same(label, res):
+            ok = (res.rays_traced == solo.rays_traced
+                  and all(torch.equal(a, b) for a, b in zip(res.film_state, solo.film_state)))
+            if not ok:
+                raise SmokeFailure(f"serve: {label}: film or rays ({res.rays_traced}) differ "
+                                   f"from the solo render ({solo.rays_traced})")
+            return res.mray_per_sec
+
+        svc = RenderService(chunk=chunk, seed=0, spool_dir=os.path.join(tmp, "spool"),
+                            device=device)
+        os.makedirs(svc.spool_dir, exist_ok=True)
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launches()
+        mem0 = torch.cuda.memory_allocated() if cuda else 0
+        t0 = time.perf_counter()
+        a = svc.submit(path, tenant="alice")
+        compile_s = time.perf_counter() - t0
+        mem_delta = (torch.cuda.memory_allocated() - mem0) if cuda else None
+        b = svc.submit(path, tenant="bob")
+        rstats = svc.residency.stats()
+        if rstats["scene_compiles"] != 1:
+            raise SmokeFailure(f"serve: two same-scene submits took {rstats['scene_compiles']} "
+                               "scene compiles")
+        for _ in range(3):
+            svc.step()
+        svc.preempt(b)
+        bj = svc.jobs[b]
+        parked_at = bj.cursor
+        if bj.state is not None or not checkpoint_exists(bj.checkpoint_path) or not bj.cursor:
+            raise SmokeFailure(f"serve: the park of {b} kept its film or wrote no checkpoint")
+        for _ in range(2):
+            svc.step()
+        svc.resume(b)
+        svc.drain()
+        mray = {j: same(f"two tenants, {j}", svc.result(j)) for j in (a, b)}
+        log(f"[serve] two tenants: schedule {svc.schedule}; {b} parked at chunk {parked_at} "
+            f"and resumed; films bit-identical")
+
+        svc.max_active = 1
+        lo = svc.submit(path, tenant="batch", priority=0)
+        svc.step()
+        svc.step()
+        hi = svc.submit(path, tenant="live", priority=5)
+        mid = svc.submit(path, tenant="batch", priority=2)
+        if svc.step() != hi or svc.jobs[lo].state is not None:
+            raise SmokeFailure("serve: the priority-5 job did not displace the running job")
+        svc.drain()
+        svc.max_active = None
+        mray |= {j: same(f"priority, {j}", svc.result(j)) for j in (lo, mid, hi)}
+        order = [j for j, _ in svc.schedule if j in (lo, mid, hi)]
+        log(f"[serve] priority (max_active 1): order {order}, {lo} preemptions "
+            f"{svc.poll(lo)['preemptions']}; three films bit-identical")
+
+        builds, hits = dict(BUILDS), svc.residency.stats()["hits"]
+        w = svc.submit(path, tenant="alice")
+        svc.drain()
+        rstats = svc.residency.stats()
+        if (rstats["scene_compiles"] != 1 or BUILDS != builds
+                or rstats["hits"] != hits + 1):
+            raise SmokeFailure(f"serve: warm resubmit: compiles {rstats['scene_compiles']}, "
+                               f"builds {builds} -> {BUILDS}, hits {hits} -> {rstats['hits']}")
+        mray[w] = same("warm resubmit", svc.result(w))
+
+        c = svc.submit(path, tenant="carol", checkpoint_every=1)
+        svc.step()
+        spool = svc.jobs[c].checkpoint_path
+        had = checkpoint_exists(spool)
+        svc.cancel(c)
+        pins = svc.residency.pin_counts()
+        if not had or checkpoint_exists(spool) or any(pins.values()):
+            raise SmokeFailure(f"serve: cancel: spool before {had}, after "
+                               f"{checkpoint_exists(spool)}, pins {pins}")
+
+        exp = svc.metrics_exposition()
+        errs = validate_exposition(exp)
+        health = evaluate(svc)
+        ferrs = validate_flight(os.path.join(tmp, f"flight.{a}.jsonl"),
+                                require_phases=["serve_submit", "serve_done"])
+        ferrs += validate_flight(os.path.join(tmp, f"flight.{b}.jsonl"),
+                                 require_phases=["serve_park", "serve_resume", "serve_done"])
+        if errs or not health.ok or ferrs:
+            raise SmokeFailure(f"serve: exposition {errs[:3]}, health {health.firing()}, "
+                               f"flight {ferrs[:3]}")
+        snap = METRICS.snapshot()["metrics"]
+        waits = snap["tpu_pbrt_serve_queue_wait_seconds"]["series"]
+        p90 = max(s["p90"] for s in waits)
+        n_wait = sum(s["count"] for s in waits)
+        parks = sum(s["value"] for s in snap["tpu_pbrt_serve_preemptions_total"]["series"])
+        preempts = sum(svc.poll(j)["preemptions"] for j in svc.jobs)
+        in_process = dict(LAUNCHES)
+        log(f"[serve] in-process: {len(svc.schedule)} slices, {preempts} preemptions, {parks} "
+            f"parks, queue-wait p90 {p90:.4f} s over {n_wait} waits, Mray/s "
+            f"{json.dumps({j: round(v, 4) for j, v in mray.items()})} (solo "
+            f"{solo.mray_per_sec:.4f}); scene_hbm_bytes {rstats['resident_bytes']} beside "
+            f"memory_allocated delta of the compile {mem_delta} ({compile_s:.1f} s); "
+            f"health ok, exposition {len(exp.splitlines())} lines valid, flight valid; "
+            f"launches {json.dumps(in_process)}")
+        del svc
+
+        sessions = {k: f.result() for k, f in futs.items()}
+        for k, (answers, events, rc) in sessions.items():
+            img = read_pfm(outs[k])
+            if (rc != 0 or answers["result"]["rays"] != solo.rays_traced
+                    or not np.array_equal(img, solo.image) or not answers["health"]["ok"]
+                    or not answers["metrics"]["lines"]):
+                raise SmokeFailure(f"serve: daemon {k}: rc {rc}, rays "
+                                   f"{answers['result']['rays']} (solo {solo.rays_traced}), "
+                                   f"image equal {np.array_equal(img, solo.image)}")
+            log(f"[serve] daemon `{' '.join(argvs[k][1:3])}`: result equal to the solo render "
+                f"({answers['result']['rays']} rays, {answers['result']['seconds']} s), preview "
+                f"mean {answers['preview']['mean']:.6f}, {answers['metrics']['lines']} metric "
+                f"lines, health ok, exit {rc}")
+
+        reset_launches()
+        reps = [LocalReplica(f"r{k}", chunk=chunk, device=device,
+                             spool_dir=os.path.join(tmp, f"r{k}")) for k in range(2)]
+        router = FleetRouter(reps, spool_dir=os.path.join(tmp, "fleet"))
+        f1 = router.submit(path, tenant="alice", checkpoint_every=1)
+        f2 = router.submit(path, tenant="bob", checkpoint_every=1)
+        owner = router.owner(f1)
+        if router.owner(f2) != owner:
+            raise SmokeFailure(f"serve: fleet routed one scene to {owner} and {router.owner(f2)}")
+        for _ in range(3):
+            router.step()
+        at = {j: router.poll(j)["chunks_done"] for j in (f1, f2)}
+        moved = router.drain_replica(owner)
+        router.drain_fleet()
+        for j in (f1, f2):
+            p = router.poll(j)
+            if p["failovers"] != 1 or p["replica"] == owner:
+                raise SmokeFailure(f"serve: fleet failover of {j}: {p}")
+            mray[j] = same(f"fleet failover, {j}", router.result(j))
+        fleet = dict(LAUNCHES)
+        log(f"[serve] fleet: both submits routed to {owner}; drained at chunks {at}, moved "
+            f"{moved} to {router.owner(f1)}, resumed from the spool: films bit-identical; "
+            f"compiles per replica "
+            f"{[r.service.residency.stats()['scene_compiles'] for r in reps]}; launches "
+            f"{json.dumps(fleet)}")
+        launches = {k: in_process[k] + fleet[k] for k in in_process}
+        if min(launches.values()) <= 0:
+            raise SmokeFailure(f"serve: a kernel was never launched: {launches}")
+        wall = time.perf_counter() - t_phase
+        log(f"[serve] phase launches {json.dumps(launches)} (the in-process service and the "
+            f"fleet, each counted from 0; the solo render's above; the daemons' in their own "
+            f"processes), wall time {wall:.1f} s; {card_line()}")
+        return {k: {"launches": n, "mray_per_sec_solo": solo.mray_per_sec,
+                    "phase_seconds": wall} for k, n in launches.items()}
+    finally:
+        pool.shutdown(wait=True)
+        FLIGHT.configure(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 14 ------------------------------------------------------------------
+
 def phase_cli(device: str = "cuda") -> None:
     """The CLI on the Cornell box in subprocesses: an uninterrupted
     render, and one killed after its first checkpoint then resumed with
@@ -2311,18 +2560,11 @@ def phase_cli(device: str = "cuda") -> None:
                     "-o", os.path.join(tmp, f"{name}.exr"),
                     "--checkpoint", os.path.join(tmp, f"{name}.npz")]
 
+        # the uninterrupted render and the one killed after its first
+        # checkpoint run side by side (their files are apart)
         t0 = time.perf_counter()
-        r = subprocess.run(cmd("a"), cwd=HERE, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise SmokeFailure(f"cli: exit {r.returncode}: {r.stderr[-2000:]}")
-        img = read_exr(os.path.join(tmp, "a.exr"))
-        full, n_chunks, rays, _ = load_checkpoint(os.path.join(tmp, "a.npz"))
-        log(f"[cli] uninterrupted: {time.perf_counter() - t0:.1f} s, image {img.shape} mean "
-            f"{img.mean():.5f}, {n_chunks} chunks, {rays} rays")
-        if img.shape != (64, 64, 3) or not np.isfinite(img).all() or not img.mean() > 0:
-            raise SmokeFailure("cli: the written image is not a finite 64x64 render")
-
-        t0 = time.perf_counter()
+        full_proc = subprocess.Popen(cmd("a"), cwd=HERE, stdout=subprocess.DEVNULL,
+                                     stderr=subprocess.PIPE, text=True)
         ck = os.path.join(tmp, "b.npz")
         proc = subprocess.Popen(cmd("b"), cwd=HERE, stdout=subprocess.DEVNULL,
                                 stderr=subprocess.PIPE)
@@ -2332,9 +2574,19 @@ def phase_cli(device: str = "cuda") -> None:
             proc.kill()
         finally:
             proc.wait(timeout=60)
+        t_kill = time.perf_counter() - t0
+        err = full_proc.communicate(timeout=600)[1]
+        if full_proc.returncode != 0:
+            raise SmokeFailure(f"cli: exit {full_proc.returncode}: {err[-2000:]}")
+        img = read_exr(os.path.join(tmp, "a.exr"))
+        full, n_chunks, rays, _ = load_checkpoint(os.path.join(tmp, "a.npz"))
+        log(f"[cli] uninterrupted: {time.perf_counter() - t0:.1f} s, image {img.shape} mean "
+            f"{img.mean():.5f}, {n_chunks} chunks, {rays} rays")
+        if img.shape != (64, 64, 3) or not np.isfinite(img).all() or not img.mean() > 0:
+            raise SmokeFailure("cli: the written image is not a finite 64x64 render")
         cursor = load_checkpoint(ck)[1]
         log(f"[cli] killed after its first checkpoint: cursor {cursor} of {n_chunks} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"({t_kill:.1f} s)")
         if not 1 <= cursor < n_chunks or os.path.exists(os.path.join(tmp, "b.exr")):
             raise SmokeFailure(f"cli: the second render was not stopped mid-way (cursor {cursor})")
         # the resume also exports the span trace and the metrics file, and
@@ -2378,7 +2630,20 @@ def phase_cli(device: str = "cuda") -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def main() -> int:
+PHASES = ("build", "check", "render", "crown", "direct", "samplers", "cloud", "caustic",
+          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli")
+
+
+def main(argv=()) -> int:
+    only = set(argv)
+    if only - set(PHASES):
+        print(f"chip_smoke: unknown phases {sorted(only - set(PHASES))}; known: {PHASES}",
+              file=sys.stderr)
+        return 2
+
+    def want(name):
+        return not only or name in only
+
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
             and os.path.exists(CLOUD_REF) and os.path.exists(BREADTH_REF.format("realistic"))
@@ -2404,50 +2669,51 @@ def main() -> int:
 
         from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
 
-        t1 = time.perf_counter()
-        api = make_killeroo_like(res=128, spp=256, maxdepth=5, device="cuda")
-        scene, integ = compile_api(api)
-        log(f"[scene] killeroo: {scene.n_tris} triangles, {scene.dev['tstream'].n_treelets} "
-            f"treelets of {scene.dev['tstream'].leaf_tris}, compiled in {time.perf_counter() - t1:.2f} s")
-
         def timed(name, fn, *args):
+            if not want(name.split()[0]):
+                return None
             t = time.perf_counter()
             out = fn(*args)
             log(f"[time] {name}: {time.perf_counter() - t:.1f} s (total "
                 f"{time.perf_counter() - t0:.1f} s)")
+            torch.cuda.empty_cache()
             return out
 
-        kt = timed("check", phase_check, scene, integ)
-        launches, flaunches = timed("render", phase_render, scene, integ)
-        del scene, integ
-        torch.cuda.empty_cache()
+        if want("check") or want("render"):
+            t1 = time.perf_counter()
+            api = make_killeroo_like(res=128, spp=256, maxdepth=5, device="cuda")
+            scene, integ = compile_api(api)
+            log(f"[scene] killeroo: {scene.n_tris} triangles, "
+                f"{scene.dev['tstream'].n_treelets} treelets of "
+                f"{scene.dev['tstream'].leaf_tris}, compiled in {time.perf_counter() - t1:.2f} s")
+            kt = timed("check", phase_check, scene, integ)
+            launches, flaunches = timed("render", phase_render, scene, integ) or (None, None)
+            del scene, integ
+            torch.cuda.empty_cache()
 
-        cscene, cinteg = timed("crown scene", crown_scene)
-        ct, rays = timed("crown check", phase_crown_check, cscene, cinteg)
-        timed("branch", phase_branch, cscene, rays)
-        del rays
-        claunches, c64_pool, c64_fixed, cres = timed("crown render", phase_crown_render, cscene,
-                                                     cinteg)
-        del cscene, cinteg
-        torch.cuda.empty_cache()
+        if want("crown"):
+            cscene, cinteg = timed("crown scene", crown_scene)
+            ct, rays = timed("crown check", phase_crown_check, cscene, cinteg)
+            timed("crown branch", phase_branch, cscene, rays)
+            del rays
+            claunches, c64_pool, c64_fixed, cres = timed("crown render", phase_crown_render,
+                                                         cscene, cinteg)
+            del cscene, cinteg
+            torch.cuda.empty_cache()
         dt = timed("direct", phase_direct)
-        torch.cuda.empty_cache()
         timed("samplers", phase_samplers)
         lt = timed("cloud", phase_cloud)
-        torch.cuda.empty_cache()
         kt_c = timed("caustic", phase_caustic)
-        torch.cuda.empty_cache()
         kt_b = timed("breadth", phase_breadth)
-        torch.cuda.empty_cache()
         kt_t = timed("textured", phase_textured)
-        torch.cuda.empty_cache()
         kt_m = timed("motion", phase_motion)
-        torch.cuda.empty_cache()
         kt_s = timed("subsurface", phase_subsurface)
-        torch.cuda.empty_cache()
         kt_i = timed("infra", phase_infra)
-        torch.cuda.empty_cache()
+        kt_v = timed("serve", phase_serve)
         timed("cli", phase_cli)
+        if only:
+            log(f"[done] phases {sorted(only)}: total {time.perf_counter() - t0:.1f} s")
+            return 0
 
         def kernel(name, source, replaces):
             crown = dict(ct[name], launches=claunches[name], launches_64_pool=c64_pool[name],
@@ -2457,7 +2723,7 @@ def main() -> int:
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
                      breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name],
-                     subsurface=kt_s[name], infra=kt_i[name])
+                     subsurface=kt_s[name], infra=kt_i[name], serve=kt_v[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],
@@ -2485,4 +2751,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

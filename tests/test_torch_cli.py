@@ -3,8 +3,11 @@
 - `main([scene, "--quick", "--device", "cpu", "-o", out.pfm, ...])`
   returns 0 and writes the render's developed image: the PFM holds float32,
   so the file read back must equal `RenderResult.image` bit for bit;
-- each of the reference's flags that the port does not run (--serve,
-  --mesh, --multihost) exits 2 and says "not ported";
+- each of the reference's flags that the port does not run (--mesh,
+  --multihost) exits 2 and says "not ported";
+- `--serve` runs the render service's JSONL daemon on stdin: a script
+  that submits the Cornell box's quick crop, polls and shuts down
+  answers every line and writes the same image as the CLI's render;
 - `--trace`, `--metrics-path` and `--faults` run: the trace file passes
   the trace validator with every `render/slice` span closed, the metrics
   file passes the exposition validator with the render's phases in it,
@@ -18,8 +21,10 @@
   fallback).
 """
 
+import io
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -84,7 +89,7 @@ def test_spp_chunk_sets_the_chunk_and_the_fingerprint(tmp_path, monkeypatch):
         tck.load_checkpoint(ck, fp.replace("chunk=512", "chunk=131072"))
 
 
-@pytest.mark.parametrize("flag", ["--serve", "--mesh=8", "--multihost"])
+@pytest.mark.parametrize("flag", ["--mesh=8", "--multihost"])
 def test_unported_flag_exits_2(flag, capsys):
     assert cli.main([CORNELL, flag, "--device", "cpu"]) == 2
     assert "is not ported" in capsys.readouterr().err
@@ -128,6 +133,26 @@ def test_observability_and_fault_flags_run(flag, quick_image, tmp_path):
         TRACE.configure(None)
         TRACE.reset()
         METRICS.configure(None)
+    assert np.array_equal(read_pfm(out), quick_image)
+
+
+def test_serve_runs_a_jsonl_script(quick_image, tmp_path, monkeypatch, capsys):
+    out = str(tmp_path / "served.pfm")
+    script = [
+        {"op": "submit", "scene": CORNELL, "job": "a", "quick": True,
+         "crop": [0.25, 0.5, 0.25, 0.5], "chunk": 512, "outfile": out},
+        {"op": "poll", "job": "a"},
+        {"op": "health"},
+        {"op": "shutdown", "drain": True},
+    ]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("".join(json.dumps(c) + "\n" for c in script)))
+    assert cli.main(["--serve", "--quiet", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    answers = [x for x in lines if "op" in x]
+    assert [x["op"] for x in answers] == ["submit", "poll", "health"]
+    assert all(x["ok"] for x in answers)
+    assert [x for x in lines if "event" in x] == [
+        {"event": "done", "job": "a", "rays": lines[-1]["rays"], "seconds": lines[-1]["seconds"]}]
     assert np.array_equal(read_pfm(out), quick_image)
 
 

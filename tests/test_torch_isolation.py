@@ -133,7 +133,13 @@ COPIES = ["scene/plyreader.py", "shapes/loopsubdiv.py"]
 #: statements, the port's package named where the reference names its own;
 #: their docstrings and comments drop the reference's change history
 CODE_COPIES = ["utils/clock.py", "obs/trace.py", "obs/flight.py", "obs/metrics.py",
-               "chaos/__init__.py"]
+               "chaos/__init__.py", "serve/queue.py", "obs/health.py", "obs/__main__.py",
+               "fleet/router.py"]
+#: the port's own additions to a code copy, taken out before the
+#: comparison: LocalReplica takes the service's device (CUDA unless the
+#: caller names the CPU), which the reference's single-backend service
+#: does not need
+PORT_ADDITIONS = {"fleet/router.py": ["        device=None,\n", "device=device, "]}
 
 
 def _code(src: str) -> str:
@@ -155,6 +161,9 @@ def test_host_copies_match_the_reference_and_import_neither(module):
         assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_pbrt"), f"{module} imports {name}"
     with open(os.path.join(PKG, module)) as f:
         ours = f.read().replace("tpu_pbrt_torch.", "tpu_pbrt.")
+    for added in PORT_ADDITIONS.get(module, []):
+        assert added in ours, f"{module}: the port's addition {added!r} moved"
+        ours = ours.replace(added, "")
     with open(os.path.join(ROOT, "tpu_pbrt", module)) as f:
         theirs = f.read()
     if module in CODE_COPIES:

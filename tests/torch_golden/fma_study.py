@@ -21,6 +21,16 @@ BSDF, the hair lobes included) or `tpu_pbrt.integrators.path.make_interaction`.
 With no argument it renders the reference as compiled. Prints the rays,
 the MSE against the port and against the stored golden, and how often
 each callback ran.
+
+`--barycentrics=fused` (or `=plain`) instead replaces the hit
+barycentrics of the reference's `accel/stream.py::_finalize_hits` by a
+host computation from the same rays and vertices: `fused` rounds them as
+the compiled program's kernels do (read from its XLA dump's object code:
+each cross-product component a_j b_k - a_k b_j as fma(a_j, b_k,
+-(a_k b_j)), each dot product as fma(a2, b2, fma(a1, b1, a0 b0)), and
+b0 = 1 - u - v as fma(-dot(d, qvec), inv, 1 - u)), `plain` rounds every
+operation apart, as the port does. The fused one reproduces the
+compiled render; the plain one gives the port's rays.
 """
 
 import importlib
@@ -79,6 +89,65 @@ def eager(fn, name, calls):
     return wrapped
 
 
+def _cross(a, b, fused):
+    import numpy as np
+
+    def c(j, k):
+        if fused:
+            return _fma(a[..., j], b[..., k], -(a[..., k] * b[..., j]))
+        return a[..., j] * b[..., k] - a[..., k] * b[..., j]
+
+    return np.stack([c(1, 2), c(2, 0), c(0, 1)], -1)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (the f64 product of two f32 is exact)."""
+    import numpy as np
+
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _dot(a, b, fused):
+    if fused:
+        return _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def host_barycentrics(fused: bool, calls):
+    """Replace _finalize_hits' (b0, b1) by a host computation from the
+    program's own rays and vertices, rounded as `fused` says."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import tpu_pbrt.accel.stream as stream
+
+    f32 = np.float32
+    orig = stream._finalize_hits
+
+    def host(o, d, tv, hit):
+        calls["barycentrics"] = calls.get("barycentrics", 0) + 1
+        o, d, tv = (np.asarray(x, f32) for x in (o, d, tv))
+        v0 = tv[:, 0]
+        e1, e2 = tv[:, 1] - v0, tv[:, 2] - v0
+        pvec = _cross(d, e2, fused)
+        det = _dot(e1, pvec, fused)
+        inv = (f32(1) / np.where(det == 0, f32(1), det)).astype(f32)
+        sv = o - v0
+        u = (_dot(sv, pvec, fused) * inv).astype(f32)
+        dq = _dot(d, _cross(sv, e1, fused), fused)
+        b0 = _fma(-dq, inv, f32(1) - u) if fused else (f32(1) - u) - (dq * inv).astype(f32)
+        return (np.where(hit, b0, f32(0)).astype(f32), np.where(hit, u, f32(0)).astype(f32))
+
+    def finalize(tri_verts, o, d, t_raw, prim, *a, **k):
+        h = orig(tri_verts, o, d, t_raw, prim, *a, **k)
+        sh = jax.ShapeDtypeStruct(h.b0.shape, jnp.float32)
+        b0, b1 = jax.pure_callback(host, (sh, sh), o, d, h.tv, prim >= 0)
+        return h._replace(b0=b0, b1=b1)
+
+    stream._finalize_hits = finalize
+
+
 def port_render():
     import torch
 
@@ -103,7 +172,9 @@ def main(targets):
     config.reload()
     port_img, port_rays = port_render()
     calls = {}
-    for target in targets:
+    for target in [t for t in targets if t.startswith("--barycentrics=")]:
+        host_barycentrics(target.split("=", 1)[1] == "fused", calls)
+    for target in [t for t in targets if not t.startswith("--")]:
         mod, attr = target.rsplit(".", 1)
         m = importlib.import_module(mod)
         setattr(m, attr, eager(getattr(m, attr), target, calls))

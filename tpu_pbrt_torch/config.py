@@ -31,6 +31,12 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
 - TORCH_PBRT_RETRY_MAX / _RETRY_BACKOFF / _RETRY_BACKOFF_CAP /
   _RETRY_DEADLINE_S: the recovery ladder's attempt budget, backoff base
   and ceiling in seconds, and its deadline (8, 0.25, 30, 600);
+- TORCH_PBRT_SERVE_PREFETCH / _SERVE_CHUNK / _SERVE_RESIDENT_MB /
+  _SERVE_SLO_DEPTH / _SERVE_SLO_WAIT_S: the render service's next-job
+  prefetch (on), slice width (the device chunk), resident-scene budget
+  in MB (12288) and per-priority-class queue-depth and queue-wait
+  targets (none); TORCH_PBRT_HEALTH_WEDGE_STEPS: the health watchdog's
+  wedge threshold (12 steps);
 - TORCH_PBRT_METRICS / _METRICS_PATH / _METRICS_EXEMPLARS,
   TORCH_PBRT_TRACE_PATH, TORCH_PBRT_FLIGHT_PATH / _FLIGHT_MAX_MB: the
   host-side metrics registry, the Chrome-trace file and the flight
@@ -78,7 +84,9 @@ class Config:
                  "telemetry", "mipfilter", "progress_frequency", "pipeline", "audit_drops",
                  "allow_drops", "faults", "nonfinite", "retry_max", "retry_backoff",
                  "retry_backoff_cap", "retry_deadline", "metrics", "metrics_path",
-                 "metrics_exemplars", "trace_path", "flight_path", "flight_max_mb")
+                 "metrics_exemplars", "trace_path", "flight_path", "flight_max_mb",
+                 "serve_prefetch", "serve_chunk", "serve_resident_mb", "serve_slo_depth",
+                 "serve_slo_wait_s", "health_wedge_steps")
 
     def _load(self) -> "Config":
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
@@ -132,6 +140,25 @@ class Config:
         self.flight_path: Optional[str] = os.environ.get("TORCH_PBRT_FLIGHT_PATH") or None
         #: flight-recorder size cap in MB (None: unbounded)
         self.flight_max_mb: Optional[float] = _float("TORCH_PBRT_FLIGHT_MAX_MB", None)
+        #: render service: pre-activate the next scheduled job (plan build,
+        #: checkpoint film load, residency touch) while the current job's
+        #: slice is in flight; never preempts, never changes the schedule
+        self.serve_prefetch: bool = _flag("TORCH_PBRT_SERVE_PREFETCH", True)
+        #: render-service slice width in camera rays, the preemption
+        #: quantum (None: the device chunk)
+        self.serve_chunk: Optional[int] = _int("TORCH_PBRT_SERVE_CHUNK", None)
+        #: resident-scene budget in MB (LRU eviction above it). The
+        #: reference's default, kept so that both caches evict alike in
+        #: the parity tests
+        self.serve_resident_mb: Optional[float] = _float("TORCH_PBRT_SERVE_RESIDENT_MB", 12288.0)
+        #: per-priority-class queue-depth targets: "8" (every class) or
+        #: "0=4,5=32" (serve/queue.py parse_slo_spec); empty: none
+        self.serve_slo_depth: str = os.environ.get("TORCH_PBRT_SERVE_SLO_DEPTH", "").strip()
+        #: per-class p90 queue-wait targets in seconds, same grammar
+        self.serve_slo_wait_s: str = os.environ.get("TORCH_PBRT_SERVE_SLO_WAIT_S", "").strip()
+        #: consecutive step() calls with runnable jobs and no cursor
+        #: advance before the health watchdog reports a wedge
+        self.health_wedge_steps: int = _int("TORCH_PBRT_HEALTH_WEDGE_STEPS", 12)
         return self
 
 

@@ -584,6 +584,16 @@ class DispatchWindow:
             TRACE.flow_finish(span.get("flow_name", "slice_flow"), id=fid, ok=ok)
         TRACE.async_end(span["name"], id=span["id"], cat=span.get("cat", "slice"), ok=ok)
 
+    def close_spans(self, ok: bool) -> None:
+        """Close every in-flight slice's span without retiring it, for a
+        caller that syncs the whole job another way (the service's park
+        and finalize paths wait on the film, which every in-flight slice
+        writes) and then drops the window. The handles stay; a later
+        flush or drain finds the spans already closed."""
+        for i, (chunk, handle, span) in enumerate(self.slices):
+            self._close_span(span, ok)
+            self.slices[i] = (chunk, handle, None)
+
     def defer(self, cursor: int, fn) -> None:
         self.deferred.append((cursor, fn))
 

@@ -36,6 +36,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: kernel library name -> times this process compiled it (build_all); the
+#: render service's warm-resubmit audit reads it (a warm job builds none)
+BUILDS: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -85,6 +88,7 @@ def build_all() -> Dict[str, float]:
             errors.append(f"nvcc failed for {SOURCES[name]}:\n{log[-4000:]}")
         else:
             os.replace(tmp, out)
+            BUILDS[name] = BUILDS.get(name, 0) + 1
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs

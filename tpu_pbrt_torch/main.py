@@ -12,10 +12,12 @@ the camera samples per render chunk (the reference parses it without
 reading it). `--trace OUT.json` exports the render phases' span timeline
 as a Chrome trace, `--metrics-path OUT.prom` the host metrics registry
 as Prometheus text on exit, and `--faults PLAN` installs a chaos fault
-plan (tpu_pbrt_torch/chaos grammar) before either comes online. The
-reference's --serve, --mesh and --multihost are accepted and refused
-with exit code 2: they are not ported yet. A scene error exits with
-code 1.
+plan (tpu_pbrt_torch/chaos grammar) before either comes online.
+`--serve` runs the render service's stdin/JSONL daemon (protocol:
+`python -m tpu_pbrt_torch.serve --help`) on the same device, with the
+scenes on the command line submitted as its first jobs. The
+reference's --mesh and --multihost are accepted and refused with exit
+code 2: they are not ported yet. A scene error exits with code 1.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import sys
 
 #: reference flags the port does not run yet: (flag, takes a value)
 _NOT_PORTED = (
-    ("--serve", False),
     ("--mesh", True),
     ("--multihost", False),
 )
@@ -37,6 +38,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
         description="physically based renderer (pbrt-v3 scene compatible), PyTorch/CUDA port",
     )
     p.add_argument("scenes", nargs="*", help=".pbrt scene file(s) to render")
+    p.add_argument(
+        "--serve", action="store_true",
+        help="run as a persistent render service: scenes given on the command line are "
+        "submitted as initial jobs, then a stdin/JSONL daemon accepts submit/poll/preempt/"
+        "cancel ops (protocol: python -m tpu_pbrt_torch.serve --help)",
+    )
     p.add_argument("--outfile", "-o", default="", help="output image filename (overrides scene Film)")
     p.add_argument("--quick", action="store_true", help="reduce samples/resolution for a fast preview")
     p.add_argument("--quiet", action="store_true", help="suppress progress/warning messages")
@@ -80,8 +87,8 @@ def main(argv=None) -> int:
         if getattr(args, flag.lstrip("-").replace("-", "_")):
             print(f"tpu-pbrt-torch: {flag} is not ported to tpu_pbrt_torch yet", file=sys.stderr)
             return 2
-    if not args.scenes:
-        print("tpu-pbrt-torch: no scene files", file=sys.stderr)
+    if not args.scenes and not args.serve:
+        print("tpu-pbrt-torch: no scene files (and no --serve)", file=sys.stderr)
         return 1
     try:
         device = resolve_device(args.device)
@@ -112,6 +119,27 @@ def main(argv=None) -> int:
         TRACE.configure(args.trace)
     if args.metrics_path:
         METRICS.configure(args.metrics_path)
+    if args.serve:
+        from tpu_pbrt_torch.serve import RenderService
+        from tpu_pbrt_torch.serve.__main__ import run_daemon
+
+        service = RenderService(device=device, quiet=args.quiet)
+        for i, scene in enumerate(args.scenes):
+            # one --checkpoint path cannot be shared by several jobs: key
+            # it per scene when more than one is submitted
+            ckpt = args.checkpoint
+            if ckpt and len(args.scenes) > 1:
+                ckpt = f"{ckpt}.{i}"
+            job = service.submit(scene, options=opts, checkpoint_path=ckpt,
+                                 checkpoint_every=args.checkpoint_every,
+                                 outfile=args.outfile)
+            if not args.quiet:
+                print(f"tpu-pbrt-torch: submitted {scene} as {job}", file=sys.stderr)
+        try:
+            return run_daemon(service)
+        finally:
+            TRACE.maybe_export()
+            METRICS.maybe_export()
     try:
         for scene in args.scenes:
             try:

@@ -113,14 +113,9 @@ def _displaced_sphere(n_theta=180, n_phi=360, seed=7):
     return V, F, N
 
 
-def make_killeroo_like(res=512, spp=64, integrator="path", maxdepth=5,
-                       n_theta=180, n_phi=360, options=None, device=None) -> PbrtAPI:
-    """killeroo-simple stand-in: one ~128k-triangle matte mesh over a ground
-    plane, one area light + point fill, path integrator. Parsed up to
-    (not including) WorldEnd; compile with scene.compiler.compile_scene."""
-    api = pbrt_init(options or Options(quiet=True), device=device)
-    parse_string(
-        f'''
+def _killeroo_head(res, spp, integrator, maxdepth) -> str:
+    """The killeroo stand-in's text up to (not including) the blob."""
+    return f'''
 Integrator "{integrator}" "integer maxdepth" [{maxdepth}]
 Sampler "zerotwosequence" "integer pixelsamples" [{spp}]
 PixelFilter "box"
@@ -136,10 +131,16 @@ LightSource "point" "rgb I" [4 4 5] "point from" [2.5 2 -2.5]
 Material "matte" "rgb Kd" [0.82 0.78 0.75]
 Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-6 -0.72 -6  -6 -0.72 6  6 -0.72 6  6 -0.72 -6]
 Material "matte" "rgb Kd" [0.35 0.30 0.25]
-''',
-        api,
-        render=False,
-    )
+'''
+
+
+def make_killeroo_like(res=512, spp=64, integrator="path", maxdepth=5,
+                       n_theta=180, n_phi=360, options=None, device=None) -> PbrtAPI:
+    """killeroo-simple stand-in: one ~128k-triangle matte mesh over a ground
+    plane, one area light + point fill, path integrator. Parsed up to
+    (not including) WorldEnd; compile with scene.compiler.compile_scene."""
+    api = pbrt_init(options or Options(quiet=True), device=device)
+    parse_string(_killeroo_head(res, spp, integrator, maxdepth), api, render=False)
     V, F, N = _displaced_sphere(n_theta, n_phi)
     ps = ParamSet()
     ps.add("integer indices", F.reshape(-1).tolist())
@@ -147,6 +148,29 @@ Material "matte" "rgb Kd" [0.35 0.30 0.25]
     ps.add("normal N", N.reshape(-1).tolist())
     api.shape("trianglemesh", ps)
     return api
+
+
+def killeroo_file(res=128, spp=64, integrator="path", maxdepth=5, n_theta=180,
+                  n_phi=360) -> str:
+    """The killeroo stand-in as a .pbrt file, the blob (its vertices and
+    normals as float32) a binary PLY under `Shape "plymesh"`: the scene
+    make_killeroo_like builds, for callers that take a path (the render
+    service's daemon). Both files are written once under .torch_build/;
+    returns the .pbrt path."""
+    from tpu_pbrt_torch.scene.plyreader import write_ply
+
+    tag = f"{n_theta}x{n_phi}"
+    ply = _publish(os.path.join(BUILD_DIR, f"killeroo_blob_{tag}.ply"),
+                   lambda t: write_ply(t, *_displaced_sphere(n_theta, n_phi)))
+    text = (_killeroo_head(res, spp, integrator, maxdepth)
+            + f'Shape "plymesh" "string filename" ["{ply}"]\nWorldEnd\n')
+
+    def write(t):
+        with open(t, "w") as f:
+            f.write(text)
+
+    return _publish(os.path.join(
+        BUILD_DIR, f"killeroo_{res}x{res}_{spp}spp_{integrator}{maxdepth}_{tag}.pbrt"), write)
 
 
 #: the directory of the port's generated scene files (gitignored)
