@@ -119,7 +119,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      infinite light; `path` at maxdepth 5):
      [scene] its sizes and compile seconds;
      [check] both kernels against their plain versions, EXACT, on the
-     512x512x16 (gaussian filter) render's pool wave 1 of its middle chunk
+     512x512x8 (gaussian filter) render's pool wave 1 of its middle chunk
      (packed flush key) and its middle chunk's first fixed-batch 2^20-ray
      camera wave (unpacked key), timed as in phase 2;
      [render] that render through the pool and the fixed batch (the same
@@ -180,17 +180,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      rays; images within rtol 1e-4 / atol 1e-5), timed (Mray/s, waves,
      the card's name and power limit), its launches counted as in phase 3
      (the F = 64 flush must launch); `path` 64x64x16 through the pool
-     against tests/torch_golden/motion_path_cpu_64x64_16spp.npz, its MSE
-     printed beside the 1e-4 bar with its verdict (paths that branch
-     apart where the reference's compiled bounce fuses multiplies into
-     adds in its shared vector math: ROADMAP Queue 3 item 12, open);
-     `path` 64x64x64 through the pool and the fixed batch against
+     against tests/torch_golden/motion_path_cpu_64x64_16spp.npz (MSE
+     bar 1e-4: the port rounds as the reference's compiled program, a
+     product fused into the sum that consumes it, ROADMAP Queue 3 item
+     12); `path` 64x64x64 through the pool and the fixed batch against
      motion_path_cpu_64x64_64spp.npz and `bdpt` (the shutter-start
      frame, disney and hair shaded through BDPT) at
      32x32x16 against motion_bdpt_cpu_32x32_16spp.npz (MSE bar 1e-4, no
      pair dropped, rays printed beside the reference's); the card
-     against the CPU port at 32x32x4 on the small variant (MSE bar 1e-4,
-     printed beside 1e-8);
+     against the CPU port at 32x32x4 on the small variant (MSE below
+     1e-8);
  11. subsurface — the BSSRDF probe wave and the fourier material on
      make_subsurface_like() at its full geometry (1,126,884 triangles: the
      displaced-sphere blob at the crown's tessellation in `subsurface`
@@ -200,7 +199,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      maxdepth 5):
      [scene] its sizes, material types, BSSRDF radii and compile seconds;
      [check] both kernels against their plain versions, EXACT, on the
-     512x512x16 render's first probe-chord wave (the first chord of its
+     512x512x8 render's first probe-chord wave (the first chord of its
      middle chunk's first probe through the pool: closest hit, each
      chord's short t_max, most chords missing), timed as in phase 2;
      [render] that render through the pool and the fixed batch (the same
@@ -240,7 +239,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      one uninterrupted render (the image must be written and finite), one
      killed after its first checkpoint and then resumed, whose image and
      final film must equal the uninterrupted one bit for bit;
- 15. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 15. mesh   — several ranks on the main path (tpu_pbrt_torch/parallel/
+     mesh.py): the full killeroo `path` at 128x128x256 through the pool
+     over a mesh of ranks, each a spawned process that compiles the
+     scene on its device and renders its half (or quarter) of every
+     chunk; the film all-reduced after each chunk. With two or more cards
+     NCCL over min(cards, 4) ranks, one card each; on one card two ranks
+     share it over gloo (the launcher's explicit share_device layout),
+     which measures no scaling. Prints the backend and layout, each
+     rank's waves (wave_spread), the all-reduce ms per chunk, the flush
+     and expand launches per rank (counters zeroed just before the mesh
+     render, in every rank) and Mray/s beside the solo render's; checks
+     the ranks' films equal, the rays equal the solo render's (phase 3),
+     the film within rtol 1e-4 / atol 1e-5 of it and within MSE 1e-4 of
+     refimg/killeroo_cpu_128x128_256spp.npz; a `mesh:lost@chunk=1`
+     recovery at 128x128x32 (chunks of 2^17) bit-identical to the
+     undisturbed mesh render; a small caustic SPPM (64x64, 2 x 4,096
+     photons) over the mesh against the solo SPPM (max relative
+     difference below 2e-2, mean below 2e-3);
+ 16. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
@@ -248,7 +265,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      scene's pool and fixed waves under "breadth", the textured scene's
      under "textured", the motion scene's under "motion", the subsurface
      scene's probe-chord wave under "subsurface", the infra phase's under
-     "infra", the serve phase's under "serve"), the whole script's time,
+     "infra", the serve phase's under "serve", the mesh's launches per
+     rank under "mesh"), the whole script's time,
      the card's name and power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -257,8 +275,8 @@ CUDA device or outside a checkout of the repo.
 
 `python3 chip_smoke.py PHASE ...` (build, check, render, crown, direct,
 samplers, cloud, caustic, breadth, textured, motion, subsurface, infra,
-serve, cli) runs the build and the named phases only, for development,
-and prints no kernels line and no result line.
+serve, cli, mesh) runs the build and the named phases only, for
+development, and prints no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -293,7 +311,7 @@ SPPM_TIMED = (256, '"integer numiterations" [2] "integer photonsperiteration" [1
                    '"float radius" [0.05]')
 #: the timed caustic MLT render, with a chain count that fills the card
 MLT_TIMED = (128, '"integer chains" [65536] "integer bootstrapsamples" [65536] '
-                  '"integer mutationsperpixel" [64]')
+                  '"integer mutationsperpixel" [32]')
 #: SPPM on the card against the CPU port
 SPPM_SMALL = '"integer numiterations" [2] "integer photonsperiteration" [4096] "float radius" [0.1]'
 #: MLT on the card against its JAX CPU reference: the image means' bar
@@ -303,7 +321,7 @@ CROWN_SPP = 4
 #: the JAX CPU references of the breadth scene at 64x64x16, by camera
 BREADTH_REF = os.path.join(GOLDEN, "breadth_{}_cpu_64x64_16spp.npz")
 #: the timed breadth render, whose pool and fixed waves the kernels are checked on
-BREADTH_RES, BREADTH_SPP = 512, 16
+BREADTH_RES, BREADTH_SPP = 512, 8
 #: the 64x64x16 renders held against the JAX CPU references: camera -> filter
 BREADTH_REFS = {"perspective": "gaussian", "realistic": "mitchell"}
 #: the cameras held against the CPU port at 32x32x4 on the small tessellation
@@ -317,26 +335,17 @@ TEXTURED_BDPT_REF = os.path.join(GOLDEN, "textured_bdpt_cpu_32x32_16spp.npz")
 #: the timed textured render, whose pool and fixed waves the kernels are checked on
 TEXTURED_RES, TEXTURED_SPP = 512, 4
 #: the JAX CPU references of the motion scene (path 64x64x16 and 64x64x64,
-#: bdpt 32x32x16). A few paths take another way than the reference's: its
-#: compiled program fuses multiplies into adds across operations (in the
-#: hit point's interpolation and the continuation direction, not in the
-#: hair lobes: tests/torch_golden/fma_study.py), which the port rounds
-#: apart (ROADMAP Queue 3 item 12).
-#: Their squared difference falls as 1/spp: the 64x64x64 render is held
-#: to the bar, the 64x64x16 one is printed beside it with its verdict
+#: bdpt 32x32x16), each held to the bar
 MOTION_REF = os.path.join(GOLDEN, "motion_path_cpu_64x64_64spp.npz")
 MOTION_REF16 = os.path.join(GOLDEN, "motion_path_cpu_64x64_16spp.npz")
 MOTION_BDPT_REF = os.path.join(GOLDEN, "motion_bdpt_cpu_32x32_16spp.npz")
-#: the motion scene's card-vs-CPU-port MSE at 32x32x4 as PERF.md records it,
-#: printed beside this run's
-MOTION_PORT_GAP = 2.424e-7
 
 #: the timed motion render, whose pool and fixed waves the kernels are checked on
 MOTION_RES, MOTION_SPP = 512, 4
 #: the JAX CPU reference of the subsurface scene (path 64x64x16)
 SUBSURFACE_REF = os.path.join(GOLDEN, "subsurface_path_cpu_64x64_16spp.npz")
 #: the timed subsurface render, whose first probe-chord wave the kernels are checked on
-SUBSURFACE_RES, SUBSURFACE_SPP = 512, 16
+SUBSURFACE_RES, SUBSURFACE_SPP = 512, 8
 #: the served killeroo: 128x128x64 = 2^20 work items in slices of 2^18, 4 a job
 SERVE_RES, SERVE_SPP, SERVE_CHUNK = 128, 64, 262144
 
@@ -958,8 +967,156 @@ def phase_render(scene, integ):
     if sp.rays_traced != sf.rays_traced or not np.allclose(sp.image, sf.image, rtol=1e-4,
                                                            atol=1e-5):
         raise SmokeFailure("render: the pool and the fixed batch disagree at 64x64x16")
-    return launches, flaunches
+    return launches, flaunches, res
 
+
+# -- phase 15 ------------------------------------------------------------------
+
+#: the mesh phase's recovery render: 128x128 at this spp in chunks of 2^17
+MESH_RECOVERY_SPP = 32
+MESH_RECOVERY_CHUNK = 1 << 17
+MESH_SPPM_RES = 64
+
+
+def _mesh_rank(mesh, ckpt_dir):
+    """One rank of `[mesh]` (a spawned process): the killeroo at 128x128x256
+    over the mesh with this rank's launches counted, the mesh:lost
+    recovery at 128x128x32 and the small caustic SPPM."""
+    import numpy as np
+
+    from tpu_pbrt_torch.chaos import CHAOS
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.scenes import compile_api, make_caustic_like, make_killeroo_like
+    from tpu_pbrt_torch.utils.clock import VirtualClock
+
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    t0 = time.perf_counter()
+    scene, integ = compile_api(make_killeroo_like(res=128, spp=256, maxdepth=5,
+                                                  device=mesh.device))
+    out["compile_s"] = time.perf_counter() - t0
+    mesh.barrier()
+    reset_launches()
+    res = integ.render(scene, mesh=mesh)
+    out["launches"] = dict(LAUNCHES)
+    out["main"] = (res.image, res.rays_traced, res.seconds, res.mray_per_sec, res.stats)
+    del scene, integ
+
+    scene, integ = compile_api(make_killeroo_like(res=128, spp=MESH_RECOVERY_SPP, maxdepth=5,
+                                                  device=mesh.device))
+    integ.clock = VirtualClock()
+    clean = integ.render(scene, mesh=mesh, chunk=MESH_RECOVERY_CHUNK)
+    CHAOS.install("mesh:lost@chunk=1")
+    try:
+        lost = integ.render(scene, mesh=mesh, chunk=MESH_RECOVERY_CHUNK, checkpoint_every=1,
+                            checkpoint_path=os.path.join(ckpt_dir, "lost.npz"))
+    finally:
+        CHAOS.clear()
+    out["recovery"] = {
+        "chunks": clean.stats["chunks"],
+        "equal": bool(np.array_equal(clean.image, lost.image)
+                      and clean.rays_traced == lost.rays_traced),
+        "recovery": lost.stats.get("recovery"), "rays": clean.rays_traced}
+    del scene, integ
+
+    scene, integ = compile_api(make_caustic_like(res=MESH_SPPM_RES, spp=1, integrator="sppm",
+                                                 params=SPPM_SMALL, device=mesh.device))
+    sp = integ.render(scene, mesh=mesh)
+    out["sppm"] = (sp.image, sp.rays_traced, sp.stats["mesh"])
+    return out
+
+
+def phase_mesh(solo=None):
+    """Several ranks on the main path (see the module doc, phase 15).
+    `solo` is phase 3's pool render (rendered here when phase 3 did not
+    run). Returns {kernel: the mesh render's launches per rank, with the
+    layout and Mray/s}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.parallel.mesh import default_backend, launch
+    from tpu_pbrt_torch.scenes import compile_api, make_caustic_like, make_killeroo_like
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n, share = (min(cards, 4), False) if cards >= 2 else (2, True)
+    backend = default_backend("cuda", share)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckpt:
+        results = launch(_mesh_rank, n, args=(ckpt,), device="cuda", share_device=share,
+                         timeout=900)
+    r0 = results[0]
+    img, rays, secs, mray, stats = r0["main"]
+    m = stats["mesh"]
+    compile_s = ", ".join(f"{r['compile_s']:.2f}" for r in results)
+    log(f"[mesh] {m['layout']}: backend {m['backend']} (asked {backend}), "
+        f"{cards} card(s) visible; the ranks compiled the scene in {compile_s} s")
+    for r in results[1:]:
+        if r["main"][1] != rays or not np.array_equal(r["main"][0], img):
+            raise SmokeFailure(f"mesh: rank {r['rank']}'s film or rays differ from rank 0's")
+    if solo is None:
+        scene, integ = compile_api(make_killeroo_like(res=128, spp=256, maxdepth=5,
+                                                      device="cuda"))
+        solo = integ.render(scene)
+        del scene, integ
+    ref = np.load(REF_IMAGE)["image"]
+    mse = float(np.mean((img.astype(np.float64) - ref) ** 2))
+    close = np.isclose(img, solo.image, rtol=1e-4, atol=1e-5)
+    spread = stats["telemetry"]["wave_spread"]
+    red, wait = m["allreduce_ms"], m["wait_ms"]
+    log(f"[mesh] killeroo pool 128x128x256 over {n} ranks: {rays} rays (solo "
+        f"{solo.rays_traced}), image mean {img.mean():.6f} (solo {solo.image.mean():.6f}), "
+        f"pixel channels outside rtol 1e-4 / atol 1e-5 of the solo render: "
+        f"{int((~close).sum())}, max |diff| {np.abs(img - solo.image).max():.3e}; MSE vs ref "
+        f"{mse:.3e} (bar {MSE_BAR:g})")
+    log(f"[mesh] waves per rank {spread['per_device_waves']} (n_waves {stats['n_waves']}, "
+        f"rel_spread {spread['rel_spread']:.4f}); {stats['chunks']} chunks of {stats['chunk']} "
+        f"({m['chunk_per_rank']} a rank); all-reduce ms per chunk {red} (mean "
+        f"{sum(red) / max(len(red), 1):.3f}), rank 0's wait for the slowest rank before it, ms "
+        f"{wait}")
+    for r in results:
+        _, _, rs, rm, _ = r["main"]
+        log(f"[mesh] rank {r['rank']} on {r['device']}: {rs:.3f} s, {rm:.4f} Mray/s, launches "
+            f"{json.dumps(r['launches'])}")
+    note = " (two ranks share one card: this measures no scaling)" if share else ""
+    log(f"[mesh] Mray/s {mray:.4f} over {n} ranks beside the solo render's "
+        f"{solo.mray_per_sec:.4f}{note}; {card_line()}")
+    if (rays != solo.rays_traced or not close.all() or mse > MSE_BAR
+            or not np.isfinite(img).all()):
+        raise SmokeFailure(f"mesh: rays {rays} vs {solo.rays_traced}, {int((~close).sum())} "
+                           f"channels outside the tolerance, MSE {mse:.3e}")
+    if len(spread["per_device_waves"]) != n or sum(spread["per_device_waves"]) != stats["n_waves"]:
+        raise SmokeFailure(f"mesh: wave spread {spread} over {n} ranks")
+    for r in results:
+        for name, k in r["launches"].items():
+            if k <= 0:
+                raise SmokeFailure(f"mesh: rank {r['rank']} never launched {name}")
+
+    rec = [r["recovery"] for r in results]
+    log(f"[mesh] mesh:lost@chunk=1 at 128x128x{MESH_RECOVERY_SPP} ({rec[0]['chunks']} chunks of "
+        f"{MESH_RECOVERY_CHUNK}): bit-identical to the undisturbed mesh render on every rank "
+        f"{all(x['equal'] for x in rec)}, recovery {rec[0]['recovery']}, rays {rec[0]['rays']}")
+    if not all(x["equal"] and (x["recovery"] or {}).get("rollbacks") == 1 for x in rec):
+        raise SmokeFailure(f"mesh: the mesh:lost recovery is not bit-identical: {rec}")
+
+    sp_img, sp_rays, sp_m = r0["sppm"]
+    scene, integ = compile_api(make_caustic_like(res=MESH_SPPM_RES, spp=1, integrator="sppm",
+                                                 params=SPPM_SMALL, device="cuda"))
+    ssp = integ.render(scene)
+    del scene, integ
+    rel = np.abs(sp_img - ssp.image) / np.maximum(np.abs(ssp.image), 1e-3)
+    log(f"[mesh] caustic sppm {MESH_SPPM_RES}x{MESH_SPPM_RES} (2 x 4,096 photons) over {n} "
+        f"ranks: rays {sp_rays} (solo {ssp.rays_traced}), max rel {rel.max():.3e}, mean rel "
+        f"{rel.mean():.3e} (bars 2e-2, 2e-3), collectives {sp_m['collective_ms']} ms")
+    if (sp_rays != ssp.rays_traced or rel.max() >= 2e-2 or rel.mean() >= 2e-3
+            or any(not np.array_equal(r["sppm"][0], sp_img) for r in results)):
+        raise SmokeFailure("mesh: the SPPM over the mesh differs from the solo SPPM")
+    log(f"[mesh] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {name: {"ranks": n, "backend": m["backend"], "layout": m["layout"],
+                   "launches_per_rank": [r["launches"][name] for r in results],
+                   "mray_per_sec": mray, "solo_mray_per_sec": solo.mray_per_sec,
+                   "allreduce_ms_mean": sum(red) / max(len(red), 1)}
+            for name in r0["launches"]}
 
 # -- phase 4 -------------------------------------------------------------------
 
@@ -1312,6 +1469,27 @@ def phase_samplers():
     log(f"[samplers] {checked} draws of 2^20 items (random, 02, stratified, halton, sobol at "
         f"spp {spp}; int and per-lane salts; the Sobol' film jitter): the card's equal the CPU "
         f"port's bit for bit ({time.perf_counter() - t0:.1f} s)")
+    # the fused multiply-add the port's arithmetic rounds with (xla_math.fma32:
+    # torch.addcmul on the card, the f64 form on the CPU), with tensor and
+    # Python-float operands
+    from tpu_pbrt_torch.core.xla_math import fma32
+
+    a, b, c = (torch.randn(n, generator=g) * torch.exp(2 * torch.randn(n, generator=g))
+               for _ in range(3))
+    cases = ((a, b, c), (a, b[:1], c), (a, 0.819955, c), (a, b, -0.35))
+    for args in cases:
+        want = fma32(*args)
+        got = fma32(*(x.cuda() if torch.is_tensor(x) else x for x in args))
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise SmokeFailure("samplers: fma32 on the card differs from the CPU's")
+    from tpu_pbrt_torch.core.xla_math import sqrt as xla_sqrt
+
+    x = torch.abs(a) + 1e-30  # normal f32 values: the CPU path flushes subnormals
+    if not torch.equal(xla_sqrt(x.cuda()).cpu().view(torch.int32), xla_sqrt(x).view(torch.int32)):
+        raise SmokeFailure("samplers: xla_math.sqrt on the card differs from the CPU's")
+    log(f"[samplers] fma32 (torch.addcmul on the card): equal to the CPU's f64 form on "
+        f"{len(cases)} x 2^20 triples, tensor and scalar operands; xla_math.sqrt (torch.sqrt "
+        f"on the card) equal to the CPU's on 2^20 values")
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1647,7 +1825,7 @@ def _vignetting(scene, integ, cpu_scene, cpu_integ):
 
 def phase_breadth():
     """Scene breadth on the card (see the module doc, phase 8): the kernels
-    on the 512x512x16 render's pool and fixed waves, that render timed
+    on the 512x512x8 render's pool and fixed waves, that render timed
     through both, the 64x64x16 perspective and realistic renders against
     the JAX CPU references, the realistic camera's vignetting against the
     CPU port, and the orthographic and environment cameras against the
@@ -1679,7 +1857,7 @@ def phase_breadth():
     out, _ = _check_waves(scene, integ, "breadth ", fixed_chunk=n_chunks // 2, exact=True,
                           fixed_packed=False)
 
-    # [render] the 512x512x16 render through the pool and the fixed batch
+    # [render] the timed render through the pool and the fixed batch
     pool, p_l = _render_counted(integ, scene, regen=True)
     _log_render(f"breadth pool {BREADTH_RES}x{BREADTH_RES}x{BREADTH_SPP}", pool, p_l)
     fixed, f_l = _render_counted(integ, scene, regen=False)
@@ -1927,9 +2105,9 @@ def phase_motion():
     del scene, integ, pool, fixed
     torch.cuda.empty_cache()
 
-    # [render] path 64x64x16 against its JAX CPU reference at the bar,
-    # printed with its verdict (the open fault of ROADMAP Queue 3 item 12);
-    # then 64x64x64 through the pool and the fixed batch, held to the bar
+    # [render] path 64x64x16 against its JAX CPU reference at the bar (the
+    # fault of ROADMAP Queue 3 item 12, closed); then 64x64x64 through the
+    # pool and the fixed batch, held to the bar
     ref = np.load(MOTION_REF16)
     scene, integ = _motion(64, 16, "cuda")
     res, launches = _render_counted(integ, scene, regen=True)
@@ -1938,11 +2116,11 @@ def phase_motion():
     mse16 = float(np.mean((res.image.astype(np.float64) - want) ** 2))
     log(f"[motion] motion pool 64x64x16: image mean {res.image.mean():.6f} (JAX CPU "
         f"{want.mean():.6f}), MSE {mse16:.3e} (bar {MSE_BAR:g}: "
-        f"{'within' if mse16 <= MSE_BAR else 'OVER, the open fault of ROADMAP Queue 3 item 12'}),"
-        f" rays {res.rays_traced} (JAX CPU {int(ref['rays_traced'])}, "
-        f"{res.rays_traced - int(ref['rays_traced']):+d}), dropped {res.stats['n_drop']}")
-    if not np.isfinite(res.image).all() or res.stats["n_drop"]:
-        raise SmokeFailure("motion 64x64x16: non-finite image or pairs dropped")
+        f"{'within' if mse16 <= MSE_BAR else 'OVER'}), rays {res.rays_traced} (JAX CPU "
+        f"{int(ref['rays_traced'])}, {res.rays_traced - int(ref['rays_traced']):+d}), dropped "
+        f"{res.stats['n_drop']}")
+    if not np.isfinite(res.image).all() or res.stats["n_drop"] or mse16 > MSE_BAR:
+        raise SmokeFailure("motion 64x64x16: over the bar, non-finite or pairs dropped")
     del scene, integ, res
     ref = np.load(MOTION_REF)
     t0 = time.perf_counter()
@@ -1976,11 +2154,9 @@ def phase_motion():
     (a, ra), (b, rb) = got["cuda"], got["cpu"]
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     log(f"[motion] card vs CPU port, 32x32x4 (small variant): rays {ra} / {rb}, MSE "
-        f"{mse:.3e} (bar {MSE_BAR:g}; {'below' if mse < PORT_BAR else 'above'} the other "
-        f"scenes' {PORT_BAR:g}; PERF.md records {MOTION_PORT_GAP:.3e}), max |diff| "
-        f"{np.abs(a - b).max():.3e}, image mean "
+        f"{mse:.3e} (bar {PORT_BAR:g}), max |diff| {np.abs(a - b).max():.3e}, image mean "
         f"{a.mean():.6f} ({time.perf_counter() - t0:.1f} s with the CPU render)")
-    if not mse < MSE_BAR or not np.isfinite(a).all() or not a.mean() > 0:
+    if not mse < PORT_BAR or not np.isfinite(a).all() or not a.mean() > 0:
         raise SmokeFailure(f"motion: the card and the CPU port differ (MSE {mse:.3e})")
     log(f"[motion] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -2030,7 +2206,7 @@ def _capture_probe_wave(scene, integ):
 
 def phase_subsurface():
     """The subsurface scene on the card (see the module doc, phase 11):
-    both kernels on the first probe-chord wave, the 512x512x16 render
+    both kernels on the first probe-chord wave, the 512x512x8 render
     timed through the pool and the fixed batch, `path` 64x64x16 against
     the JAX CPU reference and the card against the CPU port. Returns
     {kernel: numbers at the probe-chord wave, with the timed renders'
@@ -2072,7 +2248,7 @@ def phase_subsurface():
            "expand": _expand_numbers(cap["expand"], "subsurface probe-chord wave")}
     del cap
 
-    # [render] the 512x512x16 render through the pool and the fixed batch
+    # [render] the timed render through the pool and the fixed batch
     pool, p_l = _render_counted(integ, scene, regen=True)
     _log_render(f"subsurface pool {SUBSURFACE_RES}x{SUBSURFACE_RES}x{SUBSURFACE_SPP}", pool, p_l)
     fixed, f_l = _render_counted(integ, scene, regen=False)
@@ -2631,7 +2807,7 @@ def phase_cli(device: str = "cuda") -> None:
 
 
 PHASES = ("build", "check", "render", "crown", "direct", "samplers", "cloud", "caustic",
-          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli")
+          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli", "mesh")
 
 
 def main(argv=()) -> int:
@@ -2679,6 +2855,7 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
             return out
 
+        solo = None
         if want("check") or want("render"):
             t1 = time.perf_counter()
             api = make_killeroo_like(res=128, spp=256, maxdepth=5, device="cuda")
@@ -2687,9 +2864,11 @@ def main(argv=()) -> int:
                 f"{scene.dev['tstream'].n_treelets} treelets of "
                 f"{scene.dev['tstream'].leaf_tris}, compiled in {time.perf_counter() - t1:.2f} s")
             kt = timed("check", phase_check, scene, integ)
-            launches, flaunches = timed("render", phase_render, scene, integ) or (None, None)
+            launches, flaunches, solo = (timed("render", phase_render, scene, integ)
+                                         or (None, None, None))
             del scene, integ
             torch.cuda.empty_cache()
+        kt_mesh = timed("mesh", phase_mesh, solo if want("render") else None)
 
         if want("crown"):
             cscene, cinteg = timed("crown scene", crown_scene)
@@ -2723,7 +2902,8 @@ def main(argv=()) -> int:
                      launches=launches[name], launches_fixed=flaunches[name], **kt[name],
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
                      breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name],
-                     subsurface=kt_s[name], infra=kt_i[name], serve=kt_v[name])
+                     subsurface=kt_s[name], infra=kt_i[name], serve=kt_v[name],
+                     mesh=kt_mesh[name])
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],

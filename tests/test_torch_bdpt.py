@@ -54,6 +54,7 @@ from tpu_pbrt_torch.integrators import bdpt as tbdpt
 from tpu_pbrt_torch.scene.api import Options as TOptions
 from tpu_pbrt_torch.scene.api import parse_string as tparse_string
 from tpu_pbrt_torch.scene.api import pbrt_init as tpbrt_init
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -168,7 +169,22 @@ def test_sample_le_and_le_pdfs_match_reference(kind):
 
 
 @pytest.mark.parametrize("scene", ["cornell", "caustic"])
+@rounded_apart
 def test_camera_importance_matches_reference(scene):
+    _check_camera_importance(scene, jcam)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "caustic"])
+def test_camera_importance_matches_reference_contracted(scene):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds but for the splat
+    raster position: compiled on its own, camera_sample_wi fuses products
+    of its raster transform that the port rounds apart, so a coordinate
+    near zero (a splat at the film's edge) may land 1e-5 apart."""
+    _check_camera_importance(scene, JitRef(jcam), raster_atol=1e-5)
+
+
+def _check_camera_importance(scene, jcam, raster_atol=None):
     if scene == "cornell":
         sj, _ = jscenes.compile_api(jscenes.make_cornell(res=16, spp=1))
         st, _ = tscenes.compile_api(tscenes.make_cornell(res=16, spp=1, device="cpu"))
@@ -192,8 +208,10 @@ def test_camera_importance_matches_reference(scene):
     a, b = jcam.camera_sample_wi(cj, pj), tcam.camera_sample_wi(ct, pt)
     np.testing.assert_array_equal(b[5].numpy(), np.asarray(a[5]))
     assert np.asarray(a[5]).mean() > 0.1
-    for k, f in enumerate(("wi", "dist", "pdf", "we", "raster")):
+    for k, f in enumerate(("wi", "dist", "pdf", "we")):
         _close(b[k], a[k], rtol=4e-6, what=f"camera_sample_wi {f}")
+    _close(b[4], a[4], rtol=4e-6, what="camera_sample_wi raster",
+           **({} if raster_atol is None else {"atol": raster_atol}))
     # the splat pixel of every in-bounds point (no point sits on an edge)
     inb = np.asarray(a[5])
     np.testing.assert_array_equal(np.floor(b[4].numpy()[inb]), np.floor(np.asarray(a[4])[inb]))

@@ -22,7 +22,11 @@ of matte and of metal off the strict bound, by at most 1.14e-5). Booleans
 (specular, transmission, pdf > 0, and so which glass lobe was drawn)
 must match exactly. Under `jit` XLA rounds differently from its own op
 by op evaluation (97% of the VNDF samples then differ in the last bits),
-so the eager functions are the reference here.
+so the eager functions are the reference for the port rounding every
+product apart (`xla_math.contraction(False)`). The `_contracted` twins
+hold the port's default rounding, the one every render runs, to the
+reference compiled at the renders' optimisation level (`jit_ref`), with
+the same bounds (measured: bit for bit on every lane of bsdf_sample).
 """
 
 import numpy as np
@@ -34,6 +38,7 @@ import torch
 
 from tpu_pbrt.core import bxdf as jb
 from tpu_pbrt_torch.core import bxdf as tb
+from tests.test_torch_xla_math import JitRef, jit_ref, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -119,15 +124,14 @@ def _both_jax(mat, mid, wo, wi, u0, u1, u2):
     return mp.ax, mp.ay, mp.rough_raw, jb.bsdf_eval(mp, wo, wi), jb.bsdf_sample(mp, wo, u0, u1, u2)
 
 
-@pytest.fixture(scope="module")
-def shaded(lanes):
+def _shade(lanes, both_jax):
     """Every material on its own 4,096 lanes, all in one batch: the JAX
-    side and the port's op by op (eager).
+    side through `both_jax` and the port's.
     Returns {name: (jax outputs, port outputs)} sliced per material."""
     wo_m, wi_m, u_m = lanes
     names, tab = _tables()
     mid = np.repeat(np.arange(len(names), dtype=np.int32), N)
-    ja = jax.block_until_ready(_both_jax(
+    ja = jax.block_until_ready(both_jax(
         {k: jnp.array(v) for k, v in tab.items()}, jnp.array(mid), jnp.array(wo_m),
         jnp.array(wi_m), *map(jnp.array, u_m)))
     mpt = tb.gather_mat({k: _t(v) for k, v in tab.items()}, _t(mid))
@@ -141,6 +145,21 @@ def shaded(lanes):
         out[n] = (jax.tree.unflatten(tree, [np.asarray(x)[sl] for x in flat_j]),
                   jax.tree.unflatten(tree, [x[sl] for x in flat_t]))
     return out
+
+
+@pytest.fixture(scope="module")
+@rounded_apart
+def shaded(lanes):
+    """The reference op by op (eager) and the port rounding every product
+    apart."""
+    return _shade(lanes, _both_jax)
+
+
+@pytest.fixture(scope="module")
+def shaded_contracted(lanes):
+    """The reference compiled (jax.jit) and the port in its default
+    contraction: the rounding every render runs."""
+    return _shade(lanes, jit_ref(_both_jax))
 
 
 def test_fresnel_terms(lanes, shaded):
@@ -160,6 +179,7 @@ def test_fresnel_terms(lanes, shaded):
            jb.fresnel_conductor(jnp.asarray(cos_i), jnp.asarray(e3), jnp.asarray(k3)))
 
 
+@rounded_apart
 def test_trowbridge_reitz_functions(lanes, shaded):
     wo, wi, u = lanes
     n = wo.shape[0]
@@ -189,8 +209,39 @@ def test_trowbridge_reitz_functions(lanes, shaded):
     assert (np.sign(wh_t.numpy()[:, 2]) == np.sign(wo[:, 2])).mean() > 0.99
 
 
+def test_trowbridge_reitz_functions_contracted(lanes):
+    """The default contraction against the compiled reference, bit for
+    bit, where the standalone compile fuses as the renders do:
+    RoughnessToAlpha and the visible-normal sample. tr_d, tr_lambda,
+    tr_g, tr_g1, tr_pdf and _tr_sample11 compiled on their own fuse other
+    products than they do inside a render's program (a few ulp apart from
+    the port, the slopes more near the pole); they are held contracted
+    inside bsdf_eval / bsdf_sample (test_bsdf_eval_and_sample_contracted)."""
+    wo, _, u = lanes
+    n = wo.shape[0]
+    rng = np.random.default_rng(6)
+    rough = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    ax = rng.uniform(0.01, 1.0, n).astype(np.float32)
+    ay = rng.uniform(0.01, 1.0, n).astype(np.float32)
+    jr = JitRef(jb)
+    np.testing.assert_array_equal(tb.tr_roughness_to_alpha(_t(rough)).numpy(),
+                                  np.asarray(jr.tr_roughness_to_alpha(rough)))
+    np.testing.assert_array_equal(
+        tb.tr_sample_wh(_t(wo), _t(u[0]), _t(u[1]), _t(ax), _t(ay)).numpy(),
+        np.asarray(jr.tr_sample_wh(wo, u[0], u[1], ax, ay)))
+
+
 @pytest.mark.parametrize("name", sorted(MATERIALS))
 def test_bsdf_eval_and_sample(name, lanes, shaded):
+    _check_shaded(name, lanes, shaded)
+
+
+@pytest.mark.parametrize("name", sorted(MATERIALS))
+def test_bsdf_eval_and_sample_contracted(name, lanes, shaded_contracted):
+    _check_shaded(name, lanes, shaded_contracted)
+
+
+def _check_shaded(name, lanes, shaded):
     i = sorted(MATERIALS).index(name)
     wo = lanes[0][i * N:(i + 1) * N]
     assert (wo[:, 2] < 0).mean() > 0.4 and (wo[:, 2] > 0).mean() > 0.4

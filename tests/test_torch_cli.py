@@ -3,8 +3,11 @@
 - `main([scene, "--quick", "--device", "cpu", "-o", out.pfm, ...])`
   returns 0 and writes the render's developed image: the PFM holds float32,
   so the file read back must equal `RenderResult.image` bit for bit;
-- each of the reference's flags that the port does not run (--mesh,
-  --multihost) exits 2 and says "not ported";
+- `--mesh 2` renders over two gloo CPU ranks and writes the image
+  (rank 0), within rtol 1e-4 / atol 1e-5 of the one-device CLI render;
+  `--multihost` outside a process group warns and renders on one device,
+  bit-identical; serving over a mesh (`--serve` with `--mesh` or
+  `--multihost`) exits 2 and says "not ported";
 - `--serve` runs the render service's JSONL daemon on stdin: a script
   that submits the Cornell box's quick crop, polls and shuts down
   answers every line and writes the same image as the CLI's render;
@@ -91,7 +94,8 @@ def test_spp_chunk_sets_the_chunk_and_the_fingerprint(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--mesh=8", "--multihost"])
 def test_unported_flag_exits_2(flag, capsys):
-    assert cli.main([CORNELL, flag, "--device", "cpu"]) == 2
+    # the mesh renders (below); serving over one is not ported
+    assert cli.main([CORNELL, "--serve", flag, "--device", "cpu"]) == 2
     assert "is not ported" in capsys.readouterr().err
 
 
@@ -104,6 +108,19 @@ def quick_image(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("clean") / "clean.pfm")
     assert cli.main([CORNELL, *QUICK, "-o", out]) == 0
     return read_pfm(out)
+
+
+def test_mesh_flag_renders_over_two_ranks(quick_image, tmp_path):
+    out = str(tmp_path / "mesh.pfm")
+    assert cli.main([CORNELL, *QUICK, "--mesh", "2", "-o", out]) == 0
+    np.testing.assert_allclose(read_pfm(out), quick_image, rtol=1e-4, atol=1e-5)
+
+
+def test_multihost_outside_a_group_renders_on_one_device(quick_image, tmp_path, monkeypatch):
+    monkeypatch.delenv("TORCH_PBRT_COORDINATOR_ADDRESS", raising=False)
+    out = str(tmp_path / "multihost.pfm")
+    assert cli.main([CORNELL, *QUICK, "--multihost", "-o", out]) == 0
+    np.testing.assert_array_equal(read_pfm(out), quick_image)
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--metrics-path", "--faults"])

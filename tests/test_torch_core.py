@@ -38,6 +38,7 @@ from tpu_pbrt_torch.core import transform as txf
 from tpu_pbrt_torch.core.film import Film as TFilm
 from tpu_pbrt_torch.integrators.common import WavefrontIntegrator as TWave
 from tpu_pbrt_torch.scene.paramset import ParamSet as TParamSet
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -200,7 +201,18 @@ def _light_tables(rng):
     return jdev, tdev, jsd, tsd
 
 
+@rounded_apart
 def test_sample_one_light_spatial():
+    _check_sample_one_light_spatial(jld)
+
+
+def test_sample_one_light_spatial_contracted():
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds."""
+    _check_sample_one_light_spatial(JitRef(jld))
+
+
+def _check_sample_one_light_spatial(jld):
     rng = np.random.default_rng(4)
     jdev, tdev, jsd, tsd = _light_tables(rng)
     n = 3000

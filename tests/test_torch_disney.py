@@ -41,6 +41,7 @@ import torch
 from tests.test_torch_bxdf import ATOL, _close, _dirs, _t
 from tpu_pbrt.core import bxdf as jb
 from tpu_pbrt_torch.core import bxdf as tb
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -89,33 +90,60 @@ def _mp(mod, n, *, color=(0.6, 0.4, 0.3), rough=0.4, metallic=0.0, aniso=0.0, sh
 
 
 @pytest.mark.parametrize("ps", PARAM_SETS, ids=_IDS)
+@rounded_apart
 def test_disney_functions_match_reference(ps):
+    _check_disney_functions(ps, jb)
+
+
+@pytest.mark.parametrize("ps", PARAM_SETS, ids=_IDS)
+def test_disney_functions_match_reference_contracted(ps):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds but for two.
+    Compiled on its own, _disney_f_pdf fuses products that the renders'
+    programs round apart: f and pdf within 2e-5 relative. So does
+    _disney_trans_terms, whose terms grow without bound where the
+    generalized half-vector's denominator vanishes, so that its lanes
+    part by up to 0.3% there: it is held only rounded apart (above). A
+    sampled direction near a lobe's pole amplifies an ulp: the sampled wi
+    within the sample bounds on 99.9% of the lanes (the lobe choice on
+    all)."""
+    _check_disney_functions(ps, JitRef(jb), eval_rtol=2e-5, trans=False, sample_share=0.999)
+
+
+def _check_disney_functions(ps, ref, eval_rtol=EVAL_RTOL, trans=True, sample_share=1.0):
     rng = np.random.default_rng(17)
     wo, wi = _dirs(rng, N), _dirs(rng, N)
     u = rng.uniform(0, 1, (3, N)).astype(np.float32)
     mj, mt = _mp(jb, N, **ps), _mp(tb, N, **ps)
-    for a, b in zip(tb._disney_weights(mt), jb._disney_weights(mj)):
+    for a, b in zip(tb._disney_weights(mt), ref._disney_weights(mj)):
         _close(a, b, rtol=EVAL_RTOL, atol=ATOL)
-    (pr_t, n_t), (pr_j, n_j) = tb._disney_presence(mt), jb._disney_presence(mj)
+    (pr_t, n_t), (pr_j, n_j) = tb._disney_presence(mt), ref._disney_presence(mj)
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     for a, b in zip(pr_t, pr_j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     c = np.abs(wi[:, 2])
-    _close(tb._sw(_t(c)), jb._sw(jnp.asarray(c)), rtol=EVAL_RTOL)
+    _close(tb._sw(_t(c)), ref._sw(jnp.asarray(c)), rtol=EVAL_RTOL)
     _close(tb._gtr1_d(_t(c), _t(np.float32(0.05) + 0 * c)),
-           jb._gtr1_d(jnp.asarray(c), jnp.asarray(np.float32(0.05) + 0 * c)), rtol=EVAL_RTOL)
-    _close(tb._smith_g_sep(_t(c), 0.25), jb._smith_g_sep(jnp.asarray(c), 0.25), rtol=EVAL_RTOL)
+           ref._gtr1_d(jnp.asarray(c), jnp.asarray(np.float32(0.05) + 0 * c)), rtol=EVAL_RTOL)
+    _close(tb._smith_g_sep(_t(c), 0.25), ref._smith_g_sep(jnp.asarray(c), 0.25), rtol=EVAL_RTOL)
 
     ft, pt = tb._disney_f_pdf(mt, _t(wo), _t(wi))
-    fj, pj = jb._disney_f_pdf(mj, jnp.asarray(wo), jnp.asarray(wi))
-    _close(ft, fj, rtol=EVAL_RTOL, atol=ATOL)
-    _close(pt, pj, rtol=EVAL_RTOL, atol=ATOL)
+    fj, pj = ref._disney_f_pdf(mj, jnp.asarray(wo), jnp.asarray(wi))
+    _close(ft, fj, rtol=eval_rtol, atol=ATOL)
+    _close(pt, pj, rtol=eval_rtol, atol=ATOL)
     assert (ft.numpy().max(-1) > 0).mean() > 0.2
 
     wst, bt = tb._disney_sample_wi(mt, _t(wo), *map(_t, u))
-    wsj, bj = jb._disney_sample_wi(mj, jnp.asarray(wo), *map(jnp.asarray, u))
+    wsj, bj = ref._disney_sample_wi(mj, jnp.asarray(wo), *map(jnp.asarray, u))
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
-    _close(wst, wsj, rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL)
+    if sample_share == 1.0:
+        _close(wst, wsj, rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL)
+    else:
+        a, b = wst.numpy().astype(np.float64), np.asarray(wsj, np.float64)
+        ok = (np.abs(a - b) <= SAMPLE_ATOL + SAMPLE_RTOL * np.abs(b)).all(axis=-1)
+        assert ok.mean() >= sample_share, f"sampled wi: {ok.mean():.5f} of lanes within the bound"
+    if not trans:
+        return
 
     # the transmission lobe at the sampled half-vector of its own distribution
     e = mt.eta[:, 0]
@@ -123,8 +151,8 @@ def test_disney_functions_match_reference(ps):
     w = tb._disney_weights(mt)
     wh = tb.tr_sample_wh(_t(wo), _t(u[1]), _t(u[2]), w[8], w[9])
     got = tb._disney_trans_terms(T6, e, w[8], w[9], _t(wo), _t(wi), wh)
-    wj = jb._disney_weights(mj)
-    want = jb._disney_trans_terms(
+    wj = ref._disney_weights(mj)
+    want = ref._disney_trans_terms(
         mj.dz.strans[:, None] * jnp.sqrt(mj.kd), mj.eta[:, 0], wj[8], wj[9], jnp.asarray(wo),
         jnp.asarray(wi), jnp.asarray(wh.numpy().copy()))
     for a, b in zip(got[:2], want[:2]):

@@ -44,6 +44,7 @@ from tpu_pbrt_torch.core import sampling as ts
 from tpu_pbrt_torch.core.spectrum import luminance
 from tpu_pbrt_torch.scene.api import Options, parse_string, pbrt_init
 from tpu_pbrt_torch.utils.imageio import read_pfm, write_image
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -129,7 +130,19 @@ def test_distribution2d_matches(sky):
 
 
 @pytest.mark.parametrize("frame", [0, 1], ids=["identity", "rotated"])
+@rounded_apart
 def test_env_lookup_pdf_and_sample(envs, frame):
+    _check_env_lookup_pdf_and_sample(envs, frame, jld)
+
+
+@pytest.mark.parametrize("frame", [0, 1], ids=["identity", "rotated"])
+def test_env_lookup_pdf_and_sample_contracted(envs, frame):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds."""
+    _check_env_lookup_pdf_and_sample(envs, frame, JitRef(jld))
+
+
+def _check_env_lookup_pdf_and_sample(envs, frame, jld):
     jdev, tdev = envs[frame]
     rng = np.random.default_rng(22 + frame)
     d = rng.normal(size=(N, 3)).astype(np.float32)

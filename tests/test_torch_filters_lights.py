@@ -51,6 +51,7 @@ from tpu_pbrt_torch.scene.api import parse_string, pbrt_init
 from tpu_pbrt_torch.scene.bridge import flat_tables, tables_from_numpy
 from tpu_pbrt_torch.scene.paramset import ParamSet as TParamSet
 from tpu_pbrt_torch.utils.imageio import write_image
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -296,7 +297,18 @@ def test_sample_light_rows_matches_reference(light_scenes):
         assert (li[types == t] > 0).any() and (li[types == t] == 0).any() or t == tl.LIGHT_GONIO
 
 
+@rounded_apart
 def test_sample_le_and_le_pdfs_match_reference(light_scenes):
+    _check_sample_le_and_le_pdfs(light_scenes, jl)
+
+
+def test_sample_le_and_le_pdfs_match_reference_contracted(light_scenes):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds."""
+    _check_sample_le_and_le_pdfs(light_scenes, JitRef(jl))
+
+
+def _check_sample_le_and_le_pdfs(light_scenes, jl):
     sj, st, dev = light_scenes
     _, _, u = _lanes(dev, 2)
     for distr_j, distr_t in ((None, None), (sj.light_distr, st.light_distr),

@@ -41,6 +41,7 @@ import torch
 from tests.test_torch_bxdf import ATOL, _close, _dirs, _t
 from tpu_pbrt.core import bxdf as jb
 from tpu_pbrt_torch.core import bxdf as tb
+from tests.test_torch_xla_math import JitRef, assert_within_ulp, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -115,25 +116,49 @@ def test_scalar_functions_match_reference():
     _same(tb._mp(*map(_t, args)), jb._mp(*map(jnp.asarray, args)))
 
 
+@rounded_apart
 def test_hair_bsdf_matches_reference(lanes):
+    _check_hair_bsdf(lanes, jb)
+
+
+def test_hair_bsdf_matches_reference_contracted(lanes):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level. Compiled on its own, the hair lobes fuse
+    other products than a render's program does (the port follows the
+    render's), and the lobes' chains of exp, log and asin grow each such
+    ulp: the setup terms, f and pdf within 1,024 ulp (measured: 743, 443,
+    395), the sampled direction within 2^14 ulp (measured: 11,678)."""
+    _check_hair_bsdf(lanes, JitRef(jb), ulp=1024, sample_ulp=1 << 14)
+
+
+def _check_hair_bsdf(lanes, ref, ulp=None, sample_ulp=None):
+    """`ulp` / `sample_ulp`: the bounds in units in the last place; None:
+    bit for bit (`_same`)."""
+
+    def same(a, b, bound=ulp):
+        if bound is None:
+            _same(a, b)
+        else:
+            assert_within_ulp(a, b, bound)
+
     p, wo, wi, u = lanes
     mt, mj = _hair_mp(tb, N, **p), _hair_mp(jb, N, **p)
     got = tb._hair_setup(mt, _t(wo))
-    want = jb._hair_setup(mj, jnp.asarray(wo))
+    want = ref._hair_setup(mj, jnp.asarray(wo))
     flat_t = [got[0], got[1], *got[2], got[3], got[4], got[5], got[6], got[7], *got[8],
               *got[9], *(x for t in got[10] for x in t)]
     flat_j = [want[0], want[1], *want[2], want[3], want[4], want[5], want[6], want[7], *want[8],
               *want[9], *(x for t in want[10] for x in t)]
     for a, b in zip(flat_t, flat_j):
-        _same(a, b)
+        same(a, b)
     ft, pt = tb._hair_f_pdf(mt, _t(wo), _t(wi))
-    fj, pj = jb._hair_f_pdf(mj, jnp.asarray(wo), jnp.asarray(wi))
-    _same(ft, fj)
-    _same(pt, pj)
+    fj, pj = ref._hair_f_pdf(mj, jnp.asarray(wo), jnp.asarray(wi))
+    same(ft, fj)
+    same(pt, pj)
     assert (pt.numpy() > 0).mean() > 0.9
     wst = tb._hair_sample_wi(mt, _t(wo), *map(_t, u))
-    wsj = jb._hair_sample_wi(mj, jnp.asarray(wo), *map(jnp.asarray, u))
-    _same(wst, wsj)
+    wsj = ref._hair_sample_wi(mj, jnp.asarray(wo), *map(jnp.asarray, u))
+    same(wst, wsj, sample_ulp)
     # through the public dispatch: eval overrides, sampling draws from the
     # hair lobes and flags no transmission
     (fe, pe), bs = tb.bsdf_eval(mt, _t(wo), _t(wi)), tb.bsdf_sample(mt, _t(wo), *map(_t, u))

@@ -38,6 +38,7 @@ import torch
 from tests.test_torch_bxdf import ATOL, _close, _dirs, _t
 from tpu_pbrt.core import bxdf as jb
 from tpu_pbrt_torch.core import bxdf as tb
+from tests.test_torch_xla_math import jit_ref, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -72,10 +73,27 @@ def _table(rows):
     }
 
 
+def _both_jax(mat, mid, wo, wi, u0, u1, u2):
+    mp = jb.gather_mat(mat, mid)
+    return jb.bsdf_eval(mp, wo, wi), jb.bsdf_sample(mp, wo, u0, u1, u2)
+
+
 @pytest.fixture(scope="module")
+@rounded_apart
 def shaded():
     """Every material on its own N lanes, all in one batch, through both
     packages op by op. Returns {name: (jax outputs, port outputs, wo)}."""
+    return _shade(_both_jax)
+
+
+@pytest.fixture(scope="module")
+def shaded_contracted():
+    """The reference compiled at the renders' optimisation level and the
+    port in its default contraction: the rounding every render runs."""
+    return _shade(jit_ref(_both_jax))
+
+
+def _shade(both_jax):
     names = sorted(MATERIALS)
     tab = _table([MATERIALS[n] for n in names])
     rng = np.random.default_rng(77)
@@ -83,9 +101,9 @@ def shaded():
     wo, wi = _dirs(rng, n), _dirs(rng, n)
     u = rng.uniform(0, 1, (3, n)).astype(np.float32)
     mid = np.repeat(np.arange(len(names), dtype=np.int32), N)
-    mpj = jb.gather_mat({k: jnp.array(v) for k, v in tab.items()}, jnp.array(mid))
-    ja = jax.block_until_ready((jb.bsdf_eval(mpj, jnp.array(wo), jnp.array(wi)),
-                                jb.bsdf_sample(mpj, jnp.array(wo), *map(jnp.array, u))))
+    ja = jax.block_until_ready(both_jax({k: jnp.array(v) for k, v in tab.items()},
+                                        jnp.array(mid), jnp.array(wo), jnp.array(wi),
+                                        *map(jnp.array, u)))
     mpt = tb.gather_mat({k: _t(v) for k, v in tab.items()}, _t(mid))
     ta = (tb.bsdf_eval(mpt, _t(wo), _t(wi)), tb.bsdf_sample(mpt, _t(wo), *map(_t, u)))
     flat_j, tree = jax.tree.flatten(ja)
@@ -100,6 +118,17 @@ def shaded():
 
 @pytest.mark.parametrize("name", sorted(MATERIALS))
 def test_layered_bsdf_eval_and_sample(name, shaded):
+    _check_layered(name, shaded)
+
+
+@pytest.mark.parametrize("name", sorted(MATERIALS))
+def test_layered_bsdf_eval_and_sample_contracted(name, shaded_contracted):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same bounds."""
+    _check_layered(name, shaded_contracted)
+
+
+def _check_layered(name, shaded):
     ((fj, pj), bj), ((ft, pt), bt), wo = shaded[name]
     assert (wo[:, 2] < 0).mean() > 0.4 and (wo[:, 2] > 0).mean() > 0.4
     _close(ft, fj, rtol=EVAL_RTOL, atol=ATOL)

@@ -20,12 +20,17 @@ tests/test_motion.py's analytic oracles run through the port.
 - The 16x16x4 renders against the goldens of
   tests/torch_golden/make_motion_reference.py: `path` through the pool
   and the fixed batch, and `bdpt`. Rays (and the pool's waves) and the
-  image MSE within GOLDEN_TOL: the reference's jitted render rounds a*b+c
-  as a fused multiply-add, the barycentrics of a hit on a hair ribbon (a
-  triangle 1% as wide as it is long) amplify that to 1e-4, and a light
-  sample at the peak of a disney clearcoat lobe amplifies a last-bit
-  difference of its half-vector to percents (tests/test_torch_disney.py),
-  so a few paths go another way.
+  image MSE within GOLDEN_TOL. The reference's jitted render rounds a*b+c
+  as a fused multiply-add wherever XLA fuses the product into its sum;
+  the barycentrics of a hit on a hair ribbon (a triangle 1% as wide as
+  it is long) amplify a last bit to 1e-4, and a light sample at the
+  peak of a disney clearcoat lobe amplifies one to percents, so the port
+  rounds those sums as the compiled program does (xla_math.fmac) and the
+  rays equal the reference's.
+- The first two camera waves of the pool equal the compiled reference's
+  bit for bit (tests/torch_golden/motion_camera_wave.npz): the film
+  points and lens samples, and the directions XLA's dot by the
+  camera-to-world matrix and its folded normalize give.
 - The pool equals the fixed batch bit for bit at one sample per pixel:
   a regenerated lane draws its camera sample's time.
 - `directlighting` traces at time 0 and shades the shutter-start
@@ -47,6 +52,7 @@ import jax
 import jax.numpy as jnp
 
 from tpu_pbrt_torch import parse_string
+from tpu_pbrt_torch.cameras import generate_rays
 from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.scene.bridge import flat_tables, tables_from_numpy
 from tpu_pbrt_torch.scenes import compile_api, make_motion_like
@@ -63,8 +69,11 @@ from make_motion_reference import (  # noqa: E402
 
 #: golden -> (image MSE bound, |rays - the reference's| bound); measured beside each
 GOLDEN_TOL = {
-    "motion_path_pool": (2e-6, 8),  # 5.3e-7, rays -3 (3,353 of 3,356)
-    "motion_path_fixed": (2e-6, 8),  # 5.3e-7, rays -3
+    # the port rounds as the reference's compiled program does (its
+    # camera dot, the barycentrics, the contracted shading arithmetic):
+    # 8.8e-13 / 2.3e-12, rays equal (3,356)
+    "motion_path_pool": (1e-8, 0),
+    "motion_path_fixed": (1e-8, 0),
     # the shutter-start frame, hair at h = 0: 5.1e-12, rays equal (3,249)
     "motion_bdpt": (1e-10, 0),
 }
@@ -349,6 +358,30 @@ def test_render_matches_golden(name, small_treelets, monkeypatch):
     mse = float(np.mean((res.image.astype(np.float64) - ref["image"]) ** 2))
     assert mse <= mse_bar, mse
     assert ref["image"].mean() > 0.05
+
+
+def test_first_camera_waves_equal_compiled_reference(port_small):
+    scene, integ = port_small
+    ref = np.load(os.path.join(GOLDEN, "motion_camera_wave.npz"))
+    x0, x1, y0, y1 = scene.film.sample_bounds()
+    k = torch.arange(POOL, dtype=torch.int32)
+    _, _, _, _, p_film, o, d, _ = integ.work_to_rays(
+        scene.camera, SMALL_SPP, x0, y0, x1 - x0, (x1 - x0) * (y1 - y0), 0, 0, k)
+    np.testing.assert_array_equal(_bits(p_film.numpy()), _bits(ref["p_film0"]))
+    np.testing.assert_array_equal(_bits(d.numpy()), _bits(ref["d0"]))
+    for w in range(2):
+        ow, dw, _ = generate_rays(scene.camera, torch.from_numpy(ref[f"p_film{w}"]),
+                                  torch.from_numpy(ref[f"u_lens{w}"]))
+        np.testing.assert_array_equal(_bits(ow.numpy()), _bits(ref[f"o{w}"]))
+        np.testing.assert_array_equal(_bits(dw.numpy()), _bits(ref[f"d{w}"]))
+    # rounded apart, the port's directions part from the compiled ones in
+    # most lanes: the stored wave pins the compiled rounding
+    from tpu_pbrt_torch.core import xla_math
+
+    with xla_math.contraction(False):
+        d_apart = generate_rays(scene.camera, torch.from_numpy(ref["p_film0"]),
+                                torch.from_numpy(ref["u_lens0"]))[1]
+    assert (_bits(d_apart.numpy()) != _bits(ref["d0"])).any(axis=-1).mean() > 0.5
 
 
 def test_pool_equals_fixed_bit_for_bit(small_treelets, monkeypatch):

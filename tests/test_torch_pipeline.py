@@ -346,7 +346,7 @@ def test_capacity_audit(monkeypatch):
     monkeypatch.setattr(cfg, "leaf_tris", 16)
     scene, integ = compile_api(make_killeroo_like(res=32, spp=4, n_theta=24, n_phi=48,
                                                   maxdepth=1, device="cpu"))
-    plan = integ.prepare_chunks(scene, 4096)
+    plan = integ.prepare_chunks(scene, chunk=4096)
     plan.capacity_audit()
     assert integ._audit_memo[(id(scene), 4096)][1] == 0
     integ._audit_memo.clear()

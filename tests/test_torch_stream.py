@@ -23,6 +23,7 @@ from tpu_pbrt.accel import stream as jstream
 from tpu_pbrt.accel.treelet import build_treelet_pack as jbuild_pack
 from tpu_pbrt_torch.accel import stream as tstream
 from tpu_pbrt_torch.scene.bridge import treelet_pack_from_numpy
+from tests.test_torch_xla_math import JitRef, rounded_apart
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -50,7 +51,19 @@ def case():
     return tp_j, tp_t, tris_perm, o, d, t_max
 
 
+@rounded_apart
 def test_stream_intersect_matches_reference(case):
+    _check_stream_intersect(case, jstream)
+
+
+def test_stream_intersect_matches_reference_contracted(case):
+    """The port's default rounding (the fused barycentric products of
+    `_finalize_hits`) against the reference compiled at the renders'
+    optimisation level, with the same bounds."""
+    _check_stream_intersect(case, JitRef(jstream))
+
+
+def _check_stream_intersect(case, jstream):
     tp_j, tp_t, tris, o, d, t_max = case
     hj = jstream.stream_intersect(tp_j, jnp.asarray(tris), jnp.asarray(o), jnp.asarray(d),
                                   jnp.asarray(t_max))

@@ -7,8 +7,13 @@ each function, signed zeros, subnormals, infinities and NaN.
 
 The reference compiles log, exp and sinh to XLA's own polynomials (with
 fused multiply-adds) and calls glibc's atan2f, sinf and cosf; asin is
-2 atan2(x, 1 + sqrt((1 - x)(1 + x))); its programs flush subnormals.
+2 atan2(x, 1 + sqrt((1 - x)(1 + x))) and acos atan2(sqrt((1 - x)(1 + x)),
+x); its programs flush subnormals. `fmac` rounds a product and the sum
+that consumes it once under `contraction(True)` (the reference's
+compiled programs) and apart under `contraction(False)`.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -20,6 +25,76 @@ import jax.numpy as jnp
 from tpu_pbrt_torch.core import xla_math as xm
 
 torch.set_num_threads(1)
+
+
+def rounded_apart(fn):
+    """Run a test (or a fixture) with the port rounding every product and
+    sum apart (`xla_math.contraction(False)`): the reference functions it
+    is held to run on their own there, op by op, where no product is
+    fused into the sum that consumes it. Renders, held to the reference's
+    compiled programs, keep the default contraction."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with xm.contraction(False):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+#: XLA's default CPU backend optimisation level, at which the reference's
+#: renders compile (tests/conftest.py lowers the suite's to 0, where LLVM
+#: fuses fewer products into their sums)
+RENDER_OPT_LEVEL = 3
+
+
+def jit_ref(fn):
+    """The reference function `fn` as its compiled programs round it: under
+    jax.jit at the renders' optimisation level, where XLA fuses a product
+    into the sum that consumes it (the port's default `contraction(True)`).
+    Array leaves of the arguments are traced; every other leaf (an int,
+    bool, string or None) is held static."""
+
+    def call(*args, **kwargs):
+        leaves, tree = jax.tree.flatten((args, kwargs))
+        traced = [isinstance(x, (jax.Array, np.ndarray, np.generic)) for x in leaves]
+
+        def inner(arrs):
+            it = iter(arrs)
+            a, k = jax.tree.unflatten(tree, [next(it) if t else x for x, t in zip(leaves, traced)])
+            return fn(*a, **k)
+
+        arrs = [x for x, t in zip(leaves, traced) if t]
+        opts = {"xla_backend_optimization_level": RENDER_OPT_LEVEL}
+        return jax.jit(inner).lower(arrs).compile(compiler_options=opts)(arrs)
+
+    return call
+
+
+def assert_within_ulp(got, want, max_ulp: int, what: str = ""):
+    """Every f32 of `got` (a tensor or array) within `max_ulp` units in the
+    last place of `want`'s, counted on the ordered integer line of the
+    bit patterns (a sign change counts the steps through zero); NaN only
+    where `want` is NaN."""
+    a = np.asarray(got.numpy() if torch.is_tensor(got) else got, np.float32).ravel()
+    b = np.asarray(want, np.float32).ravel()
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=what)
+    ia, ib = (x.view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(x < 0, -(x & 0x7FFFFFFF), x) for x in (ia, ib))
+    d = np.where(np.isnan(b), 0, np.abs(ia - ib))
+    assert d.max(initial=0) <= max_ulp, f"{what}: {int(d.max())} ulp apart (bound {max_ulp})"
+
+
+class JitRef:
+    """A reference module whose functions run under `jit_ref`."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def __getattr__(self, name):
+        fn = getattr(self._module, name)
+        return jit_ref(fn) if callable(fn) and not isinstance(fn, type) else fn
+
 
 def _pattern_sweep(lo_bits: int, hi_bits: int) -> np.ndarray:
     """2^19 evenly strided positive f32 bit patterns in [lo_bits, hi_bits)
@@ -57,6 +132,7 @@ CASES = {
     "sin": (xm.sin, jnp.sin, (0x30000000, 0x42f00000)),
     "cos": (xm.cos, jnp.cos, (0x30000000, 0x42f00000)),
     "asin": (xm.asin, jnp.arcsin, (0x30000000, 0x3f800001)),
+    "acos": (xm.acos, jnp.arccos, (0x30000000, 0x3f800001)),
     "sqrt": (xm.sqrt, jnp.sqrt, (0x00800000, 0x7f800000)),
 }
 
@@ -106,3 +182,21 @@ def test_remainder_and_fma_bit_equal():
     # Python-float operands (the polynomials' coefficients) act as f32 values
     np.testing.assert_array_equal(xm.fma32(torch.from_numpy(a), 0.5, 0.25).numpy(),
                                   (a.astype(np.float64) * 0.5 + 0.25).astype(np.float32))
+
+
+def test_fmac_follows_the_contraction_mode():
+    rng = np.random.default_rng(5)
+    a, b, c = (torch.from_numpy(rng.standard_normal(1 << 14).astype(np.float32))
+               for _ in range(3))
+    assert xm.contracting()
+    np.testing.assert_array_equal(xm.fmac(a, b, c).numpy(), xm.fma32(a, b, c).numpy())
+    with xm.contraction(False):
+        assert not xm.contracting()
+        apart = xm.fmac(a, b, c)
+        np.testing.assert_array_equal(apart.numpy(), (a * b + c).numpy())
+        with xm.contraction(True):
+            assert xm.contracting()
+        assert not xm.contracting()
+    assert xm.contracting()
+    # the two roundings differ somewhere, or the mode would be moot
+    assert (apart != xm.fma32(a, b, c)).any()

@@ -19,6 +19,12 @@ Small goldens (`MOTION_SMALL`: 240 hair segments, a 528-triangle blob;
 - `motion_bdpt`: `bdpt` (the shutter-start frame: the reference's BDPT
   traces at time 0).
 
+The first two camera waves of `motion_path_pool` as the compiled program
+computes them (`motion_camera_wave`): each wave's film points, lens
+samples and ray origins and directions, read out of the reference's
+`pool_chunk` through an ordered debug callback on `generate_rays` (which
+leaves the render bit-identical to `motion_path_pool`, checked here).
+
 Full-geometry references (1,042,004 triangles):
 
 - `motion_path_cpu_64x64_64spp`: `path` at 64x64, 64 spp through the
@@ -97,6 +103,48 @@ def write_small(name, commit):
     _render(name, api, regen if integrator == "path" else None, commit)
 
 
+def write_camera_wave(commit):
+    """The first two regeneration waves' generate_rays inputs and outputs
+    inside the reference's compiled small pool render."""
+    import jax
+    import numpy as np
+
+    import tpu_pbrt.integrators.common as jcommon
+    from tpu_pbrt import config, scenes
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    os.environ["TPU_PBRT_REGEN"] = "1"
+    os.environ["TPU_PBRT_POOL"] = str(POOL)
+    config.reload()
+    waves = []
+    generate_rays = jcommon.generate_rays
+
+    def keep(p_film, u_lens, o, d):
+        if p_film.shape[0] == POOL:  # the pool's waves, not the capacity audit
+            waves.append([np.asarray(x).copy() for x in (p_film, u_lens, o, d)])
+
+    def captured(cam, p_film, u_lens):
+        o, d, wt = generate_rays(cam, p_film, u_lens)
+        jax.debug.callback(keep, p_film, u_lens, o, d, ordered=True)
+        return o, d, wt
+
+    jcommon.generate_rays = captured
+    try:
+        scene, integ = scenes.compile_api(
+            jax_motion_api(SMALL_RES, SMALL_SPP, 5, "path", small=True))
+        res = integ.render(scene)
+    finally:
+        jcommon.generate_rays = generate_rays
+    gold = np.load(os.path.join(HERE, "motion_path_pool.npz"))
+    assert np.array_equal(np.asarray(res.image, np.float32), gold["image"]), \
+        "the capture changed the render"
+    out = os.path.join(HERE, "motion_camera_wave.npz")
+    np.savez_compressed(out, **{f"{k}{w}": waves[w][i] for w in range(2)
+                                for i, k in enumerate(("p_film", "u_lens", "o", "d"))},
+                        jax_commit=np.array(commit))
+    print(f"wrote {out}: {len(waves)} waves of {POOL}")
+
+
 def write_full(name, commit):
     from tpu_pbrt import config
     from make_textured_reference import _render
@@ -111,7 +159,7 @@ def write_full(name, commit):
 
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    names = (*SMALL_CASES, *FULL_CASES, "small", "full", "all")
+    names = (*SMALL_CASES, "motion_camera_wave", *FULL_CASES, "small", "full", "all")
     if which not in names:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(names)}]")
     root = os.path.dirname(os.path.dirname(HERE))
@@ -123,6 +171,8 @@ def main() -> None:
     for name in SMALL_CASES:
         if which in (name, "small", "all"):
             write_small(name, commit)
+    if which in ("motion_camera_wave", "small", "all"):
+        write_camera_wave(commit)
     for name in FULL_CASES:
         if which in (name, "full", "all"):
             write_full(name, commit)

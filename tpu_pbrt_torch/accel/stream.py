@@ -38,6 +38,7 @@ import torch
 from tpu_pbrt_torch.accel.traverse import Hit
 from tpu_pbrt_torch.accel.treelet import TreeletPack
 from tpu_pbrt_torch.config import cfg
+from tpu_pbrt_torch.core.xla_math import fmac
 from tpu_pbrt_torch.kernels.expand import expand
 from tpu_pbrt_torch.kernels.flush import flush_chunk
 
@@ -428,9 +429,11 @@ def _finalize_hits(tri_verts, o, d, t_raw, prim, time=None, tri_verts1=None, tv9
     sv = o - v0
     u = _dot(sv, pvec) * inv
     qvec = _cross(sv, e1)
-    v = _dot(d, qvec) * inv
+    # b0 = 1 - u - v with v = dot(d, qvec) inv, as every consumer fusion of
+    # the reference's compiled program recomputes it: fma(-dot, inv, 1 - u)
+    b0 = fmac(-_dot(d, qvec), inv, 1.0 - u)
     zero = torch.zeros_like(u)
-    b0 = torch.where(hit, 1.0 - u - v, zero)
+    b0 = torch.where(hit, b0, zero)
     b1 = torch.where(hit, u, zero)
     return Hit(t, prim, b0, b1, tv)
 
@@ -447,15 +450,20 @@ def keyframe_lerp(v0, v1, time):
 
 
 def _dot(a, b):
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    """The hit's dot products as the reference's compiled `_finalize_hits`
+    rounds them (its multiply-reduce fusions): fma(a2, b2, fma(a1, b1,
+    a0 b0))."""
+    return fmac(a[..., 2], b[..., 2], fmac(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def _cross(a, b):
+    """The hit's cross products as the reference's compiled program rounds
+    them: a_j b_k - a_k b_j = fma(a_j, b_k, -(a_k b_j))."""
     return torch.stack(
         [
-            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+            fmac(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
+            fmac(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
+            fmac(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0])),
         ],
         dim=-1,
     )

@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.core import transform as xf
+from tpu_pbrt_torch.core import xla_math as xm
 from tpu_pbrt_torch.core.sampling import _div, concentric_sample_disk
-from tpu_pbrt_torch.core.vecmath import dot, normalize
+from tpu_pbrt_torch.core.vecmath import dot, dot_rows, length, normalize
 from tpu_pbrt_torch.utils.error import Error, Warning
 
 CAM_PERSPECTIVE = 0
@@ -148,12 +149,18 @@ def make_camera(name: str, params, cam_to_world: xf.Transform, full_res,
     )
 
 
-def _xform_point(m, p):
+def _xform_point_rw(m, p):
+    """The homogeneous point transform's numerator (..., 3) and its w, a
+    zero w taken as 1."""
     r = [((p[..., 0] * m[i, 0] + p[..., 1] * m[i, 1]) + p[..., 2] * m[i, 2]) + m[i, 3]
          for i in range(3)]
     w = ((p[..., 0] * m[3, 0] + p[..., 1] * m[3, 1]) + p[..., 2] * m[3, 2]) + m[3, 3]
-    w = torch.where(w == 0.0, torch.ones_like(w), w)
-    return torch.stack(r, dim=-1) / w[..., None]
+    return torch.stack(r, dim=-1), torch.where(w == 0.0, torch.ones_like(w), w)
+
+
+def _xform_point(m, p):
+    r, w = _xform_point_rw(m, p)
+    return r / w[..., None]
 
 
 def _xform_vector(m, v):
@@ -198,10 +205,14 @@ def generate_rays(cam: CompiledCamera, p_film, u_lens):
     if cam.cam_type == CAM_REALISTIC:
         return _realistic_rays(cam, p_film, u_lens)
     p_raster = torch.cat([p_film, torch.zeros_like(p_film[..., :1])], dim=-1)
-    p_cam = _xform_point(cam.raster_to_camera, p_raster)
+    r, w = _xform_point_rw(cam.raster_to_camera, p_raster)
+    p_cam = r / w[..., None]
     if cam.cam_type == CAM_PERSPECTIVE:
         o = torch.zeros_like(p_cam)
-        d = normalize(p_cam)
+        # normalize(r / w): in a compiled program XLA's algebraic
+        # simplifier folds (r / w) / |p| into r / (w |p|)
+        norm = torch.clamp(length(p_cam), min=1e-20)
+        d = r / (w * norm)[..., None] if xm.contracting() else p_cam / norm[..., None]
     elif cam.cam_type == CAM_ORTHOGRAPHIC:
         o = p_cam
         d = torch.zeros_like(p_cam)
@@ -227,7 +238,8 @@ def generate_rays(cam: CompiledCamera, p_film, u_lens):
         d = normalize(p_focus - o_new)
         o = o_new
     o_w = _xform_point(cam.camera_to_world, o)
-    d_w = normalize(_xform_vector(cam.camera_to_world, d))
+    # the direction's dot by camera_to_world is XLA's (vecmath.dot_rows)
+    d_w = normalize(dot_rows(d, cam.camera_to_world))
     weight = torch.ones(p_film.shape[:-1], dtype=torch.float32, device=p_film.device)
     return o_w, d_w, weight
 

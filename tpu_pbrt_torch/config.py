@@ -24,6 +24,8 @@ into the module-level `cfg` (tests set an attribute of `cfg` instead):
   own knob, read by utils/stats.py::ProgressReporter; 0: every update);
 - TORCH_PBRT_PIPELINE: chunk-slices kept in flight by the render loop's
   dispatch window (default 2; 1 is the synchronous loop);
+- TORCH_PBRT_COORDINATOR_ADDRESS: "host:port" of rank 0 for a multi-host
+  mesh (`--multihost`), read at call time by `coordinator_address()`;
 - TORCH_PBRT_AUDIT_DROPS / TORCH_PBRT_ALLOW_DROPS: the pre-render
   capacity audit (on) and its downgrade to a warning (off);
 - TORCH_PBRT_FAULTS: the chaos fault plan (chaos/, empty: none);
@@ -183,3 +185,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def coordinator_address() -> Optional[str]:
+    """The multi-host coordinator's "host:port" (rank 0's rendezvous), or
+    None: TORCH_PBRT_COORDINATOR_ADDRESS, read at call time (the
+    reference's JAX_COORDINATOR_ADDRESS)."""
+    return os.environ.get("TORCH_PBRT_COORDINATOR_ADDRESS") or None

@@ -346,7 +346,7 @@ def sw_eval(eta, cos_w):
 
     eta = torch.as_tensor(eta, dtype=torch.float32, device=cos_w.device)
     c = 1.0 - 2.0 * fresnel_moment1_torch(1.0 / eta)
-    fr = fresnel_dielectric(torch.abs(cos_w), torch.ones_like(eta), eta, sqrt=xm.sqrt)
+    fr = fresnel_dielectric(torch.abs(cos_w), torch.ones_like(eta), eta)
     return (1.0 - fr) / (c * torch.full_like(c, float(np.float32(np.pi))))
 
 

@@ -81,20 +81,21 @@ ROUGH_GLASS_MIN = 1e-4
 # Fresnel (reflection.cpp FrDielectric / FrConductor)
 # -------------------------------------------------------------------------
 
-def fresnel_dielectric(cos_i, eta_i, eta_t, sqrt=torch.sqrt):
-    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i
-    (`sqrt`: the hair lobes pass the correctly rounded one)."""
+def fresnel_dielectric(cos_i, eta_i, eta_t):
+    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i."""
     cos_i = torch.clamp(cos_i, -1.0, 1.0)
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = torch.abs(cos_i)
-    sin_t = ei / et * sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    sin_t = ei / et * xm.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
     tir = sin_t >= 1.0
-    ct = sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    # 1 - sin_t^2 and the sum of squares contracted, as the reference's
+    # compiled program rounds them
+    ct = xm.sqrt(torch.clamp(xm.fmac(-sin_t, sin_t, 1.0), min=0.0))
     r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
     r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
-    fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
+    fr = 0.5 * xm.fmac(r_parl, r_parl, r_perp * r_perp)
     return torch.where(tir, 1.0, fr)
 
 
@@ -106,9 +107,9 @@ def fresnel_conductor(cos_i, eta, k):
     e2 = eta * eta
     k2 = k * k
     t0 = e2 - k2 - s2
-    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
+    a2b2 = xm.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
     t1 = a2b2 + c2
-    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    a = xm.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
     t2 = 2.0 * a * ci
     rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
     t3 = c2 * a2b2 + s2 * s2
@@ -141,7 +142,7 @@ def beckmann_d(wh, ax, ay):
 def beckmann_lambda(w, ax, ay):
     abs_tan = torch.abs(tan_theta(w))
     cp, sp = cos_phi(w), sin_phi(w)
-    alpha = torch.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
+    alpha = xm.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
     a = 1.0 / torch.clamp(alpha * abs_tan, min=1e-12)
     lam = (1.0 - 1.259 * a + 0.396 * a * a) / (3.535 * a + 2.181 * a * a)
     return torch.where(torch.isfinite(abs_tan) & (a < 1.6), lam, 0.0)
@@ -161,8 +162,8 @@ def beckmann_sample_wh(u1, u2, ax, ay):
     a2 = 1.0 / torch.clamp(cp * cp / torch.clamp(ax * ax, min=1e-12)
                            + sp * sp / torch.clamp(ay * ay, min=1e-12), min=1e-12)
     tan2 = -log_u * a2
-    ct = 1.0 / torch.sqrt(1.0 + tan2)
-    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    ct = 1.0 / xm.sqrt(1.0 + tan2)
+    st = xm.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
     return torch.stack([st * cp, st * sp, ct], dim=-1)
 
 
@@ -173,9 +174,13 @@ def beckmann_pdf(wh, ax, ay):
 
 def tr_roughness_to_alpha(rough):
     """TrowbridgeReitzDistribution::RoughnessToAlpha."""
-    x = torch.log(torch.clamp(rough, min=1e-3))
-    return (1.62142 + 0.819955 * x + 0.1734 * x * x + 0.0171201 * x * x * x
-            + 0.000640711 * x * x * x * x)
+    x = xm.log(torch.clamp(rough, min=1e-3))
+    # the reference's sum of terms, each product contracted into the add
+    # that consumes it
+    y = xm.fmac(x, 0.819955, 1.62142)
+    y = xm.fmac(0.1734 * x, x, y)
+    y = xm.fmac(0.0171201 * x * x, x, y)
+    return xm.fmac(0.000640711 * x * x * x, x, y)
 
 
 def tr_d(wh, ax, ay):
@@ -192,9 +197,9 @@ def tr_d(wh, ax, ay):
 def tr_lambda(w, ax, ay):
     abs_tan = torch.abs(tan_theta(w))
     cp, sp = cos_phi(w), sin_phi(w)
-    alpha = torch.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
+    alpha = xm.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
     at = alpha * abs_tan
-    lam = (-1.0 + torch.sqrt(1.0 + at * at)) / 2.0
+    lam = (-1.0 + xm.sqrt(1.0 + at * at)) / 2.0
     return torch.where(torch.isfinite(abs_tan), lam, 0.0)
 
 
@@ -208,10 +213,12 @@ def tr_g1(w, ax, ay):
 
 def _tr_sample11(cos_t, u1, u2):
     """TrowbridgeReitzSample11: slopes for visible-normal sampling."""
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    # the products contracted into their sums as the reference's compiled
+    # program contracts them (xla_math.fmac)
+    sin_t = xm.sqrt(torch.clamp(xm.fmac(-cos_t, cos_t, 1.0), min=0.0))
     tan_t = sin_t / torch.clamp(cos_t, min=1e-7)
     a = 1.0 / torch.clamp(tan_t, min=1e-12)
-    g1 = 2.0 / (1.0 + torch.sqrt(1.0 + 1.0 / torch.clamp(a * a, min=1e-20)))
+    g1 = 2.0 / (1.0 + xm.sqrt(1.0 + 1.0 / torch.clamp(a * a, min=1e-20)))
 
     # pbrt's TrowbridgeReitzSample11 as written: tmp = 1/(A^2 - 1) is
     # NEGATIVE for |A| < 1, and that sign is load-bearing (negated, every
@@ -222,7 +229,7 @@ def _tr_sample11(cos_t, u1, u2):
     tmp = 1.0 / torch.where(torch.abs(denom) < 1e-12, tiny, denom)
     tmp = torch.clamp(tmp, max=1e10)
     B = tan_t
-    D = torch.sqrt(torch.clamp(B * B * tmp * tmp - (A * A - B * B) * tmp, min=0.0))
+    D = xm.sqrt(torch.clamp(xm.fmac(B * B * tmp, tmp, -((A * A - B * B) * tmp)), min=0.0))
     slope_x_1 = B * tmp - D
     slope_x_2 = B * tmp + D
     slope_x = torch.where((A < 0) | (slope_x_2 > 1.0 / torch.clamp(tan_t, min=1e-12)),
@@ -230,17 +237,16 @@ def _tr_sample11(cos_t, u1, u2):
 
     S = torch.where(u2 > 0.5, 1.0, -1.0)
     u2r = torch.where(u2 > 0.5, 2.0 * (u2 - 0.5), 2.0 * (0.5 - u2))
-    z = (u2r * (u2r * (u2r * 0.27385 - 0.73369) + 0.46341)) / (
-        u2r * (u2r * (u2r * 0.093073 + 0.309420) - 1.000000) + 0.597999
-    )
-    slope_y = S * z * torch.sqrt(1.0 + slope_x * slope_x)
+    z = (u2r * xm.fmac(u2r, xm.fmac(u2r, 0.27385, -0.73369), 0.46341)) / xm.fmac(
+        u2r, xm.fmac(u2r, xm.fmac(u2r, 0.093073, 0.309420), -1.0), 0.597999)
+    slope_y = S * z * xm.sqrt(xm.fmac(slope_x, slope_x, 1.0))
 
     # normal incidence
-    r = torch.sqrt(torch.clamp(u1 / torch.clamp(1.0 - u1, min=1e-12), min=0.0))
+    r = xm.sqrt(torch.clamp(u1 / torch.clamp(1.0 - u1, min=1e-12), min=0.0))
     phi = 6.28318530718 * u2
     ni = cos_t > 0.9999
-    slope_x = torch.where(ni, r * torch.cos(phi), slope_x)
-    slope_y = torch.where(ni, r * torch.sin(phi), slope_y)
+    slope_x = torch.where(ni, r * xm.cos(phi), slope_x)
+    slope_y = torch.where(ni, r * xm.sin(phi), slope_y)
     return slope_x, slope_y
 
 
@@ -249,21 +255,21 @@ def tr_sample_wh(wo, u1, u2, ax, ay):
     flip = cos_theta(wo) < 0.0
     wo_f = torch.where(flip[..., None], -wo, wo)
     wi_s = torch.stack([ax * wo_f[..., 0], ay * wo_f[..., 1], wo_f[..., 2]], dim=-1)
-    ln = torch.sqrt(dot(wi_s, wi_s))
+    ln = xm.sqrt(dot(wi_s, wi_s))
     wi_s = wi_s / torch.clamp(ln[..., None], min=1e-20)
     ct = torch.clamp(wi_s[..., 2], -1.0, 1.0)
-    s_len = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    s_len = xm.sqrt(torch.clamp(xm.fmac(-ct, ct, 1.0), min=0.0))
     small = s_len < 1e-7
     cphi = torch.where(small, 1.0, wi_s[..., 0] / torch.clamp(s_len, min=1e-12))
     sphi = torch.where(small, 0.0, wi_s[..., 1] / torch.clamp(s_len, min=1e-12))
     sx, sy = _tr_sample11(ct, u1, u2)
     # rotate, then unstretch
-    tmp = cphi * sx - sphi * sy
-    sy = sphi * sx + cphi * sy
+    tmp = xm.fmac(cphi, sx, -(sphi * sy))
+    sy = xm.fmac(sphi, sx, cphi * sy)
     sx = tmp * ax
     sy = sy * ay
     wh = torch.stack([-sx, -sy, torch.ones_like(sx)], dim=-1)
-    wh = wh / torch.sqrt(dot(wh, wh))[..., None]
+    wh = wh / xm.sqrt(dot(wh, wh))[..., None]
     return torch.where(flip[..., None], -wh, wh)
 
 
@@ -455,8 +461,8 @@ def _diffuse_f(mp: MatParams, wo, wi):
     s2 = sigma * sigma
     a = 1.0 - s2 / (2.0 * (s2 + 0.33))
     b = 0.45 * s2 / (s2 + 0.09)
-    sin_to = torch.sqrt(sin2_theta(wo))
-    sin_ti = torch.sqrt(sin2_theta(wi))
+    sin_to = xm.sqrt(sin2_theta(wo))
+    sin_ti = xm.sqrt(sin2_theta(wi))
     cos_dphi = cos_phi(wi) * cos_phi(wo) + sin_phi(wi) * sin_phi(wo)
     max_cos = torch.clamp(cos_dphi, min=0.0)
     has_sin = (sin_to > 1e-4) & (sin_ti > 1e-4)
@@ -494,7 +500,7 @@ def _glossy_f(mp: MatParams, wo, wi):
     dielectric one (scaled by ks) otherwise; FresnelBlend for substrate."""
     refl = same_hemisphere(wo, wi)
     wh = wi + wo
-    wh_len = torch.sqrt(dot(wh, wh))
+    wh_len = xm.sqrt(dot(wh, wh))
     valid = refl & (wh_len > 1e-12) & (abs_cos_theta(wi) > 1e-7) & (abs_cos_theta(wo) > 1e-7)
     wh = wh / torch.clamp(wh_len[..., None], min=1e-20)
     d = tr_d(wh, mp.ax, mp.ay)
@@ -529,7 +535,7 @@ def _glossy_f(mp: MatParams, wo, wi):
 def _glossy_pdf(mp: MatParams, wo, wi):
     refl = same_hemisphere(wo, wi)
     wh = wi + wo
-    wh_len = torch.sqrt(dot(wh, wh))
+    wh_len = xm.sqrt(dot(wh, wh))
     wh = wh / torch.clamp(wh_len[..., None], min=1e-20)
     pdf_wh = tr_pdf(wo, wh, mp.ax, mp.ay)
     pdf = pdf_wh / torch.clamp(4.0 * dot(wo, wh), min=1e-12)
@@ -590,14 +596,14 @@ def _rough_glass_f_pdf(mp: MatParams, wo, wi):
     wo + eta wi for transmission) and the shared terms evaluated there."""
     eta_s = mp.eta[..., 0]
     wh_r = wi + wo
-    whr_len = torch.sqrt(dot(wh_r, wh_r))
+    whr_len = xm.sqrt(dot(wh_r, wh_r))
     wh_rn = wh_r / torch.clamp(whr_len[..., None], min=1e-20)
     f_r, p_r, ok_r, _, _, _ = _mf_glass_terms(mp, wo, wi, wh_rn)
     ok_r = ok_r & (whr_len > 1e-12)
 
     eta_t = torch.where(cos_theta(wo) > 0.0, eta_s, 1.0 / torch.clamp(eta_s, min=1e-6))
     wh_t = wo + wi * eta_t[..., None]
-    wht_len = torch.sqrt(dot(wh_t, wh_t))
+    wht_len = xm.sqrt(dot(wh_t, wh_t))
     wh_tn = wh_t / torch.clamp(wht_len[..., None], min=1e-20)
     _, _, _, f_t, p_t, ok_t = _mf_glass_terms(mp, wo, wi, wh_tn)
     ok_t = ok_t & (wht_len > 1e-12)
@@ -645,7 +651,7 @@ def _smith_g_sep(c, alpha):
     smithG_GGX)."""
     a2 = alpha * alpha
     c2 = c * c
-    return 1.0 / (c + torch.sqrt(torch.clamp(a2 + c2 - a2 * c2, min=1e-12)))
+    return 1.0 / (c + xm.sqrt(torch.clamp(a2 + c2 - a2 * c2, min=1e-12)))
 
 
 def _disney_weights(mp: MatParams):
@@ -664,11 +670,11 @@ def _disney_weights(mp: MatParams):
     cspec0 = ((1.0 - metallic)[..., None] * r0[..., None]
               * ((1.0 - dz.spectint)[..., None] + dz.spectint[..., None] * ctint)
               + metallic[..., None] * c)
-    aspect = torch.sqrt(torch.clamp(1.0 - 0.9 * dz.aniso, min=1e-6))
+    aspect = xm.sqrt(torch.clamp(1.0 - 0.9 * dz.aniso, min=1e-6))
     r2 = dz.rough * dz.rough
     ax = torch.clamp(r2 / aspect, min=1e-3)
     ay = torch.clamp(r2 * aspect, min=1e-3)
-    rscaled = (0.65 * e - 0.35) * dz.rough
+    rscaled = xm.fmac(e, 0.65, -0.35) * dz.rough
     rs2 = rscaled * rscaled
     axt = torch.where(dz.thin, torch.clamp(rs2 / aspect, min=1e-3), ax)
     ayt = torch.where(dz.thin, torch.clamp(rs2 * aspect, min=1e-3), ay)
@@ -734,7 +740,7 @@ def _disney_f_pdf(mp: MatParams, wo, wi):
     ok_ang = (ci > 1e-7) & (co > 1e-7)
 
     wh = wi + wo
-    wh_len = torch.sqrt(dot(wh, wh))
+    wh_len = xm.sqrt(dot(wh, wh))
     whn = wh / torch.clamp(wh_len[..., None], min=1e-20)
     cos_d = dot(wi, whn)  # cosThetaD
     FL = _sw(ci)
@@ -778,10 +784,10 @@ def _disney_f_pdf(mp: MatParams, wo, wi):
     f = torch.where(refl_ok, f_refl, 0.0)
 
     # 6: spec transmission at the generalized half-vector
-    T6 = dz.strans[..., None] * torch.sqrt(torch.clamp(c, min=0.0))
+    T6 = dz.strans[..., None] * xm.sqrt(torch.clamp(c, min=0.0))
     eta_t = torch.where(cos_theta(wo) > 0.0, e, 1.0 / torch.clamp(e, min=1e-6))
     wh_t = wo + wi * eta_t[..., None]
-    wht_len = torch.sqrt(dot(wh_t, wh_t))
+    wht_len = xm.sqrt(dot(wh_t, wh_t))
     wh_tn = wh_t / torch.clamp(wht_len[..., None], min=1e-20)
     f6, p6, ok6 = _disney_trans_terms(T6, e, axt, ayt, wo, wi, wh_tn)
     ok6 = ok6 & (wht_len > 1e-12)
@@ -828,15 +834,15 @@ def _disney_sample_wi(mp: MatParams, wo, u_lobe, u1, u2):
     wi_lt = wi_cos * torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
     # microfacet reflection (VNDF)
     wh_mf = tr_sample_wh(wo, u1, u2, ax, ay)
-    wi_mf = -wo + 2.0 * dot(wo, wh_mf)[..., None] * wh_mf
+    wi_mf = xm.fmac(2.0 * dot(wo, wh_mf)[..., None], wh_mf, -wo)
     # clearcoat's GTR1 half-vector (DisneyClearcoat::Sample_f)
     a2 = gloss * gloss
-    ct_h = torch.sqrt(torch.clamp((1.0 - torch.pow(a2, 1.0 - u1)) / (1.0 - a2), min=0.0))
-    st_h = torch.sqrt(torch.clamp(1.0 - ct_h * ct_h, min=0.0))
+    ct_h = xm.sqrt(torch.clamp((1.0 - torch.pow(a2, 1.0 - u1)) / (1.0 - a2), min=0.0))
+    st_h = xm.sqrt(torch.clamp(1.0 - ct_h * ct_h, min=0.0))
     phi = 2.0 * torch.pi * u2
     wh_cc = torch.stack([st_h * torch.cos(phi), st_h * torch.sin(phi), ct_h], -1)
     wh_cc = torch.where(same_hemisphere(wo, wh_cc)[..., None], wh_cc, -wh_cc)
-    wi_cc = -wo + 2.0 * dot(wo, wh_cc)[..., None] * wh_cc
+    wi_cc = xm.fmac(2.0 * dot(wo, wh_cc)[..., None], wh_cc, -wo)
     # spec transmission: the VNDF of the (thin-rescaled) distribution
     wh_st = tr_sample_wh(wo, u1, u2, axt, ayt)
     eta_rel = torch.where(cos_theta(wo) > 0.0, 1.0 / torch.clamp(e, min=1e-6), e)
@@ -847,7 +853,7 @@ def _disney_sample_wi(mp: MatParams, wo, u_lobe, u1, u2):
     wi = torch.where(sel[5][..., None], wi_cc, wi)
     wi = torch.where(sel[6][..., None], wi_st, wi)
     wi = torch.where(sel[7][..., None], wi_lt, wi)
-    ln = torch.sqrt(dot(wi, wi))
+    ln = xm.sqrt(dot(wi, wi))
     wi = wi / torch.clamp(ln[..., None], min=1e-20)
     bad = (sel[6] & tir_st) | (ln < 1e-12)
     return wi, bad
@@ -961,41 +967,43 @@ def _hair_setup(mp: MatParams, wo):
     cos2k = [_safe_sqrt(1.0 - _ipow(sin2k[0], 2))]
     for i in range(1, 3):
         sin2k.append(2.0 * cos2k[i - 1] * sin2k[i - 1])
-        cos2k.append(_ipow(cos2k[i - 1], 2) - _ipow(sin2k[i - 1], 2))
+        cos2k.append(xm.fmac(cos2k[i - 1], cos2k[i - 1], -_ipow(sin2k[i - 1], 2)))
 
     sin_to = wo[..., 0]
     cos_to = _safe_sqrt(1.0 - sin_to * sin_to)
     phi_o = xm.atan2(wo[..., 2], wo[..., 1])
     sin_tt = sin_to / eta
-    cos_tt = _safe_sqrt(1.0 - sin_tt * sin_tt)
-    etap = _safe_sqrt(eta * eta - sin_to * sin_to) / torch.clamp(cos_to, min=1e-6)
+    cos_tt = _safe_sqrt(xm.fmac(-sin_tt, sin_tt, 1.0))
+    etap = _safe_sqrt(xm.fmac(eta, eta, -(sin_to * sin_to))) / torch.clamp(cos_to, min=1e-6)
     sin_gt = h / torch.clamp(etap, min=1e-6)
-    cos_gt = _safe_sqrt(1.0 - sin_gt * sin_gt)
+    cos_gt = _safe_sqrt(xm.fmac(-sin_gt, sin_gt, 1.0))
     gamma_t = _safe_asin(sin_gt)
     gamma_o = _safe_asin(h)
     # the transmittance of one internal segment
     T = xm.exp(-hz.sigma_a * (2.0 * cos_gt / torch.clamp(cos_tt, min=1e-6))[..., None])
     # the attenuation Ap (hair.cpp Ap())
-    cos_go = _safe_sqrt(1.0 - h * h)
-    fr = fresnel_dielectric(cos_to * cos_go, torch.ones_like(eta), eta, sqrt=xm.sqrt)[..., None]
+    cos_go = _safe_sqrt(xm.fmac(-h, h, 1.0))
+    fr = fresnel_dielectric(cos_to * cos_go, torch.ones_like(eta), eta)[..., None]
     ap0 = torch.broadcast_to(fr, T.shape)
     ap1 = _ipow(1.0 - fr, 2) * T
     ap2 = ap1 * T * fr
-    ap3 = ap2 * fr * T / torch.clamp(1.0 - T * fr, min=1e-4)
+    ap3 = ap2 * fr * T / torch.clamp(xm.fmac(-T, fr, 1.0), min=1e-4)
     aps = [ap0, ap1, ap2, ap3]
 
     # the longitudinal angles tilted per p (hair.cpp "account for scales")
+    # each a b +- c d contracted as fma(a, b, +-(c d)), but p = 0's cos,
+    # which the reference's compiled program rounds apart
     tilts = []
     for p in range(3):
         if p == 0:
-            st = sin_to * cos2k[1] - cos_to * sin2k[1]
+            st = xm.fmac(sin_to, cos2k[1], -(cos_to * sin2k[1]))
             ct = cos_to * cos2k[1] + sin_to * sin2k[1]
         elif p == 1:
-            st = sin_to * cos2k[0] + cos_to * sin2k[0]
-            ct = cos_to * cos2k[0] - sin_to * sin2k[0]
+            st = xm.fmac(sin_to, cos2k[0], cos_to * sin2k[0])
+            ct = xm.fmac(cos_to, cos2k[0], -(sin_to * sin2k[0]))
         else:
-            st = sin_to * cos2k[2] + cos_to * sin2k[2]
-            ct = cos_to * cos2k[2] - sin_to * sin2k[2]
+            st = xm.fmac(sin_to, cos2k[2], cos_to * sin2k[2])
+            ct = xm.fmac(cos_to, cos2k[2], -(sin_to * sin2k[2]))
         tilts.append((st, torch.abs(ct)))
     tilts.append((sin_to, cos_to))
 
@@ -1010,7 +1018,7 @@ def _hair_f_pdf(mp: MatParams, wo, wi):
     (eta, s, vs, gamma_o, gamma_t, phi_o, sin_to, cos_to, aps, ap_pdf,
      tilts) = _hair_setup(mp, wo)
     sin_ti = wi[..., 0]
-    cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
+    cos_ti = _safe_sqrt(xm.fmac(-sin_ti, sin_ti, 1.0))
     phi_i = xm.atan2(wi[..., 2], wi[..., 1])
     phi = phi_i - phi_o
     fsum = torch.zeros_like(mp.kd)
@@ -1019,7 +1027,7 @@ def _hair_f_pdf(mp: MatParams, wo, wi):
         st, ct = tilts[p]
         m = _mp(cos_ti, ct, sin_ti, st, vs[p])
         n = _trimmed_logistic(_wrap_pi(phi - _hair_phi_p(p, gamma_o, gamma_t)), s)
-        fsum = fsum + aps[p] * (m * n)[..., None]
+        fsum = xm.fmac(aps[p], (m * n)[..., None], fsum)
         pdf = pdf + ap_pdf[p] * m * n
     st, ct = tilts[_H_PMAX]
     m_last = _mp(cos_ti, ct, sin_ti, st, vs[_H_PMAX])
@@ -1058,12 +1066,15 @@ def _hair_sample_wi(mp: MatParams, wo, u_lobe, u1, u2):
     st_p = sel([t[0] for t in tilts])
     ct_p = sel([t[1] for t in tilts])
     u1c = torch.clamp(u1, min=1e-5)
-    cos_t = 1.0 + v_p * xm.log(
-        u1c + (1.0 - u1c) * xm.exp(-torch.clamp(2.0 / torch.clamp(v_p, min=1e-6), max=80.0)))
-    sin_t = _safe_sqrt(1.0 - cos_t * cos_t)
+    # the products contracted into their sums as the reference's compiled
+    # program contracts them
+    cos_t = xm.fmac(v_p, xm.log(
+        u1c + (1.0 - u1c) * xm.exp(-torch.clamp(2.0 / torch.clamp(v_p, min=1e-6), max=80.0))),
+        1.0)
+    sin_t = _safe_sqrt(xm.fmac(-cos_t, cos_t, 1.0))
     cos_phi_s = xm.cos(2.0 * np.pi * u2)
-    sin_ti = -cos_t * st_p + sin_t * cos_phi_s * ct_p
-    cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
+    sin_ti = xm.fmac(sin_t * cos_phi_s, ct_p, -cos_t * st_p)
+    cos_ti = _safe_sqrt(xm.fmac(-sin_ti, sin_ti, 1.0))
     dphi_smooth = sel([_hair_phi_p(p, gamma_o, gamma_t) for p in range(4)]) \
         + _sample_trimmed_logistic(u_np, s)
     dphi = torch.where(p_idx < _H_PMAX, dphi_smooth, 2.0 * np.pi * u_np)
@@ -1181,7 +1192,7 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
                          torch.where(entering, one, -one)], dim=-1)
     ci = torch.abs(ct_o)
     sin2_t = eta_rel * eta_rel * torch.clamp(1.0 - ci * ci, min=0.0)
-    ct_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    ct_t = xm.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
     wi_refr = eta_rel[..., None] * -wo + (eta_rel * ci - ct_t)[..., None] * n_loc
     f_refl_g = (F / torch.clamp(abs_cos_theta(wi_mirror), min=1e-12))[..., None] * mp.kr
     # radiance transport: the (ei/et)^2 factor

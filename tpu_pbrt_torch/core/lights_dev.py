@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from tpu_pbrt_torch.core.sampling import (
@@ -33,11 +34,14 @@ from tpu_pbrt_torch.core.vecmath import (
     coordinate_system,
     cross,
     dot,
+    dot_rows,
     normalize,
     spherical_direction,
     spherical_phi,
     spherical_theta,
 )
+from tpu_pbrt_torch.core import xla_math as _xm
+from tpu_pbrt_torch.core.xla_math import fmac as _fmac, sqrt as _sqrt
 
 # light type enum (the reference's values)
 LIGHT_POINT = 0
@@ -78,8 +82,15 @@ def _spot_falloff(cos_w, cos_falloff_start, cos_total_width):
 
 def _env_uv(dev, d_world):
     """(phi, theta) of world directions in the environment's light frame."""
-    wl = normalize(d_world @ dev["env_w2l"].T)
+    wl = normalize(dot_rows(d_world, dev["env_w2l"]))
     return spherical_phi(wl), spherical_theta(wl)
+
+
+def _env_scales(w: int, h: int):
+    """(w / 2 pi, h / pi) as the f32 constants XLA folds (phi (1 / 2 pi)) w
+    and (theta / pi) h into."""
+    f32 = np.float32
+    return float(f32(f32(0.5 / np.pi) * f32(w))), float(f32(f32(h) / f32(np.pi)))
 
 
 def env_lookup(dev, d_world):
@@ -88,8 +99,16 @@ def env_lookup(dev, d_world):
     env = dev["envmap"]
     h, w = env.shape[:2]
     phi, theta = _env_uv(dev, d_world)
-    x = phi * (0.5 / torch.pi) * w - 0.5
-    y = theta / torch.pi * h - 0.5
+    # phi / 2 pi * w - 0.5 and theta / pi * h - 0.5; a compiled program
+    # folds the constant factors into one and contracts the product into
+    # the sum
+    if _xm.contracting():
+        sx, sy = _env_scales(w, h)
+        x = _fmac(phi, sx, -0.5)
+        y = _fmac(theta, sy, -0.5)
+    else:
+        x = phi * (0.5 / torch.pi) * w - 0.5
+        y = theta / torch.pi * h - 0.5
     x0 = _to_index(torch.floor(x))
     y0 = _to_index(torch.floor(y))
     fx = (x - x0.to(torch.float32))[..., None]
@@ -102,15 +121,16 @@ def env_lookup(dev, d_world):
     c10 = env[y0c, x1w]
     c01 = env[y1c, x0w]
     c11 = env[y1c, x1w]
-    return (c00 * (1 - fx) + c10 * fx) * (1 - fy) + (c01 * (1 - fx) + c11 * fx) * fy
+    top = _fmac(c00, 1 - fx, c10 * fx)
+    return _fmac(top, 1 - fy, _fmac(c01, 1 - fx, c11 * fx) * fy)
 
 
 def env_pdf(dev, d_world):
     """Solid-angle pdf of sampling the world direction d by the map's
     importance distribution."""
     phi, theta = _env_uv(dev, d_world)
-    sin_t = torch.sin(theta)
-    p_uv = dev["env_distr"].pdf(phi * (0.5 / torch.pi), theta / torch.pi)
+    sin_t = _xm.sin(theta)
+    p_uv = dev["env_distr"].pdf(phi * (0.5 / torch.pi), _div(theta, torch.pi))
     pdf = p_uv / (2.0 * torch.pi * torch.pi * torch.clamp(sin_t, min=1e-9))
     return torch.where(sin_t > 1e-7, pdf, torch.zeros_like(pdf))
 
@@ -120,9 +140,9 @@ def _env_sample(dev, u1, u2):
     (u, v), pdf_uv = dev["env_distr"].sample_continuous(u1, u2)
     theta = v * torch.pi
     phi = u * 2.0 * torch.pi
-    sin_t = torch.sin(theta)
+    sin_t = _xm.sin(theta)
     # env_w2l is the world -> light rotation; its transpose maps back
-    wi = spherical_direction(sin_t, torch.cos(theta), phi) @ dev["env_w2l"]
+    wi = dot_rows(spherical_direction(sin_t, _xm.cos(theta), phi), dev["env_w2l"].T)
     pdf = pdf_uv / (2.0 * torch.pi * torch.pi * torch.clamp(sin_t, min=1e-9))
     pdf = torch.where(sin_t > 1e-7, pdf, torch.zeros_like(pdf))
     return wi, pdf, env_lookup(dev, wi)
@@ -131,20 +151,18 @@ def _env_sample(dev, u1, u2):
 def sample_triangle_point(tv, u1, u2):
     """Uniform point + unit geometric normal on (...,3,3) triangles."""
     b0, b1 = uniform_sample_triangle(u1, u2)
-    p = (
-        b0[..., None] * tv[..., 0, :]
-        + b1[..., None] * tv[..., 1, :]
-        + (1.0 - b0 - b1)[..., None] * tv[..., 2, :]
-    )
+    # b0 v0 + b1 v1 + b2 v2 contracted as compiled: fma(b2, v2, fma(b0, v0, b1 v1))
+    p = _fmac((1.0 - b0 - b1)[..., None], tv[..., 2, :],
+               _fmac(b0[..., None], tv[..., 0, :], b1[..., None] * tv[..., 1, :]))
     n = cross(tv[..., 1, :] - tv[..., 0, :], tv[..., 2, :] - tv[..., 0, :])
-    n = n / torch.clamp(torch.sqrt(dot(n, n))[..., None], min=1e-20)
+    n = n / torch.clamp(_sqrt(dot(n, n))[..., None], min=1e-20)
     return p, n
 
 
 def triangle_normal(tv):
     """Unit geometric normal of (...,3,3) triangles."""
     n = cross(tv[..., 1, :] - tv[..., 0, :], tv[..., 2, :] - tv[..., 0, :])
-    return n / torch.clamp(torch.sqrt(dot(n, n))[..., None], min=1e-20)
+    return n / torch.clamp(_sqrt(dot(n, n))[..., None], min=1e-20)
 
 
 def _light_map_scale(dev, lt, li_idx, w_from_light, is_gonio, is_proj):
@@ -220,7 +238,7 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     # -- point (and the position of spot and image lights) ----------------
     to_l = lp - ref_p
     d2 = torch.clamp(dot(to_l, to_l), min=1e-20)
-    dist_pt = torch.sqrt(d2)
+    dist_pt = _sqrt(d2)
     wi_pt = to_l / dist_pt[..., None]
     li_pt = lL / d2[..., None]
 
@@ -229,7 +247,7 @@ def sample_light_rows(dev, li_idx, ref_p, u1, u2) -> LightSample:
     p_l, n_l = sample_triangle_point(tv, u1, u2)
     to_a = p_l - ref_p
     d2a = torch.clamp(dot(to_a, to_a), min=1e-12)
-    dist_a = torch.sqrt(d2a)
+    dist_a = _sqrt(d2a)
     wi_a = to_a / dist_a[..., None]
     cos_l = dot(n_l, -wi_a)
     emits = (cos_l > 0.0) | (twosided > 0)
@@ -375,7 +393,7 @@ def emitted_pdf(dev, light_distr, ref_p, hit_p, light_idx, n_l):
     area = _take(dev["light"]["area"], light_idx.clamp(min=0))
     to_h = hit_p - ref_p
     d2 = torch.clamp(dot(to_h, to_h), min=1e-12)
-    wi = to_h / torch.sqrt(d2)[..., None]
+    wi = to_h / _sqrt(d2)[..., None]
     cos_l = torch.abs(dot(n_l, -wi))
     pdf_sa = d2 / torch.clamp(cos_l * area, min=1e-12)
     return pdf_sa * light_pick_pmf(dev, light_distr, light_idx, ref_p)

@@ -29,6 +29,7 @@ import torch
 
 from tpu_pbrt_torch.core.sampling import _div, uniform_float
 from tpu_pbrt_torch.core.vecmath import coordinate_system
+from tpu_pbrt_torch.core.xla_math import sqrt as _sqrt
 
 MEDIUM_NONE = -1
 MEDIUM_HOMOGENEOUS = 0
@@ -92,7 +93,7 @@ def empty_medium_table(device="cpu") -> MediumTable:
 def hg_p(cos_theta, g):
     denom = 1.0 + g * g + 2.0 * g * cos_theta
     return (1.0 / (4.0 * math.pi)) * (1.0 - g * g) / (
-        denom * torch.sqrt(torch.clamp(denom, min=1e-9)))
+        denom * _sqrt(torch.clamp(denom, min=1e-9)))
 
 
 def hg_sample(wo, g, u1, u2):
@@ -102,7 +103,7 @@ def hg_sample(wo, g, u1, u2):
     sq = (1.0 - g_safe * g_safe) / (1.0 + g_safe - 2.0 * g_safe * u1)
     cos_theta_hg = -(1.0 + g_safe * g_safe - sq * sq) / (2.0 * g_safe)
     cos_theta = torch.where(small, 1.0 - 2.0 * u1, cos_theta_hg)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = _sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     phi = 2.0 * math.pi * u2
     v1, v2 = coordinate_system(wo)
     wi = (sin_theta[..., None] * torch.cos(phi)[..., None] * v1

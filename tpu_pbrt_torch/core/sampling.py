@@ -16,6 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_pbrt_torch.core import xla_math as _xm
+from tpu_pbrt_torch.core.xla_math import fmac as _fmac, sqrt as _sqrt
+
 ONE_MINUS_EPSILON = float(np.float32(0.99999994))
 _M32 = 0xFFFFFFFF
 _TO_UNIT = 2.3283064365386963e-10  # 2^-32
@@ -89,15 +92,16 @@ def concentric_sample_disk(u1, u2):
         (np.pi / 2.0) - (np.pi / 4.0) * (ox / torch.where(oy == 0.0, one, oy)),
     )
     zero = torch.zeros_like(ox)
-    x = torch.where(degenerate, zero, r * torch.cos(theta))
-    y = torch.where(degenerate, zero, r * torch.sin(theta))
+    x = torch.where(degenerate, zero, r * _xm.cos(theta))
+    y = torch.where(degenerate, zero, r * _xm.sin(theta))
     return x, y
 
 
 def cosine_sample_hemisphere(u1, u2):
     """Malley's method; returns direction (...,3) in local frame, z up."""
     x, y = concentric_sample_disk(u1, u2)
-    z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0))
+    # (1 - x x) - y y with both products contracted, as compiled
+    z = _sqrt(torch.clamp(_fmac(-y, y, _fmac(-x, x, 1.0)), min=0.0))
     return torch.stack([x, y, z], dim=-1)
 
 
@@ -107,7 +111,7 @@ def cosine_hemisphere_pdf(cos_theta):
 
 def uniform_sample_hemisphere(u1, u2):
     z = u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = _sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * np.pi * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -118,20 +122,20 @@ UNIFORM_SPHERE_PDF = 1.0 / (4.0 * np.pi)
 
 def uniform_sample_sphere(u1, u2):
     z = 1.0 - 2.0 * u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = _sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * np.pi * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def uniform_sample_triangle(u1, u2):
     """Returns barycentrics (b0, b1) (sqrt warp)."""
-    su0 = torch.sqrt(u1)
+    su0 = _sqrt(u1)
     return 1.0 - su0, u2 * su0
 
 
 def uniform_sample_cone(u1, u2, cos_theta_max):
     cos_theta = (1.0 - u1) + u1 * cos_theta_max
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = _sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     phi = 2.0 * np.pi * u2
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
@@ -149,7 +153,8 @@ def balance_heuristic(nf, f_pdf, ng, g_pdf):
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
-    return (f * f) / torch.clamp(f * f + g * g, min=1e-20)
+    # g g contracted into the sum (f f has two uses), as compiled
+    return (f * f) / torch.clamp(_fmac(g, g, f * f), min=1e-20)
 
 
 # -------------------------------------------------------------------------

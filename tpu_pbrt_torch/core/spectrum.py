@@ -45,8 +45,15 @@ def rgb_to_xyz(rgb) -> np.ndarray:
 
 def luminance(rgb):
     """Rec.709 luminance (pbrt RGBSpectrum::y). Backend-agnostic: works on
-    numpy arrays and torch tensors; returns an array of rgb's batch shape."""
-    return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
+    numpy arrays and torch tensors; returns an array of rgb's batch shape.
+    A tensor's sum of products is contracted as the reference's compiled
+    program contracts it, fma(b, c2, fma(r, c0, c1 g)); a numpy array's
+    is the reference's host arithmetic."""
+    if isinstance(rgb, np.ndarray):
+        return 0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1] + 0.072169 * rgb[..., 2]
+    from tpu_pbrt_torch.core.xla_math import fmac
+
+    return fmac(rgb[..., 2], 0.072169, fmac(rgb[..., 0], 0.212671, 0.715160 * rgb[..., 1]))
 
 
 def _gauss(x, alpha, mu, s1, s2):

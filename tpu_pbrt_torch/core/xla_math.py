@@ -26,6 +26,8 @@ reference's bits:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -84,19 +86,71 @@ def ftz(y):
 
 
 def sqrt(x):
-    """Correctly rounded f32 square root (as the reference's vsqrtps): the
-    f64 root of an f32 rounds to the f32 root without double rounding."""
+    """Correctly rounded f32 square root (as the reference's vsqrtps): on
+    the CPU the f64 root of the flushed input, which rounds to the f32
+    root without double rounding; on CUDA torch's own, correctly rounded
+    there, in one launch (a subnormal input is not flushed)."""
+    if torch.is_tensor(x) and x.is_cuda:
+        return torch.sqrt(x)
     return torch.sqrt(_daz(x).double()).to(_F32)
+
+
+#: whether `fmac` contracts: the reference's compiled programs fuse a
+#: product into the add that consumes it, its op-by-op (eager) evaluation
+#: rounds them apart
+_CONTRACT = [True]
+
+
+@contextlib.contextmanager
+def contraction(enabled: bool):
+    """Round `fmac` (and the compiler's folds that go with it) as the
+    reference's compiled programs do (True, the default: every render) or
+    as its op-by-op evaluation does (False: a comparison with the
+    reference's functions called eagerly)."""
+    prev = _CONTRACT[0]
+    _CONTRACT[0] = bool(enabled)
+    try:
+        yield
+    finally:
+        _CONTRACT[0] = prev
+
+
+def contracting() -> bool:
+    return _CONTRACT[0]
+
+
+def fmac(a, b, c):
+    """a * b + c where the reference's XLA program fuses the product into
+    the sum that consumes it (LLVM contracts the pair into one fused
+    multiply-add): `fma32` under `contraction(True)`, two roundings
+    otherwise."""
+    if _CONTRACT[0]:
+        return fma32(a, b, c)
+    return a * b + c
+
+
+def _fma_f64(a, b, c):
+    """a * b + c through f64: the f32 product is exact there, and the f64
+    sum rounded to f32 is the fused result but where the sum's own
+    rounding lands it exactly on an f32 midpoint (at most one sum in
+    2^29; none in the sweeps of tests/test_torch_xla_math.py)."""
+    return (a.double() * b + c).to(_F32)
 
 
 def fma32(a, b, c):
     """a * b + c rounded to f32 as one fused multiply-add: a is an f32
-    tensor, b and c f32 tensors or Python floats that hold f32 values.
-    The product is exact in f64; the f64 sum rounded to f32 is the fused
-    result but where the sum's own rounding lands it exactly on an f32
-    midpoint (at most one sum in 2^29; none in the sweeps of
-    tests/test_torch_xla_math.py)."""
-    return (a.double() * b + c).to(_F32)
+    tensor, b and c f32 tensors or Python floats (taken as the f32 values
+    nearest them, as the reference's programs hold their constants). On
+    CUDA one torch.addcmul, a fused multiply-add there (chip_smoke.py
+    `[samplers]` holds it to the f64 form bit for bit); on the CPU
+    `_fma_f64`."""
+    if a.is_cuda:
+        b = b if torch.is_tensor(b) else a.new_full((), b)
+        c = c if torch.is_tensor(c) else a.new_full((), c)
+        return torch.addcmul(c, a, b)
+    b = b if torch.is_tensor(b) else float(np.float32(b))
+    c = c if torch.is_tensor(c) else float(np.float32(c))
+    return _fma_f64(a, b, c)
 
 
 def _exp_core(x):
@@ -256,6 +310,14 @@ def remainder(x, y):
     y = torch.as_tensor(y, dtype=_F32, device=x.device)
     r = torch.fmod(x, y)
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def acos(x):
+    """jnp.arccos (f32) as jax 0.9.0 compiles it on the CPU:
+    atan2(sqrt((1 - x)(1 + x)), x), a subnormal x passed to atan2f as it
+    is."""
+    x = torch.as_tensor(x, dtype=_F32)
+    return atan2(sqrt((1.0 - x) * (1.0 + x)), x)
 
 
 def asin(x):

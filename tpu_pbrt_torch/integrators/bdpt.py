@@ -40,6 +40,7 @@ from tpu_pbrt_torch.core.vecmath import (
     to_local,
     to_world,
 )
+from tpu_pbrt_torch.core.xla_math import sqrt as _sqrt
 from tpu_pbrt_torch.integrators.common import (
     DIMS_PER_BOUNCE,
     WavefrontIntegrator,
@@ -74,7 +75,7 @@ def _convert_density(pdf_sa, p_from, p_to, n_to, to_is_surface: bool):
     (to_is_surface False) drops the cosine."""
     d = p_to - p_from
     d2 = torch.clamp(dot(d, d), min=1e-20)
-    w = d / torch.sqrt(d2)[..., None]
+    w = d / _sqrt(d2)[..., None]
     cos_t = torch.abs(dot(n_to, w)) if to_is_surface else 1.0
     return pdf_sa * cos_t / d2
 
@@ -203,7 +204,7 @@ class BDPTIntegrator(WavefrontIntegrator):
             pdf_rev_sa = torch.where(bs.is_specular, 0.0, pdf_rev_sa)
             d_b = prev_p - it.p
             d2_b = torch.clamp(dot(d_b, d_b), min=1e-20)
-            w_b = d_b / torch.sqrt(d2_b)[..., None]
+            w_b = d_b / _sqrt(d2_b)[..., None]
             cos_b = torch.where(prev_surf, torch.abs(dot(prev_ns, w_b)), 1.0)
             pdf_rev_prev = pdf_rev_sa * cos_b / d2_b
             path.pdf_rev[:, i - 1] = torch.where(found, pdf_rev_prev, path.pdf_rev[:, i - 1])
@@ -507,7 +508,7 @@ class BDPTIntegrator(WavefrontIntegrator):
                 qsp = lpath.p[:, st - 1]
                 link = qsp - ptp
                 d2 = torch.clamp(dot(link, link), min=1e-20)
-                dist = torch.sqrt(d2)
+                dist = _sqrt(d2)
                 wi = link / dist[..., None]
                 wo_pt = normalize(cpath.p[:, t - 2] - ptp)
                 wo_qs = normalize(lpath.p[:, st - 2] - qsp)

@@ -58,6 +58,7 @@ from tpu_pbrt_torch.core.vecmath import (
     to_local,
     to_world,
 )
+from tpu_pbrt_torch.core.xla_math import fmac, sqrt as _sqrt
 from tpu_pbrt_torch.utils.clock import WALL
 
 # dimension salts (one stream per logical sampler dimension; bounce-shifted)
@@ -252,14 +253,16 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
     b0 = hit.b0
     b1 = hit.b1
     b2 = 1.0 - b0 - b1
-    p = (b0[..., None] * tv[..., 0, :] + b1[..., None] * tv[..., 1, :]
-         + b2[..., None] * tv[..., 2, :])
+    # p and ns as the reference's compiled program rounds them:
+    # fma(b2, v2, fma(b0, v0, b1 v1)) per component
+    p = fmac(b2[..., None], tv[..., 2, :],
+              fmac(b0[..., None], tv[..., 0, :], b1[..., None] * tv[..., 1, :]))
     e1 = tv[..., 1, :] - tv[..., 0, :]
     e2 = tv[..., 2, :] - tv[..., 0, :]
     ng = normalize(cross(e1, e2))
-    ns = (b0[..., None] * tn[..., 0, :] + b1[..., None] * tn[..., 1, :]
-          + b2[..., None] * tn[..., 2, :])
-    ns_len = torch.sqrt(dot(ns, ns))[..., None]
+    ns = fmac(b2[..., None], tn[..., 2, :],
+               fmac(b0[..., None], tn[..., 0, :], b1[..., None] * tn[..., 1, :]))
+    ns_len = _sqrt(dot(ns, ns))[..., None]
     ns = torch.where(ns_len > 1e-12, ns / torch.clamp(ns_len, min=1e-20), ng)
     ng = face_forward(ng, ns)
     uv = (b0[..., None] * tuv[..., 0, :] + b1[..., None] * tuv[..., 1, :]
@@ -269,8 +272,8 @@ def make_interaction(dev, hit: Hit, o, d) -> Interaction:
         # hair BSDF needs as its x axis (along the curve); built only for
         # scenes with hair
         tan = dev["tri_tanT"][:, prim].T
-        tan = tan - ns * dot(tan, ns)[..., None]
-        tl = torch.sqrt(dot(tan, tan))[..., None]
+        tan = fmac(-ns, dot(tan, ns)[..., None], tan)
+        tl = _sqrt(dot(tan, tan))[..., None]
         ss0, ts0 = coordinate_system(ns)
         ok = tl[..., 0] > 1e-8
         ss = torch.where(ok[..., None], tan / torch.clamp(tl, min=1e-20), ss0)
@@ -656,16 +659,21 @@ class DispatchWindow:
 
 @dataclass
 class ChunkPlan:
-    """The chunked decomposition of one render's work domain on one
-    device, and the dispatch of one chunk (the reference's ChunkPlan
-    without the mesh and the jit cache).
+    """The chunked decomposition of one render's work domain, on one
+    device or over a mesh of ranks, and the dispatch of one chunk (the
+    reference's ChunkPlan without the jit cache).
 
     ``dispatch(state, c)`` renders chunk ``c`` into the film accumulator
     ``state`` (in place) and returns its accounting: ``(rays, live lane
-    waves, waves, truncated, counters)`` through the pool, ``(rays,
-    nonfinite count or None)`` through the fixed batch. The (film state,
-    chunk cursor, rays, counters) a caller carries between dispatches is
-    exactly the checkpoint's payload."""
+    waves, waves, truncated, counters)`` through the pool (over a mesh
+    with the per-rank wave vector after them), ``(rays, nonfinite count
+    or None)`` through the fixed batch. Over a mesh each rank renders
+    ``per_dev`` items of the chunk (rank i from ``c * chunk + i *
+    per_dev``) into a fresh film, and one sum all-reduce merges the
+    contributions and the accounting, so every rank returns the chunk's
+    totals and holds the same film. The (film state, chunk cursor, rays,
+    counters) a caller carries between dispatches is exactly the
+    checkpoint's payload."""
 
     scene: Any
     film: Any
@@ -689,11 +697,17 @@ class ChunkPlan:
     #: registry which wave (if any) to contaminate
     chaos_nan: bool = False
     integrator: Any = field(repr=False, default=None)
+    #: the process-group mesh (parallel/mesh.py Mesh), None on one device
+    mesh: Any = None
+    #: ranks, and work items per rank per chunk (chunk // n_dev)
+    n_dev: int = 1
+    per_dev: int = 0
     _dispatch: Callable = field(repr=False, default=None)
 
-    def start(self, c: int):
-        """Chunk c's first work item as (pixel, sample): int32-safe."""
-        return divmod(c * self.chunk, self.spp)
+    def start(self, c: int, rank: int = 0):
+        """Rank `rank`'s first work item of chunk c as (pixel, sample):
+        int32-safe."""
+        return divmod(c * self.chunk + rank * self.per_dev, self.spp)
 
     def dispatch(self, state, c: int):
         return self._dispatch(state, c)
@@ -701,11 +715,17 @@ class ChunkPlan:
     def aux_parts(self, aux):
         """Split a dispatch's aux into (nrays, occ, ctr, spread, nf): occ =
         (live, waves, truncated) on the pool, ctr the wave counters (None
-        with telemetry killed), spread always None on one device, nf the
-        fixed batch's firewall scrub count."""
+        with telemetry killed), spread the per-rank wave vector (None on
+        one device), nf the fixed batch's firewall scrub count."""
         if self.use_regen:
-            return aux[0], tuple(aux[1:4]), aux[4], None, None
+            return aux[0], tuple(aux[1:4]), aux[4], (aux[5] if len(aux) > 5 else None), None
         return aux[0], None, None, None, aux[1]
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and images: the one
+        device, or rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def capacity_audit(self):
         """Pre-render stream-capacity audit (on by default: an overflow
@@ -725,7 +745,7 @@ class ChunkPlan:
             memo = integ._audit_memo = {}
         # keyed by identity; the value keeps the scene alive so the id
         # cannot be recycled under the memo
-        memo_key = (id(self.scene), self.chunk)
+        memo_key = (id(self.scene), self.per_dev or self.chunk)
         if memo_key in memo:
             drops = memo[memo_key][1]
         else:
@@ -736,7 +756,7 @@ class ChunkPlan:
             x0, x1, y0, _ = self.bounds
             w = x1 - x0
             with TRACE.span("render/capacity_audit"):
-                k = torch.arange(min(self.chunk, self.total), dtype=torch.int32,
+                k = torch.arange(min(self.per_dev or self.chunk, self.total), dtype=torch.int32,
                                  device=self.scene.device)
                 pix = torch.div(k, self.spp, rounding_mode="floor")
                 p_film0 = torch.stack(
@@ -756,6 +776,13 @@ class ChunkPlan:
                 _W(msg)
             else:
                 raise RuntimeError(msg)
+
+
+def _merge_film_(state, contrib) -> None:
+    """core/film.py::merge_film into the film accumulator, in place (the
+    render loop writes its film in place)."""
+    for acc, add in zip(state, contrib):
+        acc.add_(add)
 
 
 def _fixed_batch_nonfinite(valid, L):
@@ -877,18 +904,31 @@ class WavefrontIntegrator:
     def pool_chunk(self, dev, fs, start_pix, start_s, n_work, pool, film=None, cam=None):
         raise NotImplementedError
 
-    def prepare_chunks(self, scene=None, chunk: Optional[int] = None) -> ChunkPlan:
+    def prepare_chunks(self, scene=None, mesh=None, chunk: Optional[int] = None) -> ChunkPlan:
         """The chunk decomposition of the work domain (pixel-major, spp
-        consecutive samples per pixel) and its dispatch. The chunk is, in
-        order: the `chunk` argument, the options' spp_chunk, the
-        TORCH_PBRT_CHUNK knob, or the device default; the pool holds a
-        quarter of it, at least min(chunk, 4096) slots, unless
+        consecutive samples per pixel) and its dispatch, on one device or
+        over `mesh` (parallel/mesh.py; the options' mesh_shape resolves
+        one when none is given). The chunk is, in order: the `chunk`
+        argument, the options' spp_chunk, the TORCH_PBRT_CHUNK knob, or
+        the device default times the ranks, rounded to a multiple of the
+        ranks; each rank renders chunk / ranks items of it, and its pool
+        holds a quarter of those, at least min(them, 4096) slots, unless
         TORCH_PBRT_POOL sets it."""
         from tpu_pbrt_torch.chaos import CHAOS
         from tpu_pbrt_torch.parallel.checkpoint import render_fingerprint
         from tpu_pbrt_torch.parallel.mesh import resolve_pipeline_depth
 
         scene = scene or self.scene
+        if mesh is None and getattr(self.options, "mesh_shape", None):
+            from tpu_pbrt_torch.parallel.mesh import resolve_mesh
+
+            mesh = resolve_mesh(self.options.mesh_shape, device=scene.device)
+        if mesh is not None and mesh.size < 2:
+            mesh = None
+        if mesh is not None and torch.device(mesh.device) != scene.device:
+            raise ValueError(f"rank {mesh.rank} renders on {mesh.device}, but its scene "
+                             f"was compiled on {scene.device}")
+        n_dev = 1 if mesh is None else mesh.size
         film, cam = scene.film, scene.camera
         x0, x1, y0, y1 = film.sample_bounds()
         w = x1 - x0
@@ -898,43 +938,79 @@ class WavefrontIntegrator:
         if chunk is None:
             chunk = int(getattr(self.options, "spp_chunk", 0) or 0) or None
         if chunk is None:
-            default = GPU_CHUNK if scene.device.type == "cuda" else CPU_CHUNK
+            # the device default is a rank's share: a pool's cost is per
+            # wave, so a rank given a fraction of it would drain its slice
+            # in as many waves as the whole chunk takes on one device
+            default = (GPU_CHUNK if scene.device.type == "cuda" else CPU_CHUNK) * n_dev
             chunk = int(cfg.chunk if cfg.chunk is not None else default)
-        chunk = max(min(int(chunk), max(1024, total)), 1)
+        chunk = max(min(int(chunk), max(1024 * n_dev, total)), 1)
+        chunk = max((chunk // n_dev) * n_dev, n_dev)
+        per_dev = chunk // n_dev
         use_regen = self._regen_enabled()
         pool = 0
         if use_regen:
             pool = int(cfg.pool)
             if pool <= 0:
-                pool = max(chunk // 4, min(chunk, 4096))
-            pool = min(pool, chunk)
+                pool = max(per_dev // 4, min(per_dev, 4096))
+            pool = min(pool, per_dev)
         plan = ChunkPlan(
             scene=scene, film=film, chunk=chunk,
             n_chunks=(total + chunk - 1) // chunk, spp=spp, total=total, npix=npix,
             bounds=(x0, x1, y0, y1), pool=pool, use_regen=use_regen,
             fingerprint=render_fingerprint(chunk=chunk, spp=spp, total=total, scene=scene),
             tracer="fused" if scene.device.type == "cuda" else "plain",
-            pipeline_depth=resolve_pipeline_depth(), chaos_nan=CHAOS.has_nan() and use_regen,
-            integrator=self,
+            pipeline_depth=resolve_pipeline_depth(mesh),
+            # a nan:wave plan contaminates one rank's drain; the reference
+            # runs it on one device only
+            chaos_nan=CHAOS.has_nan() and use_regen and mesh is None,
+            integrator=self, mesh=mesh, n_dev=n_dev, per_dev=per_dev,
         )
+        rank = 0 if mesh is None else mesh.rank
         if use_regen:
 
-            def dispatch(state, c):
-                start_pix, start_s = plan.start(c)
+            def drain(fs, c):
+                start_pix, start_s = plan.start(c, rank)
                 kw = {"nan_wave": CHAOS.nan_wave_for(c)} if plan.chaos_nan else {}
                 _, nrays, live, waves, trunc, ctr = self.pool_chunk(
-                    scene.dev, state, start_pix, start_s, chunk, pool, film=film, cam=cam, **kw)
+                    scene.dev, fs, start_pix, start_s, per_dev, pool, film=film, cam=cam, **kw)
                 return nrays, live, waves, trunc, ctr
+
+            if mesh is None:
+                dispatch = drain
+            else:
+                from tpu_pbrt_torch.obs.counters import WaveCounters
+                from tpu_pbrt_torch.parallel.mesh import device_spread, sharded_pool_renderer
+
+                def per_device_drain(c):
+                    # this rank drains ITS slice with its own pool, into a
+                    # fresh film; the wave count rides the aux all-reduce
+                    # as a one-hot vector (the per-rank wave spread)
+                    contrib = film.init_state(scene.device)
+                    nrays, live, waves, trunc, ctr = drain(contrib, c)
+                    i64 = dict(dtype=torch.int64, device=scene.device)
+                    aux = (torch.as_tensor(nrays, **i64).reshape(()),
+                           torch.as_tensor(live, **i64).reshape(()),
+                           torch.tensor(waves, **i64), torch.tensor(trunc, **i64),
+                           *(() if ctr is None else tuple(ctr)), device_spread(waves, mesh))
+                    return contrib, aux
+
+                step = sharded_pool_renderer(mesh, per_device_drain)
+
+                def dispatch(state, c):
+                    contrib, aux = step(c)
+                    _merge_film_(state, contrib)
+                    ctr = None if len(aux) == 5 else WaveCounters(*aux[4:-1])
+                    return aux[0], aux[1], int(aux[2]), int(aux[3]), ctr, aux[-1]
 
         else:
             # pixel-major chunks that tile the frame exactly take the
-            # film's scatter-free aligned deposit
-            aligned = film.aligned_chunk_pixels(chunk, spp) > 0
+            # film's scatter-free aligned deposit (on one device)
+            aligned = mesh is None and film.aligned_chunk_pixels(chunk, spp) > 0
             box_fast = film.pixel_deposit_ok()
-            k = torch.arange(chunk, dtype=torch.int32, device=scene.device)
+            k = torch.arange(per_dev, dtype=torch.int32, device=scene.device)
 
-            def dispatch(state, c):
-                start_pix, start_s = plan.start(c)
+            def body(fs, c):
+                start_pix, start_s = plan.start(c, rank)
                 valid, px, py, s, p_film, o, d, wt = self.work_to_rays(
                     cam, spp, x0, y0, w, npix, start_pix, start_s, k)
                 out = self.li(scene.dev, o, d, px, py, s)
@@ -942,28 +1018,50 @@ class WavefrontIntegrator:
                 nrays = torch.where(valid, nrays, torch.zeros_like(nrays)).sum()
                 nf = _fixed_batch_nonfinite(valid, L)
                 if aligned:
-                    film.add_samples_aligned(state, start_pix, spp, L, wt)
+                    film.add_samples_aligned(fs, start_pix, spp, L, wt)
                 elif box_fast:
-                    film.add_samples_pixel(state, px, py, L, valid, wt)
+                    film.add_samples_pixel(fs, px, py, L, valid, wt)
                 else:
                     p_film = torch.where(valid[..., None], p_film, torch.full_like(p_film, -1e6))
-                    film.add_samples(state, p_film, L, wt)
+                    film.add_samples(fs, p_film, L, wt)
                 if len(out) == 4:
                     # a splatting integrator (BDPT's t=1 strategies):
                     # (L, nrays, splat_xy (R,K,2), splat_val (R,K,3))
                     sxy, sval = out[2:]
                     sval = torch.where(valid[..., None, None], sval, torch.zeros_like(sval))
-                    film.add_splats(state, sxy.reshape(-1, 2), sval.reshape(-1, 3))
+                    film.add_splats(fs, sxy.reshape(-1, 2), sval.reshape(-1, 3))
                 return nrays, nf
+
+            if mesh is None:
+                dispatch = body
+            else:
+                from tpu_pbrt_torch.parallel.mesh import sharded_chunk_renderer
+
+                def per_device_fn(c):
+                    # this rank's slice into a fresh film; BDPT's splats
+                    # ride the same all-reduce
+                    contrib = film.init_state(scene.device)
+                    nrays, nf = body(contrib, c)
+                    return contrib, (nrays.to(torch.int64), nf)
+
+                step = sharded_chunk_renderer(mesh, per_device_fn)
+
+                def dispatch(state, c):
+                    contrib, (nrays, nf) = step(c)
+                    _merge_film_(state, contrib)
+                    return nrays, nf
 
         plan._dispatch = dispatch
         return plan
 
-    def render(self, scene=None, chunk: Optional[int] = None, checkpoint_path=None,
-               checkpoint_every: int = 0, max_seconds: float = 0.0) -> RenderResult:
-        """SamplerIntegrator::Render on one device: every chunk through
-        the pool (or the fixed batch), deposited into the film, through
-        the reference's render loop.
+    def render(self, scene=None, mesh=None, checkpoint_path=None, checkpoint_every: int = 0,
+               max_seconds: float = 0.0, chunk: Optional[int] = None) -> RenderResult:
+        """SamplerIntegrator::Render: every chunk through the pool (or the
+        fixed batch), deposited into the film, through the reference's
+        render loop, on one device or over `mesh` (every rank of the
+        process group calls render with its Mesh; each renders its slice
+        of every chunk, one all-reduce per chunk merges the film, and
+        rank 0 alone writes checkpoints and the image).
 
         - The dispatch window keeps TORCH_PBRT_PIPELINE chunk-slices in
           flight (DispatchWindow), and a cadence checkpoint that falls
@@ -985,7 +1083,8 @@ class WavefrontIntegrator:
 
         Checkpoint/resume: a checkpoint is the film state plus the chunk
         cursor, so a resumed render is bit-identical to an uninterrupted
-        one. It is read from and written to `checkpoint_path` (default:
+        one (of the same mesh width: every rank reads the file rank 0
+        wrote, after a barrier). It is read from and written to `checkpoint_path` (default:
         the options' checkpoint_path) every `checkpoint_every` chunks and
         at the end. max_seconds > 0 stops at a chunk boundary past the
         budget and returns a partial render with completed_fraction < 1.
@@ -1006,8 +1105,11 @@ class WavefrontIntegrator:
         from tpu_pbrt_torch.utils.error import Warning as _W
         from tpu_pbrt_torch.utils.stats import STATS, ProgressReporter
 
-        plan = self.prepare_chunks(scene, chunk)
+        plan = self.prepare_chunks(scene, mesh, chunk)
         scene, film, device = plan.scene, plan.film, plan.scene.device
+        mesh, writer = plan.mesh, plan.is_writer
+        if mesh is not None:
+            mesh.take_log()
         n_chunks, spp, total = plan.n_chunks, plan.spp, plan.total
         use_regen, fp = plan.use_regen, plan.fingerprint
         cuda = device.type == "cuda"
@@ -1035,7 +1137,7 @@ class WavefrontIntegrator:
 
         quiet = bool(getattr(self.options, "quiet", False))
         progress = ProgressReporter(n_chunks, "Rendering", quiet=quiet)
-        ray_counts, occ_counts, ctr_counts, nf_counts = [], [], [], []
+        ray_counts, occ_counts, ctr_counts, nf_counts, spread_counts = [], [], [], [], []
         recovery = {"redispatches": 0, "rollbacks": 0, "restarts": 0,
                     "nonfinite_retries": 0, "backoff_ms": 0}
         # the retry extras a resume brought in from earlier processes: a
@@ -1094,6 +1196,8 @@ class WavefrontIntegrator:
         def _write_checkpoint(st, cursor, n_ray, n_ctr, n_nf, rec=None):
             """One cadence write: chunks [0, cursor) of `st`, the counters
             restricted to the captured list prefixes."""
+            if not writer:
+                return
             t_ph = time.perf_counter()
             with TRACE.span("render/checkpoint", chunk=cursor):
                 save_checkpoint(ckpt_path, st, cursor, rays_of(n_ray), fingerprint=fp,
@@ -1106,6 +1210,8 @@ class WavefrontIntegrator:
             the next dispatches) is copied to the host now, ordered after
             this chunk on the device, and written once the slice retires."""
             lens = (len(ray_counts), len(ctr_counts), len(nf_counts))
+            if not writer:
+                return
             if not len(window):
                 _write_checkpoint(state, cursor, *lens)
                 return
@@ -1118,6 +1224,7 @@ class WavefrontIntegrator:
             occ_counts.clear()
             ctr_counts.clear()
             nf_counts.clear()
+            spread_counts.clear()
 
         prev_det = torch.are_deterministic_algorithms_enabled()
         prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
@@ -1140,7 +1247,16 @@ class WavefrontIntegrator:
                             # the failure seam: chaos faults fire here; a
                             # chunk is a pure function of its work range,
                             # so a re-dispatch is exact
-                            CHAOS.dispatch(c, attempt)
+                            try:
+                                CHAOS.dispatch(c, attempt, mesh=mesh is not None)
+                            except ChunkDispatchError as e:
+                                if mesh is None:
+                                    raise
+                                # the other ranks may be in this chunk's
+                                # step: agree on its outcome with them
+                                from tpu_pbrt_torch.parallel.mesh import join_failure
+
+                                raise join_failure(mesh, e) from e
                             if c == first_chunk:
                                 ph_name, span = "dispatch_compile", "render/chunk_dispatch+compile"
                             elif len(window):
@@ -1180,11 +1296,13 @@ class WavefrontIntegrator:
                             attempt = 0
                             retry_t0 = None
                             c += 1
-                            nrays, occ, ctr, _, nf_dep = plan.aux_parts(aux)
+                            nrays, occ, ctr, spread, nf_dep = plan.aux_parts(aux)
                             if use_regen:
                                 occ_counts.append(occ)
                                 if ctr is not None:
                                     ctr_counts.append(ctr)
+                                if spread is not None:
+                                    spread_counts.append(spread)
                             elif nf_dep is not None:
                                 nf_counts.append(nf_dep)
                             ray_counts.append(nrays)
@@ -1214,8 +1332,12 @@ class WavefrontIntegrator:
                             rate = elapsed / max(len(ray_counts) - len(window), 1)
                             if max_seconds - elapsed < (depth + 2) * rate:
                                 window.drain()
-                            if time.perf_counter() - t0 > max_seconds:
-                                timed_out = True
+                            timed_out = time.perf_counter() - t0 > max_seconds
+                            if mesh is not None:
+                                # the ranks stop at the same chunk: rank 0's clock decides
+                                flag = torch.tensor([int(timed_out)], device=device)
+                                mesh.broadcast_(flag)
+                                timed_out = bool(flag.item())
                     except ChunkDispatchError as e:
                         # flush the window before the ladder: a poisoning
                         # failure discards it, a clean one quiesces it so
@@ -1237,7 +1359,7 @@ class WavefrontIntegrator:
                             # completed work, unless this failure poisoned
                             # the film (then the last durable file holds all
                             # that can be trusted)
-                            if ckpt_path and not e.poisons_state:
+                            if ckpt_path and not e.poisons_state and writer:
                                 save_checkpoint(ckpt_path, state, c, rays_of(), fingerprint=fp,
                                                 counters=ctr_snapshot())
                                 FLIGHT.heartbeat("render_emergency_checkpoint", chunk=c,
@@ -1245,6 +1367,12 @@ class WavefrontIntegrator:
                             reason = (f"retry deadline ({retry_deadline:.0f}s) exceeded"
                                       if deadline_hit else f"failed {attempt} times")
                             raise RuntimeError(f"chunk {c} {reason}") from e
+                        if mesh is not None:
+                            # the ranks agreed on this chunk's failure
+                            # (parallel/mesh.py agree), so every rank is
+                            # here; rank 0's deferred writes have landed
+                            # once all ranks pass
+                            mesh.barrier()
                         if e.poisons_state and ckpt_path and checkpoint_exists(ckpt_path):
                             state, c, prev_rays, prev_ctr = load_checkpoint(ckpt_path, fp,
                                                                             device=device)
@@ -1298,18 +1426,20 @@ class WavefrontIntegrator:
             FLIGHT.counters(ctr_total, phase="render_done")
         else:
             FLIGHT.heartbeat("render_done", rays=rays, seconds=round(secs, 3))
-        if ckpt_path:
+        if ckpt_path and writer:
             t_ph = time.perf_counter()
             save_checkpoint(ckpt_path, state, chunks_done, rays, fingerprint=fp,
                             counters=ctr_total)
             _phase("checkpoint", time.perf_counter() - t_ph)
+        if ckpt_path and mesh is not None:
+            mesh.barrier()  # no rank reads the file before rank 0 has written it
         # pbrt film.cpp splatScale: splats divide by the samples taken
         splat_scale = 1.0 / max(spp * completed_fraction, 1e-9)
         t_ph = time.perf_counter()
         with TRACE.span("render/develop"):
             img = film.develop(state, splat_scale=splat_scale)
         FLIGHT.heartbeat("develop")
-        if film.filename:
+        if film.filename and writer:
             with TRACE.span("render/write_image"):
                 try:
                     film.write_image(state, splat_scale=splat_scale)
@@ -1359,9 +1489,24 @@ class WavefrontIntegrator:
             }
             STATS.distribution("Integrator/Wave occupancy", stats["mean_wave_occupancy"])
         if obs_counters.enabled() and ctr_total:
+            if spread_counts:
+                per_rank = torch.stack(spread_counts).sum(dim=0).tolist()
+            else:
+                per_rank = [sum(wave_counts)] if wave_counts else []
             stats["telemetry"] = {
                 "counters": ctr_total,
-                "wave_spread": obs_counters.spread_stats([sum(wave_counts)] if wave_counts else []),
+                "wave_spread": obs_counters.spread_stats(per_rank),
+            }
+        if mesh is not None:
+            spent = mesh.take_log()
+            stats["mesh"] = {
+                "ranks": mesh.size, "rank": mesh.rank, "backend": mesh.backend,
+                "layout": mesh.layout, "chunk_per_rank": plan.per_dev,
+                # per dispatched chunk: the film + accounting all-reduce,
+                # host staging included, and the wait for the slowest rank
+                # before it
+                "allreduce_ms": [round(1e3 * t, 4) for t in spent.get("all_reduce", [])],
+                "wait_ms": [round(1e3 * t, 4) for t in spent.get("wait", [])],
             }
         if metrics_on and phase_s:
             stats["phase_seconds"] = {k: round(v, 6) for k, v in sorted(phase_s.items())}

@@ -17,7 +17,7 @@ strategies. Chain seeds come from numpy's default_rng(0x51F0) on the
 host, as in the reference. The reference's depth loop runs every depth
 whatever its lanes; f(U) here stops once none of its lanes is alive (one
 host read per depth), which adds nothing the skipped depths would have.
-The reference's mesh branch (chains sharded over devices) is not ported.
+Over a mesh of ranks the chains shard with their global ids (render()).
 """
 
 from __future__ import annotations
@@ -177,13 +177,13 @@ class MLTIntegrator(WavefrontIntegrator):
         return large, Un, delta, u(700)
 
     def _chain_step(self, dev, carry, splat, step: int, b: float, x0: int, y0: int, w: int,
-                    h: int):
-        """One Metropolis step of every chain: propose, splat the proposal
-        and the current state with the Kelemen weights, accept. Returns
-        (carry, the accept mask)."""
+                    h: int, cid0: int = 0):
+        """One Metropolis step of every chain (chain ids from cid0): propose,
+        splat the proposal and the current state with the Kelemen weights,
+        accept. Returns (carry, the accept mask)."""
         U_cur, p_cur, L_cur, y_cur = carry
         npix = w * h
-        cid = torch.arange(U_cur.shape[0], dtype=torch.int32, device=U_cur.device)
+        cid = cid0 + torch.arange(U_cur.shape[0], dtype=torch.int32, device=U_cur.device)
         large, Un, delta, u_acc = self._step_u(cid, step)
         # (U_cur + delta) mod 1 as jnp.remainder computes it: fmod, then +1
         # where the remainder is negative
@@ -215,16 +215,30 @@ class MLTIntegrator(WavefrontIntegrator):
         return carry, accept
 
     # ------------------------------------------------------------------
-    def render(self, scene=None, max_seconds: float = 0.0, **kw) -> RenderResult:
+    def render(self, scene=None, mesh=None, max_seconds: float = 0.0, **kw) -> RenderResult:
         """The bootstrap, then mutations_per_pixel x pixels / chains steps of
         every chain in blocks of 16; writes the image when the film names a
-        file. The wall time (the chain steps) ends in a device synchronize."""
+        file. The wall time (the chain steps) ends in a device synchronize.
+
+        Over `mesh` (parallel/mesh.py) the chains shard over the ranks with
+        their global ids, so the ranks' chains are the one-device render's
+        chains; a chain count that does not divide is padded with chains
+        seeded from distinct bootstrap states (wrapping around the chain
+        set), which are real chains and count in the normalization. Each
+        rank splats its chains into a plane of its own per outer block,
+        and one sum all-reduce merges the planes at the block's end."""
         from tpu_pbrt_torch.utils.stats import STATS, ProgressReporter
 
         scene = scene or self.scene
         dev = scene.dev
         film = scene.film
         device = scene.device
+        if mesh is None and getattr(self.options, "mesh_shape", None):
+            from tpu_pbrt_torch.parallel.mesh import resolve_mesh
+
+            mesh = resolve_mesh(self.options.mesh_shape, device=device)
+        if mesh is not None and mesh.size < 2:
+            mesh = None
         x0, x1, y0, y1 = film.sample_bounds()
         w, h = x1 - x0, y1 - y0
         npix = w * h
@@ -246,6 +260,17 @@ class MLTIntegrator(WavefrontIntegrator):
         seeds = np.random.default_rng(0x51F0).choice(nb, size=C, p=y_np / y_np.sum())
         U_cur = U_boot[torch.from_numpy(seeds).to(device)]
         del U_boot, y_boot
+        cid0 = 0
+        if mesh is not None:
+            mesh.take_log()
+            pad = (-C) % mesh.size
+            if pad:
+                wrap = torch.arange(pad, device=device) % C
+                U_cur = torch.cat([U_cur, U_cur[wrap]])
+            C = U_cur.shape[0]
+            per = C // mesh.size
+            cid0 = mesh.rank * per
+            U_cur = U_cur[cid0:cid0 + per]
         p_cur, L_cur = self._f(dev, U_cur)
         carry = (U_cur, p_cur, L_cur, _luminance(L_cur))
         # one spare row takes the splats of non-finite or negative values
@@ -267,15 +292,26 @@ class MLTIntegrator(WavefrontIntegrator):
             with STATS.phase("Integrator/MLT render"):
                 for outer in range(n_outer):
                     acc = []
+                    plane = splat if mesh is None else torch.zeros_like(splat)
                     for k in range(_INNER):
-                        carry, accept = self._chain_step(dev, carry, splat, outer * _INNER + k,
-                                                         b, x0, y0, w, h)
+                        carry, accept = self._chain_step(dev, carry, plane, outer * _INNER + k,
+                                                         b, x0, y0, w, h, cid0=cid0)
                         acc.append(accept.to(torch.float32).mean())
-                    accepts.append(torch.stack(acc).mean())
+                    acc = torch.stack(acc).mean().reshape(1)
+                    if mesh is not None:
+                        # the block's splat planes and acceptances merge here
+                        mesh.all_reduce_([plane, acc])
+                        splat += plane
+                        acc = acc / mesh.size
+                    accepts.append(acc[0])
                     done_steps += _INNER
                     progress.update()
-                    if max_seconds > 0 and time.perf_counter() - t0 > max_seconds:
-                        break
+                    if max_seconds > 0:
+                        stop = torch.tensor([int(time.perf_counter() - t0 > max_seconds)], device=device)
+                        if mesh is not None:  # rank 0's clock decides for every rank
+                            mesh.broadcast_(stop)
+                        if stop.item():
+                            break
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         finally:
@@ -291,7 +327,7 @@ class MLTIntegrator(WavefrontIntegrator):
         img = splat[:npix].cpu().numpy().reshape(h, w, 3) * (npix / max(n_done, 1))
         img = np.ascontiguousarray(img, np.float32)
         rays = (nb + n_done) * int(self.max_depth * 2)
-        if film.filename:
+        if film.filename and (mesh is None or mesh.rank == 0):
             try:
                 from tpu_pbrt_torch.utils.imageio import write_image
 
@@ -304,6 +340,10 @@ class MLTIntegrator(WavefrontIntegrator):
             mray_per_sec=rays / max(secs, 1e-9) / 1e6, spp=self.mutations_per_pixel,
             completed_fraction=done_steps / max(n_steps, 1),
             stats={"b": b, "acceptance": acc_rate, "chains": C, "steps": done_steps,
+                   **({"mesh": {"ranks": mesh.size, "rank": mesh.rank, "backend": mesh.backend,
+                                "layout": mesh.layout, "chains_per_rank": C // mesh.size,
+                                "collective_ms": {k: round(1e3 * sum(v), 4) for k, v in mesh.take_log().items()}}}
+                      if mesh is not None else {}),
                    "waves": waves.waves, "n_drop": int(waves.drops),
                    "wave_modes": waves.mode_stats()},
         )

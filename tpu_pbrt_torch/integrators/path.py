@@ -58,6 +58,7 @@ from tpu_pbrt_torch.core import lights_dev as ld
 from tpu_pbrt_torch.core.film import nonfinite_mask
 from tpu_pbrt_torch.core.sampling import power_heuristic, uniform_float
 from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_local, to_world
+from tpu_pbrt_torch.core.xla_math import fmac
 from tpu_pbrt_torch.integrators.common import (
     DIM_BSDF_LOBE,
     DIM_TIME,
@@ -211,7 +212,7 @@ class PathIntegrator(WavefrontIntegrator):
         pdf_light = ld.emitted_pdf(dev, self.light_distr, prev_p, it.p, hit_light, it.ng)
         w_emit = torch.where(specular, torch.ones_like(pdf_light),
                              power_heuristic(1.0, prev_pdf, 1.0, pdf_light))
-        L = L + beta * le * w_emit[..., None]
+        L = fmac(beta * le, w_emit[..., None], L)
 
         alive = alive & (hit.prim >= 0)
         # pbrt: the vertex at bounces == maxDepth emits but neither

@@ -21,8 +21,16 @@ order.
 The reference's depth loops run every depth whatever their lanes; the
 port stops a pass once none of its lanes is alive (one host read per
 depth), which changes nothing: the depths left out would add zeros.
-The reference's mesh branch (an all_gather of the deposits over the
-devices) is not ported.
+
+Over a mesh (parallel/mesh.py, the reference's `_mesh_iteration`) the
+pixels and the photons shard over the ranks: rank i holds a contiguous
+slice of the pixels (padded with copies of pixel 0 to a multiple of the
+ranks, dropped at develop time) and traces photons [i * npd, (i + 1) *
+npd) by their global ids; the deposits are all-gathered in rank order,
+which is the one-device order, the largest radius is a max all-reduce
+and the rays a sum. The grid is the one-device render's (the scene's
+vertex bounds widened by the global largest radius), so the mesh render
+equals it where the photon count divides over the ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from tpu_pbrt_torch.core import bxdf
 from tpu_pbrt_torch.core import lights_dev as ld
 from tpu_pbrt_torch.core.sampling import hash_u32, sobol_2d, uniform_float
 from tpu_pbrt_torch.core.vecmath import dot, normalize, offset_ray_origin, to_local, to_world
+from tpu_pbrt_torch.core.xla_math import sqrt as _sqrt
 from tpu_pbrt_torch.integrators.common import (
     DIM_LENS,
     DIM_MIX,
@@ -286,7 +295,7 @@ class SPPMIntegrator(WavefrontIntegrator):
         db_s = dep_beta[order]
 
         has_vp = vps.mat >= 0
-        r = torch.sqrt(r2)
+        r = _sqrt(r2)
         base = cells(vps.p - lo - r[..., None])
         # the visible point's stored (unresolved) material, textured at its
         # uv and position, as the reference gathers it
@@ -355,22 +364,41 @@ class SPPMIntegrator(WavefrontIntegrator):
         )
 
     # ------------------------------------------------------------------
-    def render(self, scene=None, max_seconds: float = 0.0, **kw) -> RenderResult:
+    def render(self, scene=None, mesh=None, max_seconds: float = 0.0, **kw) -> RenderResult:
         """SPPMIntegrator::Render: n_iterations of camera pass, photon pass
-        and gather with the progressive update; writes the image when the
-        film names a file. The wall time ends in a device synchronize."""
+        and gather with the progressive update, on one device or over
+        `mesh` (the module doc); writes the image when the film names a
+        file (rank 0 of a mesh). The wall time ends in a device
+        synchronize."""
         from tpu_pbrt_torch.utils.stats import STATS, ProgressReporter
 
         scene = scene or self.scene
         dev = scene.dev
         film = scene.film
         device = scene.device
+        if mesh is None and getattr(self.options, "mesh_shape", None):
+            from tpu_pbrt_torch.parallel.mesh import resolve_mesh
+
+            mesh = resolve_mesh(self.options.mesh_shape, device=device)
+        if mesh is not None and mesh.size < 2:
+            mesh = None
         x0, x1, y0, y1 = film.sample_bounds()
         w, h = x1 - x0, y1 - y0
         P = w * h
         n_photons = self.photons_per_iter if self.photons_per_iter > 0 else P
         n_iter = self.n_iterations
         pix = torch.arange(P, dtype=torch.int32, device=device)
+        n_local, pid0 = n_photons, 0
+        if mesh is not None:
+            mesh.take_log()
+            # this rank's pixels (the tail padded with pixel 0) and photons
+            pad = (-P) % mesh.size
+            per = (P + pad) // mesh.size
+            pix = torch.cat([pix, torch.zeros(pad, dtype=torch.int32, device=device)])
+            pix = pix[mesh.rank * per:(mesh.rank + 1) * per]
+            n_local = -(-n_photons // mesh.size)
+            pid0 = mesh.rank * n_local
+            n_photons = n_local * mesh.size
         px = x0 + pix % w
         py = y0 + torch.div(pix, w, rounding_mode="floor")
 
@@ -384,11 +412,12 @@ class SPPMIntegrator(WavefrontIntegrator):
             r0 = 2.0 * float(np.linalg.norm(s_hi - s_lo)) / max(w, h)
         lo_t = torch.from_numpy(np.asarray(s_lo, np.float32)).to(device)
         hi_t = torch.from_numpy(np.asarray(s_hi, np.float32)).to(device)
+        Pl = pix.shape[0]
         state = _SPPMState(
-            r2=torch.full((P,), r0 * r0, dtype=torch.float32, device=device),
-            n=torch.zeros((P,), dtype=torch.float32, device=device),
-            tau=torch.zeros((P, 3), dtype=torch.float32, device=device),
-            ld=torch.zeros((P, 3), dtype=torch.float32, device=device),
+            r2=torch.full((Pl,), r0 * r0, dtype=torch.float32, device=device),
+            n=torch.zeros((Pl,), dtype=torch.float32, device=device),
+            tau=torch.zeros((Pl, 3), dtype=torch.float32, device=device),
+            ld=torch.zeros((Pl, 3), dtype=torch.float32, device=device),
         )
 
         stream.WAVES.reset()
@@ -402,9 +431,17 @@ class SPPMIntegrator(WavefrontIntegrator):
         with STATS.phase("Integrator/SPPM render"):
             for i in range(n_iter):
                 vps, nr_c = self._camera_pass(dev, px, py, i)
-                dep_p, dep_d, dep_beta, dep_valid, nr_p = self._photon_pass(dev, n_photons, i)
+                dep_p, dep_d, dep_beta, dep_valid, nr_p = self._photon_pass(dev, n_local, i,
+                                                                            pid0=pid0)
                 # this iteration's grid: the cell size follows the largest radius
-                r_max = torch.sqrt(state.r2.max())
+                r_max = _sqrt(state.r2.max())
+                if mesh is not None:
+                    # every rank sees every deposit, and bins them alike
+                    dep_p, dep_d, dep_beta = (mesh.all_gather(x) for x in (dep_p, dep_d, dep_beta))
+                    dep_valid = mesh.all_gather(dep_valid.to(torch.uint8)).to(torch.bool)
+                    r_max = r_max.reshape(1)
+                    mesh.all_reduce_([r_max], op="max")
+                    r_max = r_max[0]
                 glo = lo_t - r_max
                 ext = (hi_t + r_max) - glo
                 cs = torch.maximum(2.0 * r_max, ext.max() / 64.0)
@@ -414,13 +451,25 @@ class SPPMIntegrator(WavefrontIntegrator):
                 rays.append(nr_c + nr_p)
                 iters_done = i + 1
                 progress.update()
-                if max_seconds > 0 and time.perf_counter() - t0 > max_seconds:
-                    break
+                if max_seconds > 0:
+                    stop = torch.tensor([int(time.perf_counter() - t0 > max_seconds)], device=device)
+                    if mesh is not None:  # rank 0's clock decides for every rank
+                        mesh.broadcast_(stop)
+                    if stop.item():
+                        break
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         secs = time.perf_counter() - t0
         progress.done()
-        n_rays = int(torch.stack(rays).sum()) if rays else 0
+        n_rays = torch.stack(rays).sum().to(torch.int64).reshape(1) if rays else None
+        mesh_stats = None
+        if mesh is not None:
+            mesh.all_reduce_([n_rays])
+            state = _SPPMState(*(mesh.all_gather(x)[:P] for x in state))
+            mesh_stats = {"ranks": mesh.size, "rank": mesh.rank, "backend": mesh.backend,
+                          "layout": mesh.layout, "photons_per_rank": n_local,
+                          "collective_ms": {k: round(1e3 * sum(v), 4) for k, v in mesh.take_log().items()}}
+        n_rays = int(n_rays) if n_rays is not None else 0
         STATS.counter("SPPM/Photons dropped (scan cap)", 0)
         STATS.counter("Integrator/Rays traced", n_rays)
 
@@ -429,7 +478,7 @@ class SPPMIntegrator(WavefrontIntegrator):
         tau = state.tau.cpu().numpy().reshape(h, w, 3)
         r2 = state.r2.cpu().numpy().reshape(h, w, 1)
         img = np.ascontiguousarray(ld_img + tau / (ni * n_photons * np.pi * r2), np.float32)
-        if film.filename:
+        if film.filename and (mesh is None or mesh.rank == 0):
             try:
                 from tpu_pbrt_torch.utils.imageio import write_image
 
@@ -442,6 +491,7 @@ class SPPMIntegrator(WavefrontIntegrator):
             mray_per_sec=n_rays / max(secs, 1e-9) / 1e6, spp=ni,
             completed_fraction=iters_done / max(n_iter, 1),
             stats={"photons_dropped": 0, "photons_per_iteration": n_photons,
+                   **({"mesh": mesh_stats} if mesh_stats else {}),
                    "waves": waves.waves, "n_drop": int(waves.drops),
                    "loop_host_reads_per_wave": waves.loop_reads / max(waves.waves, 1),
                    "wave_modes": waves.mode_stats()},

@@ -15,21 +15,24 @@ as Prometheus text on exit, and `--faults PLAN` installs a chaos fault
 plan (tpu_pbrt_torch/chaos grammar) before either comes online.
 `--serve` runs the render service's stdin/JSONL daemon (protocol:
 `python -m tpu_pbrt_torch.serve --help`) on the same device, with the
-scenes on the command line submitted as its first jobs. The
-reference's --mesh and --multihost are accepted and refused with exit
-code 2: they are not ported yet. A scene error exits with code 1.
+scenes on the command line submitted as its first jobs.
+
+`--mesh N` (or the reference's `2,4`: their product) renders over N
+ranks (parallel/mesh.py): N spawned processes, one card each (NCCL), or
+N CPU processes under `--device cpu` (gloo); rank 0 writes the image and
+the checkpoints. More ranks than cards renders on one card, with a
+warning. `--multihost` joins a process group described by the
+environment instead (RANK, WORLD_SIZE, LOCAL_RANK and
+TORCH_PBRT_COORDINATOR_ADDRESS="host:port" of rank 0, as torchrun sets
+them up): every process runs this command, and the mesh spans the group.
+Serving over a mesh is not ported (`--serve` with `--mesh` exits 2). A
+scene error exits with code 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-#: reference flags the port does not run yet: (flag, takes a value)
-_NOT_PORTED = (
-    ("--mesh", True),
-    ("--multihost", False),
-)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -69,32 +72,85 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--faults", default="", metavar="PLAN",
                    help="chaos fault plan, e.g. 'dispatch:poison@chunk=3,ckpt:torn@write=2' "
                    "(also TORCH_PBRT_FAULTS)")
-    for flag, takes_value in _NOT_PORTED:
-        if takes_value:
-            p.add_argument(flag, default=None, help="not ported (exits 2)")
-        else:
-            p.add_argument(flag, action="store_true", help="not ported (exits 2)")
+    p.add_argument("--mesh", default="",
+                   help="render over N ranks, e.g. '2' or '2,4' (their product): one process "
+                   "and one card each, or CPU processes under --device cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group the environment describes (RANK, WORLD_SIZE, "
+                   "LOCAL_RANK, TORCH_PBRT_COORDINATOR_ADDRESS) and render over it")
     return p
+
+
+def _mesh_ranks(args) -> int:
+    import math
+
+    return math.prod(int(x) for x in args.mesh.split(",")) if args.mesh else 1
+
+
+def _render_rank(mesh, argv):
+    """One rank of `--mesh N`: the command line again, on this rank's
+    device, rendering over the group."""
+    args = build_arg_parser().parse_args(argv)
+    if mesh.rank:
+        args.trace = args.metrics_path = ""
+        args.quiet = True
+    return _render_scenes(args, mesh.device)
 
 
 def main(argv=None) -> int:
     from tpu_pbrt_torch.config import resolve_device
-    from tpu_pbrt_torch.scene.api import Options, render_file
-    from tpu_pbrt_torch.utils.error import PbrtError
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
-    for flag, _ in _NOT_PORTED:
-        if getattr(args, flag.lstrip("-").replace("-", "_")):
-            print(f"tpu-pbrt-torch: {flag} is not ported to tpu_pbrt_torch yet", file=sys.stderr)
-            return 2
     if not args.scenes and not args.serve:
         print("tpu-pbrt-torch: no scene files (and no --serve)", file=sys.stderr)
         return 1
+    if args.serve and (args.mesh or args.multihost):
+        print("tpu-pbrt-torch: serving over a mesh is not ported to tpu_pbrt_torch yet",
+              file=sys.stderr)
+        return 2
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print(f"tpu-pbrt-torch: {e} (on the command line: --device cpu)", file=sys.stderr)
         return 1
+    import torch
+
+    n = _mesh_ranks(args)
+    if args.multihost:
+        import torch.distributed as dist
+
+        from tpu_pbrt_torch.parallel.mesh import maybe_init_distributed
+
+        if maybe_init_distributed(argparse.Namespace(multihost=True, device=device.type)):
+            # this process is one rank of the group; the mesh spans it
+            args.mesh = str(dist.get_world_size())
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+        return _render_scenes(args, device)
+    if n > 1:
+        cards = torch.cuda.device_count() if device.type == "cuda" else n
+        if cards >= n:
+            from tpu_pbrt_torch.parallel.mesh import launch
+
+            try:
+                codes = launch(_render_rank, n, args=(argv,), device=device.type)
+            except RuntimeError as e:
+                print(f"tpu-pbrt-torch: {e}", file=sys.stderr)
+                return 1
+            return max(codes)
+        from tpu_pbrt_torch.utils.error import Warning as _W
+
+        _W(f"--mesh {args.mesh}: {n} ranks asked for, {cards} card(s) visible; "
+           "rendering on one device")
+        args.mesh = ""
+    return _render_scenes(args, device)
+
+
+def _render_scenes(args, device) -> int:
+    from tpu_pbrt_torch.scene.api import Options, render_file
+    from tpu_pbrt_torch.utils.error import PbrtError
+
     opts = Options(
         n_threads=args.nthreads,
         quick_render=args.quick,
@@ -105,6 +161,8 @@ def main(argv=None) -> int:
         spp_chunk=args.spp_chunk,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
+        mesh_shape=(_mesh_ranks(args),) if args.mesh else None,
+        multihost=args.multihost,
     )
     from tpu_pbrt_torch.obs.metrics import METRICS
     from tpu_pbrt_torch.obs.trace import TRACE

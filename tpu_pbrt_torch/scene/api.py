@@ -178,11 +178,11 @@ class Options:
     verbose: bool = False
     image_file: str = ""
     crop_window: Optional[tuple] = None  # (x0,x1,y0,y1)
-    mesh_shape: Optional[tuple] = None  # TPU-specific: device mesh shape
+    mesh_shape: Optional[tuple] = None  # ranks of the render mesh (parallel/mesh.py)
     spp_chunk: int = 0  # TPU-specific: samples per chunk (0 = auto)
     checkpoint_path: str = ""  # TPU-specific: film checkpoint for resume
     checkpoint_every: int = 0  # chunks between checkpoint writes (0 = off)
-    multihost: bool = False  # multi-host bring-up (not ported yet)
+    multihost: bool = False  # join a process group from the environment
 
 
 class PbrtAPI:
