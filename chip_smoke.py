@@ -252,12 +252,42 @@ Phases, each fatal on failure (exit code 1, no result line):
      render, in every rank) and Mray/s beside the solo render's; checks
      the ranks' films equal, the rays equal the solo render's (phase 3),
      the film within rtol 1e-4 / atol 1e-5 of it and within MSE 1e-4 of
-     refimg/killeroo_cpu_128x128_256spp.npz; a `mesh:lost@chunk=1`
-     recovery at 128x128x32 (chunks of 2^17) bit-identical to the
-     undisturbed mesh render; a small caustic SPPM (64x64, 2 x 4,096
+     refimg/killeroo_cpu_128x128_256spp.npz; then, on the killeroo as the
+     daemons take it (scenes.killeroo_file: its blob a PLY) that the
+     ranks compile at 128x128x64, in chunks of 2^18 (4 a render):
+     the mesh solo render, a `mesh:lost@chunk=1` recovery bit-identical
+     to it, and serving over the mesh (serve/service.py): the same ranks
+     serve two tenants' jobs of that compiled scene through
+     RenderService(mesh=...) in slices of 2^18 (rank 0 decides, the
+     other rank follows its records), three steps, the second job
+     preempted, a step, resumed, drained, with `mesh:lost@chunk=1` armed
+     on every rank (it fires on the first slice 1 and the job rolls back
+     to its checkpoint): both films and rays equal to the mesh solo
+     render's; prints each job's Mray/s beside the mesh solo's, the
+     queue-wait p90, the decision records' ms and the flush and expand
+     launches per rank (counters zeroed on every rank just before the
+     served run); `python -m tpu_pbrt_torch.serve --mesh 2` (the same
+     layout) in a subprocess on a JSONL session (submit, poll, preview,
+     result, metrics, health, shutdown), its result equal to the mesh
+     solo render (in a full run beside `[infra]`, see phase 16); a
+     small caustic SPPM (64x64, 2 x 4,096
      photons) over the mesh against the solo SPPM (max relative
      difference below 2e-2, mean below 2e-3);
- 16. summary — one {"kernels": [...]} line (times and bounds at the pool
+ 16. chaos  — `python -m tpu_pbrt_torch.chaos`, the recovery matrix on
+     the card (its 17 rows under the reference's names: the device's
+     fused tracer through a dispatch failure, the in-flight window, the
+     ladder's re-dispatch, rollback and restart, torn / crashed /
+     bit-flipped checkpoints, the NaN wave under retry and scrub, retry
+     exhaustion and a corrupt resume, a mesh rank lost over two ranks on
+     the card, the watchdog rows and the fleet rows), in a subprocess
+     started with `[infra]` and read after `[serve]` and `[cli]`; every
+     row must PASS; the phase prints each row and the `chaos_matrix`
+     line. In a full run, host-bound work runs beside `[infra]` and
+     `[serve]` (their pools leave the card and most cores idle): this
+     matrix and `[mesh]`'s `serve --mesh 2` daemon beside `[infra]`,
+     `[cli]` in a thread beside `[serve]`; the times of those phases are
+     taken beside them;
+ 17. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
      under "direct"; the cloud's shadow-walk wave under "cloud"; the
@@ -266,7 +296,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      under "textured", the motion scene's under "motion", the subsurface
      scene's probe-chord wave under "subsurface", the infra phase's under
      "infra", the serve phase's under "serve", the mesh's launches per
-     rank under "mesh"), the whole script's time,
+     rank under "mesh", the served mesh's jobs, Mray/s, queue-wait p90
+     and launches per rank under "servemesh"), the whole script's time,
      the card's name and power limit (nvidia-smi), and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -275,7 +306,7 @@ CUDA device or outside a checkout of the repo.
 
 `python3 chip_smoke.py PHASE ...` (build, check, render, crown, direct,
 samplers, cloud, caustic, breadth, textured, motion, subsurface, infra,
-serve, cli, mesh) runs the build and the named phases only, for
+serve, cli, mesh, chaos) runs the build and the named phases only, for
 development, and prints no kernels line and no result line.
 """
 
@@ -972,20 +1003,78 @@ def phase_render(scene, integ):
 
 # -- phase 15 ------------------------------------------------------------------
 
-#: the mesh phase's recovery render: 128x128 at this spp in chunks of 2^17
-MESH_RECOVERY_SPP = 32
-MESH_RECOVERY_CHUNK = 1 << 17
+#: the mesh phase's second killeroo: 128x128 at this spp in chunks of 2^18
+#: (4 a render): the mesh solo render at that size, the mesh:lost recovery
+#: and the jobs served over the mesh
+MESH_SERVE_SPP = 64
+MESH_SERVE_CHUNK = 1 << 18
 MESH_SPPM_RES = 64
 
 
-def _mesh_rank(mesh, ckpt_dir):
+def _mesh_serve(mesh, scene, integ, spool):
+    """The jobs served over the mesh on every rank (rank 0 decides, the
+    others follow its records): two tenants' jobs of the compiled
+    killeroo with a checkpoint every slice, three steps, a preempt of the
+    second, a step, its resume and the drain, with `mesh:lost@chunk=1`
+    armed on every rank (it fires on the first dispatch of a chunk 1).
+    Returns rank 0's films and numbers, and each rank's launches."""
+    from tpu_pbrt_torch.chaos import CHAOS
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.obs.metrics import METRICS
+    from tpu_pbrt_torch.serve import RenderService
+
+    METRICS.reset()
+    os.makedirs(spool, exist_ok=True)
+    svc = RenderService(mesh=mesh, chunk=MESH_SERVE_CHUNK, seed=0, spool_dir=spool)
+    pair = (scene, integ)
+
+    def lead(svc):
+        a = svc.submit(compiled=pair, resident_key="killeroo", tenant="alice",
+                       checkpoint_every=1)
+        b = svc.submit(compiled=pair, resident_key="killeroo", tenant="bob",
+                       checkpoint_every=1)
+        for _ in range(3):
+            svc.step()
+        svc.preempt(b)
+        parked_at = svc.poll(b)["chunks_done"]
+        svc.step()
+        svc.resume(b)
+        svc.drain()
+        snap = METRICS.snapshot()["metrics"]
+        waits = snap["tpu_pbrt_serve_queue_wait_seconds"]["series"]
+        jobs = {}
+        for j in (a, b):
+            r = svc.result(j)
+            jobs[j] = {"film": [t.cpu() for t in r.film_state], "rays": r.rays_traced,
+                       "mray": r.mray_per_sec, "recovery": r.stats.get("recovery"),
+                       "preemptions": svc.poll(j)["preemptions"]}
+        return {"jobs": jobs, "schedule": svc.schedule, "parked_at": parked_at,
+                "p90": max(s["p90"] for s in waits),
+                "n_wait": sum(s["count"] for s in waits), "mesh": svc.mesh_stats(),
+                "fired": CHAOS.report()}
+
+    CHAOS.install("mesh:lost@chunk=1")
+    reset_launches()
+    try:
+        out = svc.lead_or_follow(lead, compiled={"killeroo": pair}) or {}
+    finally:
+        CHAOS.clear()
+    out["launches"] = dict(LAUNCHES)
+    return out
+
+
+def _mesh_rank(mesh, ckpt_dir, serve_path):
     """One rank of `[mesh]` (a spawned process): the killeroo at 128x128x256
-    over the mesh with this rank's launches counted, the mesh:lost
-    recovery at 128x128x32 and the small caustic SPPM."""
+    over the mesh with this rank's launches counted, then the killeroo as
+    the daemons take it (`serve_path`, scenes.killeroo_file: its blob's
+    normals are a PLY's float32) at 128x128x64 in chunks of 2^18: the
+    solo mesh render, the mesh:lost recovery and the jobs served over the
+    mesh (the same compiled scene), and the small caustic SPPM."""
     import numpy as np
 
     from tpu_pbrt_torch.chaos import CHAOS
     from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.scene.api import Options, compile_file
     from tpu_pbrt_torch.scenes import compile_api, make_caustic_like, make_killeroo_like
     from tpu_pbrt_torch.utils.clock import VirtualClock
 
@@ -1001,13 +1090,12 @@ def _mesh_rank(mesh, ckpt_dir):
     out["main"] = (res.image, res.rays_traced, res.seconds, res.mray_per_sec, res.stats)
     del scene, integ
 
-    scene, integ = compile_api(make_killeroo_like(res=128, spp=MESH_RECOVERY_SPP, maxdepth=5,
-                                                  device=mesh.device))
+    scene, integ = compile_file(serve_path, Options(quiet=True), device=mesh.device)
     integ.clock = VirtualClock()
-    clean = integ.render(scene, mesh=mesh, chunk=MESH_RECOVERY_CHUNK)
+    clean = integ.render(scene, mesh=mesh, chunk=MESH_SERVE_CHUNK)
     CHAOS.install("mesh:lost@chunk=1")
     try:
-        lost = integ.render(scene, mesh=mesh, chunk=MESH_RECOVERY_CHUNK, checkpoint_every=1,
+        lost = integ.render(scene, mesh=mesh, chunk=MESH_SERVE_CHUNK, checkpoint_every=1,
                             checkpoint_path=os.path.join(ckpt_dir, "lost.npz"))
     finally:
         CHAOS.clear()
@@ -1016,6 +1104,9 @@ def _mesh_rank(mesh, ckpt_dir):
         "equal": bool(np.array_equal(clean.image, lost.image)
                       and clean.rays_traced == lost.rays_traced),
         "recovery": lost.stats.get("recovery"), "rays": clean.rays_traced}
+    out["serve_solo"] = ([t.cpu() for t in clean.film_state], clean.image, clean.rays_traced,
+                         clean.mray_per_sec)
+    out["serve"] = _mesh_serve(mesh, scene, integ, os.path.join(ckpt_dir, f"spool{mesh.rank}"))
     del scene, integ
 
     scene, integ = compile_api(make_caustic_like(res=MESH_SPPM_RES, spp=1, integrator="sppm",
@@ -1028,23 +1119,30 @@ def _mesh_rank(mesh, ckpt_dir):
 def phase_mesh(solo=None):
     """Several ranks on the main path (see the module doc, phase 15).
     `solo` is phase 3's pool render (rendered here when phase 3 did not
-    run). Returns {kernel: the mesh render's launches per rank, with the
-    layout and Mray/s}."""
+    run). Returns ({kernel: the mesh render's launches per rank, with the
+    layout and Mray/s}, the `serve --mesh` daemon's check): the caller
+    runs the check, beside a later phase in a full run."""
     import tempfile
 
     import numpy as np
     import torch
 
     from tpu_pbrt_torch.parallel.mesh import default_backend, launch
-    from tpu_pbrt_torch.scenes import compile_api, make_caustic_like, make_killeroo_like
+    from tpu_pbrt_torch.scenes import (
+        compile_api,
+        killeroo_file,
+        make_caustic_like,
+        make_killeroo_like,
+    )
 
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
     n, share = (min(cards, 4), False) if cards >= 2 else (2, True)
     backend = default_backend("cuda", share)
+    serve_path = killeroo_file(128, MESH_SERVE_SPP)  # written once, before the ranks read it
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckpt:
-        results = launch(_mesh_rank, n, args=(ckpt,), device="cuda", share_device=share,
-                         timeout=900)
+        results = launch(_mesh_rank, n, args=(ckpt, serve_path), device="cuda",
+                         share_device=share, timeout=900)
     r0 = results[0]
     img, rays, secs, mray, stats = r0["main"]
     m = stats["mesh"]
@@ -1093,11 +1191,12 @@ def phase_mesh(solo=None):
                 raise SmokeFailure(f"mesh: rank {r['rank']} never launched {name}")
 
     rec = [r["recovery"] for r in results]
-    log(f"[mesh] mesh:lost@chunk=1 at 128x128x{MESH_RECOVERY_SPP} ({rec[0]['chunks']} chunks of "
-        f"{MESH_RECOVERY_CHUNK}): bit-identical to the undisturbed mesh render on every rank "
+    log(f"[mesh] mesh:lost@chunk=1 at 128x128x{MESH_SERVE_SPP} ({rec[0]['chunks']} chunks of "
+        f"{MESH_SERVE_CHUNK}): bit-identical to the undisturbed mesh render on every rank "
         f"{all(x['equal'] for x in rec)}, recovery {rec[0]['recovery']}, rays {rec[0]['rays']}")
     if not all(x["equal"] and (x["recovery"] or {}).get("rollbacks") == 1 for x in rec):
         raise SmokeFailure(f"mesh: the mesh:lost recovery is not bit-identical: {rec}")
+    served, daemon = _mesh_served_report(results, n, share, serve_path)
 
     sp_img, sp_rays, sp_m = r0["sppm"]
     scene, integ = compile_api(make_caustic_like(res=MESH_SPPM_RES, spp=1, integrator="sppm",
@@ -1115,8 +1214,84 @@ def phase_mesh(solo=None):
     return {name: {"ranks": n, "backend": m["backend"], "layout": m["layout"],
                    "launches_per_rank": [r["launches"][name] for r in results],
                    "mray_per_sec": mray, "solo_mray_per_sec": solo.mray_per_sec,
-                   "allreduce_ms_mean": sum(red) / max(len(red), 1)}
-            for name in r0["launches"]}
+                   "allreduce_ms_mean": sum(red) / max(len(red), 1),
+                   "servemesh": dict(served, launches_per_rank=[
+                       r["serve"]["launches"][name] for r in results])}
+            for name in r0["launches"]}, daemon
+
+
+def _mesh_served_report(results, n, share, path):
+    """`[mesh]`'s serving lines: the two served jobs against the mesh solo
+    render at 128x128x64 (films and rays equal), the mesh:lost that fired
+    during them, each job's Mray/s beside the solo's, the queue-wait p90,
+    the decision broadcasts and each rank's launches. Returns the numbers
+    for the kernels line and the check of the JSONL daemon `python -m
+    tpu_pbrt_torch.serve --mesh 2` on a session whose result must equal
+    the mesh solo render (the caller runs it)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pbrt_torch.utils.imageio import read_pfm
+
+    r0 = results[0]
+    film, image, rays, solo_mray = r0["serve_solo"]
+    sv = r0["serve"]
+    for j, job in sv["jobs"].items():
+        same = job["rays"] == rays and all(torch.equal(a, b) for a, b in zip(job["film"], film))
+        if not same:
+            raise SmokeFailure(f"mesh: served job {j}: film or rays ({job['rays']}) differ from "
+                               f"the mesh solo render ({rays})")
+    fired = {f["fault"]: f["fired"] for f in sv["fired"]}
+    recov = {j: job["recovery"] for j, job in sv["jobs"].items()}
+    pre = {j: job["preemptions"] for j, job in sv["jobs"].items()}
+    if sum(fired.values()) != 1 or not any(recov.values()) or sorted(pre.values()) != [0, 1]:
+        raise SmokeFailure(f"mesh: served: fired {fired}, recovery {recov}, preemptions {pre}")
+    mray = {j: round(job["mray"], 4) for j, job in sv["jobs"].items()}
+    dec = sv["mesh"]["decision"]
+    log(f"[mesh] served over {n} ranks, 128x128x{MESH_SERVE_SPP} in slices of "
+        f"{MESH_SERVE_CHUNK}: schedule {sv['schedule']}, the second job parked at chunk "
+        f"{sv['parked_at']} and resumed, mesh:lost fired {fired} with recovery {recov}; both "
+        f"films bit-identical to the mesh solo render, rays {rays}; Mray/s {json.dumps(mray)} "
+        f"beside the mesh solo's {solo_mray:.4f}; queue-wait p90 {sv['p90']:.4f} s over "
+        f"{sv['n_wait']} waits; {dec['n']} decision records, {dec['mean_ms']} ms each; "
+        f"per slice wait {sv['mesh']['wait']['mean_ms']} ms, all-reduce "
+        f"{sv['mesh']['all_reduce']['mean_ms']} ms; launches per rank "
+        f"{[r['serve']['launches'] for r in results]}")
+    for r in results:
+        if min(r["serve"]["launches"].values()) <= 0:
+            raise SmokeFailure(f"mesh: served: rank {r['rank']} never launched a kernel")
+
+    served = {"ranks": n, "spp": MESH_SERVE_SPP, "slice": MESH_SERVE_CHUNK,
+              "mray_per_sec_jobs": mray, "mray_per_sec_mesh_solo": solo_mray,
+              "queue_wait_p90_s": sv["p90"], "decision_ms_mean": dec["mean_ms"]}
+
+    def daemon():
+        """`python -m tpu_pbrt_torch.serve --mesh n` on a JSONL session,
+        its result held to the mesh solo render; returns its job's
+        seconds."""
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_servemesh_") as tmp:
+            out = os.path.join(tmp, "mesh.pfm")
+            argv = [sys.executable, "-m", "tpu_pbrt_torch.serve", "--mesh", str(n), "--quiet",
+                    "--spool", os.path.join(tmp, "spool")]
+            answers, events, rc = _jsonl_session(argv, path, out, "serve --mesh",
+                                                 chunk=MESH_SERVE_CHUNK)
+            got = read_pfm(out)
+        if (rc != 0 or answers["result"]["rays"] != rays or not np.array_equal(got, image)
+                or not answers["health"]["ok"]):
+            raise SmokeFailure(f"mesh: `serve --mesh {n}`: rc {rc}, rays "
+                               f"{answers['result']['rays']} (solo {rays}), image equal "
+                               f"{np.array_equal(got, image)}")
+        layout = "ranks sharing cuda:0" if share else "a card a rank"
+        log(f"[mesh] daemon `serve --mesh {n}` ({layout}): result equal to the mesh solo "
+            f"render ({answers['result']['rays']} rays, {answers['result']['seconds']} s), "
+            f"{answers['metrics']['lines']} metric lines, health ok, exit {rc}; "
+            f"{time.perf_counter() - t0:.1f} s with its spawn and compile")
+        return answers["result"]["seconds"]
+
+    return served, daemon
 
 # -- phase 4 -------------------------------------------------------------------
 
@@ -2806,8 +2981,51 @@ def phase_cli(device: str = "cuda") -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+#: seconds the recovery matrix may take on the card
+CHAOS_TIMEOUT_S = 600
+
+
+def chaos_start():
+    """Start `python -m tpu_pbrt_torch.chaos` (the recovery matrix, on the
+    card) in a subprocess: it runs beside `[infra]` and `[serve]`, whose
+    host-bound work leaves the card and most cores idle. Returns
+    (process, start time)."""
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_pbrt_torch.chaos"], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def phase_chaos(started=None):
+    """The recovery matrix on the card (see the module doc, phase 16):
+    every row must PASS; prints each row and the `chaos_matrix` line."""
+    proc, t0 = started or chaos_start()
+    try:
+        out, err = proc.communicate(timeout=CHAOS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rows = [ln for ln in out.splitlines() if ln.startswith("chaos ")]
+    for ln in rows:
+        log(f"[chaos] {ln}")
+    try:
+        matrix = json.loads(out.strip().splitlines()[-1])["chaos_matrix"]
+    except (IndexError, KeyError, ValueError):
+        raise SmokeFailure(f"chaos: no chaos_matrix line (exit {proc.returncode}): "
+                           f"{err[-2000:]}") from None
+    log(f"[chaos] {json.dumps({'chaos_matrix': matrix})} (exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s since its start)")
+    if proc.returncode != 0 or matrix["failed"] or matrix["scenarios"] != 17 or len(rows) != 17:
+        raise SmokeFailure(f"chaos: rows failed {matrix['failed']} (exit {proc.returncode}): "
+                           f"{err[-2000:]}")
+    return matrix
+
+
 PHASES = ("build", "check", "render", "crown", "direct", "samplers", "cloud", "caustic",
-          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli", "mesh")
+          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli", "mesh",
+          "chaos")
 
 
 def main(argv=()) -> int:
@@ -2868,7 +3086,16 @@ def main(argv=()) -> int:
                                          or (None, None, None))
             del scene, integ
             torch.cuda.empty_cache()
-        kt_mesh = timed("mesh", phase_mesh, solo if want("render") else None)
+        kt_mesh, mesh_daemon = timed("mesh", phase_mesh, solo if want("render") else None) \
+            or (None, None)
+
+        def daemon_seconds(secs):
+            for v in kt_mesh.values():
+                v["servemesh"]["daemon_seconds"] = secs
+
+        if mesh_daemon is not None and not want("infra"):
+            daemon_seconds(timed("mesh daemon", mesh_daemon))
+            mesh_daemon = None
 
         if want("crown"):
             cscene, cinteg = timed("crown scene", crown_scene)
@@ -2887,9 +3114,37 @@ def main(argv=()) -> int:
         kt_t = timed("textured", phase_textured)
         kt_m = timed("motion", phase_motion)
         kt_s = timed("subsurface", phase_subsurface)
-        kt_i = timed("infra", phase_infra)
-        kt_v = timed("serve", phase_serve)
-        timed("cli", phase_cli)
+        # host-bound work runs beside [infra] and [serve], whose pools
+        # leave the card and most cores idle: the recovery matrix's
+        # subprocess and [mesh]'s `serve --mesh` daemon beside [infra],
+        # [cli] (in a thread) beside [serve]; each is read after them
+        from concurrent.futures import ThreadPoolExecutor
+
+        chaos = chaos_start() if want("chaos") else None
+        beside = ThreadPoolExecutor(2)
+        try:
+            t_side = time.perf_counter()
+            mesh_job = beside.submit(mesh_daemon) if mesh_daemon is not None else None
+            kt_i = timed("infra", phase_infra)
+            cli_job = beside.submit(phase_cli) if want("cli") and want("serve") else None
+            kt_v = timed("serve", phase_serve)
+            for name, job in (("mesh daemon", mesh_job), ("cli", cli_job)):
+                if job is not None:
+                    out = job.result()
+                    if job is mesh_job:
+                        daemon_seconds(out)
+                    log(f"[time] {name}: done {time.perf_counter() - t_side:.1f} s after "
+                        f"[infra] began, beside it (total {time.perf_counter() - t0:.1f} s)")
+            if cli_job is None:
+                timed("cli", phase_cli)
+        except BaseException:
+            if chaos is not None:
+                chaos[0].kill()
+                chaos[0].wait()
+            raise
+        finally:
+            beside.shutdown(wait=True)
+        timed("chaos", phase_chaos, chaos)
         if only:
             log(f"[done] phases {sorted(only)}: total {time.perf_counter() - t0:.1f} s")
             return 0
@@ -2903,7 +3158,7 @@ def main(argv=()) -> int:
                      crown=crown, direct=dt[name], cloud=lt[name], caustic=kt_c[name],
                      breadth=kt_b[name], textured=kt_t[name], motion=kt_m[name],
                      subsurface=kt_s[name], infra=kt_i[name], serve=kt_v[name],
-                     mesh=kt_mesh[name])
+                     mesh=kt_mesh[name], servemesh=kt_mesh[name].pop("servemesh"))
             k["max_abs_err"] = max(k["max_abs_err"], crown["max_abs_err"], dt[name]["max_abs_err"],
                                    lt[name]["max_abs_err"],
                                    kt_c[name]["connection"]["max_abs_err"],

@@ -6,8 +6,10 @@
 - `--mesh 2` renders over two gloo CPU ranks and writes the image
   (rank 0), within rtol 1e-4 / atol 1e-5 of the one-device CLI render;
   `--multihost` outside a process group warns and renders on one device,
-  bit-identical; serving over a mesh (`--serve` with `--mesh` or
-  `--multihost`) exits 2 and says "not ported";
+  bit-identical; `--serve --mesh 2` serves the command line's scene
+  over two ranks and writes the mesh render's image bit for bit, and
+  `--serve --multihost` outside a group serves on one device and writes
+  the one-device image;
 - `--serve` runs the render service's JSONL daemon on stdin: a script
   that submits the Cornell box's quick crop, polls and shuts down
   answers every line and writes the same image as the CLI's render;
@@ -92,15 +94,25 @@ def test_spp_chunk_sets_the_chunk_and_the_fingerprint(tmp_path, monkeypatch):
         tck.load_checkpoint(ck, fp.replace("chunk=512", "chunk=131072"))
 
 
-@pytest.mark.parametrize("flag", ["--mesh=8", "--multihost"])
-def test_unported_flag_exits_2(flag, capsys):
-    # the mesh renders (below); serving over one is not ported
-    assert cli.main([CORNELL, "--serve", flag, "--device", "cpu"]) == 2
-    assert "is not ported" in capsys.readouterr().err
-
-
 QUICK = ["--quick", "--device", "cpu", "--quiet", "--spp-chunk", "512",
          "--cropwindow", "0.25", "0.5", "0.25", "0.5"]
+
+
+@pytest.mark.parametrize("flag", ["--mesh=2", "--multihost"])
+def test_unported_flag_exits_2(flag, quick_image, tmp_path, monkeypatch):
+    # serving over a mesh is ported: `--serve` with the flag serves the
+    # command line's scene (rank 0 reads the shutdown from stdin) and
+    # exits 0 with the image of the same render unserved
+    monkeypatch.delenv("TORCH_PBRT_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setattr(sys, "stdin", io.StringIO('{"op": "shutdown", "drain": true}\n'))
+    out = str(tmp_path / "served.pfm")
+    assert cli.main([CORNELL, *QUICK, "--serve", flag, "-o", out]) == 0
+    if flag == "--multihost":
+        np.testing.assert_array_equal(read_pfm(out), quick_image)
+    else:
+        ref = str(tmp_path / "mesh.pfm")
+        assert cli.main([CORNELL, *QUICK, "--mesh", "2", "-o", ref]) == 0
+        np.testing.assert_array_equal(read_pfm(out), read_pfm(ref))
 
 
 @pytest.fixture(scope="module")

@@ -134,12 +134,15 @@ COPIES = ["scene/plyreader.py", "shapes/loopsubdiv.py"]
 #: their docstrings and comments drop the reference's change history
 CODE_COPIES = ["utils/clock.py", "obs/trace.py", "obs/flight.py", "obs/metrics.py",
                "chaos/__init__.py", "serve/queue.py", "obs/health.py", "obs/__main__.py",
-               "fleet/router.py"]
+               "fleet/router.py", "load/workload.py", "load/gates.py", "load/__main__.py",
+               "load/__init__.py", "load/replay.py"]
 #: the port's own additions to a code copy, taken out before the
 #: comparison: LocalReplica takes the service's device (CUDA unless the
 #: caller names the CPU), which the reference's single-backend service
-#: does not need
-PORT_ADDITIONS = {"fleet/router.py": ["        device=None,\n", "device=device, "]}
+#: does not need; the load replay builds its services on the CPU, where
+#: the stub films live
+PORT_ADDITIONS = {"fleet/router.py": ["        device=None,\n", "device=device, "],
+                  "load/replay.py": ['device="cpu",']}
 
 
 def _code(src: str) -> str:

@@ -257,7 +257,9 @@ def test_unsliceable_integrator_and_mesh_rejected():
     svc = _service()
     with pytest.raises(ValueError, match="cannot be served"):
         svc.submit(text=cornell_box_text(res=16, spp=1, integrator="sppm"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # a mesh serves (tests/test_torch_serve_mesh.py); what is not a Mesh
+    # is rejected
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         RenderService(mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -51,10 +51,10 @@ from tpu_pbrt_torch.serve.service import (
 from tpu_pbrt_torch.utils.clock import WALL
 
 #: the edge-shedding threshold and the sizing formula's denominator, in
-#: req/s per replica: the reference's value (its load harness's
-#: steady-scenario knee), kept so the port routes and sheds as the
-#: reference does. It is not a measurement of the port, whose load
-#: harness is not ported yet
+#: req/s per replica: the knee of the port's own load harness, `python
+#: -m tpu_pbrt_torch.load --capacity steady` (seed 7, p99 queue-wait
+#: target 0.5 s), a virtual-time figure of the serving policy that
+#: equals the reference's (LOADTEST_baseline.json)
 KNEE_REQ_S = 159.5
 
 

@@ -25,8 +25,11 @@ warning. `--multihost` joins a process group described by the
 environment instead (RANK, WORLD_SIZE, LOCAL_RANK and
 TORCH_PBRT_COORDINATOR_ADDRESS="host:port" of rank 0, as torchrun sets
 them up): every process runs this command, and the mesh spans the group.
-Serving over a mesh is not ported (`--serve` with `--mesh` exits 2). A
-scene error exits with code 1.
+`--serve` with `--mesh N` serves over N ranks: rank 0 runs in this
+process, submits the command line's scenes and reads the JSONL stream,
+and the others follow its decisions (serve/service.py); `--serve
+--multihost` does the same over the environment's group. A scene error
+exits with code 1.
 """
 
 from __future__ import annotations
@@ -82,9 +85,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _mesh_ranks(args) -> int:
-    import math
+    from tpu_pbrt_torch.parallel.mesh import mesh_ranks
 
-    return math.prod(int(x) for x in args.mesh.split(",")) if args.mesh else 1
+    return mesh_ranks(args.mesh)
 
 
 def _render_rank(mesh, argv):
@@ -97,6 +100,16 @@ def _render_rank(mesh, argv):
     return _render_scenes(args, mesh.device)
 
 
+def _serve_rank(mesh, argv):
+    """One rank of `--serve --mesh N`: the daemon on rank 0, a follower
+    of its decisions elsewhere."""
+    args = build_arg_parser().parse_args(argv)
+    if mesh.rank:
+        args.trace = args.metrics_path = ""
+        args.quiet = True
+    return _render_scenes(args, mesh.device, mesh)
+
+
 def main(argv=None) -> int:
     from tpu_pbrt_torch.config import resolve_device
 
@@ -105,10 +118,6 @@ def main(argv=None) -> int:
     if not args.scenes and not args.serve:
         print("tpu-pbrt-torch: no scene files (and no --serve)", file=sys.stderr)
         return 1
-    if args.serve and (args.mesh or args.multihost):
-        print("tpu-pbrt-torch: serving over a mesh is not ported to tpu_pbrt_torch yet",
-              file=sys.stderr)
-        return 2
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
@@ -127,7 +136,14 @@ def main(argv=None) -> int:
             args.mesh = str(dist.get_world_size())
             if device.type == "cuda":
                 device = torch.device("cuda", torch.cuda.current_device())
+            if args.serve and dist.get_rank():
+                args.trace = args.metrics_path = ""
+                args.quiet = True
         return _render_scenes(args, device)
+    if n > 1 and args.serve:
+        from tpu_pbrt_torch.serve.__main__ import launch_serving
+
+        return launch_serving(_serve_rank, n, argv, device)
     if n > 1:
         cards = torch.cuda.device_count() if device.type == "cuda" else n
         if cards >= n:
@@ -147,7 +163,7 @@ def main(argv=None) -> int:
     return _render_scenes(args, device)
 
 
-def _render_scenes(args, device) -> int:
+def _render_scenes(args, device, mesh=None) -> int:
     from tpu_pbrt_torch.scene.api import Options, render_file
     from tpu_pbrt_torch.utils.error import PbrtError
 
@@ -181,20 +197,28 @@ def _render_scenes(args, device) -> int:
         from tpu_pbrt_torch.serve import RenderService
         from tpu_pbrt_torch.serve.__main__ import run_daemon
 
-        service = RenderService(device=device, quiet=args.quiet)
-        for i, scene in enumerate(args.scenes):
-            # one --checkpoint path cannot be shared by several jobs: key
-            # it per scene when more than one is submitted
-            ckpt = args.checkpoint
-            if ckpt and len(args.scenes) > 1:
-                ckpt = f"{ckpt}.{i}"
-            job = service.submit(scene, options=opts, checkpoint_path=ckpt,
-                                 checkpoint_every=args.checkpoint_every,
-                                 outfile=args.outfile)
-            if not args.quiet:
-                print(f"tpu-pbrt-torch: submitted {scene} as {job}", file=sys.stderr)
-        try:
+        if mesh is None and opts.mesh_shape:
+            from tpu_pbrt_torch.parallel.mesh import resolve_mesh
+
+            mesh = resolve_mesh(opts.mesh_shape, device=device)
+        service = RenderService(mesh=mesh, device=device, quiet=args.quiet)
+
+        def lead(service):
+            for i, scene in enumerate(args.scenes):
+                # one --checkpoint path cannot be shared by several jobs:
+                # key it per scene when more than one is submitted
+                ckpt = args.checkpoint
+                if ckpt and len(args.scenes) > 1:
+                    ckpt = f"{ckpt}.{i}"
+                job = service.submit(scene, options=opts, checkpoint_path=ckpt,
+                                     checkpoint_every=args.checkpoint_every,
+                                     outfile=args.outfile)
+                if not args.quiet:
+                    print(f"tpu-pbrt-torch: submitted {scene} as {job}", file=sys.stderr)
             return run_daemon(service)
+
+        try:
+            return service.lead_or_follow(lead) or 0
         finally:
             TRACE.maybe_export()
             METRICS.maybe_export()

@@ -14,13 +14,16 @@ card's host-side launch cost off the others' path.
 
 - `Mesh`: this process's rank, the group's size, its device and the
   collectives the render loop uses (sum / max all-reduce, all-gather,
-  broadcast, barrier, and `agree` on a chunk's outcome), staged through the host where gloo is given CUDA
-  tensors; `take_log` returns their wall seconds by kind.
+  broadcast, barrier, and `agree` on a chunk's outcome), staged through
+  the host where gloo is given CUDA tensors, and the serving ranks'
+  `broadcast_object` of rank 0's decision records; `take_log` returns
+  their wall seconds by kind.
 - `launch`: start N ranks as spawned processes (a `file://` rendezvous in
   a private directory), give each its device, run `fn(mesh, *args)` in
   each and return the ranks' results; `share_device=True` puts every
   rank on the one card (gloo), an explicit layout and never a silent
-  substitute.
+  substitute; `lead_here=True` runs rank 0 in the calling process.
+- `mesh_ranks`: the ranks a `--mesh` spec asks for.
 - `maybe_init_distributed`: join a group described by the environment
   (`--multihost`: RANK, WORLD_SIZE, LOCAL_RANK and the coordinator
   address of `config.coordinator_address`).
@@ -136,6 +139,20 @@ class Mesh:
 
         self._timed("broadcast", run)
 
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """Rank `src`'s picklable `obj` on every rank (timed as
+        "decision": the serving ranks follow rank 0's decision records
+        through it)."""
+        import torch.distributed as dist
+
+        def run():
+            box = [obj]
+            dev = self.device if self.backend == "nccl" else None
+            dist.broadcast_object_list(box, src=src, group=self.group, device=dev)
+            return box[0]
+
+        return self._timed("decision", run)
+
     def agree(self, code: int) -> int:
         """The largest `code` any rank holds (a max all-reduce of one
         element, timed as "wait": it is also the wait for the slowest
@@ -166,9 +183,16 @@ class Mesh:
 
     def take_log(self) -> dict:
         """{kind: [wall seconds of each collective]} since the last call
-        (kinds: wait, all_reduce, all_gather, broadcast)."""
+        (kinds: wait, all_reduce, all_gather, broadcast, decision)."""
         out, self._log = self._log, {}
         return out
+
+
+def mesh_ranks(spec: str) -> int:
+    """'--mesh 2' or the reference's '2,4' (their product); 1 without."""
+    import math
+
+    return math.prod(int(x) for x in spec.split(",")) if spec else 1
 
 
 def _layout(n: int, device: torch.device, backend: str, share: bool) -> str:
@@ -198,10 +222,11 @@ def default_backend(device: str, share_device: bool = False) -> str:
     return "nccl" if str(device).startswith("cuda") and not share_device else "gloo"
 
 
-def _rank_main(rank, n, init_method, backend, device, share, threads, fn, args, out_dir):
+def _run_rank(rank, n, init_method, backend, device, share, threads, fn, args) -> dict:
+    """One rank's body: join the group, run fn(mesh, *args), leave the
+    group. Returns {"ok": True, "value": ...} or the traceback."""
     import torch.distributed as dist
 
-    path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -211,19 +236,50 @@ def _rank_main(rank, n, init_method, backend, device, share, threads, fn, args, 
         mesh = Mesh(rank=rank, size=n, device=dev, backend=backend,
                     layout=_layout(n, dev, backend, share))
         try:
-            result = {"ok": True, "value": fn(mesh, *args)}
+            return {"ok": True, "value": fn(mesh, *args)}
         finally:
             dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the launcher, which fails the run
-        result = {"ok": False, "error": traceback.format_exc()}
+        return {"ok": False, "error": traceback.format_exc()}
+
+
+def _rank_main(rank, n, init_method, backend, device, share, threads, fn, args, out_dir):
+    path = os.path.join(out_dir, f"rank{rank}.pkl")
+    result = _run_rank(rank, n, init_method, backend, device, share, threads, fn, args)
     with open(path + ".tmp", "wb") as f:
         pickle.dump(result, f)
     os.replace(path + ".tmp", path)
 
 
+def _watch_ranks(procs, first: int):
+    """While rank 0 runs in this process, a spawned rank that ends has
+    left the group: rank 0 would wait in its next collective until the
+    group's timeout. The watcher ends this process at once instead, with
+    the rank named on stderr. Returns the event that stops the watch."""
+    import sys
+    import threading
+
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.5):
+            for r, p in enumerate(procs, start=first):
+                if not p.is_alive() and not done.is_set():
+                    print(f"mesh: rank {r} ended (exit code {p.exitcode}) while rank 0 "
+                          "was running; stopping every rank", file=sys.stderr, flush=True)
+                    for q in procs:
+                        if q.is_alive():
+                            q.kill()
+                    os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    return done
+
+
 def launch(fn: Callable, n_ranks: int, args: tuple = (), device: str = "cuda",
            backend: Optional[str] = None, share_device: bool = False,
-           threads: Optional[int] = None, timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
+           threads: Optional[int] = None, timeout: float = COLLECTIVE_TIMEOUT_S,
+           lead_here: bool = False) -> list:
     """Run `fn(mesh, *args)` on `n_ranks` ranks, each a spawned process
     with its own device (cuda:rank, or cuda:0 for every rank with
     `share_device=True`, or the CPU), joined in one process group through
@@ -232,7 +288,9 @@ def launch(fn: Callable, n_ranks: int, args: tuple = (), device: str = "cuda",
     fails the launch (RuntimeError with its traceback); every process is
     stopped before this returns. `fn` and `args` must pickle; `threads`
     sets each rank's torch CPU threads (default: the cores over the
-    ranks)."""
+    ranks). `lead_here=True` runs rank 0 in the calling process (which
+    keeps its standard input: the serving daemon's rank 0 reads it) and
+    spawns the others; `timeout` then bounds their wait after rank 0."""
     import multiprocessing as mp
 
     backend = backend or default_backend(device, share_device)
@@ -240,19 +298,31 @@ def launch(fn: Callable, n_ranks: int, args: tuple = (), device: str = "cuda",
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="tpu_pbrt_torch_mesh_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        first = 1 if lead_here else 0
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, n_ranks, init, backend, device, share_device, threads, fn,
                                    args, tmp))
-                 for r in range(n_ranks)]
+                 for r in range(first, n_ranks)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
         errors = []
         try:
-            for r, p in enumerate(procs):
+            lead = None
+            if lead_here:
+                done = _watch_ranks(procs, first)
+                try:
+                    lead = _run_rank(0, n_ranks, init, backend, device, share_device,
+                                     None, fn, args)
+                finally:
+                    done.set()
+            # a rank 0 that failed sends no more decisions: its followers
+            # are stopped at once instead of waiting out their collective
+            wait_s = timeout if lead is None or lead["ok"] else 5.0
+            deadline = time.monotonic() + wait_s
+            for r, p in enumerate(procs, start=first):
                 p.join(max(0.0, deadline - time.monotonic()))
                 if p.is_alive():
-                    errors.append(f"rank {r}: still running after {timeout:.0f} s")
+                    errors.append(f"rank {r}: still running after {wait_s:.0f} s")
                     break
         finally:
             for p in procs:
@@ -260,7 +330,12 @@ def launch(fn: Callable, n_ranks: int, args: tuple = (), device: str = "cuda",
                     p.kill()
                     p.join()
         results = []
-        for r, p in enumerate(procs):
+        if lead is not None:
+            if lead["ok"]:
+                results.append(lead["value"])
+            else:
+                errors.insert(0, f"rank 0:\n{lead['error']}")
+        for r, p in enumerate(procs, start=first):
             path = os.path.join(tmp, f"rank{r}.pkl")
             if not os.path.exists(path):
                 errors.append(f"rank {r}: exited with code {p.exitcode} and no result")

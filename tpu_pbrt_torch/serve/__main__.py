@@ -53,8 +53,15 @@ the warm resubmit paid 0 scene compiles and 0 kernel builds, and the
 preview stream wrote frames. Exit 0 = pass.
 
 The service runs on CUDA unless `--device cpu` asks for the CPU; with no
-GPU and no such request the daemon exits 1. `--mesh` (several devices)
-is not ported yet and exits 2.
+GPU and no such request the daemon exits 1.
+
+`--mesh N` serves over N ranks (serve/service.py, "Serving over a
+mesh"): rank 0 runs in this process, reads the JSONL stream and writes
+every reply; ranks 1..N-1 are spawned processes that follow its
+decisions, and every rank leaves on `shutdown` (or EOF). The ranks take
+one card each over NCCL when N cards are visible, else share cuda:0
+over gloo (said on stderr); under `--device cpu` they are N CPU
+processes over gloo.
 """
 
 from __future__ import annotations
@@ -74,7 +81,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="run the service smoke (2 cropped cornell jobs, one "
         "preempt/resume, bit-identity vs solo, residency warm-hit) and exit",
     )
-    p.add_argument("--mesh", default="", help="device mesh shape (not ported: exits 2)")
+    p.add_argument("--mesh", default="",
+                   help="serve over N ranks, e.g. '2' or '2,4' (their product): rank 0 "
+                   "reads stdin, the others follow its decisions")
     p.add_argument("--device", default=None,
                    help="torch device to serve on: cuda (the default) or cpu")
     p.add_argument(
@@ -111,7 +120,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _make_service(args):
+def _make_service(args, mesh=None):
     from tpu_pbrt_torch.serve import RenderService, SloPolicy, parse_slo_spec
 
     slo = None
@@ -126,7 +135,8 @@ def _make_service(args):
 
         METRICS.configure(args.metrics_path)
     return RenderService(
-        device=args.device,
+        mesh=mesh,
+        device=None if mesh is not None else args.device,
         chunk=args.chunk or None,
         max_resident_bytes=(
             int(args.max_resident_mb * 1e6) if args.max_resident_mb else None
@@ -353,8 +363,47 @@ def run_daemon(service, in_stream=None, out=None) -> int:
             try:
                 shutdown = process_line(cmds.get(timeout=0.05))
             except _q.Empty:
-                pass
+                service.keepalive()  # a mesh's followers wait on rank 0
     return 0
+
+
+def launch_serving(rank_fn, n: int, argv, device) -> int:
+    """Start the N serving ranks of `--mesh N`: rank 0 in this process
+    (it keeps stdin and stdout), ranks 1..N-1 spawned, each running
+    `rank_fn(mesh, argv)`. One card per rank (NCCL) when N cards are
+    visible, else every rank on cuda:0 over gloo; N CPU processes under
+    --device cpu. Returns the largest rank exit code, 1 when a rank
+    failed."""
+    import torch
+
+    from tpu_pbrt_torch.parallel.mesh import launch
+
+    share = device.type == "cuda" and torch.cuda.device_count() < n
+    if share:
+        print(f"tpu-pbrt-torch: {n} serving ranks share cuda:0 "
+              f"({torch.cuda.device_count()} card(s) visible; gloo)", file=sys.stderr)
+    try:
+        codes = launch(rank_fn, n, args=(list(argv),), device=device.type,
+                       share_device=share, lead_here=True)
+    except RuntimeError as e:
+        print(f"tpu-pbrt-torch: {e}", file=sys.stderr)
+        return 1
+    return max(int(c or 0) for c in codes)
+
+
+def _serve_rank(mesh, argv) -> int:
+    """One rank of `--mesh N`: the daemon on rank 0, a follower elsewhere."""
+    args = build_arg_parser().parse_args(argv)
+    if mesh.rank:
+        args.metrics_path = ""
+    service = _make_service(args, mesh)
+    try:
+        return service.lead_or_follow(run_daemon) or 0
+    finally:
+        if not mesh.rank:
+            from tpu_pbrt_torch.obs.metrics import METRICS
+
+            METRICS.maybe_export()
 
 
 # --------------------------------------------------------------------------
@@ -600,19 +649,26 @@ def selftest(args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
-    if args.mesh:
-        print("tpu-pbrt-torch: --mesh is not ported to tpu_pbrt_torch yet", file=sys.stderr)
-        return 2
     from tpu_pbrt_torch.config import resolve_device
 
     try:
-        resolve_device(args.device)
+        device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print(f"tpu-pbrt-torch: {e} (on the command line: --device cpu)", file=sys.stderr)
         return 1
     if args.selftest:
         return selftest(args)
+    from tpu_pbrt_torch.parallel.mesh import mesh_ranks
+
+    if mesh_ranks(args.mesh) > 1:
+        # the ranks are spawned: name the rank function by its module's
+        # import path (a package's __main__ is not re-imported by spawn)
+        import importlib
+
+        this = importlib.import_module("tpu_pbrt_torch.serve.__main__")
+        return launch_serving(this._serve_rank, mesh_ranks(args.mesh), argv, device)
     try:
         return run_daemon(_make_service(args))
     finally:

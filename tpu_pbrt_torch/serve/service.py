@@ -1,5 +1,6 @@
 """The render service: resumable render jobs multiplexed on one device
-(the reference's serve/service.py, over the port's ChunkPlan).
+or one mesh of ranks (the reference's serve/service.py, over the port's
+ChunkPlan).
 
 - A **RenderJob** owns exactly the checkpoint-v4 tuple (film state,
   chunk cursor, ray count, wave-counter snapshot) plus a `ChunkPlan`
@@ -25,21 +26,41 @@
   developed (radiance planes self-normalize by the weight sum, so a
   partial render is a noisier image, not a darker one) and written.
 
+- **Serving over a mesh** (parallel/mesh.py: one process per rank):
+  every rank builds a RenderService over the same Mesh, and rank 0 owns
+  every decision. The scheduler reads the clock (SLO classes,
+  deadlines, backoff, health), so ranks deciding apart would enter
+  different collectives: submits, admission and sheds, the WFQ pick,
+  preempt/resume/cancel, parks and evictions, the recovery ladder and
+  every checkpoint write are rank 0's. Rank 0 broadcasts a small
+  decision record (`Mesh.broadcast_object`) before each act the ranks
+  share: activate a job (compile its scene if this rank lacks it, build
+  its plan over the mesh, load its film from rank 0's checkpoint or
+  start a fresh one), dispatch chunk c at attempt a, park, release,
+  stop. The other ranks run `follow()`, which applies those records;
+  a dispatch is the same `ChunkPlan.dispatch` on every rank, whose
+  slices agree on their outcome (`Mesh.agree`) before the film
+  all-reduce, so a failure on one rank alone rolls every rank back
+  together. Health and metrics are rank 0's.
+
 Device syncs happen where the reference's happen: at the drain
 boundaries (park, finalize, the strict firewall's per-chunk count)
 through `.tolist()` / `.item()`, and at the in-flight window's retires
 through the CUDA event recorded after each slice.
 
 Frontends: the library API here, `python -m tpu_pbrt_torch.serve`
-(stdin/JSONL daemon + --selftest), and `python -m tpu_pbrt_torch.main
---serve`.
+(stdin/JSONL daemon + --selftest, `--mesh N`), and `python -m
+tpu_pbrt_torch.main --serve [--mesh N | --multihost]`.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
+import time
+import weakref
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +103,16 @@ CANCELLED = "cancelled"
 FAILED = "failed"
 _TERMINAL = (DONE, CANCELLED, FAILED)
 _RUNNABLE = (QUEUED, ACTIVE, PARKED)
+
+#: each process numbers the mesh services it builds: rank 0's decision
+#: records name their service by it, so every rank must build its mesh
+#: services in the same order
+_MESH_SERVICE_IDS = itertools.count()
+#: seconds an idle rank 0 lets pass between decision records (well
+#: inside parallel/mesh.py's COLLECTIVE_TIMEOUT_S)
+_KEEPALIVE_S = 60.0
+#: this process's following services by number (weakly held)
+_FOLLOWERS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 class ShedError(RuntimeError):
@@ -265,7 +296,7 @@ class RenderJob:
 
 
 class RenderService:
-    """Multi-tenant render service over one device.
+    """Multi-tenant render service over one device or one mesh of ranks.
 
     Cooperative scheduler: `step()` dispatches exactly one chunk-slice
     of the policy-selected job; `drain()` steps until every schedulable
@@ -274,8 +305,12 @@ class RenderService:
     (continuous batching on one resident model).
 
     `device`: CUDA unless the caller names the CPU (config.
-    resolve_device); a scene the service compiles goes there. `mesh`
-    other than None (a multi-device mesh) is not ported yet and raises.
+    resolve_device); a scene the service compiles goes there. `mesh`: a
+    parallel.mesh.Mesh of two or more ranks serves over them (the
+    module doc): every rank builds its service over the same Mesh, rank
+    0 drives it (submit, step, ...) and ends with `close()`, the others
+    call `follow()`; `lead_or_follow(fn)` does both. The device is the
+    mesh's.
 
     `max_active` bounds how many jobs may hold a live film at once; a
     higher-priority submit preempts the lowest outranked active job
@@ -296,15 +331,46 @@ class RenderService:
         slo: Optional[SloPolicy] = None,
         clock=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RenderService(mesh=...) is not ported to tpu_pbrt_torch yet: "
-                "the port serves on one device (mesh=None)"
-            )
-        self.mesh = mesh
         from tpu_pbrt_torch.config import resolve_device
 
+        self.mesh = mesh
+        self._sid = None
+        if mesh is not None:
+            from tpu_pbrt_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}"
+                )
+            if device is not None and resolve_device(device) != torch.device(mesh.device):
+                raise ValueError(
+                    f"rank {mesh.rank} of the mesh renders on {mesh.device}, "
+                    f"not on {device}"
+                )
+            device = mesh.device
+            if mesh.size > 1:
+                self._sid = next(_MESH_SERVICE_IDS)
+                if mesh.rank:
+                    _FOLLOWERS[self._sid] = self
+                    #: the scenes this rank compiled from rank 0's
+                    #: sources (dropped when rank 0 evicts them), and the
+                    #: pairs the caller handed follow()
+                    self._f_scenes: Dict[str, Any] = {}
+                    self._f_given: Dict[str, Any] = {}
+                    #: job -> (plan, film) on this rank, or the error
+                    #: that kept it from building them
+                    self._f_jobs: Dict[str, Any] = {}
         self.device = resolve_device(device)
+        #: rank 0 of a mesh: broadcasts its decision records
+        self._leads = self._sid is not None and mesh.rank == 0
+        self._last_lead = time.monotonic()
+        #: how each resident key's scene is built: a follower compiles
+        #: the same source (None: a precompiled pair, which the
+        #: followers are handed by follow(compiled=...))
+        self._sources: Dict[str, Any] = {}
+        #: the collectives' wall seconds by kind (Mesh.take_log), summed
+        #: over this service's steps on rank 0
+        self._mesh_log: Dict[str, List[float]] = {}
         # the protocol's only time source (utils/clock.py): every
         # scheduling decision, backoff deadline and wait measurement
         # samples THIS object, so a VirtualClock makes a whole service
@@ -427,12 +493,15 @@ class RenderService:
             getattr(options, "quick_render", False),
             getattr(options, "image_file", ""),
         )
+        self._not_a_follower("submit")
+        source = None
         if compiled is not None:
             scene_obj = compiled[0]
             key = resident_key or f"obj:{id(scene_obj):x}"
             builder = lambda: compiled  # noqa: E731
         elif path is not None:
             key = resident_key or scene_source_key(path=path, extra=opt_extra)
+            source = ("path", path, options)
 
             def builder():
                 from tpu_pbrt_torch.scene.api import compile_file
@@ -441,6 +510,7 @@ class RenderService:
 
         elif text is not None:
             key = resident_key or scene_source_key(text=text, extra=opt_extra)
+            source = ("text", text, options)
 
             def builder():
                 from tpu_pbrt_torch.scene.api import compile_string
@@ -452,6 +522,8 @@ class RenderService:
 
         with TRACE.span("serve/submit", key=key):
             ent = self.residency.get_or_compile(key, builder)
+        if self._leads and key not in self._sources:
+            self._sources[key] = source
         from tpu_pbrt_torch.integrators.common import WavefrontIntegrator
 
         if type(ent.integrator).render is not WavefrontIntegrator.render:
@@ -630,6 +702,7 @@ class RenderService:
         # backoff-wait computation below must see the SAME clock, or a
         # job whose not_before falls between two samples is excluded
         # from both — step() would answer None with work still pending
+        self._not_a_follower("step")
         self.health_steps += 1
         now = self._now()
         job = self.scheduler.pick(self._runnable(now))
@@ -637,7 +710,11 @@ class RenderService:
             job = self._await_backoff(now)
             if job is None:
                 return None
-        return self._step_job(job)
+        out = self._step_job(job)
+        if self._leads:
+            for kind, secs in self.mesh.take_log().items():
+                self._mesh_log.setdefault(kind, []).extend(secs)
+        return out
 
     def _await_backoff(self, now: float) -> Optional[RenderJob]:
         """Nothing was dispatchable at `now` — but a job whose backoff
@@ -666,6 +743,7 @@ class RenderService:
             job.window.flush(discard=True)  # closes in-flight spans
             job.window = None
         job.state = None
+        self._lead("release", job=job.job_id)
         job.ray_counts.clear()
         job.occ_counts.clear()
         job.ctr_counts.clear()
@@ -892,13 +970,168 @@ class RenderService:
         return plan.film.develop(state, splat_scale=1.0 / (plan.spp * frac))
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             "jobs": {j.job_id: self.poll(j.job_id) for j in self.jobs.values()},
             "residency": self.residency.stats(),
             "tenants": self.scheduler.stats(),
             "schedule_len": len(self.schedule),
             "sheds": self.sheds,
         }
+        if self._leads:
+            out["mesh"] = self.mesh_stats()
+        return out
+
+    def mesh_stats(self) -> Dict[str, Any]:
+        """Rank 0's view of serving over the mesh: the layout, the
+        decision records broadcast and their wall ms, and per dispatched
+        slice the wait for the slowest rank (the agreement) and the film
+        all-reduce, host staging included."""
+        m = self.mesh
+        log = self._mesh_log
+
+        def ms(kind):
+            v = log.get(kind, [])
+            return {"n": len(v), "mean_ms": round(1e3 * sum(v) / len(v), 4) if v else None,
+                    "total_ms": round(1e3 * sum(v), 4)}
+
+        return {
+            "ranks": m.size, "rank": m.rank, "backend": m.backend,
+            "layout": m.layout, "slices": len(self.schedule),
+            "decision": ms("decision"), "wait": ms("wait"),
+            "all_reduce": ms("all_reduce"),
+        }
+
+    # -- serving over a mesh --------------------------------------------------
+    def _lead(self, op: str, **fields) -> None:
+        """Rank 0: broadcast one decision record to the following ranks
+        (nothing on one device or on a follower)."""
+        if not self._leads:
+            return
+        self.mesh.broadcast_object({"op": op, "sid": self._sid, **fields})
+        self._last_lead = time.monotonic()
+
+    def _not_a_follower(self, verb: str) -> None:
+        if self._sid is not None and not self._leads:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} of the mesh follows rank 0's decisions: "
+                f"{verb} on rank 0, follow() here"
+            )
+
+    def keepalive(self) -> None:
+        """Rank 0, idle: a no-op record once _KEEPALIVE_S has passed
+        since the last one, so the followers' wait in the broadcast never
+        reaches the group's collective timeout (the daemon calls this
+        while it waits for input)."""
+        if self._leads and time.monotonic() - self._last_lead > _KEEPALIVE_S:
+            self._lead("noop")
+
+    def close(self) -> None:
+        """Rank 0: release the following ranks from follow()."""
+        self._lead("stop")
+
+    def lead_or_follow(self, lead: Callable[["RenderService"], Any], compiled=None):
+        """The whole serving program of one rank: rank 0 (or a lone
+        device) runs `lead(self)` and then releases the followers, even
+        when `lead` raises; every other rank follows until then and
+        returns None. `compiled` is follow()'s."""
+        if self._sid is not None and not self._leads:
+            self.follow(compiled)
+            return None
+        try:
+            return lead(self)
+        finally:
+            self.close()
+
+    def follow(self, compiled: Optional[Dict[str, Any]] = None) -> int:
+        """A rank other than 0: apply rank 0's decision records until its
+        `close()`. `compiled` maps resident keys to the (scene,
+        integrator) pairs this rank compiled itself (rank 0 submitted
+        its own pairs under the same keys); any other scene is compiled
+        here from the source rank 0 built it from. Returns the records
+        applied. The records of every mesh service this process built
+        arrive here, each applied by the service it names."""
+        if self._sid is None or self._leads:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh")
+        for svc in list(_FOLLOWERS.values()):
+            svc._f_given.update(compiled or {})
+        n = 0
+        while True:
+            rec = self.mesh.broadcast_object(None)
+            if rec["op"] == "stop":
+                return n
+            n += 1
+            svc = _FOLLOWERS.get(rec["sid"])
+            if svc is None:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank}: a decision record names mesh service "
+                    f"{rec['sid']}, which this rank did not build"
+                )
+            svc._apply(rec)
+
+    def _apply(self, rec: Dict[str, Any]) -> None:
+        """One of rank 0's decision records, on a following rank. Only a
+        dispatch enters a collective; a record this rank cannot carry
+        out leaves the job without a film here, and its next dispatch
+        then fails on every rank (a rank that fails is never skipped)."""
+        op, job = rec["op"], rec.get("job")
+        if op == "activate":
+            self._f_jobs.pop(job, None)
+            for key in list(self._f_scenes):
+                if key not in rec["keys"] and key != rec["key"]:
+                    del self._f_scenes[key]  # evicted on rank 0
+            try:
+                pair = self._f_given.get(rec["key"]) or self._f_scenes.get(rec["key"])
+                if pair is None:
+                    pair = self._f_scenes[rec["key"]] = self._follow_compile(rec)
+                scene, integ = pair
+                plan = integ.prepare_chunks(scene, self.mesh, chunk=rec["chunk"])
+                if rec["ckpt"]:
+                    state = load_checkpoint(rec["ckpt"], plan.fingerprint,
+                                            device=scene.device)[0]
+                else:
+                    state = plan.film.init_state(scene.device)
+                self._f_jobs[job] = (plan, state)
+            except Exception as e:  # noqa: BLE001 - fails the job's next dispatch
+                self._f_jobs[job] = e
+        elif op == "dispatch":
+            self._follow_dispatch(job, rec["chunk"], rec["attempt"])
+        elif op in ("park", "release"):
+            self._f_jobs.pop(job, None)
+
+    def _follow_compile(self, rec):
+        source = rec["source"]
+        if source is None:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} holds no compiled scene for {rec['key']!r} "
+                "(pass it to follow(compiled=...))"
+            )
+        kind, what, options = source
+        from tpu_pbrt_torch.scene.api import compile_file, compile_string
+
+        build = compile_file if kind == "path" else compile_string
+        return build(what, options, device=self.device)
+
+    def _follow_dispatch(self, job: str, c: int, attempt: int) -> None:
+        from tpu_pbrt_torch.chaos import CHAOS
+        from tpu_pbrt_torch.parallel.mesh import join_failure
+
+        held = self._f_jobs.get(job)
+        try:
+            CHAOS.dispatch(c, attempt, mesh=True)
+            if not isinstance(held, tuple):
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} holds no film for job {job}: {held}"
+                )
+        except Exception as e:  # noqa: BLE001 - agreed with the ranks in the step
+            join_failure(self.mesh, e)
+            return
+        plan, state = held
+        try:
+            plan.dispatch(state, c)
+        except Exception:  # noqa: BLE001 - agreed on every rank: rank 0 decides
+            # the film was not merged (the merge follows the agreement);
+            # rank 0 re-activates the job when the failure poisoned it
+            pass
 
     def metrics_exposition(self) -> str:
         """The registry's Prometheus text page — what the daemon's
@@ -1018,12 +1251,23 @@ class RenderService:
                 f"resident scene for job {job.job_id} was evicted while "
                 "the job still held a pin"
             )
+        resume = checkpoint_exists(job.checkpoint_path)
+        # the ranks build the same plan and load the same film: rank 0's
+        # checkpoint writes have all landed before this record leaves
+        self._lead(
+            "activate", job=job.job_id, key=job.resident_key,
+            chunk=job.chunk, ckpt=job.checkpoint_path if resume else None,
+            source=self._sources.get(job.resident_key),
+            keys=sorted(self.residency.pin_counts()),
+        )
         if job.plan is None:
-            job.plan = ent.integrator.prepare_chunks(ent.scene, chunk=job.chunk)
+            job.plan = ent.integrator.prepare_chunks(
+                ent.scene, self.mesh, chunk=job.chunk
+            )
             ent.fingerprints.add(job.plan.fingerprint)
             job.plan.capacity_audit()
         job.chunks_total = job.plan.n_chunks
-        if checkpoint_exists(job.checkpoint_path):
+        if resume:
             state, cursor, rays, ctr = load_checkpoint(
                 job.checkpoint_path, job.plan.fingerprint,
                 device=ent.scene.device,
@@ -1074,6 +1318,7 @@ class RenderService:
         job.ctr_counts.clear()
         job.nf_counts.clear()
         job.state = None
+        self._lead("park", job=job.job_id)
         job.preemptions += 1
         METRICS.counter(
             "serve_preemptions_total",
@@ -1184,7 +1429,17 @@ class RenderService:
                 )
             win.append(wait)
         try:
-            CHAOS.dispatch(c, job.attempt, mesh=self.mesh is not None)
+            self._lead("dispatch", job=job.job_id, chunk=c, attempt=job.attempt)
+            try:
+                CHAOS.dispatch(c, job.attempt, mesh=self.mesh is not None)
+            except ChunkDispatchError as e:
+                if self._sid is None:
+                    raise
+                # the other ranks are in this chunk's step: agree on
+                # its outcome with them (the render loop's rule)
+                from tpu_pbrt_torch.parallel.mesh import join_failure
+
+                raise join_failure(self.mesh, e) from e
             try:
                 # a slice launched with older ones still in flight has
                 # its host cost hidden under their compute — attributed
