@@ -32,6 +32,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      path), its launches counted the same way, which must trace the same
      rays; and both paths at 64x64, 16 spp, whose images must agree
      within rtol 1e-4 / atol 1e-5 with equal rays;
+     [analysis] the measuring analysis layers on that scene and result,
+     rendering nothing new at full size: one pool chunk of one refill
+     (the render's 2^18-slot pool) under torch.cuda.set_sync_debug_mode
+     ("warn"), whose sync warnings must equal the stream tracer's tally
+     of host reads (the traversal's plus the loop's: host_reads_per_wave
+     + loop_host_reads_per_wave); the same chunk recorded
+     (tpu_pbrt_torch/analysis/record.py), whose host syncs must equal the
+     warnings, rolled up into the cuda FLOPs, bytes and ops per wave
+     (analysis/cost.py); the audit's tiny pool chunk recorded on the card
+     and gated against the committed cuda budget of
+     tpu_pbrt_torch/analysis/budgets.json, printed beside the committed
+     cpu entry; the [render] pool's live_vs_static_ratio and
+     host_overlap_fraction with the card's name and power limit; and the
+     bench line's telemetry block (tpu_pbrt_torch/bench.py
+     telemetry_block). Runs with [render] (asked for alone, it runs
+     [render] first);
   4. crown  — the crown-class path: make_crown_like() at its full
      geometry (1,153,682 triangles in 3,279 treelets under a 1,079-node
      top tree; glass, two metal-GGX pieces, a matte ground, the HDR sky
@@ -304,9 +320,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 It imports nothing of JAX or of the JAX package, and it fails without a
 CUDA device or outside a checkout of the repo.
 
-`python3 chip_smoke.py PHASE ...` (build, check, render, crown, direct,
-samplers, cloud, caustic, breadth, textured, motion, subsurface, infra,
-serve, cli, mesh, chaos) runs the build and the named phases only, for
+`python3 chip_smoke.py PHASE ...` (build, check, render, analysis, crown,
+direct, samplers, cloud, caustic, breadth, textured, motion, subsurface,
+infra, serve, cli, mesh, chaos) runs the build and the named phases only, for
 development, and prints no kernels line and no result line.
 """
 
@@ -684,56 +700,35 @@ def _compare_flush(a, b, label, exact=False):
     return err
 
 
-def _flush_bound(args, count):
-    """Least time for one flush chunk: the FP32 FMAs that its data needs
-    (each filled slot of a live block against its treelet's count[tid]
-    real triangles, not the zero padding up to L) vs the bytes it must
-    move (those triangles' features once per distinct treelet, the block
-    tables, the filled slots' ray columns, the (R,) winners in and out)."""
-    feat, meta, rows, rayF, t_row, _ = args
-    _, F, _ = feat.shape
-    live = meta[:, 5] > 0
-    tids = meta[:, 0].long()
-    count = count.to(tids.device).long()
-    n_filled = ((rows >= 0) & live[:, None]).sum(dim=1)
-    flops = 2.0 * F * 4 * float((count[tids] * n_filled).sum())
-    tris = float(count[tids[live].unique()].sum())  # distinct treelets, real triangles
-    R = rayF.shape[1]
-    nbytes = (tris * F * 4 * 4 + meta.numel() * 4 + rows.numel() * 4
-              + float(n_filled.sum()) * (6 if F == 16 else 7) * 4 + 16 * R)
+def _bound(flops, nbytes):
+    """(least ms, what bounds it) of work moving `nbytes` and doing `flops`
+    FP32 operations, at the card's peaks."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flush_bound(args, count):
+    """Least time for one flush chunk: what its data needs
+    (kernels/flush.py::flush_work with the treelets' real triangle counts)."""
+    from tpu_pbrt_torch.kernels.flush import flush_work
+
+    return _bound(*flush_work(*args, count=count))
 
 
 def _flush_bound_padded(args):
-    """The padded figure, kept to compare with earlier records: FP32 FMAs of
-    every slot of the live blocks against all L triangle slots, zero
-    padding included, vs the bytes (the distinct treelets' whole feature
-    blocks once, the block tables, the slots' ray columns, the (R,)
-    winners in and out)."""
-    feat, meta, rows, rayF, t_row, _ = args
-    _, F, four_l = feat.shape
-    live = meta[:, 5] > 0
-    n_live = int(live.sum())
-    flops = 2.0 * F * four_l * 128 * n_live
-    n_tl = int(meta[live, 0].unique().numel())
-    n_slots = int(((rows >= 0) & live[:, None]).sum())
-    R = rayF.shape[1]
-    nbytes = (n_tl * F * four_l * 4 + meta.numel() * 4 + rows.numel() * 4
-              + n_slots * (6 if F == 16 else 7) * 4 + 16 * R)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """The padded figure, kept to compare with earlier records
+    (kernels/flush.py::flush_work without the counts: every slot of the
+    live blocks against all L triangle slots, zero padding included)."""
+    from tpu_pbrt_torch.kernels.flush import flush_work
+
+    return _bound(*flush_work(*args))
 
 
 def _expand_bound(args):
-    """Least time for one expand step: the popped pairs, their ray rows,
-    the node table once, and the (8, S) x 2 + (S,) outputs."""
-    key_in, node, rayE, prim, box48, cid, tb, any_hit = args
-    S, N = key_in.shape[0], box48.shape[1]
-    nbytes = S * 8 + S * 7 * 4 + (S * 4 if any_hit else 0) + 56 * N * 4 + S * 17 * 4
-    flops = S * 8 * 24.0  # slab tests: 3 axes x (2 sub, 3 mul, 2 select/min) per child
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """Least time for one expand step (kernels/expand.py::expand_work)."""
+    from tpu_pbrt_torch.kernels.expand import expand_work
+
+    return _bound(*expand_work(*args))
 
 
 def _check_tie_fixture(flush_chunk, flush_chunk_plain):
@@ -999,6 +994,155 @@ def phase_render(scene, integ):
                                                            atol=1e-5):
         raise SmokeFailure("render: the pool and the fixed batch disagree at 64x64x16")
     return launches, flaunches, res
+
+
+# -- phase 3, [analysis] -------------------------------------------------------
+
+def _sync_warnings(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"); returns (its
+    result, [(the port's innermost frame, the warning) for each
+    synchronizing call])."""
+    import traceback
+    import warnings
+
+    import torch
+
+    pkg = os.path.join(HERE, "tpu_pbrt_torch")
+    syncs = []
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # one warning per synchronizing call (not the mode's own notice)
+        if "called a synchronizing" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(pkg)]
+        where = (f"{os.path.relpath(ours[-1].filename, HERE)}:{ours[-1].lineno} {ours[-1].name}"
+                 if ours else f"{filename}:{lineno}")
+        syncs.append((where, str(message)))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
+    torch.cuda.synchronize()
+    return out, syncs
+
+
+def phase_analysis(scene, integ, res):
+    """The measuring analysis layers on the [render] killeroo and its pool
+    render (see the module doc): sync warnings against the tally and the
+    recorder, the cuda rollup of one pool wave, the tiny pool chunk gated
+    against the committed cuda budget beside the cpu one, the live ratio
+    and the telemetry block."""
+    from collections import Counter
+
+    import torch
+
+    from tpu_pbrt_torch.accel import stream
+    from tpu_pbrt_torch.analysis import audit, cost
+    from tpu_pbrt_torch.analysis.record import OpRecorder
+    from tpu_pbrt_torch.bench import telemetry_block
+    from tpu_pbrt_torch.obs.metrics import host_overlap_fraction
+    from tpu_pbrt_torch.obs.rooflive import live_vs_static
+
+    pool = int(res.stats["pool"])
+    film = scene.film
+    dev = torch.device(scene.device)
+    # one refill of the pool from the frame's middle chunk (its first
+    # chunk's items are the top rows: sky, every ray missing in one wave)
+    plan = integ.prepare_chunks(scene)
+    start_pix, start_s = plan.start(plan.n_chunks // 2)
+
+    def chunk():
+        fs = film.init_state(dev)
+        return integ.pool_chunk(scene.dev, fs, start_pix, start_s, pool, pool, film=film,
+                                cam=scene.camera)
+
+    t0 = time.perf_counter()
+    stream.WAVES.reset()
+    out, warned = _sync_warnings(chunk)
+    W = stream.WAVES
+    waves, reads, loop_reads = int(out[3]), W.host_reads, W.loop_reads
+    where = Counter(w for w, _ in warned)
+    log(f"[analysis] one pool chunk of {pool} items through the {pool}-slot pool: {waves} waves, "
+        f"{len(warned)} sync warnings (torch.cuda.set_sync_debug_mode), the tally's host reads "
+        f"{reads} (traversal) + {loop_reads} (loop) = {reads + loop_reads}; per wave "
+        f"{len(warned) / max(waves, 1):.3f} against {reads / max(waves, 1):.3f} + "
+        f"{loop_reads / max(waves, 1):.3f}; [render] pool: host_reads_per_wave_mean "
+        f"{res.stats['host_reads_per_wave_mean']:.3f}, loop_host_reads_per_wave "
+        f"{res.stats['loop_host_reads_per_wave']:.3f}; warned at {dict(where.most_common(8))}; "
+        f"messages {sorted({m[:120] for _, m in warned})}")
+    if len(warned) != reads + loop_reads:
+        raise SmokeFailure(f"analysis: {len(warned)} sync warnings over the pool chunk, the tally "
+                           f"counts {reads + loop_reads} host reads")
+
+    stream.WAVES.reset()
+    with OpRecorder() as rec:
+        chunk()
+        torch.cuda.synchronize()
+    syncs = rec.syncs()
+    roll, findings = cost.rollup_records(rec.records, "pool_chunk[killeroo]", max(rec.waves(), 1),
+                                         pool, dev.type)
+    kinds = Counter(r.name for r in rec.records if r.kind == "kernel")
+    log(f"[analysis] recorded: {len(rec.records)} records over {rec.waves()} waves, host syncs "
+        f"{len(syncs)} ({dict(Counter(r.kind + ':' + r.name for r in syncs))}), kernel calls "
+        f"{dict(kinds)}; cuda rollup per wave: {roll.flops} FLOPs, {roll.hbm_bytes} B, "
+        f"{roll.ops} ops, intensity {roll.intensity:.3f}, fp {roll.fingerprint}; findings "
+        f"{[str(f) for f in findings if f.waived is None]}")
+    if len(syncs) != len(warned):
+        raise SmokeFailure(f"analysis: the recorder saw {len(syncs)} host syncs, the sync debug "
+                           f"mode {len(warned)}")
+    del rec
+
+    tiny = audit.record_pool_chunk(dev.type)
+    troll, _ = cost.rollup_run(tiny)
+    budgets = cost.load_budgets()
+    cpu_b = budgets.get("entries", {}).get("cpu", {}).get("pool_chunk", {})
+    cuda_b = budgets.get("entries", {}).get(dev.type, {}).get("pool_chunk")
+    log(f"[analysis] tiny pool chunk (audit scene, {audit.POOL_WORK} items, "
+        f"{audit.POOL_SLOTS} slots): cuda {troll.to_json()} beside the committed cpu "
+        f"{cpu_b}; committed cuda {cuda_b}; tiny host syncs {len(tiny.rec.syncs())} against the "
+        f"tally's {tiny.tally['host_reads'] + tiny.tally['loop_reads']}")
+    gate = dict(budgets, entries={dev.type: {"pool_chunk": cuda_b}} if cuda_b else {})
+    errors, warnings_ = cost.check_budgets({"pool_chunk": troll}, gate, dev.type)
+    for w in warnings_:
+        log(f"[analysis] cost [warning]: {w}")
+    if cuda_b is not None and errors:
+        raise SmokeFailure(f"analysis: the cuda budget gate: {errors}")
+    if len(tiny.rec.syncs()) != tiny.tally["host_reads"] + tiny.tally["loop_reads"]:
+        raise SmokeFailure("analysis: the tiny pool chunk's host syncs differ from the tally")
+    del tiny
+
+    static = cost.bench_fields(roll)
+    kind = torch.cuda.get_device_name(0)
+    live = live_vs_static(waves=res.stats["n_waves"], seconds=res.seconds,
+                          static_bytes_per_wave=roll.hbm_bytes, static_flops_per_wave=roll.flops,
+                          device_kind=kind)
+    overlap = host_overlap_fraction(res.stats.get("phase_seconds"), res.seconds)
+    log(f"[analysis] [render] pool 128x128x256: {res.stats['n_waves']} waves in "
+        f"{res.seconds:.3f} s: live_vs_static_ratio {live['live_vs_static_ratio']} "
+        f"(live {live['live_bytes_per_sec']:.4e} B/s of {live['hbm_peak_bytes_per_sec']:.4e}), "
+        f"host_overlap_fraction {overlap}; {card_line()}")
+    tele = telemetry_block(res, scene, static)
+    log(f"[analysis] telemetry {json.dumps(tele)}")
+    if live["live_vs_static_ratio"] is None or set(tele) != set(TELEMETRY_KEYS):
+        raise SmokeFailure(f"analysis: no live ratio on {kind!r}, or telemetry keys {sorted(tele)}")
+    log(f"[analysis] done in {time.perf_counter() - t0:.1f} s")
+    return dict(static, live_vs_static_ratio=live["live_vs_static_ratio"],
+                host_overlap_fraction=overlap, sync_warnings=len(warned),
+                tally_reads=reads + loop_reads, waves=waves)
+
+
+#: the keys of the reference bench line's telemetry block (bench.py)
+TELEMETRY_KEYS = ("counters", "wave_spread", "tracer_mode", "fused_blocks_per_flush",
+                  "phase_seconds", "host_overlap_fraction", "live_bytes_per_sec",
+                  "live_flops_per_sec", "hbm_peak_bytes_per_sec", "live_vs_static_ratio")
 
 
 # -- phase 15 ------------------------------------------------------------------
@@ -3023,9 +3167,9 @@ def phase_chaos(started=None):
     return matrix
 
 
-PHASES = ("build", "check", "render", "crown", "direct", "samplers", "cloud", "caustic",
-          "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli", "mesh",
-          "chaos")
+PHASES = ("build", "check", "render", "analysis", "crown", "direct", "samplers", "cloud",
+          "caustic", "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli",
+          "mesh", "chaos")
 
 
 def main(argv=()) -> int:
@@ -3036,7 +3180,7 @@ def main(argv=()) -> int:
         return 2
 
     def want(name):
-        return not only or name in only
+        return not only or name in only or (name == "render" and "analysis" in only)
 
     if not (os.path.isdir(os.path.join(HERE, "tpu_pbrt_torch")) and os.path.exists(REF_IMAGE)
             and os.path.exists(CROWN_REF) and os.path.exists(CORNELL_REF)
@@ -3084,6 +3228,7 @@ def main(argv=()) -> int:
             kt = timed("check", phase_check, scene, integ)
             launches, flaunches, solo = (timed("render", phase_render, scene, integ)
                                          or (None, None, None))
+            timed("analysis", phase_analysis, scene, integ, solo)
             del scene, integ
             torch.cuda.empty_cache()
         kt_mesh, mesh_daemon = timed("mesh", phase_mesh, solo if want("render") else None) \

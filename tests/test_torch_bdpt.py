@@ -26,6 +26,7 @@
   work item).
 """
 
+import functools
 import os
 import sys
 
@@ -116,6 +117,7 @@ _LIGHTS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _light_scene(kind):
     text = f"""
 Integrator "bdpt" "integer maxdepth" [3]
@@ -136,7 +138,19 @@ Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] "point P" [-5 0 -5  5 0 -5 
 
 
 @pytest.mark.parametrize("kind", list(_LIGHTS))
+@rounded_apart
 def test_sample_le_and_le_pdfs_match_reference(kind):
+    _check_sample_le(kind, jld)
+
+
+@pytest.mark.parametrize("kind", list(_LIGHTS))
+def test_sample_le_and_le_pdfs_match_reference_contracted(kind):
+    """The port's default rounding against the reference compiled at the
+    renders' optimisation level, with the same checks and bounds."""
+    _check_sample_le(kind, JitRef(jld))
+
+
+def _check_sample_le(kind, jld):
     sj, st = _light_scene(kind)
     rng = np.random.default_rng(11)
     u = rng.uniform(0, 1, (5, N)).astype(np.float32)

@@ -99,20 +99,17 @@ QUICK = ["--quick", "--device", "cpu", "--quiet", "--spp-chunk", "512",
 
 
 @pytest.mark.parametrize("flag", ["--mesh=2", "--multihost"])
-def test_unported_flag_exits_2(flag, quick_image, tmp_path, monkeypatch):
-    # serving over a mesh is ported: `--serve` with the flag serves the
-    # command line's scene (rank 0 reads the shutdown from stdin) and
-    # exits 0 with the image of the same render unserved
+def test_serve_over_mesh_or_multihost_exits_0(flag, quick_image, mesh_image, tmp_path,
+                                              monkeypatch):
+    # `--serve` with the flag serves the command line's scene (rank 0
+    # reads the shutdown from stdin) and exits 0 with the image of the same
+    # render unserved
     monkeypatch.delenv("TORCH_PBRT_COORDINATOR_ADDRESS", raising=False)
     monkeypatch.setattr(sys, "stdin", io.StringIO('{"op": "shutdown", "drain": true}\n'))
     out = str(tmp_path / "served.pfm")
     assert cli.main([CORNELL, *QUICK, "--serve", flag, "-o", out]) == 0
-    if flag == "--multihost":
-        np.testing.assert_array_equal(read_pfm(out), quick_image)
-    else:
-        ref = str(tmp_path / "mesh.pfm")
-        assert cli.main([CORNELL, *QUICK, "--mesh", "2", "-o", ref]) == 0
-        np.testing.assert_array_equal(read_pfm(out), read_pfm(ref))
+    want = quick_image if flag == "--multihost" else mesh_image
+    np.testing.assert_array_equal(read_pfm(out), want)
 
 
 @pytest.fixture(scope="module")
@@ -122,10 +119,16 @@ def quick_image(tmp_path_factory):
     return read_pfm(out)
 
 
-def test_mesh_flag_renders_over_two_ranks(quick_image, tmp_path):
-    out = str(tmp_path / "mesh.pfm")
+@pytest.fixture(scope="module")
+def mesh_image(tmp_path_factory):
+    """The `--mesh 2` render, once for the module (two spawned gloo ranks)."""
+    out = str(tmp_path_factory.mktemp("mesh") / "mesh.pfm")
     assert cli.main([CORNELL, *QUICK, "--mesh", "2", "-o", out]) == 0
-    np.testing.assert_allclose(read_pfm(out), quick_image, rtol=1e-4, atol=1e-5)
+    return read_pfm(out)
+
+
+def test_mesh_flag_renders_over_two_ranks(quick_image, mesh_image):
+    np.testing.assert_allclose(mesh_image, quick_image, rtol=1e-4, atol=1e-5)
 
 
 def test_multihost_outside_a_group_renders_on_one_device(quick_image, tmp_path, monkeypatch):

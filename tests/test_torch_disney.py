@@ -182,10 +182,54 @@ def _table(rows):
     return tab
 
 
+@pytest.mark.parametrize("ps", PARAM_SETS, ids=_IDS)
+def test_sample_wi_bit_equal_to_compiled_reference(ps):
+    """_disney_sample_wi in the port's default rounding against the
+    reference's compiled with jax.jit at the renders' optimisation level,
+    bit for bit on every lobe of the seven parameter sets: the concentric
+    map's theta, the anisotropic aspect and the refraction fused as XLA
+    fuses them, the reflections' dot products rounded apart (their
+    compiled reduction does not fuse), glibc's sinf, cosf and powf, and
+    the sqrt(q) sqrt(q) -> q fold of the clearcoat's half-vector."""
+    rng = np.random.default_rng(17)
+    wo = _dirs(rng, N)
+    u = rng.uniform(0, 1, (3, N)).astype(np.float32)
+    mj, mt = _mp(jb, N, **ps), _mp(tb, N, **ps)
+    wt, bt = tb._disney_sample_wi(mt, _t(wo), *map(_t, u))
+    wj, bj = JitRef(jb)._disney_sample_wi(mj, wo, *u)
+    np.testing.assert_array_equal(wt.numpy().view(np.int32), np.asarray(wj).view(np.int32))
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+
+
+def test_gtr1_d_bit_equal_to_compiled_reference():
+    """The clearcoat's GTR1 D in the port's default rounding against the
+    reference's compiled with jax.jit at the renders' optimisation level,
+    bit for bit over cos in [0, 1] and alpha in [0.001, 1]: XLA's log,
+    and 1 + (a2 - 1) cos cos with the last product fused into the sum."""
+    rng = np.random.default_rng(2)
+    c = rng.uniform(0, 1, 8192).astype(np.float32)
+    al = rng.uniform(0.001, 1.0, 8192).astype(np.float32)
+    got = tb._gtr1_d(_t(c), _t(al)).numpy()
+    want = np.asarray(JitRef(jb)._gtr1_d(c, al))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@rounded_apart
 def test_bsdf_dispatch_matches_reference():
     """bsdf_eval / bsdf_sample through gather_mat on the seven disney rows
     and a matte row, N / 8 lanes each (N in all: the shapes the JAX side
     compiled its eager operations for above)."""
+    _check_dispatch(jb)
+
+
+def test_bsdf_dispatch_matches_reference_contracted():
+    """The same dispatch in the port's default rounding against the
+    reference's gather_mat, bsdf_eval and bsdf_sample compiled at the
+    renders' optimisation level, with the same checks and bounds."""
+    _check_dispatch(JitRef(jb))
+
+
+def _check_dispatch(jb):
     rows = [None] + [dict(ps, rough=ps.get("rough", 0.4)) for ps in PARAM_SETS]
     tab = _table(rows)
     rng = np.random.default_rng(5)

@@ -90,7 +90,19 @@ def lanes():
     return p, _dirs(rng, N), _dirs(rng, N), rng.uniform(0, 1, (3, N)).astype(np.float32)
 
 
+@rounded_apart
 def test_scalar_functions_match_reference():
+    _check_scalar_functions(jb)
+
+
+def test_scalar_functions_match_reference_contracted():
+    """The port's default rounding against the reference's functions
+    compiled at the renders' optimisation level, with the same checks,
+    bit for bit."""
+    _check_scalar_functions(JitRef(jb))
+
+
+def _check_scalar_functions(jb):
     rng = np.random.default_rng(2)
     x = np.concatenate([rng.uniform(0, 12, 2048), rng.uniform(12, 60, 2048)]).astype(np.float32)
     _same(tb._i0(_t(x[:2048])), jb._i0(jnp.asarray(x[:2048])))
@@ -114,6 +126,29 @@ def test_scalar_functions_match_reference():
     v = rng.uniform(0.005, 0.9, 4096).astype(np.float32)
     args = (np.abs(ct), np.abs(co), st, so, v)
     _same(tb._mp(*map(_t, args)), jb._mp(*map(jnp.asarray, args)))
+
+
+def test_mp_and_trimmed_logistic_bit_equal_to_compiled_reference():
+    """`_mp` (with `_i0` and `_log_i0`) and `_trimmed_logistic` in the
+    port's default rounding against the reference's functions compiled
+    with jax.jit at the renders' optimisation level, bit for bit on
+    seeded inputs over both of `_mp`'s branches (v at most and above 0.1)
+    and both of `_log_i0`'s (its argument below and above 12). The
+    compiled program multiplies by each series constant's f32 reciprocal
+    fused into the sum, and folds the trimmed logistic's (a / b) / c into
+    a / (b c)."""
+    rng = np.random.default_rng(2)
+    ct, co, st, so = (rng.uniform(-1, 1, 8192).astype(np.float32) for _ in range(4))
+    v = np.concatenate([rng.uniform(0.005, 0.1, 4096),
+                        rng.uniform(0.1, 0.9, 4096)]).astype(np.float32)
+    args = (np.abs(ct), np.abs(co), st, so, v)
+    ref = JitRef(jb)
+    _same(tb._mp(*map(_t, args)), ref._mp(*args))
+    x = np.concatenate([rng.uniform(0, 12, 2048), rng.uniform(12, 200, 2048)]).astype(np.float32)
+    _same(tb._log_i0(_t(x)), ref._log_i0(x))
+    s = rng.uniform(0.05, 1.5, 8192).astype(np.float32)
+    phi = rng.uniform(-8, 8, 8192).astype(np.float32)
+    _same(tb._trimmed_logistic(_t(phi), _t(s)), ref._trimmed_logistic(phi, s))
 
 
 @rounded_apart

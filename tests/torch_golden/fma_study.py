@@ -18,6 +18,9 @@ compiling; the port's render once, first):
 
 e.g. `tpu_pbrt.core.bxdf.bsdf_eval tpu_pbrt.core.bxdf.bsdf_sample` (every
 BSDF, the hair lobes included) or `tpu_pbrt.integrators.path.make_interaction`.
+`--scene=subsurface` studies the small subsurface stand-in
+(tests/torch_golden/subsurface_path_pool.npz) instead, e.g. with
+`tpu_pbrt.core.bssrdf.pdf_sp` or `tpu_pbrt.core.bssrdf.sr_eval`.
 With no argument it renders the reference as compiled. Prints the rays,
 the MSE against the port and against the stored golden, and how often
 each callback ran.
@@ -148,14 +151,15 @@ def host_barycentrics(fused: bool, calls):
     stream._finalize_hits = finalize
 
 
-def port_render():
+def port_render(scene_name="motion"):
     import torch
 
+    from tpu_pbrt_torch import scenes
     from tpu_pbrt_torch.config import cfg
-    from tpu_pbrt_torch.scenes import compile_api, make_motion_like
 
     cfg.leaf_tris, cfg.regen, cfg.pool = LEAF_TRIS, True, POOL
-    scene, integ = compile_api(make_motion_like(RES, SPP, 5, "path", small=True, device="cpu"))
+    make = getattr(scenes, f"make_{scene_name}_like")
+    scene, integ = scenes.compile_api(make(RES, SPP, 5, "path", small=True, device="cpu"))
     torch.set_num_threads(os.cpu_count() or 1)
     res = integ.render(scene)
     return res.image, res.rays_traced
@@ -170,7 +174,8 @@ def main(targets):
     from tpu_pbrt import config
 
     config.reload()
-    port_img, port_rays = port_render()
+    scene_name = next((t.split("=", 1)[1] for t in targets if t.startswith("--scene=")), "motion")
+    port_img, port_rays = port_render(scene_name)
     calls = {}
     for target in [t for t in targets if t.startswith("--barycentrics=")]:
         host_barycentrics(target.split("=", 1)[1] == "fused", calls)
@@ -178,13 +183,14 @@ def main(targets):
         mod, attr = target.rsplit(".", 1)
         m = importlib.import_module(mod)
         setattr(m, attr, eager(getattr(m, attr), target, calls))
-    from make_motion_reference import jax_motion_api
+    make = getattr(importlib.import_module(f"make_{scene_name}_reference"),
+                   f"jax_{scene_name}_api")
     from tpu_pbrt.scenes import compile_api
 
-    scene, integ = compile_api(jax_motion_api(RES, SPP, 5, "path", small=True))
+    scene, integ = compile_api(make(RES, SPP, 5, "path", small=True))
     res = integ.render(scene)
     img = np.asarray(res.image, np.float64)
-    gold = np.load(os.path.join(HERE, "motion_path_pool.npz"))
+    gold = np.load(os.path.join(HERE, f"{scene_name}_path_pool.npz"))
     print(f"eager {targets or 'nothing'}: rays {res.rays_traced} (port {port_rays}, golden "
           f"{int(gold['rays_traced'])}); MSE against the port {np.mean((img - port_img) ** 2):.4e}, "
           f"against the golden {np.mean((img - gold['image']) ** 2):.4e}; callbacks {calls}")

@@ -38,7 +38,7 @@ import torch
 from tpu_pbrt_torch.accel.traverse import Hit
 from tpu_pbrt_torch.accel.treelet import TreeletPack
 from tpu_pbrt_torch.config import cfg
-from tpu_pbrt_torch.core.xla_math import fmac
+from tpu_pbrt_torch.core.xla_math import fma32, fmac
 from tpu_pbrt_torch.kernels.expand import expand
 from tpu_pbrt_torch.kernels.flush import flush_chunk
 
@@ -248,7 +248,7 @@ def _slice_rows(a, starts, width: int):
     """(CH,) starts -> (CH, width) contiguous slices of 1-D a, the start
     clamped into [0, len - width] (the reference's CLIP gather)."""
     st = starts.long().clamp(0, a.shape[0] - width)
-    return a[st[:, None] + torch.arange(width, device=a.device)[None, :]]
+    return a[st[:, None] + torch.arange(width, dtype=torch.int64, device=a.device)[None, :]]
 
 
 def _flush(tp: TreeletPack, s: _SState, lb: int, any_hit: bool) -> _SState:
@@ -288,7 +288,7 @@ def _flush(tp: TreeletPack, s: _SState, lb: int, any_hit: bool) -> _SState:
     # block b starts at the position of the b-th set bit of brk
     start_sorted = torch.sort(torch.where(brk, idx, torch.full_like(idx, _I32_MAX))).values
     block_start = start_sorted[:b_cap]
-    n_blocks = int(n_blocks_t)  # host sync: the chunk loop's bound
+    n_blocks = int(n_blocks_t)  # torchlint: disable=JL-SYNC (the chunk loop's bound)
 
     offset = tp.offset
     center_bits = tp.center.contiguous().view(torch.int32)  # (C, 3)
@@ -381,15 +381,15 @@ def _traverse(tp: TreeletPack, o, d, t_max, any_hit: bool, time=None) -> _SState
     while s.iters < _MAX_ITERS:
         # the loop test: one host read of the worklist counters per
         # iteration (plus, for shadow waves, whether every live ray is done)
+        all_done = False
         if any_hit:
             done = ((s.prim >= 0) | dead).all().to(torch.int32)
-            n_stk, n_lf, all_done = torch.stack([s.n_stk, s.n_lf, done]).tolist()
-            if all_done:
-                break
+            n_stk, n_lf, all_done = torch.stack(  # torchlint: disable=JL-SYNC
+                [s.n_stk, s.n_lf, done]).tolist()
         else:
-            n_stk, n_lf = torch.stack([s.n_stk, s.n_lf]).tolist()
+            n_stk, n_lf = torch.stack([s.n_stk, s.n_lf]).tolist()  # torchlint: disable=JL-SYNC
         reads += 1
-        if n_stk == 0 and n_lf == 0:
+        if all_done or (n_stk == 0 and n_lf == 0):
             break
         if n_lf > lb - s8 or n_stk == 0:
             s = _flush(tp, s, lb, any_hit)
@@ -441,12 +441,11 @@ def _finalize_hits(tri_verts, o, d, t_raw, prim, time=None, tri_verts1=None, tv9
 def keyframe_lerp(v0, v1, time):
     """The vertices (R, 3, 3) at each ray's shutter time (R,): (1 - t) v0 +
     t v1 rounded as the reference's compiled lerp rounds it, one fused
-    multiply-add fma(1 - t, v0, t v1): the f32 product (1 - t) v0 is exact
-    in f64, so one f64 sum rounded to f32 gives the fused result (but for
-    a double-rounding tie)."""
+    multiply-add fma(1 - t, v0, t v1) (core/xla_math.py::fma32: on the CPU
+    one f64 sum rounded to f32, the fused result but for a double-rounding
+    tie; on CUDA one addcmul, with no float64 on the card)."""
     tm = torch.as_tensor(time, dtype=torch.float32, device=v0.device).reshape(-1, 1, 1)
-    fused = (1.0 - tm).double() * v0.double() + (tm * v1).double()
-    return fused.to(torch.float32)
+    return fma32(1.0 - tm, v0, tm * v1)
 
 
 def _dot(a, b):

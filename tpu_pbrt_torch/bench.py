@@ -22,8 +22,22 @@ adds crown_mray_per_sec, crown_completed_fraction, crown_rays_traced and
 crown_image_mean to the same line. A crown failure is not caught: the
 bench exits non-zero without printing a line.
 
+After the measured leg (and before the crown and MSE legs), unless
+BENCH_SKIP_STATIC=1, the static half of the roofline: a subprocess
+(`python -m tpu_pbrt_torch.analysis.cost --bench-wave`, killed after
+STATIC_S seconds) compiles the same scene and records one wave of the
+measured render's pool on the card (analysis/cost.py::
+bench_wave_rollup), which gives static_flops_per_wave,
+static_bytes_per_wave, static_intensity and static_ops_per_wave. They
+are advisory, as in the reference: a failure or an overrun nulls them
+and never touches `value`. The `telemetry` block (telemetry_block) then
+carries the measured leg's counters, wave spread, tracer mode, fused
+blocks per flush, phase seconds, host_overlap_fraction and
+obs/rooflive.py's live_vs_static fields.
+
 Prints one JSON line with the reference's keys (metric, value, unit,
-mse, tracer_mode, crown_*, ...) and the render's stats. Env knobs as in
+mse, tracer_mode, crown_*, static_*, telemetry, ...) and the render's
+stats. Env knobs as in
 the reference: BENCH_SPP (default 256), BENCH_RES (default 512),
 BENCH_SKIP_MSE, CROWN_RES, CROWN_SPP, BENCH_SKIP_CROWN. It needs a CUDA
 device and does not fall back to the CPU.
@@ -62,6 +76,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEASURE_S = 120.0
 MSE_RES, MSE_SPP = 128, 256
 MSE_TARGET = 1e-4
+#: time box of the static wave record, seconds
+STATIC_S = 150.0
+#: the static fields of the line (null when the record failed)
+STATIC_KEYS = ("static_flops_per_wave", "static_bytes_per_wave", "static_intensity",
+               "static_ops_per_wave")
 
 
 # -- flight heartbeats of the probe phases ---------------------------------
@@ -200,6 +219,73 @@ def _card() -> str:
         return "unknown"
 
 
+def static_wave_cost(res: int, spp: int, timeout_s: float = STATIC_S,
+                     device: str = "cuda") -> dict:
+    """The static per-wave cost of the bench's pool: a SUBPROCESS
+    (`python -m tpu_pbrt_torch.analysis.cost --bench-wave`) compiles the
+    bench's scene at `res` and `spp` and records one wave of the pool its
+    render plans on `device`, killed at `timeout_s`, as the reference's
+    static step is. Advisory: {} on a failure or an overrun
+    (the judged metrics never depend on it, and nothing of it outlives
+    the call)."""
+    if os.environ.get("BENCH_SKIP_STATIC"):
+        return {}
+    cmd = [sys.executable, "-m", "tpu_pbrt_torch.analysis.cost", "--bench-wave", "--res",
+           str(res), "--spp", str(spp), "--device", str(device)]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s, cwd=HERE)
+    except subprocess.TimeoutExpired:
+        print(f"static wave cost: over {timeout_s:.0f} s, left out", file=sys.stderr)
+        return {}
+    try:
+        line = json.loads(r.stdout.strip().splitlines()[-1]) if r.returncode == 0 else None
+    except (IndexError, ValueError):
+        line = None
+    if not isinstance(line, dict):
+        tail = (r.stderr or r.stdout or "").strip().splitlines()[-1:] or ["?"]
+        print(f"static wave cost failed: rc={r.returncode}: {tail[0][:200]}", file=sys.stderr)
+        return {}
+    return {k: line.get(k) for k in STATIC_KEYS}
+
+
+def telemetry_block(result, scene, static: dict) -> dict:
+    """The bench line's `telemetry` block (the reference bench's): the
+    measured render's device counters and per-rank wave spread, the
+    tracer mode, the fused blocks per flush of its 2R wave, the phase
+    histogram summary, host_overlap_fraction over the measured leg, and
+    the live-vs-static roofline (obs/rooflive.py) of its waves against
+    `static`'s per-wave bytes and FLOPs. Every key is present; a value
+    that cannot be had is null."""
+    import torch
+
+    from tpu_pbrt_torch.accel.stream import flush_geometry
+    from tpu_pbrt_torch.obs.metrics import host_overlap_fraction, phase_summary
+    from tpu_pbrt_torch.obs.rooflive import live_vs_static
+
+    stats = result.stats
+    tstats = stats.get("telemetry") or {}
+    fused_blocks = None
+    if stats.get("pool") and "tstream" in scene.dev:
+        # the tracer sees the fused camera+shadow 2R wave
+        fused_blocks = flush_geometry(2 * int(stats["pool"]),
+                                      scene.dev["tstream"].n_treelets)["blocks_per_flush"]
+    dev = torch.device(scene.device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+    return {
+        "counters": tstats.get("counters"),
+        "wave_spread": tstats.get("wave_spread"),
+        "tracer_mode": stats.get("tracer_mode"),
+        "fused_blocks_per_flush": fused_blocks,
+        "phase_seconds": phase_summary(),
+        "host_overlap_fraction": host_overlap_fraction(stats.get("phase_seconds"),
+                                                       result.seconds),
+        **live_vs_static(waves=stats.get("n_waves"), seconds=result.seconds,
+                         static_bytes_per_wave=static.get("static_bytes_per_wave"),
+                         static_flops_per_wave=static.get("static_flops_per_wave"),
+                         device_kind=kind, n_devices=1),
+    }
+
+
 def compute_mse(device) -> float:
     """The 128x128 256-spp render's per-pixel MSE against the JAX
     package's CPU reference image."""
@@ -300,6 +386,9 @@ def main() -> int:
             2 * stats["pool"], scene.dev["tstream"].n_treelets)["blocks_per_flush"]
     if not img_mean > 1e-6:
         line["error"] = "image is black: tracer broken"
+    static = static_wave_cost(res, spp) if stats.get("pool") else {}
+    line.update({k: static.get(k) for k in STATIC_KEYS})
+    line["telemetry"] = telemetry_block(result, scene, static)
     if not os.environ.get("BENCH_SKIP_CROWN"):
         line.update(crown_leg(device))
     if not os.environ.get("BENCH_SKIP_MSE"):

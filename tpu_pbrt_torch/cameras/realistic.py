@@ -317,7 +317,7 @@ def trace_lenses(lens: CompiledLens, o, d):
     failed. The reference's per-surface formulas, with each surface's
     constants as f32 scalars."""
     ok = torch.ones(o.shape[:-1], dtype=torch.bool, device=o.device)
-    for z_v, R, eta, ap2 in zip(*(a.tolist() for a in lens[:4])):
+    for z_v, R, eta, ap2 in zip(*(map(float, a) for a in lens[:4])):
         planar = R == 0.0
         dz = d[..., 2]
         dz = torch.where(dz == 0.0, _full(dz, 1e-12), dz)

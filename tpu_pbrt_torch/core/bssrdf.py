@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_pbrt_torch.core.xla_math import fmac
+
 #: radial samples per profile (bssrdf.cpp uses 64)
 N_RADII = 64
 #: depth samples of the beam integration (bssrdf.cpp nSamples = 100)
@@ -263,7 +265,7 @@ def _interp_row(radii, values, r):
     v0 = _gather_last(values, i0)
     v1 = _gather_last(values, i0 + 1)
     t = torch.clamp((r - r0) / torch.clamp(r1 - r0, min=1e-20), 0.0, 1.0)
-    v = v0 + t * (v1 - v0)
+    v = fmac(t, v1 - v0, v0)
     inside = (r >= radii[..., 0]) & (r <= radii[..., -1])
     return torch.where(inside, v, torch.zeros_like(v))
 
@@ -298,7 +300,7 @@ def sample_sr(tab: BakedBSSRDF, mid, ch, u):
     r0 = _gather_last(radii, i0)
     r1 = _gather_last(radii, i0 + 1)
     t = torch.clamp((u - c0) / torch.clamp(c1 - c0, min=1e-20), 0.0, 1.0)
-    return r0 + t * (r1 - r0)
+    return fmac(t, r1 - r0, r0)
 
 
 def pdf_sr(tab: BakedBSSRDF, mid, ch, r):
@@ -350,13 +352,22 @@ def sw_eval(eta, cos_w):
     return (1.0 - fr) / (c * torch.full_like(c, float(np.float32(np.pi))))
 
 
+#: fresnel_moment1's polynomials, the constant term first
+_FM1_LO = (0.45966, -1.73965, 3.37668, -3.904945, 2.49277, -0.68441)
+_FM1_HI = (-4.61686, 11.1136, -10.4646, 5.11455, -1.27198, 0.12746)
+
+
 def fresnel_moment1_torch(eta):
     """fresnel_moment1 on a tensor of eta (the reference's
-    fresnel_moment1_jnp)."""
+    fresnel_moment1_jnp): each term's product fused into the running sum,
+    as the compiled reference rounds it (xla_math.fmac)."""
     e2, e3 = eta * eta, eta * eta * eta
     e4, e5 = e2 * e2, e2 * e3
-    lo = (0.45966 - 1.73965 * eta + 3.37668 * e2 - 3.904945 * e3
-          + 2.49277 * e4 - 0.68441 * e5)
-    hi = (-4.61686 + 11.1136 * eta - 10.4646 * e2 + 5.11455 * e3
-          - 1.27198 * e4 + 0.12746 * e5)
-    return torch.where(eta < 1.0, lo, hi)
+
+    def poly(c):
+        acc = fmac(eta, c[1], torch.full_like(eta, c[0]))
+        for k, x in zip(c[2:], (e2, e3, e4, e5)):
+            acc = fmac(x, k, acc)
+        return acc
+
+    return torch.where(eta < 1.0, poly(_FM1_LO), poly(_FM1_HI))

@@ -547,8 +547,19 @@ def _glossy_pdf(mp: MatParams, wo, wi):
 
 def _refract_about(wo, wh, eta_rel):
     """Refract wo about the microfacet normal wh (faced toward wo);
-    eta_rel = eta_incident / eta_transmitted. Returns (wi, tir)."""
-    return refract(wo, face_forward(wh, wo), eta_rel)
+    eta_rel = eta_incident / eta_transmitted. Returns (wi, tir). Rounded
+    as the reference's compiled `_refract_about`: the facing test's dot
+    product rounded apart, the cosine's fused, and each product fused
+    into the sum that consumes it (the transmitted direction's second
+    term into the first)."""
+    wh_f = torch.where((_dot_apart(wo, wh) < 0.0)[..., None], -wh, wh)
+    ci = dot(wo, wh_f)
+    sin2i = torch.clamp(xm.fmac(-ci, ci, 1.0), min=0.0)
+    e2 = eta_rel * eta_rel
+    tir = e2 * sin2i >= 1.0
+    ctt = xm.sqrt(torch.clamp(xm.fmac(-e2, sin2i, 1.0), min=0.0))
+    k = xm.fmac(eta_rel, ci, -ctt)
+    return xm.fmac(k[..., None], wh_f, eta_rel[..., None] * -wo), tir
 
 
 def _mf_glass_terms(mp: MatParams, wo, wi, wh):
@@ -634,6 +645,20 @@ def _ipow(x, n: int):
     return acc
 
 
+def _dot_apart(a, b):
+    """sum(a * b) over the last axis with the products rounded apart: the
+    reflections of the disney sampler, whose compiled reduction does not
+    fuse its products (vecmath.dot fuses them, as most of the compiled
+    reference's dot products do)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def _flip_z(v):
+    """v * (1, 1, -1) without a device constant (a host-made tensor is a
+    copy the host waits for on CUDA): x * 1 is x and x * -1 is -x."""
+    return torch.cat([v[..., :2], -v[..., 2:]], dim=-1)
+
+
 def _sw(c):
     """SchlickWeight: (1 - c)^5, clamped."""
     m = torch.clamp(1.0 - c, 0.0, 1.0)
@@ -642,7 +667,7 @@ def _sw(c):
 
 def _gtr1_d(cos_h, alpha):
     a2 = alpha * alpha
-    denom = torch.pi * torch.log(a2) * (1.0 + (a2 - 1.0) * cos_h * cos_h)
+    denom = torch.pi * xm.log(a2) * xm.fmac((a2 - 1.0) * cos_h, cos_h, 1.0)
     return (a2 - 1.0) / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
 
 
@@ -670,7 +695,7 @@ def _disney_weights(mp: MatParams):
     cspec0 = ((1.0 - metallic)[..., None] * r0[..., None]
               * ((1.0 - dz.spectint)[..., None] + dz.spectint[..., None] * ctint)
               + metallic[..., None] * c)
-    aspect = xm.sqrt(torch.clamp(1.0 - 0.9 * dz.aniso, min=1e-6))
+    aspect = xm.sqrt(torch.clamp(xm.fmac(dz.aniso, -0.9, torch.ones_like(dz.aniso)), min=1e-6))
     r2 = dz.rough * dz.rough
     ax = torch.clamp(r2 / aspect, min=1e-3)
     ay = torch.clamp(r2 * aspect, min=1e-3)
@@ -831,18 +856,20 @@ def _disney_sample_wi(mp: MatParams, wo, u_lobe, u1, u2):
     # the cosine candidates (lobes 0-3 on wo's side, 7 flipped)
     wi_cos = cosine_sample_hemisphere(u1, u2)
     wi_cos = wi_cos * torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
-    wi_lt = wi_cos * torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
+    wi_lt = _flip_z(wi_cos)
     # microfacet reflection (VNDF)
     wh_mf = tr_sample_wh(wo, u1, u2, ax, ay)
-    wi_mf = xm.fmac(2.0 * dot(wo, wh_mf)[..., None], wh_mf, -wo)
+    wi_mf = xm.fmac(2.0 * _dot_apart(wo, wh_mf)[..., None], wh_mf, -wo)
     # clearcoat's GTR1 half-vector (DisneyClearcoat::Sample_f)
     a2 = gloss * gloss
-    ct_h = xm.sqrt(torch.clamp((1.0 - torch.pow(a2, 1.0 - u1)) / (1.0 - a2), min=0.0))
-    st_h = xm.sqrt(torch.clamp(1.0 - ct_h * ct_h, min=0.0))
+    ct2 = torch.clamp((1.0 - xm.pow(a2, 1.0 - u1)) / (1.0 - a2), min=0.0)
+    ct_h = xm.sqrt(ct2)
+    # the compiled reference folds sqrt(q) * sqrt(q) into q
+    st_h = xm.sqrt(torch.clamp(1.0 - (ct2 if xm.contracting() else ct_h * ct_h), min=0.0))
     phi = 2.0 * torch.pi * u2
-    wh_cc = torch.stack([st_h * torch.cos(phi), st_h * torch.sin(phi), ct_h], -1)
+    wh_cc = torch.stack([st_h * xm.cos(phi), st_h * xm.sin(phi), ct_h], -1)
     wh_cc = torch.where(same_hemisphere(wo, wh_cc)[..., None], wh_cc, -wh_cc)
-    wi_cc = xm.fmac(2.0 * dot(wo, wh_cc)[..., None], wh_cc, -wo)
+    wi_cc = xm.fmac(2.0 * _dot_apart(wo, wh_cc)[..., None], wh_cc, -wo)
     # spec transmission: the VNDF of the (thin-rescaled) distribution
     wh_st = tr_sample_wh(wo, u1, u2, axt, ayt)
     eta_rel = torch.where(cos_theta(wo) > 0.0, 1.0 / torch.clamp(e, min=1e-6), e)
@@ -881,7 +908,10 @@ def _safe_asin(x):
 
 
 def _i0(x):
-    """The modified Bessel I0 by its 10-term series (hair.cpp I0)."""
+    """The modified Bessel I0 by its 10-term series (hair.cpp I0); each
+    term's division by a constant as the compiled reference rounds it
+    under `xla_math.contraction(True)`."""
+    fold = xm.contracting()
     val = torch.zeros_like(x)
     x2i = torch.ones_like(x)
     ifact = 1.0
@@ -889,9 +919,15 @@ def _i0(x):
     for i in range(10):
         if i > 1:
             ifact *= i
-        # a tensor divisor: CUDA divides by a host scalar as a multiply
-        # by its reciprocal
-        val = val + x2i / torch.full_like(x2i, i4 * ifact * ifact)
+        c = i4 * ifact * ifact
+        if fold and i:
+            # the compiled program multiplies by the constant's f32
+            # reciprocal and fuses that product into the sum
+            val = xm.fma32(x2i, float(np.float32(1.0) / np.float32(c)), val)
+        else:
+            # a tensor divisor: CUDA divides by a host scalar as a multiply
+            # by its reciprocal
+            val = val + x2i / torch.full_like(x2i, c)
         x2i = x2i * x * x
         i4 *= 4.0
     return val
@@ -934,18 +970,25 @@ def _logistic_cdf(x, s):
 
 
 def _trimmed_logistic(x, s):
-    norm = _logistic_cdf(np.pi, s) - _logistic_cdf(-np.pi, s)
-    return _logistic(x, s) / torch.clamp(norm, min=1e-12)
+    norm = torch.clamp(_logistic_cdf(np.pi, s) - _logistic_cdf(-np.pi, s), min=1e-12)
+    if not xm.contracting():
+        return _logistic(x, s) / norm
+    # the compiled reference folds (a / b) / c into a / (b c)
+    x = torch.abs(x)
+    e = xm.exp(-x / s)
+    return xm.ftz(e / ((s * _ipow(1.0 + e, 2)) * norm))
 
 
 def _sample_trimmed_logistic(u, s):
+    # u k fused into the sum, as the reference's compiled program fuses it
     k = _logistic_cdf(np.pi, s) - _logistic_cdf(-np.pi, s)
-    x = -s * xm.log(1.0 / torch.clamp(u * k + _logistic_cdf(-np.pi, s), min=1e-12) - 1.0)
+    x = -s * xm.log(1.0 / torch.clamp(xm.fmac(u, k, _logistic_cdf(-np.pi, s)), min=1e-12) - 1.0)
     return torch.clamp(x, -np.pi, np.pi)
 
 
 def _hair_phi_p(p, gamma_o, gamma_t):
-    return 2.0 * p * gamma_t - 2.0 * gamma_o + p * np.pi
+    # (2 p) gamma_t fused into the difference, as compiled (exact for p < 3)
+    return xm.fmac(gamma_t, 2.0 * p, -2.0 * gamma_o) + p * np.pi
 
 
 def _wrap_pi(x):
@@ -1136,7 +1179,6 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     has_d, has_g, _ = _lobe_flags(mp)
     n_lobes = has_d.to(torch.int32) + has_g.to(torch.int32)
     pick_g = has_g & ((~has_d) | (u_lobe * n_lobes.to(torch.float32) >= 1.0))
-    flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wo.dtype, device=wo.device)
 
     # --- diffuse candidate (cosine hemisphere on wo's side) ---------------
     # translucent: u2's lower half picks transmission, and u2 is remapped
@@ -1146,8 +1188,8 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     flip_t = is_transl & low
     u2d = torch.where(is_transl, torch.where(low, 2.0 * u2, 2.0 * (u2 - 0.5)), u2)
     wi_d = cosine_sample_hemisphere(u1, u2d)
-    wi_d = torch.where((cos_theta(wo) < 0.0)[..., None], wi_d * flip_z, wi_d)
-    wi_d = torch.where(flip_t[..., None], wi_d * flip_z, wi_d)
+    wi_d = torch.where((cos_theta(wo) < 0.0)[..., None], _flip_z(wi_d), wi_d)
+    wi_d = torch.where(flip_t[..., None], _flip_z(wi_d), wi_d)
     # --- glossy candidate (VNDF half-vector) ------------------------------
     wh = tr_sample_wh(wo, u1, u2, mp.ax, mp.ay)
     wi_g = reflect(wo, wh)

@@ -134,8 +134,8 @@ class Film:
         nx = int(math.floor(2 * f.xwidth)) + 1
         ny = int(math.floor(2 * f.ywidth)) + 1
         # tap-major (ny*nx, R) offsets, in the reference's loop order
-        oy, ox = torch.meshgrid(torch.arange(ny, device=L.device), torch.arange(nx, device=L.device),
-                                indexing="ij")
+        oy, ox = torch.meshgrid(torch.arange(ny, dtype=torch.int64, device=L.device),
+                                torch.arange(nx, dtype=torch.int64, device=L.device), indexing="ij")
         oxf = ox.reshape(-1, 1).to(torch.float32)
         oyf = oy.reshape(-1, 1).to(torch.float32)
         tx = x0f + oxf

@@ -313,9 +313,8 @@ class SpatialLightDistribution(NamedTuple):
         v = torch.floor((p - self.lo) * self.inv_cs)
         # float -> int: NaN/huge coordinates of masked lanes clamp like any other
         v = torch.nan_to_num(v, nan=0.0).clamp(-1.0, float(max(self.res))).to(torch.int64)
-        hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int64, device=p.device)
-        v = torch.minimum(torch.clamp(v, min=0), hi)
-        return v[..., 0] + nx * (v[..., 1] + ny * v[..., 2])
+        vx, vy, vz = (v[..., k].clamp(0, n - 1) for k, n in enumerate((nx, ny, nz)))
+        return vx + nx * (vy + ny * vz)
 
     def sample_discrete_at(self, u, p):
         row = self.cdf[self._voxel(p)]  # (..., L)

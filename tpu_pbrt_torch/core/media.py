@@ -182,7 +182,7 @@ def medium_tr(mt: MediumTable, med_id, o, d, t_max, px, py, s, salt):
             tr_grid = torch.where(
                 live, tr_grid * (1.0 - torch.clamp(dens * sig_t1 * inv_max, min=0.0)), tr_grid)
             # t only grows: a lane past t_max never changes again
-            if not bool((live & need).any()):
+            if not bool((live & need).any()):  # torchlint: disable=JL-SYNC (the early exit)
                 break
         tr = torch.where(is_grid[..., None], tr_grid[..., None], tr)
     return torch.where(active[..., None], tr, torch.ones_like(tr))

@@ -24,11 +24,13 @@ _M32 = 0xFFFFFFFF
 _TO_UNIT = 2.3283064365386963e-10  # 2^-32
 
 
-def _u32(x, device=None):
-    """Any integer tensor / python int -> int64 tensor holding its uint32
-    value (negative int32 values wrap, as astype(uint32) does)."""
+def _u32(x):
+    """Any integer tensor / python int -> its uint32 value (negative int32
+    values wrap, as astype(uint32) does): an int64 tensor, or a Python int
+    for a Python int (a host constant stays on the host: a device tensor
+    made of it would be a copy the host waits for on CUDA)."""
     if not torch.is_tensor(x):
-        x = torch.tensor(int(x), dtype=torch.int64, device=device)
+        return int(x) & _M32
     return x.to(torch.int64) & _M32
 
 
@@ -53,13 +55,17 @@ def _mix(h, v):
 
 
 def hash_u32(*parts) -> torch.Tensor:
-    """Hash integer parts to uint32 (as int64 values in [0, 2^32))."""
-    dev = _dev(parts)
-    h = torch.tensor(0x2545F491, dtype=torch.int64, device=dev)
+    """Hash integer parts to uint32 (as int64 values in [0, 2^32)). The
+    arithmetic on Python ints and on int64 tensors is the same, exact
+    below 2^63; the state becomes a tensor at the first tensor part."""
+    h = 0x2545F491
     for p in parts:
-        h = _mix(h, _u32(p, dev))
+        h = _mix(h, _u32(p))
     h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+    h = h ^ (h >> 16)
+    if not torch.is_tensor(h):
+        h = torch.tensor(h, dtype=torch.int64, device=_dev(parts))
+    return h
 
 
 def uniform_float(*parts) -> torch.Tensor:
@@ -86,10 +92,13 @@ def concentric_sample_disk(u1, u2):
     use_x = torch.abs(ox) > torch.abs(oy)
     r = torch.where(use_x, ox, oy)
     one = torch.ones_like(ox)
+    # pi/2 - (pi/4) q with the product fused into the difference, as the
+    # compiled reference rounds it
+    q = ox / torch.where(oy == 0.0, one, oy)
     theta = torch.where(
         use_x,
         (np.pi / 4.0) * (oy / torch.where(ox == 0.0, one, ox)),
-        (np.pi / 2.0) - (np.pi / 4.0) * (ox / torch.where(oy == 0.0, one, oy)),
+        _fmac(-q, np.pi / 4.0, torch.full_like(q, np.pi / 2.0)),
     )
     zero = torch.zeros_like(ox)
     x = torch.where(degenerate, zero, r * _xm.cos(theta))
@@ -165,7 +174,7 @@ def permutation_element(i, n: int, seed):
     """Stateless random permutation of [0, n): an invertible mix
     cycle-walked on the next power of two, 16 fixed masked rounds."""
     i = _u32(i)
-    p = _u32(seed, i.device)
+    p = _u32(seed)
     w = (int(n) - 1) & _M32
     for sh in (1, 2, 4, 8, 16):
         w |= w >> sh
@@ -217,19 +226,19 @@ def _to_unit(bits):
 def radical_inverse_base2(n, scramble=0):
     """Van der Corput, with optional XOR scramble (uint32)."""
     bits = reverse_bits_32(n)
-    return _to_unit(bits ^ _u32(scramble, bits.device))
+    return _to_unit(bits ^ _u32(scramble))
 
 
 def sobol_2d(n, scramble_x=0, scramble_y=0):
     """First two dimensions of the Sobol' sequence ((0,2)-sequence)."""
     n = _u32(n)
-    x = reverse_bits_32(n) ^ _u32(scramble_x, n.device)
+    x = reverse_bits_32(n) ^ _u32(scramble_x)
     v = 1 << 31
     y = torch.zeros_like(n)
     for i in range(32):
         y = torch.where(((n >> i) & 1) != 0, y ^ v, y)
         v = v ^ (v >> 1)
-    y = y ^ _u32(scramble_y, n.device)
+    y = y ^ _u32(scramble_y)
     return _to_unit(x), _to_unit(y)
 
 
@@ -289,7 +298,7 @@ def radical_inverse_prime(base: int, n, scramble_seed=None):
     digits = int(np.ceil(32 / np.log2(base)))
     inv_base = np.float32(1.0 / base)
     if scramble_seed is not None:
-        seed = _u32(scramble_seed, n.device)
+        seed = _u32(scramble_seed)
         a = seed % (base - 1) + 1  # coprime to the prime base
         c = (seed >> 8) % base
     out = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
@@ -443,7 +452,7 @@ def _sobol_raw_bits(index, dim):
 def _fast_owen(bits, seed):
     """Laine-Karras hash-based nested scramble on MSB-aligned bits."""
     v = reverse_bits_32(bits)
-    v = (v + _u32(seed, v.device)) & _M32
+    v = (v + _u32(seed)) & _M32
     for mult in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
         v = v ^ _mul32(v, mult)
     return reverse_bits_32(v)

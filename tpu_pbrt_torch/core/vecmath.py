@@ -184,6 +184,6 @@ def dot_rows(v, m):
              for j in range(3)]
     plain = [((v[:, 0] * m[j, 0] + 0.0) + v[:, 1] * m[j, 1]) + v[:, 2] * m[j, 2]
              for j in range(2)]
-    tail = torch.arange(n, device=v.device) >= (n // 8) * 8
+    tail = torch.arange(n, dtype=torch.int64, device=v.device) >= (n // 8) * 8
     out = [torch.where(tail, fused[j], plain[j]) for j in range(2)] + [fused[2]]
     return torch.stack(out, dim=-1).reshape(shape)

@@ -383,6 +383,16 @@ def _sincos(y, cosine: bool):
     return torch.where(top < _ABSTOP_120, out, far)
 
 
+def pow(x, y):
+    """jnp.power of f32 tensors as jax 0.9.0 calls it on the CPU: glibc's
+    powf, which works in double (a double log2 and exp2): the f64 power
+    rounded to f32, on both devices (glibc's result is within 0.82 ulp, so
+    the two can part where the f64 power lies near an f32 midpoint)."""
+    x = torch.as_tensor(x, dtype=_F32)
+    y = torch.as_tensor(y, dtype=_F32, device=x.device)
+    return torch.pow(x.double(), y.double()).to(_F32)
+
+
 def sin(x):
     """jnp.sin (f32) as jax 0.9.0 calls it on the CPU: glibc's sinf."""
     return _sincos(x, False)

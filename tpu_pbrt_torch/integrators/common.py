@@ -174,7 +174,7 @@ def unoccluded_tr(dev, o, d, dist, cur_med, px, py, s, salt, segments: int = 1):
     for k in range(segments):
         if k:
             stream.WAVES.add_loop_read()
-            if not bool(active.any()):
+            if not bool(active.any()):  # torchlint: disable=JL-SYNC (the segment loop's test)
                 break
         hit = scene_intersect(dev, oo, d,
                               torch.where(active, remaining, torch.full_like(remaining, -1.0)))

@@ -354,8 +354,10 @@ class PathIntegrator(WavefrontIntegrator):
         rmax = torch.gather(tab.r_max[sub.long()], 1, ch.long()[:, None])[:, 0]
         l_ch = 2.0 * xm.sqrt(torch.clamp(rmax * rmax - r_s * r_s, min=0.0))
         phi = 2.0 * np.pi * uphi
-        start = (it.p + r_s[..., None] * (xm.cos(phi)[..., None] * vx + xm.sin(phi)[..., None] * vy)
-                 + (0.5 * l_ch)[..., None] * vz)
+        # p + r (cos vx + sin vy) + (l / 2) vz with each product fused into
+        # the sum that consumes it, as the compiled reference rounds it
+        inner = fmac(xm.sin(phi)[..., None], vy, xm.cos(phi)[..., None] * vx)
+        start = fmac((0.5 * l_ch)[..., None], vz, fmac(r_s[..., None], inner, it.p))
         pdir = -vz
         ok_r = sss & (r_s < rmax) & (l_ch > 0.0)
 
@@ -418,8 +420,8 @@ class PathIntegrator(WavefrontIntegrator):
         # ---- the cosine continuation from the exit: beta *= Sw pi --------
         wloc = cosine_sample_hemisphere(uniform_float(px, py, s, salt + 4103),
                                         uniform_float(px, py, s, salt + 4104))
-        wi2 = normalize(wloc[..., 0:1] * sel_ss + wloc[..., 1:2] * sel_ts
-                        + wloc[..., 2:3] * sel_ns)
+        wi2 = normalize(fmac(wloc[..., 2:3], sel_ns,
+                             fmac(wloc[..., 1:2], sel_ts, wloc[..., 0:1] * sel_ss)))
         cos2 = torch.clamp(dot(wi2, sel_ns), min=1e-6)
         beta = torch.where(ok_exit[..., None], beta * (sw_eval(eta_sub, cos2) * np.pi)[..., None],
                            beta)
@@ -470,7 +472,7 @@ class PathIntegrator(WavefrontIntegrator):
             if fused:
                 live = live | (lane.sh_dist > 0.0).any()
             stream.WAVES.add_loop_read()
-            if not bool(live):  # the loop test: one host read per wave
+            if not bool(live):  # torchlint: disable=JL-SYNC (the loop test, once a wave)
                 break
             lane, nrays, _ = self._bounce_wave(
                 dev, px, py, s, bounce * DIMS_PER_BOUNCE, lane, nrays, ray_time=ray_time
@@ -531,7 +533,8 @@ class PathIntegrator(WavefrontIntegrator):
         lane_mask = free_bit - 1
 
         zero3 = torch.zeros((pool, 3), dtype=torch.float32, device=device)
-        unit_d = torch.tensor([0.0, 0.0, 1.0], device=device).expand(pool, 3).contiguous()
+        unit_d = torch.zeros((pool, 3), dtype=torch.float32, device=device)
+        unit_d[:, 2] = 1.0
         lane = fresh_lanes(zero3, unit_d)._replace(
             alive=torch.zeros((pool,), dtype=torch.bool, device=device))
         px = torch.zeros((pool,), **i32)
@@ -605,7 +608,7 @@ class PathIntegrator(WavefrontIntegrator):
             nrays = nrays + nray_d.sum()
             waves += 1
             # the wave's one host read: the deposit's width and the exit test
-            n_done_h, cursor_h, any_work = torch.stack(
+            n_done_h, cursor_h, any_work = torch.stack(  # torchlint: disable=JL-SYNC
                 [n_done, cursor, has_work_next.any().to(torch.int32)]).tolist()
             stream.WAVES.add_loop_read()
             if n_done_h:

@@ -23,7 +23,7 @@ import torch
 
 from tpu_pbrt_torch.accel.treelet import decode_top_leaf
 from tpu_pbrt_torch.accel.wide import _BOX_EPS, _EMPTY, slab_test_lane_major
-from tpu_pbrt_torch.kernels import LAUNCHES
+from tpu_pbrt_torch.kernels import LAUNCHES, kernel_call
 
 I32_MAX = 2**31 - 1
 _BOX_EPS_F32 = float(np.float32(_BOX_EPS))
@@ -55,13 +55,30 @@ def _check(key_in, node, rayE, prim, box48, cid):
         raise ValueError("expand: key_in and node must have the same shape")
 
 
+def expand_work(key_in, node, rayE, prim, box48, cid, tb: int, any_hit: bool):
+    """(FP32 operations, bytes) of one expand step, for the bound of
+    chip_smoke.py and the charge of the cost model (analysis/cost.py): the
+    popped pairs, their ray rows (and current hits in any-hit mode), the
+    node table once, the (8, S) x 2 + (S,) outputs; the slab tests, 3 axes
+    x (2 sub, 3 mul, 2 select/min) per child."""
+    S, N = key_in.shape[0], box48.shape[1]
+    nbytes = S * 8 + S * 7 * 4 + (S * 4 if any_hit else 0) + 56 * N * 4 + S * 17 * 4
+    return S * 8 * 24.0, float(nbytes)
+
+
 def expand(key_in, node, rayE, prim, box48, cid, tb: int, any_hit: bool):
     """Child candidates of a popped stack slab (see module doc)."""
     _check(key_in, node, rayE, prim, box48, cid)
     if not 0 <= int(tb) <= 28:
         raise ValueError(f"expand: tb must be in [0, 28] (the key's entry-distance bits), got {tb}")
-    if rayE.device.type == "cpu":
-        return expand_plain(key_in, node, rayE, prim, box48, cid, tb, any_hit)
+    args = (key_in, node, rayE, prim, box48, cid, tb, any_hit)
+    with kernel_call("expand", args):
+        if rayE.device.type == "cpu":
+            return expand_plain(*args)
+        return _launch(*args)
+
+
+def _launch(key_in, node, rayE, prim, box48, cid, tb: int, any_hit: bool):
     if rayE.device.type != "cuda":
         raise ValueError(f"expand: unsupported device {rayE.device}")
     from tpu_pbrt_torch.kernels.build import check, load

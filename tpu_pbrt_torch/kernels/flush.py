@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.mxu import EDGE_EPS, decode_outputs
-from tpu_pbrt_torch.kernels import LAUNCHES
+from tpu_pbrt_torch.kernels import LAUNCHES, kernel_call
 
 BLOCK = 128
 
@@ -61,11 +61,46 @@ def _check(feat_table, meta, rid_rows, rayF, t_row, prim):
                          f"(16-byte rows) and CH * L < 2^32 - 1 (CH = {CH})")
 
 
+def flush_work(feat_table, meta, rid_rows, rayF, t_row, prim, count=None):
+    """(FP32 operations, bytes) of one flush chunk: the least work a kernel
+    must do on these inputs, for the bound of chip_smoke.py and the charge
+    of the cost model (analysis/cost.py).
+
+    With `count` (the (C,) real triangles per treelet, TreeletPack.count):
+    what the chunk's data needs, the FMAs of each filled slot of a live
+    block against its treelet's count[tid] real triangles (not the zero
+    padding up to L), and the bytes of those triangles' features once per
+    distinct treelet, the block tables, the filled slots' ray columns and
+    the (R,) winners in and out. Without it: the padded figure, every slot
+    of the live blocks against all L triangle slots and the distinct
+    treelets' whole feature blocks (the kernel's own schedule)."""
+    _, F, four_l = feat_table.shape
+    live = meta[:, 5] > 0
+    tids = meta[:, 0].long()
+    n_filled = ((rid_rows >= 0) & live[:, None]).sum(dim=1)
+    R = rayF.shape[1]
+    rays = float(n_filled.sum()) * (6 if F == 16 else 7) * 4
+    tables = meta.numel() * 4 + rid_rows.numel() * 4 + 16 * R
+    if count is not None:
+        count = count.to(tids.device).long()
+        flops = 2.0 * F * 4 * float((count[tids] * n_filled).sum())
+        tris = float(count[tids[live].unique()].sum())  # distinct treelets, real triangles
+        return flops, tris * F * 4 * 4 + tables + rays
+    flops = 2.0 * F * four_l * BLOCK * float(live.sum())
+    n_tl = int(tids[live].unique().numel())
+    return flops, n_tl * F * four_l * 4.0 + tables + rays
+
+
 def flush_chunk(feat_table, meta, rid_rows, rayF, t_row, prim):
     """Fold one chunk of leaf blocks into the per-ray best (t, prim)."""
     _check(feat_table, meta, rid_rows, rayF, t_row, prim)
-    if rayF.device.type == "cpu":
-        return flush_chunk_plain(feat_table, meta, rid_rows, rayF, t_row, prim)
+    with kernel_call("flush_chunk", (feat_table, meta, rid_rows, rayF, t_row, prim)):
+        if rayF.device.type == "cpu":
+            return flush_chunk_plain(feat_table, meta, rid_rows, rayF, t_row, prim)
+        return _launch(feat_table, meta, rid_rows, rayF, t_row, prim)
+
+
+def _launch(feat_table, meta, rid_rows, rayF, t_row, prim):
     if rayF.device.type != "cuda":
         raise ValueError(f"flush_chunk: unsupported device {rayF.device}")
     CH = meta.shape[0]

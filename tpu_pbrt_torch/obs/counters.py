@@ -87,7 +87,8 @@ def bounce_update(ctr: Optional[WaveCounters], *, alive, rays_before,
     wave_rays = (rays_after - rays_before).sum(dtype=torch.int32)
     bin_ix = torch.clamp(torch.div(live * N_OCC_BINS, width, rounding_mode="floor"),
                          0, N_OCC_BINS - 1)
-    one_hot = (torch.arange(N_OCC_BINS, device=alive.device) == bin_ix).to(torch.int32)
+    one_hot = (torch.arange(N_OCC_BINS, dtype=torch.int32, device=alive.device) == bin_ix).to(
+        torch.int32)
     return ctr._replace(rays=ctr.rays + wave_rays, occ_hist=ctr.occ_hist + one_hot)
 
 
