@@ -46,8 +46,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      cpu entry; the [render] pool's live_vs_static_ratio and
      host_overlap_fraction with the card's name and power limit; and the
      bench line's telemetry block (tpu_pbrt_torch/bench.py
-     telemetry_block). Runs with [render] (asked for alone, it runs
-     [render] first);
+     telemetry_block); and hbmcheck (tpu_pbrt_torch/analysis/hbmcheck.py):
+     its static pass and the card's capacity beside the committed table
+     (its model against the allocator's peaks is checked in [serve]).
+     Runs with [render] (asked for alone, it runs [render] first);
+     [walkers] (in a full run a subprocess, `chip_smoke.py walkers`, beside
+     [mesh]) the packet, wide and binary walkers
+     (TORCH_PBRT_BVH=packet|wide|binary) on the full killeroo under
+     `path`: each renders 32x32x4 on the card (chunks of 2^13), within
+     the repo's MSE bar of the stream render of the same image with its
+     rays beside, and 12x12x1 on the card against the CPU port (MSE below
+     1e-8, rays equal); each prints its Mray/s and host reads per wave
+     beside the stream render's;
   4. crown  — the crown-class path: make_crown_like() at its full
      geometry (1,153,682 triangles in 3,279 treelets under a 1,079-node
      top tree; glass, two metal-GGX pieces, a matte ground, the HDR sky
@@ -249,7 +259,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      on the other from the spool, bit-identical; prints each job's
      Mray/s beside the solo's, slices, preemptions, parks, the queue-wait
      p90, scene_hbm_bytes beside the compile's memory_allocated delta,
-     the flush and expand launches, and the phase's wall time;
+     the flush and expand launches, and the phase's wall time; and
+     hbmcheck's model on the card: the allocator's peaks
+     (torch.cuda.max_memory_allocated) of the scene compile, the solo
+     render and the two tenants' session, the working set of a slice of
+     2^18 (the solo render's peak above the model's count; the [render]
+     pool gives the default slice's, 2^20), the session's peak predicted
+     by the model plus that working set and the compile's transient (at
+     or above the measured peak, its ratio printed), and the default
+     slice's working set with the allocator's measured slack (peak
+     reserved beyond peak allocated bytes) within the share of the card
+     the 80% headroom leaves beside the worst case;
  14. cli    — `python -m tpu_pbrt_torch.main scenes/cornell-path.pbrt
      --quick` in subprocesses on the card with a checkpoint every chunk:
      one uninterrupted render (the image must be written and finite), one
@@ -301,8 +321,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      line. In a full run, host-bound work runs beside `[infra]` and
      `[serve]` (their pools leave the card and most cores idle): this
      matrix and `[mesh]`'s `serve --mesh 2` daemon beside `[infra]`,
-     `[cli]` in a thread beside `[serve]`; the times of those phases are
-     taken beside them;
+     `[cli]` in a thread beside `[serve]`; and `[cloud]`, `[caustic]`
+     and `[breadth]` run in a second process (`chip_smoke.py --beside
+     cloud caustic breadth`, four CPU threads) beside `[crown]` to
+     `[subsurface]`: each process is bound by its host thread, so the
+     card and most cores are idle. The times of those phases, and the
+     kernel times of the phases in either process from `[crown]` on, are
+     taken beside the other's work: the kernels line names, under
+     "timed_beside", each entry timed while other work shared the card
+     and what that work was (SHARED_CARD);
  17. summary — one {"kernels": [...]} line (times and bounds at the pool
      wave, the fixed wave's under "at_fixed_wave"; launches of the pool
      and of the fixed path; the crown's under "crown"; the any-hit wave's
@@ -320,10 +347,13 @@ Phases, each fatal on failure (exit code 1, no result line):
 It imports nothing of JAX or of the JAX package, and it fails without a
 CUDA device or outside a checkout of the repo.
 
-`python3 chip_smoke.py PHASE ...` (build, check, render, analysis, crown,
+`python3 chip_smoke.py PHASE ...` (build, check, render, analysis, walkers, crown,
 direct, samplers, cloud, caustic, breadth, textured, motion, subsurface,
 infra, serve, cli, mesh, chaos) runs the build and the named phases only, for
 development, and prints no kernels line and no result line.
+`python3 chip_smoke.py --beside PHASE ...` is the second process of a full
+run: it runs the named phases after the build the first process made and
+prints their results on a line of its own, tagged BESIDE_TAG.
 """
 
 from __future__ import annotations
@@ -396,6 +426,31 @@ SUBSURFACE_RES, SUBSURFACE_SPP = 512, 8
 #: the served killeroo: 128x128x64 = 2^20 work items in slices of 2^18, 4 a job
 SERVE_RES, SERVE_SPP, SERVE_CHUNK = 128, 64, 262144
 
+#: the walkers' renders (TORCH_PBRT_BVH=packet|wide|binary): the full
+#: killeroo at this size on the card, each against the stream render of
+#: the same image, and at the second size on the card and the CPU port
+WALKER_RES, WALKER_SPP = 32, 4
+WALKER_PORT_RES, WALKER_PORT_SPP = 12, 1
+WALKERS_TIMEOUT_S = 400
+#: the phases a full run hands to the second process, and its time limit
+BESIDE = ("cloud", "caustic", "breadth")
+#: in a full run, the kernel times under these keys of the kernels line are
+#: taken while other work shares the card (named here); the top-level
+#: times, from [check], are the idle card's. They compare only with times
+#: taken the same way.
+_MAIN_SIDE = "the second process ([cloud], [caustic], [breadth])"
+_SECOND_SIDE = "the main process ([crown] to [subsurface])"
+SHARED_CARD = {
+    "mesh": "the [walkers] subprocess",
+    "crown": _MAIN_SIDE, "direct": _MAIN_SIDE, "textured": _MAIN_SIDE, "motion": _MAIN_SIDE,
+    "subsurface": _MAIN_SIDE,
+    "cloud": _SECOND_SIDE, "caustic": _SECOND_SIDE, "breadth": _SECOND_SIDE,
+    "infra": "the chaos matrix's subprocess and the `serve --mesh 2` daemon",
+    "serve": "the chaos matrix's subprocess, the `serve --mesh 2` daemon and [cli]",
+}
+BESIDE_TIMEOUT_S = 900
+BESIDE_TAG = "[beside-result] "
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # FP32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
@@ -403,6 +458,32 @@ PEAK_HBM_BYTES = 3.35e12
 
 class SmokeFailure(Exception):
     pass
+
+
+#: every subprocess the script starts: main() kills those still running
+#: when it ends
+CHILDREN = []
+
+
+def spawn(argv, **kw):
+    """subprocess.Popen(argv) from the repo's root, its output captured as
+    text, registered in CHILDREN. Returns (process, start time)."""
+    proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, **kw)
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def collect(started, timeout):
+    """Wait for a spawned process (killed at `timeout`). Returns (stdout,
+    stderr, exit code, seconds since its start)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return out, err, proc.returncode, time.perf_counter() - t0
 
 
 def log(msg: str) -> None:
@@ -961,7 +1042,9 @@ def phase_render(scene, integ):
 
     from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
 
+    base = _peak_reset()
     res, launches = _render_counted(integ, scene, regen=True)
+    HBM["default"] = _working_set("[render] pool", res, *_peak_read(base))
     img = res.image
     ref = np.load(REF_IMAGE)["image"]
     if img.shape != ref.shape or not np.isfinite(img).all():
@@ -1133,16 +1216,224 @@ def phase_analysis(scene, integ, res):
     log(f"[analysis] telemetry {json.dumps(tele)}")
     if live["live_vs_static_ratio"] is None or set(tele) != set(TELEMETRY_KEYS):
         raise SmokeFailure(f"analysis: no live ratio on {kind!r}, or telemetry keys {sorted(tele)}")
+    hbm = _hbm_static()
     log(f"[analysis] done in {time.perf_counter() - t0:.1f} s")
     return dict(static, live_vs_static_ratio=live["live_vs_static_ratio"],
                 host_overlap_fraction=overlap, sync_warnings=len(warned),
-                tally_reads=reads + loop_reads, waves=waves)
+                tally_reads=reads + loop_reads, waves=waves, hbm=hbm)
+
+
+def _hbm_static():
+    """hbmcheck's static pass on the card, and the card's capacity beside
+    the committed table (the model against the allocator's peaks is
+    checked in [serve], _hbm_serve)."""
+    from tpu_pbrt_torch.analysis import hbmcheck as hc
+
+    errors, warnings_ = hc.run_hbmcheck()
+    card, committed = hc.card_capacity(), hc.capacity_table()
+    worst = hc.serve_model()
+    log(f"[analysis] hbmcheck: static pass {len(errors)} error(s) {errors[:3]}, "
+        f"{len(warnings_)} warning(s); card capacity {card} (committed {committed}); the "
+        f"model's worst case {worst['total_bytes']} B (resident budget "
+        f"{worst['resident_bytes']} + {worst['max_active']} jobs x {worst['job_bytes']} + "
+        f"prefetch {worst['prefetch_bytes']} + staging {worst['staging_bytes']})")
+    if errors or card.keys() - committed.keys():
+        raise SmokeFailure(f"analysis: hbmcheck {errors}, card {card} not in the committed "
+                           f"table {committed}")
+    return {"worst_bytes": int(worst["total_bytes"]), "capacity": card}
+
+
+#: the allocator peaks [render] measures for hbmcheck's card leg in [serve]
+HBM = {}
+
+
+def _peak_reset():
+    """Collect what earlier work left for the collector (freed during a
+    measurement it would hide allocations), release the allocator's
+    cached blocks, then zero its peaks. Returns the bytes allocated now,
+    which the peak is read above."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_read(base):
+    """(the allocator's peak above base, its slack: its peak reserved
+    bytes beyond its peak allocated ones)."""
+    import torch
+
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated()
+    return alloc - base, torch.cuda.max_memory_reserved() - alloc
+
+
+def _working_set(label, res, peak, slack):
+    """The working set of a solo render's slices: its allocator peak above
+    what hbmcheck's model counts for it; logged per slice size."""
+    from tpu_pbrt_torch.analysis import hbmcheck as hc
+
+    ry, rx = res.image.shape[:2]
+    model = hc.render_model_bytes(rx, ry)
+    ws = hc.working_set_bytes(peak, model)
+    chunk = int(res.stats["chunk"])
+    log(f"[hbm] {label} ({rx}x{ry}, slices of {chunk}): allocator peak {peak} B above the "
+        f"scene, the model's film carries, counters and staging {model} B, working set {ws} B "
+        f"({ws / chunk:.1f} B a work item), allocator slack {slack} B; {card_line()}")
+    return {"chunk": chunk, "peak_bytes": int(peak), "model_bytes": int(model),
+            "working_set_bytes": int(ws), "bytes_per_item": ws / chunk, "slack": slack}
+
+
+def _hbm_serve(res, spp, chunk, scene_bytes, compile_peak, solo, session_peak, slack, resident,
+               n_jobs):
+    """hbmcheck's model against the served session of [serve]: the
+    working set of the solo render at the session's slices, with the
+    scene compile's transient, predicts the session's allocator peak
+    (at or above it, the ratio printed); and the default slice's working
+    set ([render]) and the allocator's measured slack fit the share of
+    the card the headroom leaves beside the worst case."""
+    from tpu_pbrt_torch.analysis import hbmcheck as hc
+
+    compile_extra = max(int(compile_peak) - int(scene_bytes), 0)
+    model = hc.serve_model(rx=res, ry=res, max_active=n_jobs, resident_bytes=resident)
+    pred = hc.predict_session(model, solo["working_set_bytes"], compile_extra)
+    ratio, errs = hc.session_check(pred, session_peak)
+    worst = hc.serve_model()
+    worst_ratio, werrs = hc.session_check(worst["total_bytes"], session_peak)
+    errs += werrs
+    log(f"[serve] hbmcheck: session of {n_jobs} jobs of {res}x{res}x{spp} in slices of {chunk}: "
+        f"allocator peak {session_peak} B; the model of the session {model['total_bytes']} B "
+        f"(resident {resident} + {n_jobs} jobs x {model['job_bytes']} + prefetch "
+        f"{model['prefetch_bytes']} + staging {model['staging_bytes']}), model alone / peak "
+        f"{model['total_bytes'] / max(session_peak, 1):.4f}; with the solo render's working set "
+        f"{solo['working_set_bytes']} B and the compile's transient {compile_extra} B "
+        f"(its peak {compile_peak} B over the scene's {scene_bytes} B) it predicts {pred} B, "
+        f"prediction / peak {ratio:.4f}; the worst case {worst['total_bytes']} B / peak "
+        f"{worst_ratio:.4f}")
+    default = HBM.get("default")
+    out = {"session_peak_bytes": int(session_peak), "session_model_bytes": model["total_bytes"],
+           "predicted_bytes": int(pred), "predicted_over_peak": round(ratio, 4),
+           "worst_over_peak": round(worst_ratio, 4), "working_set": {"solo": solo}}
+    if default is None:
+        log("[serve] hbmcheck: the default slice's working set is measured by [render], "
+            "which did not run: headroom not checked")
+    else:
+        capacity = hc.card_capacity()
+        slack_max = max(slack, default["slack"], solo["slack"])
+        share, herrs = hc.headroom_check(worst["total_bytes"], default["working_set_bytes"],
+                                         slack_max, capacity)
+        errs += herrs
+        log(f"[serve] hbmcheck: the worst case {worst['total_bytes']} B plus the working set of "
+            f"the default slice ({default['chunk']}) {default['working_set_bytes']} B and the "
+            f"allocator's largest slack {slack_max} B (session {slack} B) take {share:.4f} of "
+            f"the card, the two beside the worst case "
+            f"{(default['working_set_bytes'] + slack_max) / min(capacity.values()):.4f} of it "
+            f"(the headroom leaves {1 - hc.HBM_HEADROOM:.2f}); {card_line()}")
+        out["working_set"]["default"] = default
+        out["worst_share_of_card"] = round(share, 4)
+    if errs:
+        raise SmokeFailure(f"serve: hbmcheck {errs}")
+    return out
 
 
 #: the keys of the reference bench line's telemetry block (bench.py)
 TELEMETRY_KEYS = ("counters", "wave_spread", "tracer_mode", "fused_blocks_per_flush",
                   "phase_seconds", "host_overlap_fraction", "live_bytes_per_sec",
                   "live_flops_per_sec", "hbm_peak_bytes_per_sec", "live_vs_static_ratio")
+
+
+# -- phase 3, [walkers] --------------------------------------------------------
+
+def walkers_start():
+    """Start `[walkers]` (`python3 chip_smoke.py walkers`, its own process
+    and CUDA context, two CPU threads) in a subprocess: in a full run it
+    runs beside `[mesh]`, whose process only waits for its ranks. Returns
+    (process, start time)."""
+    return spawn([sys.executable, os.path.join(HERE, "chip_smoke.py"), "walkers"],
+                 env=dict(os.environ, OMP_NUM_THREADS="2"))
+
+
+def walkers_collect(started):
+    """Wait for the `[walkers]` subprocess and relay its lines; fails unless
+    it ended with code 0 after its last line."""
+    out, err, rc, secs = collect(started, WALKERS_TIMEOUT_S)
+    lines = [ln for ln in out.splitlines() if ln.startswith("[walkers]")]
+    for ln in lines:
+        log(ln)
+    log(f"[walkers] subprocess exit {rc}, {secs:.1f} s since its start")
+    if rc != 0 or not any("phase wall time" in ln for ln in lines):
+        raise SmokeFailure(f"walkers: exit {rc}: {err[-3000:]}")
+
+
+def phase_walkers():
+    """The packet, wide and binary walkers on the full killeroo (see the
+    module doc): each renders WALKER_RES x WALKER_RES x WALKER_SPP on the
+    card against the stream render of the same image (the repo's bar,
+    rays beside), and WALKER_PORT_RES x WALKER_PORT_RES x WALKER_PORT_SPP
+    on the card against the CPU port (below PORT_BAR, rays equal); Mray/s
+    and the host reads per wave of each beside the stream render's."""
+    import numpy as np
+
+    from tpu_pbrt_torch.config import cfg
+    from tpu_pbrt_torch.kernels import LAUNCHES, reset_launches
+    from tpu_pbrt_torch.scenes import compile_api, make_killeroo_like
+
+    t_phase = time.perf_counter()
+    prev = cfg.bvh
+
+    def render(knob, res, spp, device):
+        cfg.bvh = knob
+        t = time.perf_counter()
+        scene, integ = compile_api(make_killeroo_like(res=res, spp=spp, maxdepth=5,
+                                                      device=device))
+        compile_s = time.perf_counter() - t
+        reset_launches()
+        r = integ.render(scene)
+        if scene.n_tris != 128884 or not np.isfinite(r.image).all():
+            raise SmokeFailure(f"walkers: {knob} on {device}: {scene.n_tris} triangles, finite "
+                               f"{np.isfinite(r.image).all()}")
+        return r, compile_s, dict(LAUNCHES)
+
+    out = {}
+    try:
+        st, st_c, st_l = render("stream", WALKER_RES, WALKER_SPP, "cuda")
+        st_reads = st.stats["host_reads_per_wave_mean"] + st.stats["loop_host_reads_per_wave"]
+        log(f"[walkers] stream {WALKER_RES}x{WALKER_RES}x{WALKER_SPP}: {st.rays_traced} rays, "
+            f"{st.mray_per_sec:.4f} Mray/s, {st.stats['waves']} waves, host reads per wave "
+            f"{st_reads:.3f}, launches {json.dumps(st_l)}; compiled in {st_c:.1f} s")
+        for knob in ("packet", "wide", "binary"):
+            r, comp, launches = render(knob, WALKER_RES, WALKER_SPP, "cuda")
+            w = r.stats["walker"]
+            mse = float(np.mean((r.image.astype(np.float64) - st.image) ** 2))
+            small = render(knob, WALKER_PORT_RES, WALKER_PORT_SPP, "cuda")[0]
+            cpu = render(knob, WALKER_PORT_RES, WALKER_PORT_SPP, "cpu")[0]
+            port_mse = float(np.mean((small.image.astype(np.float64) - cpu.image) ** 2))
+            reads = w["host_reads_per_wave"] + r.stats["loop_host_reads_per_wave"]
+            log(f"[walkers] {knob} {WALKER_RES}x{WALKER_RES}x{WALKER_SPP} (chunk "
+                f"{r.stats['chunk']}): {r.rays_traced} rays (stream {st.rays_traced}), MSE "
+                f"against the stream render {mse:.4e} (bar {MSE_BAR}), {r.mray_per_sec:.4f} "
+                f"Mray/s (stream {st.mray_per_sec:.4f}), {w['waves']} walks, {w['steps']} "
+                f"masked steps, host reads per wave {reads:.3f} (stream {st_reads:.3f}), "
+                f"launches {json.dumps(launches)}, compiled in {comp:.1f} s; "
+                f"{WALKER_PORT_RES}x{WALKER_PORT_RES}x{WALKER_PORT_SPP} card against the CPU "
+                f"port: MSE {port_mse:.4e} (bar {PORT_BAR}), rays {small.rays_traced} / "
+                f"{cpu.rays_traced}; {card_line()}")
+            if mse > MSE_BAR or port_mse >= PORT_BAR or small.rays_traced != cpu.rays_traced:
+                raise SmokeFailure(f"walkers: {knob}: MSE {mse} against the stream render, "
+                                   f"{port_mse} against the CPU port, rays {small.rays_traced} "
+                                   f"/ {cpu.rays_traced}")
+            out[knob] = {"mray_per_sec": r.mray_per_sec, "host_reads_per_wave": reads,
+                         "mse_stream": mse, "rays": r.rays_traced, "port_mse": port_mse}
+    finally:
+        cfg.bvh = prev
+    log(f"[walkers] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(out, stream={"mray_per_sec": st.mray_per_sec, "host_reads_per_wave": st_reads,
+                             "rays": st.rays_traced})
 
 
 # -- phase 15 ------------------------------------------------------------------
@@ -2865,8 +3156,16 @@ def phase_serve(device="cuda", res=SERVE_RES, spp=SERVE_SPP, chunk=SERVE_CHUNK, 
     pool = ThreadPoolExecutor(2)
     futs = {k: pool.submit(_jsonl_session, argvs[k], path, outs[k], k, chunk) for k in argvs}
     try:
+        if cuda:
+            from tpu_pbrt_torch.serve.residency import scene_hbm_bytes
+
+            base = _peak_reset()
         scene, integ = compile_file(path, Options(quiet=True), device=device)
+        if cuda:
+            compile_peak, scene_bytes = _peak_read(base)[0], scene_hbm_bytes(scene)
+            base = _peak_reset()
         solo = integ.render(scene, chunk=chunk)
+        solo_ws = _working_set("[serve] solo", solo, *_peak_read(base)) if cuda else None
         solo_launches = dict(LAUNCHES)
         log(f"[serve] solo {res}x{res}x{spp} ({scene.n_tris} triangles, "
             f"chunk {chunk}, {solo.stats['chunks']} chunks): {solo.rays_traced} rays, "
@@ -2890,7 +3189,7 @@ def phase_serve(device="cuda", res=SERVE_RES, spp=SERVE_SPP, chunk=SERVE_CHUNK, 
         if cuda:
             torch.cuda.synchronize()
         reset_launches()
-        mem0 = torch.cuda.memory_allocated() if cuda else 0
+        mem0 = _peak_reset() if cuda else 0
         t0 = time.perf_counter()
         a = svc.submit(path, tenant="alice")
         compile_s = time.perf_counter() - t0
@@ -2911,7 +3210,12 @@ def phase_serve(device="cuda", res=SERVE_RES, spp=SERVE_SPP, chunk=SERVE_CHUNK, 
             svc.step()
         svc.resume(b)
         svc.drain()
+        if cuda:
+            session_peak, slack = _peak_read(mem0)
         mray = {j: same(f"two tenants, {j}", svc.result(j)) for j in (a, b)}
+        if cuda:
+            _hbm_serve(res, spp, chunk, scene_bytes, compile_peak, solo_ws, session_peak, slack,
+                       rstats["resident_bytes"], 2)
         log(f"[serve] two tenants: schedule {svc.schedule}; {b} parked at chunk {parked_at} "
             f"and resumed; films bit-identical")
 
@@ -3136,43 +3440,86 @@ def chaos_start():
     card) in a subprocess: it runs beside `[infra]` and `[serve]`, whose
     host-bound work leaves the card and most cores idle. Returns
     (process, start time)."""
-    proc = subprocess.Popen([sys.executable, "-m", "tpu_pbrt_torch.chaos"], cwd=HERE,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, time.perf_counter()
+    return spawn([sys.executable, "-m", "tpu_pbrt_torch.chaos"])
 
 
 def phase_chaos(started=None):
     """The recovery matrix on the card (see the module doc, phase 16):
     every row must PASS; prints each row and the `chaos_matrix` line."""
-    proc, t0 = started or chaos_start()
-    try:
-        out, err = proc.communicate(timeout=CHAOS_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    out, err, rc, secs = collect(started or chaos_start(), CHAOS_TIMEOUT_S)
     rows = [ln for ln in out.splitlines() if ln.startswith("chaos ")]
     for ln in rows:
         log(f"[chaos] {ln}")
     try:
         matrix = json.loads(out.strip().splitlines()[-1])["chaos_matrix"]
     except (IndexError, KeyError, ValueError):
-        raise SmokeFailure(f"chaos: no chaos_matrix line (exit {proc.returncode}): "
-                           f"{err[-2000:]}") from None
-    log(f"[chaos] {json.dumps({'chaos_matrix': matrix})} (exit {proc.returncode}, "
-        f"{time.perf_counter() - t0:.1f} s since its start)")
-    if proc.returncode != 0 or matrix["failed"] or matrix["scenarios"] != 17 or len(rows) != 17:
-        raise SmokeFailure(f"chaos: rows failed {matrix['failed']} (exit {proc.returncode}): "
-                           f"{err[-2000:]}")
+        raise SmokeFailure(f"chaos: no chaos_matrix line (exit {rc}): {err[-2000:]}") from None
+    log(f"[chaos] {json.dumps({'chaos_matrix': matrix})} (exit {rc}, {secs:.1f} s since its "
+        f"start)")
+    if rc != 0 or matrix["failed"] or matrix["scenarios"] != 17 or len(rows) != 17:
+        raise SmokeFailure(f"chaos: rows failed {matrix['failed']} (exit {rc}): {err[-2000:]}")
     return matrix
 
 
-PHASES = ("build", "check", "render", "analysis", "crown", "direct", "samplers", "cloud",
+def beside_start():
+    """Start the phases of BESIDE in a second process (`chip_smoke.py
+    --beside ...`, its own CUDA context, four CPU threads), which runs
+    beside the main process's `[crown]` to `[subsurface]`. Returns
+    (process, start time)."""
+    return spawn([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--beside", *BESIDE],
+                 env=dict(os.environ, OMP_NUM_THREADS="4"))
+
+
+def beside_collect(started):
+    """Wait for the second process and relay its lines. Returns {phase:
+    its result}; fails unless it ended with code 0 after its result line."""
+    out, err, rc, secs = collect(started, BESIDE_TIMEOUT_S)
+    got = None
+    for ln in out.splitlines():
+        if ln.startswith(BESIDE_TAG):
+            got = json.loads(ln[len(BESIDE_TAG):])
+        else:
+            log(ln)
+    log(f"[beside] {', '.join(BESIDE)}: subprocess exit {rc}, {secs:.1f} s since its start")
+    if rc != 0 or got is None or set(got) != set(BESIDE):
+        raise SmokeFailure(f"beside: exit {rc}: {err[-3000:]}")
+    return got
+
+
+def run_beside(names) -> int:
+    """The second process of a full run: the named phases, with the
+    kernels the first process built; their results on the BESIDE_TAG
+    line."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    fns = {"cloud": phase_cloud, "caustic": phase_caustic, "breadth": phase_breadth}
+    try:
+        got = {}
+        for name in names:
+            t = time.perf_counter()
+            got[name] = fns[name]()
+            log(f"[time] {name} (beside): {time.perf_counter() - t:.1f} s")
+            torch.cuda.empty_cache()
+        print(BESIDE_TAG + json.dumps(got), flush=True)
+        return 0
+    except Exception as e:  # noqa: BLE001 - every phase failure is fatal
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+PHASES = ("build", "check", "render", "analysis", "walkers", "crown", "direct", "samplers", "cloud",
           "caustic", "breadth", "textured", "motion", "subsurface", "infra", "serve", "cli",
           "mesh", "chaos")
 
 
 def main(argv=()) -> int:
+    if argv[:1] == ["--beside"]:
+        return run_beside(argv[1:])
     only = set(argv)
     if only - set(PHASES):
         print(f"chip_smoke: unknown phases {sorted(only - set(PHASES))}; known: {PHASES}",
@@ -3231,8 +3578,16 @@ def main(argv=()) -> int:
             timed("analysis", phase_analysis, scene, integ, solo)
             del scene, integ
             torch.cuda.empty_cache()
+        # [walkers] runs beside [mesh] in a full run (in a subprocess: the
+        # walkers set the process's BVH knob, and the mesh's process only
+        # waits for its ranks)
+        walkers = walkers_start() if not only and want("mesh") else None
+        if walkers is None:
+            timed("walkers", phase_walkers)
         kt_mesh, mesh_daemon = timed("mesh", phase_mesh, solo if want("render") else None) \
             or (None, None)
+        if walkers is not None:
+            timed("walkers (beside [mesh])", walkers_collect, walkers)
 
         def daemon_seconds(secs):
             for v in kt_mesh.values():
@@ -3242,6 +3597,9 @@ def main(argv=()) -> int:
             daemon_seconds(timed("mesh daemon", mesh_daemon))
             mesh_daemon = None
 
+        # [cloud], [caustic] and [breadth] run in a second process beside
+        # [crown] to [subsurface] in a full run
+        second = beside_start() if not only else None
         if want("crown"):
             cscene, cinteg = timed("crown scene", crown_scene)
             ct, rays = timed("crown check", phase_crown_check, cscene, cinteg)
@@ -3253,12 +3611,17 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
         dt = timed("direct", phase_direct)
         timed("samplers", phase_samplers)
-        lt = timed("cloud", phase_cloud)
-        kt_c = timed("caustic", phase_caustic)
-        kt_b = timed("breadth", phase_breadth)
+        if second is None:
+            lt = timed("cloud", phase_cloud)
+            kt_c = timed("caustic", phase_caustic)
+            kt_b = timed("breadth", phase_breadth)
         kt_t = timed("textured", phase_textured)
         kt_m = timed("motion", phase_motion)
         kt_s = timed("subsurface", phase_subsurface)
+        if second is not None:
+            got = timed(f"{' '.join(BESIDE)} (beside [crown] to [subsurface])",
+                        beside_collect, second)
+            lt, kt_c, kt_b = (got[name] for name in BESIDE)
         # host-bound work runs beside [infra] and [serve], whose pools
         # leave the card and most cores idle: the recovery matrix's
         # subprocess and [mesh]'s `serve --mesh` daemon beside [infra],
@@ -3310,6 +3673,8 @@ def main(argv=()) -> int:
                                    kt_c[name]["photon"]["max_abs_err"],
                                    kt_b[name]["max_abs_err"], kt_t[name]["max_abs_err"],
                                    kt_m[name]["max_abs_err"], kt_s[name]["max_abs_err"])
+            if second is not None:
+                k["timed_beside"] = SHARED_CARD
             return k
 
         kernels = [
@@ -3328,6 +3693,11 @@ def main(argv=()) -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 if __name__ == "__main__":

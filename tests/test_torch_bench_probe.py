@@ -35,10 +35,10 @@ class TestBenchProbe:
     def test_probe_recovers_from_simulated_hang(self, tmp_path, monkeypatch):
         self._arm(tmp_path, monkeypatch, "probe:hang@attempt=1")
         ok, detail, retries, wait_s = bench.probe_backend(
-            timeout_s=20.0, max_attempts=2, backoff_base_s=0.05, device="cpu")
+            timeout_s=10.0, max_attempts=2, backoff_base_s=0.05, device="cpu")
         assert ok and retries == 1, detail
         assert detail.startswith("cpu |")
-        assert wait_s >= 20.0  # the hung attempt burned its full timeout
+        assert wait_s >= 10.0  # the hung attempt burned its full timeout
         lines = self._lines(tmp_path)
         phases = [ln["phase"] for ln in lines]
         assert "probe_backoff" in phases

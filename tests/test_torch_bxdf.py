@@ -162,7 +162,11 @@ def shaded_contracted(lanes):
     return _shade(lanes, jit_ref(_both_jax))
 
 
+@rounded_apart
 def test_fresnel_terms(lanes, shaded):
+    """Both Fresnel terms against the reference's, called on their own (op
+    by op, so the port rounds every product apart here); their compiled
+    forms are held bit for bit by test_crown_functions_bit_equal_to_compiled_reference."""
     n = lanes[0].shape[0]
     rng = np.random.default_rng(5)
     cos_i = rng.uniform(-1, 1, n).astype(np.float32)
@@ -211,12 +215,9 @@ def test_trowbridge_reitz_functions(lanes, shaded):
 
 def test_trowbridge_reitz_functions_contracted(lanes):
     """The default contraction against the compiled reference, bit for
-    bit, where the standalone compile fuses as the renders do:
-    RoughnessToAlpha and the visible-normal sample. tr_d, tr_lambda,
-    tr_g, tr_g1, tr_pdf and _tr_sample11 compiled on their own fuse other
-    products than they do inside a render's program (a few ulp apart from
-    the port, the slopes more near the pole); they are held contracted
-    inside bsdf_eval / bsdf_sample (test_bsdf_eval_and_sample_contracted)."""
+    bit: RoughnessToAlpha and the visible-normal sample (tr_d, tr_lambda,
+    tr_g, tr_g1, tr_pdf and _tr_sample11 are held the same way by
+    test_crown_functions_bit_equal_to_compiled_reference)."""
     wo, _, u = lanes
     n = wo.shape[0]
     rng = np.random.default_rng(6)
@@ -304,3 +305,116 @@ def test_shared_input_buffers_are_not_written(lanes, shaded):
         assert torch.equal(a, b)
     ja_ax = np.asarray(jb.gather_mat(jt, jnp.asarray(mid)).ax)
     _close(mp.ax, ja_ax)
+
+
+#: the crown's glass and metal functions held bit for bit against the
+#: reference compiled on its own with jax.jit at the renders' optimisation
+#: level: name -> the arguments made from the lanes (wo, wi, u) and a
+#: second unit vector wh, GGX alphas ax, ay, cosines c, copper's eta, k.
+#: _tr_sample11 is held inside tr_sample_wh, the one program the renders
+#: compile it in (compiled on its own, XLA fuses A^2 into A^2 - 1)
+_CROWN_FUNCS = {
+    "fresnel_dielectric": lambda a: (a["c"], np.ones_like(a["c"]), np.full_like(a["c"], 1.5)),
+    "fresnel_dielectric_varied": lambda a: (a["c"], a["ay"] + 1.0, a["ax"] + 1.0),
+    "fresnel_conductor": lambda a: (a["c"], a["eta"], a["k"]),
+    "tr_d": lambda a: (a["wh"], a["ax"], a["ay"]),
+    "tr_lambda": lambda a: (a["wo"], a["ax"], a["ay"]),
+    "tr_g": lambda a: (a["wo"], a["wi"], a["ax"], a["ay"]),
+    "tr_g1": lambda a: (a["wo"], a["ax"], a["ay"]),
+    "tr_sample_wh": lambda a: (a["wo"], a["u"][0], a["u"][1], a["ax"], a["ay"]),
+    "tr_pdf": lambda a: (a["wo"], a["wh"], a["ax"], a["ay"]),
+}
+
+
+@pytest.fixture(scope="module")
+def crown_args(lanes):
+    wo, wi, u = lanes
+    n = wo.shape[0]
+    rng = np.random.default_rng(6)
+    c = np.concatenate([rng.uniform(-1, 1, n - 64), np.full(64, 0.99995)]).astype(np.float32)
+    return {"wo": wo, "wi": wi, "u": u, "wh": _dirs(rng, n), "c": c,
+            "ax": rng.uniform(0.01, 1.0, n).astype(np.float32),
+            "ay": rng.uniform(0.01, 1.0, n).astype(np.float32),
+            "eta": np.tile(np.float32(_CU_ETA), (n, 1)), "k": np.tile(np.float32(_CU_K), (n, 1))}
+
+
+def _bits_equal(got, want, what):
+    got = [got] if torch.is_tensor(got) else list(got)
+    want = [want] if not isinstance(want, (tuple, list)) else list(want)
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if g.dtype == np.float32:
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32), err_msg=what)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+@pytest.mark.parametrize("name", sorted(_CROWN_FUNCS))
+def test_crown_functions_bit_equal_to_compiled_reference(name, crown_args):
+    """Each function of the crown's specular glass and metal GGX, in the
+    port's rounding, against the reference's compiled on its own: the
+    products XLA fuses into their sums fused (1 - cos^2 in the Fresnel
+    terms and in Lambda's trig, 1 + e in D, the conductor's terms as each
+    of its fusions rounds them), bit for bit."""
+    args = _CROWN_FUNCS[name](crown_args)
+    fn = name.removesuffix("_varied")
+    got = getattr(tb, fn)(*map(_t, args))
+    _bits_equal(got, JitRef(jb).__getattr__(fn)(*args), name)
+
+
+def _shading_step(bx, vm, lib):
+    """One bounce's shading as the path integrator composes it (its
+    _bounce_wave): the light-sampling half's bsdf_eval and the
+    continuation's bsdf_sample on one material row, in one program, then
+    the continuation's world direction and throughput. bx, vm: the bxdf
+    and vecmath modules; lib: jnp or torch."""
+    absf = lib.abs
+    floor = (lambda x: lib.maximum(x, 1e-20)) if lib is jnp else (lambda x: lib.clamp(x, min=1e-20))
+
+    def step(t, m, wo, wi, ss, ts, ns, ul, u1, u2):
+        mp = bx.gather_mat(t, m)
+        wo_l, wi_l = vm.to_local(wo, ss, ts, ns), vm.to_local(wi, ss, ts, ns)
+        f, pdf = bx.bsdf_eval(mp, wo_l, wi_l)
+        f = f * absf(vm.dot(wi, ns))[..., None]
+        bs = bx.bsdf_sample(mp, wo_l, ul, u1, u2)
+        wi_w = vm.normalize(vm.to_world(bs.wi, ss, ts, ns))
+        thr = bs.f * (absf(vm.dot(wi_w, ns)) / floor(bs.pdf))[..., None]
+        return (f, pdf, *bs, wi_w, thr)
+    return step
+
+
+@pytest.mark.parametrize("name", ["metal", "metal_aniso", "glass"])
+def test_crown_materials_bit_equal_to_compiled_reference(name, lanes):
+    """The crown's materials in the rounding the renders run, against the
+    reference compiled with jax.jit, bit for bit: one bounce's shading
+    step composed as the path integrator composes it (bsdf_eval, then
+    bsdf_sample with the VNDF reflection and the refraction's terms
+    fused, the world direction and the throughput) in a shading frame
+    made from the lanes; bsdf_sample compiled on its own; and the metal
+    lobe's _glossy_f and _glossy_pdf."""
+    from tpu_pbrt.core import vecmath as jv
+    from tpu_pbrt_torch.core import vecmath as tv
+
+    wo, wi, u = lanes[0][:N], lanes[1][:N], lanes[2][:, :N]
+    rng = np.random.default_rng(11)
+    ns = _dirs(rng, N)
+    ss = np.cross(ns, _dirs(rng, N))
+    ss = (ss / np.linalg.norm(ss, axis=-1, keepdims=True)).astype(np.float32)
+    ts = np.cross(ns, ss).astype(np.float32)
+    names, tab = _tables()
+    mid = np.full(N, names.index(name), np.int32)
+    tt = {k: _t(v) for k, v in tab.items()}
+    frame = (wo, wi, ss, ts, ns, u[0], u[1], u[2])
+    _bits_equal(_shading_step(tb, tv, torch)(tt, _t(mid), *map(_t, frame)),
+                jit_ref(_shading_step(jb, jv, jnp))(tab, mid, *frame), f"{name} shading step")
+    mp = tb.gather_mat(tt, _t(mid))
+    sample = jit_ref(lambda t, m, a, b, c, d: tuple(jb.bsdf_sample(jb.gather_mat(t, m), a, b, c,
+                                                                    d)))
+    _bits_equal(tuple(tb.bsdf_sample(mp, _t(wo), *map(_t, u))),
+                sample(tab, mid, wo, u[0], u[1], u[2]), f"{name} bsdf_sample")
+    if name.startswith("metal"):
+        for fn in ("_glossy_f", "_glossy_pdf"):
+            want = jit_ref(lambda t, m, a, b, fn=fn: getattr(jb, fn)(jb.gather_mat(t, m), a, b))
+            _bits_equal(getattr(tb, fn)(mp, _t(wo), _t(wi)), want(tab, mid, wo, wi),
+                        f"{name} {fn}")

@@ -36,16 +36,10 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
 import torch
 
 from tpu_pbrt import config as jconfig
-from tpu_pbrt import scenes as jscenes
-from tpu_pbrt.integrators import common as jcommon
 from tpu_pbrt.integrators.direct import DirectLightingIntegrator as JDirect
-from tpu_pbrt.scene.api import Options as JOptions
-from tpu_pbrt.scene.api import parse_string as jparse_string
-from tpu_pbrt.scene.api import pbrt_init as jpbrt_init
 from tpu_pbrt.scene.paramset import ParamSet as JParamSet
 from tpu_pbrt_torch import main as cli
 from tpu_pbrt_torch import scenes as tscenes
@@ -53,12 +47,9 @@ from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.integrators import common as tcommon
 from tpu_pbrt_torch.integrators.direct import DirectLightingIntegrator as TDirect
 from tpu_pbrt_torch.scene import api
-from tpu_pbrt_torch.scene.api import Options as TOptions
-from tpu_pbrt_torch.scene.api import parse_string as tparse_string
-from tpu_pbrt_torch.scene.api import pbrt_init as tpbrt_init
 from tpu_pbrt_torch.scene.paramset import ParamSet as TParamSet
 from tpu_pbrt_torch.utils import error as terror
-from tpu_pbrt_torch.utils.imageio import read_pfm, write_image
+from tpu_pbrt_torch.utils.imageio import read_pfm
 
 # pytest-xdist runs the suite in several worker processes, each of which
 # would start one torch CPU thread per core and oversubscribe the machine
@@ -87,56 +78,45 @@ def _port(name):
     return tscenes.compile_api(direct_case_api(tscenes, name, dict(device="cpu")))
 
 
-def _both_scenes(name, tmp_path):
-    """(reference scene, integrator, port scene, integrator) of a
-    DIRECT_CASES golden's scene, or of the small crown (its sky as the
-    only light) under directlighting."""
-    if name != "crown_small":
-        return (*jscenes.compile_api(direct_case_api(jscenes, name)), *_port(name))
-    from make_golden import crown_small_sky, crown_small_text
-
-    env = str(tmp_path / "sky.pfm")
-    write_image(env, crown_small_sky())
-    text = crown_small_text(env)
-    apis = (jparse_string(text, jpbrt_init(JOptions(quiet=True))),
-            tparse_string(text, tpbrt_init(TOptions(quiet=True), device="cpu")))
-    sj, ij = jscenes.compile_api(configure(apis[0], "directlighting"))
-    st, it_ = tscenes.compile_api(configure(apis[1], "directlighting"))
-    return sj, ij, st, it_
+@pytest.fixture(scope="module")
+def direct_estimate():
+    """The reference's estimate_direct on each scene's chunk of camera hits
+    (tests/torch_golden/make_module_reference.py direct)."""
+    return np.load(os.path.join(GOLDEN, "direct_estimate.npz"))
 
 
 @pytest.mark.parametrize("name", ["cornell_direct", "killeroo_direct", "crown_small"])
-def test_estimate_direct_matches_reference(name, small_treelets, tmp_path):
-    sj, ij, st, it_ = _both_scenes(name, tmp_path)
+def test_estimate_direct_matches_reference(name, small_treelets, tmp_path, direct_estimate):
+    """estimate_direct on one chunk of camera hits, with every light and
+    with one light row per lane, against the reference's stored outputs on
+    the same scene and sample streams: the same lanes lit (every row
+    lighting some), radiance within 2e-6."""
+    from make_module_reference import direct_api
+
+    st, it_ = tscenes.compile_api(direct_api("tpu_pbrt_torch", name, str(tmp_path),
+                                             device="cpu"))
     assert ("tstream" in st.dev) == (name != "cornell_direct")
     assert ("envmap" in st.dev) == (name == "crown_small")
     plan = it_.prepare_chunks(st)
+    assert plan.chunk == int(direct_estimate[f"{name}_chunk"])
     x0, x1, y0, _ = plan.bounds
     k = np.arange(plan.chunk, dtype=np.int32)
-    _, pxj, pyj, s_j, _, oj, dj, _ = ij.work_to_rays(
-        sj.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, jnp.asarray(k))
     _, pxt, pyt, s_t, _, ot, dt, _ = it_.work_to_rays(
         st.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, torch.from_numpy(k))
-    itj = jcommon.make_interaction(sj.dev, jcommon.scene_intersect(sj.dev, oj, dj, jnp.inf),
-                                   oj, dj)
     itt = tcommon.make_interaction(st.dev, tcommon.scene_intersect(st.dev, ot, dt, float("inf")),
                                    ot, dt)
-    mpj = ij.mat_at(sj.dev, itj, u_mix=jnp.zeros(k.shape, jnp.float32))
     mpt = it_.mat_at(st.dev, itt)
     n_l = st.n_lights
-    assert n_l == sj.n_lights
+    assert n_l == int(direct_estimate[f"{name}_n_lights"])
     rows = (k % n_l).astype(np.int32)
-    for idx_j, idx_t, extra in ((None, None, 0),
-                                (jnp.asarray(rows), torch.from_numpy(rows), 1000)):
-        a = np.asarray(jcommon.estimate_direct(
-            sj.dev, ij.light_distr, itj, mpj, pxj, pyj, s_j, 0, light_idx=idx_j,
-            salt_extra=extra, sampler=(ij.skind, ij.spp)))
+    for tag, idx_t, extra in (("all", None, 0), ("row", torch.from_numpy(rows), 1000)):
+        a = direct_estimate[f"{name}_{tag}"]
         b = tcommon.estimate_direct(
             st.dev, it_.light_distr, itt, mpt, pxt, pyt, s_t, 0, light_idx=idx_t,
             salt_extra=extra, sampler=(it_.skind, it_.spp)).numpy()
         lit = a.max(-1) > 0
         assert lit.sum() > 100
-        if idx_j is not None:  # every row lights some lane
+        if idx_t is not None:  # every row lights some lane
             assert set(rows[lit]) == set(range(n_l))
         np.testing.assert_array_equal(b.max(-1) > 0, lit)
         np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
@@ -191,34 +171,25 @@ def test_strategy_selection_matches_reference(n_lights, strategy):
     assert terror._n_warnings - n0 == (strategy == "bogus") + (n_lights > 16 and strategy != "one")
 
 
-def test_unoccluded_walk_through_null_interfaces_is_not_ported():
+def test_unoccluded_walk_through_null_interfaces_is_not_ported(direct_estimate):
     """(Named when the walk raised.) The walk is ported: on the null quad
     of tests/test_media.py under directlighting, estimate_direct's shadow
     rays cross the quad in up to 4 segments (vis_segments, set by the
-    scene's null surfaces), as the reference's do: the same lanes lit,
-    values within 2e-6."""
-    from make_golden import media_text
+    scene's null surfaces), as the reference's do (its stored outputs):
+    the same lanes lit, values within 2e-6."""
+    from make_module_reference import null_quad_api
 
-    text = media_text("null_quad_path").rsplit("WorldEnd", 1)[0]
-    sj, ij = jscenes.compile_api(configure(
-        jparse_string(text, jpbrt_init(JOptions(quiet=True))), "directlighting"))
-    st, it_ = tscenes.compile_api(configure(
-        tparse_string(text, tpbrt_init(TOptions(quiet=True), device="cpu")), "directlighting"))
-    assert st.has_null_materials and it_.vis_segments == ij.vis_segments == 4
+    st, it_ = tscenes.compile_api(null_quad_api("tpu_pbrt_torch", device="cpu"))
+    assert st.has_null_materials and it_.vis_segments == 4
+    assert int(direct_estimate["null_quad_vis_segments"]) == 4
     plan = it_.prepare_chunks(st)
     x0, x1, y0, _ = plan.bounds
     k = np.arange(plan.total, dtype=np.int32)
-    _, pxj, pyj, s_j, _, oj, dj, _ = ij.work_to_rays(
-        sj.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, jnp.asarray(k))
     _, pxt, pyt, s_t, _, ot, dt, _ = it_.work_to_rays(
         st.camera, plan.spp, x0, y0, x1 - x0, plan.npix, 0, 0, torch.from_numpy(k))
-    itj = jcommon.make_interaction(sj.dev, jcommon.scene_intersect(sj.dev, oj, dj, jnp.inf),
-                                   oj, dj)
     itt = tcommon.make_interaction(st.dev, tcommon.scene_intersect(st.dev, ot, dt, float("inf")),
                                    ot, dt)
-    a = np.asarray(jcommon.estimate_direct(
-        sj.dev, ij.light_distr, itj, ij.mat_at(sj.dev, itj, u_mix=jnp.zeros(k.shape)),
-        pxj, pyj, s_j, 0, vis_segments=4, sampler=(ij.skind, ij.spp)))
+    a = direct_estimate["null_quad_all"]
     b = tcommon.estimate_direct(st.dev, it_.light_distr, itt, it_.mat_at(st.dev, itt),
                                 pxt, pyt, s_t, 0, vis_segments=4,
                                 sampler=(it_.skind, it_.spp)).numpy()

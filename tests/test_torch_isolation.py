@@ -72,7 +72,8 @@ LightSource "point" "rgb I" [20 20 20] "point from" [0 3 0]
 AttributeBegin
 Material "none"
 MediumInterface "m" ""
-Shape "sphere" "float radius" [1]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3  4 6 5 4 7 6  0 4 1 1 4 5  2 6 3 3 6 7  1 5 2 2 5 6  0 3 7 0 7 4]
+  "point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1  -1 1 -1  1 1 -1  1 1 1  -1 1 1]
 AttributeEnd
 WorldEnd
 """, render=True, device="cpu")
@@ -118,7 +119,9 @@ def test_no_source_names_jax_or_the_reference():
     assert seen > 20
 
 
-@pytest.mark.parametrize("module", ["core/media.py", "integrators/volpath.py"])
+@pytest.mark.parametrize("module", ["core/media.py", "integrators/volpath.py", "accel/packet.py",
+                                    "accel/traverse.py", "accel/wide.py",
+                                    "analysis/hbmcheck.py"])
 def test_media_modules_name_neither_jax_nor_the_reference(module):
     names = list(_imported_names(os.path.join(PKG, module)))
     assert "torch" in names
@@ -173,6 +176,41 @@ def test_host_copies_match_the_reference_and_import_neither(module):
         assert _code(ours) == _code(theirs), f"{module} is no longer the reference's code"
     else:
         assert ours == theirs, f"{module} is no longer the reference's code"
+
+
+#: functions the port keeps as copies of the reference's, statement for
+#: statement: module -> (the reference's module, function names)
+FUNCTION_COPIES = {
+    "analysis/protocheck.py": ("analysis/protocheck.py", ("_pragma_lines", "_shallow_walk")),
+}
+
+
+def _function_code(path, names):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names}
+    assert set(found) == set(names), f"{path}: {set(names) - set(found)} missing"
+    out = {}
+    for name, node in found.items():
+        node.body = node.body[1:] if (node.body and isinstance(node.body[0], ast.Expr)
+                                      and isinstance(node.body[0].value, ast.Constant)) else node.body
+        node.returns = None
+        for a in node.args.args:
+            a.annotation = None
+        out[name] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(FUNCTION_COPIES))
+def test_function_copies_match_the_reference(module):
+    """hbmcheck's helpers taken from protocheck are the reference's code,
+    statement for statement (the port's pragma regexes under the
+    reference's names)."""
+    ref_module, names = FUNCTION_COPIES[module]
+    ours = _function_code(os.path.join(PKG, module), names)
+    theirs = _function_code(os.path.join(ROOT, "tpu_pbrt", ref_module), names)
+    for name in names:
+        assert ours[name] == theirs[name], f"{module}::{name} is no longer the reference's code"
 
 
 def test_default_device_without_gpu_raises():

@@ -52,12 +52,7 @@ import jax.numpy as jnp
 import torch
 
 from tpu_pbrt import config as jconfig
-from tpu_pbrt import scenes as jscenes
 from tpu_pbrt.core import media as jmd
-from tpu_pbrt.integrators import common as jcommon
-from tpu_pbrt.scene.api import Options as JOptions
-from tpu_pbrt.scene.api import parse_string as jparse_string
-from tpu_pbrt.scene.api import pbrt_init as jpbrt_init
 from tpu_pbrt_torch import scenes as tscenes
 from tpu_pbrt_torch.config import cfg as tcfg
 from tpu_pbrt_torch.core import media as tmd
@@ -76,7 +71,6 @@ sys.path.insert(0, GOLDEN)
 from make_golden import (  # noqa: E402
     LEAF_TRIS,
     MEDIA_CASES,
-    jax_cloud_api,
     media_api,
     media_text,
 )
@@ -227,38 +221,26 @@ def _port_api(name):
                      device="cpu")
 
 
-def _compile_both(name):
-    """(reference scene, integrator, port scene, integrator) of a MEDIA_CASES golden."""
-    return (*jscenes.compile_api(media_api(name, jparse_string, jpbrt_init, JOptions,
-                                           jax_cloud_api)),
-            *tscenes.compile_api(_port_api(name)))
-
-
 @pytest.mark.parametrize("name", ["null_cube_volpath", "cloud_small"])
 def test_unoccluded_tr_walk_matches_reference(name, small_treelets):
-    sj, _, st, _ = _compile_both(name)
+    """unoccluded_tr on 1,024 seeded shadow rays (half inside the medium)
+    against the reference's stored visibility and transmittance
+    (tests/torch_golden/make_module_reference.py media)."""
+    from make_module_reference import walk_inputs_tr
+
+    st, _ = tscenes.compile_api(_port_api(name))
     assert st.has_null_materials and ("tstream" in st.dev) == (name == "cloud_small")
-    rng = np.random.default_rng(6)
-    n = 1024
-    # half the rays start inside the medium (id 0), half outside it
-    inside = np.arange(n) % 2 == 0
-    o = np.where(inside[:, None], rng.uniform(-0.6, 0.6, (n, 3)),
-                 rng.uniform(-3, 3, (n, 3)) + [0.0, 0.0, -4.0]).astype(np.float32)
-    d = _dirs(rng, n)
-    dist = rng.uniform(0.5, 6.0, n).astype(np.float32)
-    dist[::9] = -1.0  # no test: the lane starts dead
-    med = np.where(inside, 0, -1).astype(np.int32)
-    pix = rng.integers(0, 16, (3, n)).astype(np.int32)
-    args = [_both(x) for x in (o, d, dist, med, pix[0], pix[1], pix[2])]
-    vj, trj = jcommon.unoccluded_tr(sj.dev, *(x[0] for x in args), 77, segments=4)
-    vt, trt = tcommon.unoccluded_tr(st.dev, *(x[1] for x in args), 77, segments=4)
-    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    ref = np.load(os.path.join(GOLDEN, "media_walk.npz"))
+    vj, trj = ref[f"{name}_vis"], ref[f"{name}_tr"]
+    vt, trt = tcommon.unoccluded_tr(st.dev, *(torch.from_numpy(x) for x in walk_inputs_tr()), 77,
+                                    segments=4)
+    np.testing.assert_array_equal(vt.numpy(), vj)
     if name == "cloud_small":  # the ground and the light quad occlude
-        assert 0.2 < np.asarray(vj).mean() < 0.95
+        assert 0.2 < vj.mean() < 0.95
     else:  # nothing but null walls: every walk gets through
-        assert np.asarray(vj).all()
+        assert vj.all()
     _close(trt, trj, what="unoccluded_tr tr")
-    assert (np.asarray(trj)[np.asarray(vj)] < 0.99).mean() > 0.2  # the media attenuate
+    assert (trj[vj] < 0.99).mean() > 0.2  # the media attenuate
 
 
 def _port_render(name):

@@ -174,3 +174,64 @@ def test_no_probe_wave_without_subsurface(small_treelets, monkeypatch):
 
     monkeypatch.setattr(tpath.PathIntegrator, "_probe_wave", boom)
     assert np.isfinite(integ.render(scene).image).all()
+
+
+@pytest.mark.parametrize("with_tangent", [False, True])
+def test_make_interaction_bit_equal_to_compiled_reference(with_tangent):
+    """make_interaction in the port's default rounding against the
+    reference's compiled on its own with jax.jit at the renders'
+    optimisation level, on seeded hits of 500 random triangles: the
+    geometric normal (the cross product's fused components), the shading
+    normal (the fused three-term interpolation and norm), the shading
+    frame (coordinate_system, or the hair tangent's projection with
+    tri_tanT) and the packed ids equal the compiled reference's bit for
+    bit. The hit point and uv interpolate as the camera hits of the
+    reference's renders round them, fma(b2, v2, fma(b0, v0, b1 v1)): on
+    its own the compiled function rounds the point's x and y as fma(b0,
+    v0, b1 v1) + b2 v2 (the render's form is pinned by the small
+    renders; ROADMAP Queue 3 item 14), so those are held within 2 ulp of
+    the sum of their three terms' magnitudes."""
+    import jax.numpy as jnp
+
+    from tests.test_torch_xla_math import jit_ref
+    from tpu_pbrt.accel.traverse import Hit as RefHit
+    from tpu_pbrt.integrators import common as rc
+    from tpu_pbrt_torch.accel.traverse import Hit
+    from tpu_pbrt_torch.integrators import common as tc
+
+    rng = np.random.default_rng(0)
+    T, R = 500, 8192
+    tv = (rng.normal(size=(T, 3, 3)) * 3).astype(np.float32)
+    tn = rng.normal(size=(T, 3, 3)).astype(np.float32)
+    tuv = rng.random(size=(T, 3, 2)).astype(np.float32)
+    pack = (rng.integers(0, 5, T) * 4096 + rng.integers(-1, 3, T) + 1).astype(np.float32)
+    dev = {"tri_verts": tv, "tri_sh16": np.concatenate(
+        [tn.reshape(T, 9), tuv.reshape(T, 6), pack[:, None]], 1).T.copy()}
+    if with_tangent:
+        dev["tri_tanT"] = rng.normal(size=(3, T)).astype(np.float32)
+    prim = rng.integers(-1, T, R).astype(np.int32)
+    b0 = rng.random(R).astype(np.float32)
+    b1 = (rng.random(R) * (1 - b0)).astype(np.float32)
+    o, d = (rng.normal(size=(R, 3)).astype(np.float32) for _ in range(2))
+    fields = ("p", "ng", "ns", "ss", "ts", "uv", "mat", "light")
+
+    def ref(dev, prim, b0, b1, o, d):
+        it = rc.make_interaction(dev, RefHit(jnp.zeros_like(b0), prim, b0, b1), o, d)
+        return tuple(getattr(it, f) for f in fields)
+
+    want = dict(zip(fields, (np.asarray(x) for x in jit_ref(ref)(dev, prim, b0, b1, o, d))))
+    got = tc.make_interaction({k: torch.from_numpy(v) for k, v in dev.items()},
+                              Hit(torch.zeros(R), *(torch.from_numpy(x) for x in (prim, b0, b1))),
+                              torch.from_numpy(o), torch.from_numpy(d))
+    for f in ("ng", "ns", "ss", "ts", "mat", "light"):
+        g = getattr(got, f).numpy()
+        w = want[f].astype(g.dtype)
+        np.testing.assert_array_equal(g.view(np.int32) if g.dtype == np.float32 else g,
+                                      w.view(np.int32) if w.dtype == np.float32 else w,
+                                      err_msg=f)
+    pr = np.maximum(prim, 0)
+    b = np.stack([b0, b1, 1 - b0 - b1], -1)[..., None]
+    for f, verts in (("p", tv[pr]), ("uv", tuv[pr])):
+        scale = np.abs(b * verts).sum(axis=-2)
+        err = np.abs(getattr(got, f).numpy().astype(np.float64) - want[f])
+        assert (err <= 2 * np.spacing(scale.astype(np.float32))).all(), f

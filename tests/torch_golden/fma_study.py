@@ -34,6 +34,14 @@ each cross-product component a_j b_k - a_k b_j as fma(a_j, b_k,
 b0 = 1 - u - v as fma(-dot(d, qvec), inv, 1 - u)), `plain` rounds every
 operation apart, as the port does. The fused one reproduces the
 compiled render; the plain one gives the port's rays.
+
+`--port-interaction=camera|probe|all` instead computes make_interaction
+at that site with the port's code (a host callback): on the subsurface
+scene the probe site leaves the reference 3.2e-14 from its golden (the
+port rounds the probe hits as compiled), while any callback at the
+camera site moves it 3.14e-12, even one that returns the reference's own
+values for all but one field: the callback changes how XLA compiles the
+bounce wave around it (ROADMAP Queue 3 item 14).
 """
 
 import importlib
@@ -151,6 +159,56 @@ def host_barycentrics(fused: bool, calls):
     stream._finalize_hits = finalize
 
 
+def port_interaction(site: str, scene_name: str, calls):
+    """Replace the reference's make_interaction by the port's, computed on
+    the host from the program's own hits (a host callback), at `site`:
+    "camera" (each bounce wave's first call), "probe" (the subsurface
+    probe wave's four chord calls) or "all". The port's interaction
+    equals the compiled one where the reference's image stays at its
+    golden; a callback at a site also changes how XLA compiles the code
+    around it, which bounds what this can resolve."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import tpu_pbrt.integrators.path as rpath
+    from tpu_pbrt.integrators.common import Interaction
+    from tpu_pbrt_torch.accel.traverse import Hit
+    from tpu_pbrt_torch.integrators.common import make_interaction
+
+    orig = rpath.make_interaction
+    per_wave = 5 if scene_name == "subsurface" else 1
+    traced = [0]
+    flds = ("p", "ng", "ns", "ss", "ts", "uv")
+
+    def replaced(dev, hit, o, d):
+        i = traced[0]
+        traced[0] += 1
+        it = orig(dev, hit, o, d)
+        camera = i % per_wave == 0
+        if site != "all" and (site == "camera") != camera:
+            return it
+        keys = [k for k in ("tri_verts", "tri_sh16", "tri_tanT") if k in dev]
+
+        def host(prim, b0, b1, tv, o_, d_, *tables):
+            calls["port_interaction"] = calls.get("port_interaction", 0) + 1
+            t = {k: torch.from_numpy(np.array(v)) for k, v in zip(keys, tables)}
+            h = Hit(torch.zeros(prim.shape), *(torch.from_numpy(np.array(x))
+                                               for x in (prim, b0, b1, tv)))
+            got = make_interaction(t, h, torch.from_numpy(np.array(o_)),
+                                   torch.from_numpy(np.array(d_)))
+            return tuple(getattr(got, f).numpy() for f in flds)
+
+        tv = hit.tv if hit.tv is not None else dev["tri_verts"][jnp.maximum(hit.prim, 0)]
+        shapes = tuple(jax.ShapeDtypeStruct(getattr(it, f).shape, jnp.float32) for f in flds)
+        out = dict(zip(flds, jax.pure_callback(host, shapes, hit.prim, hit.b0, hit.b1, tv, o, d,
+                                               *(dev[k] for k in keys))))
+        return Interaction(mat=it.mat, light=it.light, wo=it.wo, valid=it.valid, **out)
+
+    rpath.make_interaction = replaced
+
+
 def port_render(scene_name="motion"):
     import torch
 
@@ -179,6 +237,8 @@ def main(targets):
     calls = {}
     for target in [t for t in targets if t.startswith("--barycentrics=")]:
         host_barycentrics(target.split("=", 1)[1] == "fused", calls)
+    for target in [t for t in targets if t.startswith("--port-interaction=")]:
+        port_interaction(target.split("=", 1)[1], scene_name, calls)
     for target in [t for t in targets if not t.startswith("--")]:
         mod, attr = target.rsplit(".", 1)
         m = importlib.import_module(mod)

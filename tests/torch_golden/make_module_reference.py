@@ -9,13 +9,24 @@ the port's tests hold it against without running the reference live:
   (the bootstrap's own sample vectors and uniform ones) on the Cornell
   box under `mlt` (maxdepth 3), and the first four mutation steps of 512
   chains: each step's accept decisions, the chains' states after it, and
-  the splat plane after the last.
+  the splat plane after the last;
+- `direct_estimate.npz` (tests/test_torch_direct.py): `estimate_direct`
+  of the direct-lighting integrator on one chunk of camera hits of the
+  small Cornell box, the small killeroo and the small crown (its sky the
+  only light), with every light and with one row per lane
+  (`light_idx`), and each scene's light count; and on the null quad of
+  tests/test_media.py over its whole image, the shadow rays walking up
+  to 4 segments through null surfaces;
+- `media_walk.npz` (tests/test_torch_media.py): `unoccluded_tr`'s
+  visibility and transmittance of 1,024 seeded shadow rays (half inside
+  the medium) walking up to 4 segments, on the null cube under `volpath`
+  and the small cloud.
 
 The reference runs as the tests would run it (tests/conftest.py): XLA at
 optimization level 0 on the CPU, so its floating-point results are the
 ones a live call under pytest returns. Run from the repository root:
 
-    python tests/torch_golden/make_module_reference.py [walk|mlt|all]
+    python tests/torch_golden/make_module_reference.py [walk|mlt|direct|media|all]
 
 Each file records the commit of the JAX package.
 """
@@ -167,10 +178,142 @@ def write_mlt(commit):
     print(f"wrote {out}", flush=True)
 
 
+#: the scenes of direct_estimate.npz
+DIRECT_SCENES = ("cornell_direct", "killeroo_direct", "crown_small")
+
+
+def direct_api(pkg, name: str, tmp: str, **device_kw):
+    """The parsed scene `name` of DIRECT_SCENES under directlighting, built
+    with either package (`pkg`: its root module's name)."""
+    import importlib
+
+    from make_golden import configure, crown_small_sky, crown_small_text, direct_case_api
+
+    scenes = importlib.import_module(f"{pkg}.scenes")
+    if name != "crown_small":
+        return direct_case_api(scenes, name, device_kw)
+    api = importlib.import_module(f"{pkg}.scene.api")
+    imageio = importlib.import_module(f"{pkg}.utils.imageio")
+    env = os.path.join(tmp, "sky.pfm")
+    imageio.write_image(env, crown_small_sky())
+    opts = api.Options(quiet=True)
+    init = api.pbrt_init(opts, **device_kw) if device_kw else api.pbrt_init(opts)
+    return configure(api.parse_string(crown_small_text(env), init), "directlighting")
+
+
+def null_quad_api(pkg, **device_kw):
+    """tests/test_media.py's null quad under directlighting, parsed with
+    either package."""
+    import importlib
+
+    from make_golden import configure, media_text
+
+    api = importlib.import_module(f"{pkg}.scene.api")
+    opts = api.Options(quiet=True)
+    init = api.pbrt_init(opts, **device_kw) if device_kw else api.pbrt_init(opts)
+    text = media_text("null_quad_path").rsplit("WorldEnd", 1)[0]
+    return configure(api.parse_string(text, init), "directlighting")
+
+
+def write_direct(commit):
+    import tempfile
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from make_golden import LEAF_TRIS
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    from tpu_pbrt import config, scenes
+    from tpu_pbrt.integrators import common
+
+    config.reload()
+    out = {}
+    for name in DIRECT_SCENES:
+        with tempfile.TemporaryDirectory() as tmp:
+            sj, ij = scenes.compile_api(direct_api("tpu_pbrt", name, tmp))
+        plan = ij.prepare_chunks(sj)
+        x0, x1, y0, _ = plan.bounds
+        k = np.arange(plan.chunk, dtype=np.int32)
+        _, px, py, s, _, o, d, _ = ij.work_to_rays(sj.camera, plan.spp, x0, y0, x1 - x0,
+                                                   plan.npix, 0, 0, jnp.asarray(k))
+        it = common.make_interaction(sj.dev, common.scene_intersect(sj.dev, o, d, jnp.inf), o, d)
+        mp = ij.mat_at(sj.dev, it, u_mix=jnp.zeros(k.shape, jnp.float32))
+        rows = (k % sj.n_lights).astype(np.int32)
+        for tag, idx, extra in (("all", None, 0), ("row", jnp.asarray(rows), 1000)):
+            out[f"{name}_{tag}"] = np.asarray(common.estimate_direct(
+                sj.dev, ij.light_distr, it, mp, px, py, s, 0, light_idx=idx, salt_extra=extra,
+                sampler=(ij.skind, ij.spp)))
+        out[f"{name}_n_lights"] = np.int64(sj.n_lights)
+        out[f"{name}_chunk"] = np.int64(plan.chunk)
+    # the null quad of tests/test_media.py: shadow rays through up to 4
+    # segments of null surfaces, over the whole image
+    sj, ij = scenes.compile_api(null_quad_api("tpu_pbrt"))
+    plan = ij.prepare_chunks(sj)
+    x0, x1, y0, _ = plan.bounds
+    k = np.arange(plan.total, dtype=np.int32)
+    _, px, py, s, _, o, d, _ = ij.work_to_rays(sj.camera, plan.spp, x0, y0, x1 - x0, plan.npix,
+                                               0, 0, jnp.asarray(k))
+    it = common.make_interaction(sj.dev, common.scene_intersect(sj.dev, o, d, jnp.inf), o, d)
+    out["null_quad_all"] = np.asarray(common.estimate_direct(
+        sj.dev, ij.light_distr, it, ij.mat_at(sj.dev, it, u_mix=jnp.zeros(k.shape)), px, py, s,
+        0, vis_segments=4, sampler=(ij.skind, ij.spp)))
+    out["null_quad_vis_segments"] = np.int64(ij.vis_segments)
+    path = os.path.join(HERE, "direct_estimate.npz")
+    np.savez_compressed(path, jax_commit=np.array(commit), **out)
+    print(f"wrote {path}: {sorted(out)}")
+
+
+#: the scenes of media_walk.npz (MEDIA_CASES names)
+MEDIA_SCENES = ("null_cube_volpath", "cloud_small")
+
+
+def walk_inputs_tr(n: int = 1024):
+    """unoccluded_tr's seeded inputs: half the rays inside the medium (id
+    0), half outside; every ninth lane dead (no test)."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    inside = np.arange(n) % 2 == 0
+    o = np.where(inside[:, None], rng.uniform(-0.6, 0.6, (n, 3)),
+                 rng.uniform(-3, 3, (n, 3)) + [0.0, 0.0, -4.0]).astype(np.float32)
+    v = rng.normal(size=(n, 3))
+    d = (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+    dist = rng.uniform(0.5, 6.0, n).astype(np.float32)
+    dist[::9] = -1.0
+    med = np.where(inside, 0, -1).astype(np.int32)
+    pix = rng.integers(0, 16, (3, n)).astype(np.int32)
+    return o, d, dist, med, pix[0], pix[1], pix[2]
+
+
+def write_media(commit):
+    import jax.numpy as jnp
+    import numpy as np
+
+    from make_golden import LEAF_TRIS, jax_cloud_api, media_api
+
+    os.environ["TPU_PBRT_LEAF_TRIS"] = str(LEAF_TRIS)
+    from tpu_pbrt import config, scenes
+    from tpu_pbrt.integrators import common
+    from tpu_pbrt.scene.api import Options, parse_string, pbrt_init
+
+    config.reload()
+    out = {}
+    for name in MEDIA_SCENES:
+        sj, _ = scenes.compile_api(media_api(name, parse_string, pbrt_init, Options,
+                                             jax_cloud_api))
+        vis, tr = common.unoccluded_tr(sj.dev, *(jnp.asarray(x) for x in walk_inputs_tr()), 77,
+                                       segments=4)
+        out[f"{name}_vis"], out[f"{name}_tr"] = np.asarray(vis), np.asarray(tr)
+    path = os.path.join(HERE, "media_walk.npz")
+    np.savez_compressed(path, jax_commit=np.array(commit), **out)
+    print(f"wrote {path}: {sorted(out)}")
+
+
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("walk", "mlt", "all"):
-        raise SystemExit(f"usage: {sys.argv[0]} [walk|mlt|all]")
+    if which not in ("walk", "mlt", "direct", "media", "all"):
+        raise SystemExit(f"usage: {sys.argv[0]} [walk|mlt|direct|media|all]")
     root = os.path.dirname(os.path.dirname(HERE))
     sys.path.insert(0, root)
     sys.path.insert(0, HERE)
@@ -182,6 +325,10 @@ def main() -> None:
             write_walk(mode, commit)
     if which in ("mlt", "all"):
         write_mlt(commit)
+    if which in ("direct", "all"):
+        write_direct(commit)
+    if which in ("media", "all"):
+        write_media(commit)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,19 @@
-"""8-wide BVH build and the lane-major slab test (port of tpu_pbrt/accel/wide.py).
+"""8-wide BVH: the build, the slab tests and the wide walker (port of
+tpu_pbrt/accel/wide.py).
 
 `build_wide_numpy` collapses the flattened binary BVH into nodes of up to 8
 children on the host, exactly as the reference does (same traversal of
 the binary tree, same largest-area-first expansion, same leaf encoding),
-so the stream tracer's top tree is bit-identical in both packages. The
-per-ray wide walker of the reference is not ported; the stream tracer
-(accel/stream.py) is the port's traversal.
+so the stream tracer's top tree is bit-identical in both packages.
+
+`wide_intersect` / `wide_intersect_p` (`TORCH_PBRT_BVH=wide`) walk that
+tree per ray: a pop slab-tests all 8 children of a node from one row,
+pushes the hit ones far to near (a stable argsort of their entry
+distances, so near subtrees pop first), and a leaf pop tests its
+MAX_LEAF_PRIMS triangles at once against the ray's current hit. As the
+binary walker (accel/traverse.py), the per-ray `lax.while_loop` is a
+masked step over the whole batch, its exit flag read back every
+`traverse.CHECK_EVERY` steps.
 """
 
 from __future__ import annotations
@@ -16,15 +24,14 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.build import MAX_LEAF_PRIMS, BVHArrays
+from tpu_pbrt_torch.accel.traverse import (_BOX_EPS, WALKS, Hit, _dispatch, intersect_triangle,
+                                           slab_test, walk_loop)
 
 WIDTH = 8
 # worst-case occupancy of a per-ray stack walk is (WIDTH-1)*depth + 1; the
 # build keeps the reference's loud check so both packages accept the same
 # scenes
 MAX_STACK = 128
-# float32 machine epsilon / 2 (pbrt MachineEpsilon) and pbrt's gamma(3)
-_MACHINE_EPS = 5.960464477539063e-08
-_BOX_EPS = 1.0 + 2.0 * ((3 * _MACHINE_EPS) / (1 - 3 * _MACHINE_EPS))
 # wide-leaf encoding in child_idx: >= 0 interior node id;
 # < 0 leaf: -(1 + prim_offset * (MAX_LEAF_PRIMS+1) + n_prims)
 _LEAF_STRIDE = MAX_LEAF_PRIMS + 1
@@ -32,7 +39,8 @@ _EMPTY = np.int32(2**30)  # empty slot: bounds are +inf/-inf, never hit
 
 
 def slab_test_lane_major(b_lo, b_hi, o_c, inv_c):
-    """Per-AXIS half of the watertight slab test for lane-major layouts:
+    """Per-AXIS half of the watertight slab test (traverse.slab_test) for
+    lane-major layouts:
     this axis's (t0, t1) with the _BOX_EPS widening of the far distance
     and the 0*inf NaN treated as inside the slab. Callers combine the
     three axes and clamp t_near to 0 / t_far to the ray's current hit."""
@@ -155,3 +163,116 @@ def pad_tri_verts(tri_verts_leaf_order: np.ndarray) -> np.ndarray:
     packages' vertex tables have the same shape."""
     tv = np.ascontiguousarray(tri_verts_leaf_order, dtype=np.float32)
     return np.concatenate([tv, np.zeros((MAX_LEAF_PRIMS, 3, 3), np.float32)], axis=0)
+
+
+def wide_as_device(tables, device) -> WideBVH:
+    """build_wide_numpy's three tables -> the walker's WideBVH on `device`."""
+    cmin, cmax, cidx = tables
+    return WideBVH(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (cmin, cmax, cidx)))
+
+
+# -------------------------------------------------------------------------
+# The wide walker
+# -------------------------------------------------------------------------
+
+#: safety bound on a walk's steps (real traversals finish in hundreds)
+_MAX_ITERS = 16384
+
+
+class _WState(NamedTuple):
+    sp: torch.Tensor
+    stack: torch.Tensor  # (R, MAX_STACK + 1): the last column takes no-op writes
+    t: torch.Tensor
+    prim: torch.Tensor
+    b0: torch.Tensor
+    b1: torch.Tensor
+    iters: torch.Tensor
+
+
+def _ray_traverse_wide(w: WideBVH, tri_verts, o, d, t_max, any_hit: bool) -> Hit:
+    R = o.shape[0]
+    dev = o.device
+    inv_d = 1.0 / d
+    rows = torch.arange(R, dtype=torch.int64, device=dev)
+    lanes = torch.arange(MAX_LEAF_PRIMS, dtype=torch.int64, device=dev)
+    n_rows = tri_verts.shape[0]
+    empty = int(_EMPTY)
+
+    def live_of(s: _WState):
+        return (s.sp > 0) & (s.iters < _MAX_ITERS)
+
+    def step(s: _WState) -> _WState:
+        live = live_of(s)
+        sp = s.sp - 1
+        code = s.stack[rows, torch.clamp(sp, min=0).long()]
+        is_leaf = code < 0
+        # ---- leaf: its MAX_LEAF_PRIMS triangles in one block ----------
+        leaf_dec = -(code + 1)
+        off = torch.where(is_leaf, leaf_dec // _LEAF_STRIDE, torch.zeros_like(code))
+        cnt = torch.where(is_leaf, leaf_dec % _LEAF_STRIDE, torch.zeros_like(code))
+        # the reference's dynamic_slice start, clamped so the block fits
+        start = torch.clamp(off, max=n_rows - MAX_LEAF_PRIMS).long()
+        blk = tri_verts[start[:, None] + lanes[None, :]]  # (R, 4, 3, 3)
+        h, th, b0h, b1h = intersect_triangle(o[:, None, :], d[:, None, :], blk[:, :, 0],
+                                             blk[:, :, 1], blk[:, :, 2], s.t[:, None])
+        take = (is_leaf & live)[:, None] & (lanes[None, :] < cnt[:, None]) & h
+        th_m = torch.where(take, th, torch.full_like(th, float("inf")))
+        k = torch.argmin(th_m, dim=1)
+        tk = th_m[rows, k]
+        better = tk < s.t
+        t_new = torch.where(better, tk, s.t)
+        prim_new = torch.where(better, off + k.to(torch.int32), s.prim)
+        b0_new = torch.where(better, b0h[rows, k], s.b0)
+        b1_new = torch.where(better, b1h[rows, k], s.b1)
+        # ---- interior: 8-wide slab test and the ordered push ----------
+        node = torch.where(is_leaf, torch.zeros_like(code), code).long()
+        cids = w.child_idx[node]  # (R, 8)
+        tn, _, in_slab = slab_test(w.child_bmin[node], w.child_bmax[node], o[:, None, :],
+                                   inv_d[:, None, :], t_new[:, None])
+        hit8 = (~is_leaf & live)[:, None] & in_slab & (cids != empty)
+        key = torch.where(hit8, tn, torch.full_like(tn, -float("inf")))
+        order = torch.argsort(key, dim=1, stable=True)  # misses first, then near..far
+        hit_s = torch.gather(hit8, 1, order)
+        cid_s = torch.gather(cids, 1, order)
+        # slot j (far .. near, j = 7 .. 0) lands above every hit slot after it
+        after = torch.flip(torch.cumsum(torch.flip(hit_s.to(torch.int32), [1]), 1), [1]) \
+            - hit_s.to(torch.int32)
+        sp_base = torch.where(live, sp, s.sp)
+        col = torch.where(hit_s, sp_base[:, None] + after, torch.full_like(after, MAX_STACK))
+        stack = s.stack.clone()
+        stack.scatter_(1, col.long(), torch.where(hit_s, cid_s, torch.zeros_like(cid_s)))
+        stack[:, MAX_STACK] = 0
+        sp_new = sp_base + hit_s.to(torch.int32).sum(dim=1, dtype=torch.int32)
+        if any_hit:
+            sp_new = torch.where(prim_new >= 0, torch.zeros_like(sp_new), sp_new)
+        sp_out = torch.where(live, sp_new, s.sp)
+        return _WState(sp_out, stack, t_new, prim_new, b0_new, b1_new,
+                       s.iters + live.to(torch.int32))
+
+    init = _WState(
+        sp=torch.ones(R, dtype=torch.int32, device=dev),
+        stack=torch.zeros((R, MAX_STACK + 1), dtype=torch.int32, device=dev),  # [0]: the root
+        t=t_max.clone(),
+        prim=torch.full((R,), -1, dtype=torch.int32, device=dev),
+        b0=torch.zeros(R, dtype=torch.float32, device=dev),
+        b1=torch.zeros(R, dtype=torch.float32, device=dev),
+        iters=torch.zeros(R, dtype=torch.int32, device=dev),
+    )
+    out, steps, reads = walk_loop(step, live_of, init, _MAX_ITERS)
+    WALKS.add(steps, reads)
+    return Hit(out.t, out.prim, out.b0, out.b1)
+
+
+def wide_intersect(w: WideBVH, tri_verts, o, d, t_max) -> Hit:
+    """Closest hit over a ray batch against the wide BVH. tri_verts is the
+    padded leaf-order vertex table (pad_tri_verts). A miss keeps t = t_max."""
+    return _dispatch(lambda oo, dd, tt: _ray_traverse_wide(w, tri_verts, oo, dd, tt, False),
+                     o, d, t_max)
+
+
+def wide_intersect_p(w: WideBVH, tri_verts, o, d, t_max) -> torch.Tensor:
+    """Any-hit (shadow) predicate over a ray batch -> bool (R,)."""
+    hit = _dispatch(lambda oo, dd, tt: _ray_traverse_wide(w, tri_verts, oo, dd, tt, True),
+                    o, d, t_max)
+    return hit.prim >= 0

@@ -10,7 +10,11 @@ Stages, in order:
   `tpu_pbrt_torch/analysis/budgets.json` entries of the device;
   `--no-cost` skips it, `--update-budgets` rewrites the device's entries
   instead of gating against them (`--budgets PATH` reads and writes
-  another file).
+  another file);
+- hbmcheck (`hbmcheck.py`): the device-memory model of the serve
+  lifecycle and its rules HC-CAP, HC-LEAK, HC-ACCT and HC-ALIAS against
+  the committed `hbm_budgets.json`; `--no-hbmcheck` skips it,
+  `--update-budgets` refreshes its entries too.
 
 `--device` picks the device the audit and the cost record on: CUDA by
 default (config.resolve_device), or `--device cpu`; without a card the
@@ -35,6 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("paths", nargs="*", help="files to lint (default: all of tpu_pbrt_torch/)")
     ap.add_argument("--no-audit", action="store_true", help="skip the recorded-run audit")
     ap.add_argument("--no-cost", action="store_true", help="skip the static cost / budget gate")
+    ap.add_argument("--no-hbmcheck", action="store_true",
+                    help="skip the device-memory model of the serve lifecycle")
     ap.add_argument("--update-budgets", action="store_true",
                     help="rewrite the device's entries of budgets.json from this tree instead of "
                          "gating against them (commit the result)")
@@ -101,8 +107,20 @@ def main(argv=None) -> int:
         if out is not None:
             cost_errors, cost_warnings, rollups, cost_findings = out
 
+    hbm_errors: list = []
+    hbm_warnings: list = []
+    if not args.no_hbmcheck:
+        def _hbm():
+            from tpu_pbrt_torch.analysis.hbmcheck import run_hbmcheck
+
+            return run_hbmcheck(update=args.update_budgets)
+
+        out = _stage(_hbm, hbm_errors)
+        if out is not None:
+            hbm_errors, hbm_warnings = out
+
     errors = [v for v in violations if v.severity == "error"]
-    ok = not (errors or audit_failures or over_budget or cost_errors)
+    ok = not (errors or audit_failures or over_budget or cost_errors or hbm_errors)
     if args.format == "json":
         print(json.dumps({
             "device": device,
@@ -117,6 +135,7 @@ def main(argv=None) -> int:
                 "errors": cost_errors,
                 "warnings": cost_warnings,
             },
+            "hbmcheck": {"errors": hbm_errors, "warnings": hbm_warnings},
             "pragmas": pragmas,
             "pragma_budget": PRAGMA_BUDGET,
             "ok": ok,
@@ -138,12 +157,19 @@ def main(argv=None) -> int:
             from tpu_pbrt_torch.analysis.cost import BUDGETS_PATH
 
             print(f"cost: {device} budgets refreshed -> {args.budgets or BUDGETS_PATH}")
+        for w in hbm_warnings:
+            print(f"HBM [warning]: {w}")
+        for e in hbm_errors:
+            print(f"HBM [error]: {e}")
         n_warn = len(violations) - len(errors)
         audit_part = ("audit skipped" if args.no_audit
                       else f"{len(audit_failures)} audit failure(s)")
         cost_part = "cost skipped" if args.no_cost else f"{len(cost_errors)} cost error(s)"
+        hbm_part = ("hbmcheck skipped" if args.no_hbmcheck
+                    else f"{len(hbm_errors)} hbmcheck error(s)")
         print(f"torchlint: {len(errors)} error(s), {n_warn} warning(s), {audit_part}, "
-              f"{cost_part}, {pragmas} pragma suppression(s) (budget {PRAGMA_BUDGET}); "
+              f"{cost_part}, {hbm_part}, {pragmas} pragma suppression(s) "
+              f"(budget {PRAGMA_BUDGET}); "
               f"device {device or '-'}")
         if over_budget:
             print(f"torchlint: pragma budget exceeded ({pragmas} > {PRAGMA_BUDGET}) — fix the "

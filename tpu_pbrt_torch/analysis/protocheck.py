@@ -14,18 +14,57 @@ corpus are still to be ported beside it.
 
 The stub plan follows the port's ChunkPlan contract: `dispatch(state,
 c)` deposits chunk c into the film in place and returns its accounting.
+
+`_pragma_lines` and `_shallow_walk` are the reference's static helpers,
+which the port's hbmcheck takes from here as the reference's does (the
+pragma grammar is the port's lint's, `# torchlint: disable=`).
 """
 
 from __future__ import annotations
 
+import ast
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
+
+from tpu_pbrt_torch.analysis.lint import _PRAGMA_FILE_RE, _PRAGMA_RE
 
 #: every stub chunk reports exactly this many rays — the counter
 #: reconciliation (PROTO-COUNT) is then n_chunks * this
 RAYS_PER_CHUNK = 64
 
 _HARNESS: Optional[Dict[str, Any]] = None
+
+
+def _pragma_lines(src: str) -> Tuple[Dict[int, set], set]:
+    """(lineno -> disabled rules, file-level disabled rules) — the same
+    `# torchlint: disable=` grammar the lint uses, so one suppression
+    idiom covers every analysis layer."""
+    per_line: Dict[int, set] = {}
+    file_wide: set = set()
+    for i, line in enumerate(src.splitlines(), 1):
+        m = _PRAGMA_FILE_RE.search(line)
+        if m:
+            file_wide |= {r.strip() for r in m.group(1).split(",")}
+        m = _PRAGMA_RE.search(line)
+        if m:
+            per_line.setdefault(i, set()).update(
+                r.strip() for r in m.group(1).split(",")
+            )
+    return per_line, file_wide
+
+
+def _shallow_walk(node: ast.AST):
+    """Yield `node`'s body nodes without descending into nested
+    function/lambda scopes — SV-CLOCK's one-sample-per-scope contract
+    is per function, and a deferred `write()` closure is its own
+    scope."""
+    stack = list(ast.iter_child_nodes(node))
+    while stack:
+        n = stack.pop()
+        yield n
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        stack.extend(ast.iter_child_nodes(n))
 
 
 def repo_root() -> str:

@@ -3,6 +3,9 @@
 Only the knobs this package reads are here, each read ONCE at import
 into the module-level `cfg` (tests set an attribute of `cfg` instead):
 
+- TORCH_PBRT_BVH: the acceleration structure, stream (the default) |
+  packet | wide | binary (the per-ray and per-packet walkers;
+  accel/{packet,wide,traverse}.py);
 - TORCH_PBRT_LEAF_TRIS: triangles per stream-tracer treelet (default 512,
   accel/stream.py STREAM_LEAF_TRIS);
 - TORCH_PBRT_SLAB: cap on pairs popped per traversal expand step;
@@ -82,7 +85,7 @@ def _float(name: str, default: float) -> float:
 
 
 class Config:
-    __slots__ = ("leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
+    __slots__ = ("bvh", "leaf_tris", "slab", "headroom", "chunk", "regen", "pool", "deposit_seg",
                  "telemetry", "mipfilter", "progress_frequency", "pipeline", "audit_drops",
                  "allow_drops", "faults", "nonfinite", "retry_max", "retry_backoff",
                  "retry_backoff_cap", "retry_deadline", "metrics", "metrics_path",
@@ -91,6 +94,8 @@ class Config:
                  "serve_slo_wait_s", "health_wedge_steps")
 
     def _load(self) -> "Config":
+        #: acceleration structure: stream (default) | packet | wide | binary
+        self.bvh: str = os.environ.get("TORCH_PBRT_BVH", "stream")
         #: triangles per treelet (None -> accel/stream.STREAM_LEAF_TRIS)
         self.leaf_tris: Optional[int] = _int("TORCH_PBRT_LEAF_TRIS", None)
         #: stream worklist slab cap (pairs per expand step)

@@ -82,16 +82,17 @@ ROUGH_GLASS_MIN = 1e-4
 # -------------------------------------------------------------------------
 
 def fresnel_dielectric(cos_i, eta_i, eta_t):
-    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i."""
+    """Unpolarized dielectric Fresnel; entering/exiting by the sign of cos_i.
+    1 - cos_i^2, 1 - sin_t^2 and the sum of squares are contracted, as the
+    reference's compiled shading step (bsdf_eval and bsdf_sample in one
+    program) rounds them."""
     cos_i = torch.clamp(cos_i, -1.0, 1.0)
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = torch.abs(cos_i)
-    sin_t = ei / et * xm.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    sin_t = ei / et * xm.sqrt(torch.clamp(xm.fmac(-ci, ci, 1.0), min=0.0))
     tir = sin_t >= 1.0
-    # 1 - sin_t^2 and the sum of squares contracted, as the reference's
-    # compiled program rounds them
     ct = xm.sqrt(torch.clamp(xm.fmac(-sin_t, sin_t, 1.0), min=0.0))
     r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
     r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
@@ -106,13 +107,18 @@ def fresnel_conductor(cos_i, eta, k):
     s2 = 1.0 - c2
     e2 = eta * eta
     k2 = k * k
-    t0 = e2 - k2 - s2
-    a2b2 = xm.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=0.0))
+    # rounded as the compiled reference's fusions round them: each fusion
+    # recomputes t0 = e2 - k2 - s2, its s2 = 1 - c2 fused; a^2 + b^2's
+    # fusion keeps e2 and k2 rounded (they have other uses there) and fuses
+    # 4 e2 k2 into the sum, a's fuses e2 - k2; t3 fuses c2 a2b2
+    s2f = xm.fmac(-ci, ci, 1.0)
+    t0 = e2 - k2 - s2f
+    a2b2 = xm.sqrt(torch.clamp(xm.fmac(4.0 * e2, k2, t0 * t0), min=0.0))
     t1 = a2b2 + c2
-    a = xm.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    a = xm.sqrt(torch.clamp(0.5 * (a2b2 + (xm.fmac(eta, eta, -k2) - s2f)), min=0.0))
     t2 = 2.0 * a * ci
     rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
-    t3 = c2 * a2b2 + s2 * s2
+    t3 = xm.fmac(c2, a2b2, s2 * s2)
     t4 = t2 * s2
     rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
     return 0.5 * (rp + rs)
@@ -188,18 +194,34 @@ def tr_d(wh, ax, ay):
     c2 = cos2_theta(wh)
     c4 = c2 * c2
     cp, sp = cos_phi(wh), sin_phi(wh)
-    e = (cp * cp / torch.clamp(ax * ax, min=1e-12) + sp * sp / torch.clamp(ay * ay, min=1e-12)) * t2
-    e1 = 1.0 + e
+    # 1 + e with e's product by tan^2 fused into the sum, as compiled
+    e1 = xm.fmac(cp * cp / torch.clamp(ax * ax, min=1e-12)
+                 + sp * sp / torch.clamp(ay * ay, min=1e-12), t2, 1.0)
     d = 1.0 / (torch.pi * ax * ay * c4 * (e1 * e1))
     return torch.where(torch.isfinite(t2) & (c4 > 1e-16), d, 0.0)
 
 
+def _sin_theta_fused(w):
+    """sin(theta) of w with 1 - cos^2 contracted: where cos^2 has no
+    other use, the compiled reference fuses the square into the
+    difference (vecmath.sin2_theta rounds them apart)."""
+    return xm.sqrt(torch.clamp(xm.fmac(-w[..., 2], w[..., 2], 1.0), min=0.0))
+
+
 def tr_lambda(w, ax, ay):
-    abs_tan = torch.abs(tan_theta(w))
-    cp, sp = cos_phi(w), sin_phi(w)
-    alpha = xm.sqrt(cp * cp * ax * ax + sp * sp * ay * ay)
+    # the trig of w from the fused sin^2; alpha^2's second product and
+    # 1 + (alpha tan)^2 fused into their sums, as compiled
+    s = _sin_theta_fused(w)
+    c = w[..., 2]
+    abs_tan = torch.abs(s / torch.where(torch.abs(c) < 1e-8, torch.full_like(c, 1e-8), c))
+    zero = s == 0.0
+    cp = torch.where(zero, torch.ones_like(s), torch.clamp(w[..., 0] / torch.clamp(s, min=1e-12),
+                                                           -1.0, 1.0))
+    sp = torch.where(zero, torch.zeros_like(s), torch.clamp(w[..., 1] / torch.clamp(s, min=1e-12),
+                                                            -1.0, 1.0))
+    alpha = xm.sqrt(xm.fmac(cp * cp * ax, ax, sp * sp * ay * ay))
     at = alpha * abs_tan
-    lam = (-1.0 + xm.sqrt(1.0 + at * at)) / 2.0
+    lam = (-1.0 + xm.sqrt(xm.fmac(at, at, 1.0))) / 2.0
     return torch.where(torch.isfinite(abs_tan), lam, 0.0)
 
 
@@ -212,7 +234,9 @@ def tr_g1(w, ax, ay):
 
 
 def _tr_sample11(cos_t, u1, u2):
-    """TrowbridgeReitzSample11: slopes for visible-normal sampling."""
+    """TrowbridgeReitzSample11: slopes for visible-normal sampling. A^2 is
+    rounded apart from A^2 - 1 and A^2 - B^2, as the compiled reference
+    rounds it inside tr_sample_wh (compiled on its own it fuses them)."""
     # the products contracted into their sums as the reference's compiled
     # program contracts them (xla_math.fmac)
     sin_t = xm.sqrt(torch.clamp(xm.fmac(-cos_t, cos_t, 1.0), min=0.0))
@@ -273,10 +297,18 @@ def tr_sample_wh(wo, u1, u2, ax, ay):
     return torch.where(flip[..., None], -wh, wh)
 
 
+def _tr_pdf_parts(wo, wh, ax, ay):
+    """tr_pdf as (numerator, denominator): a caller dividing the pdf again
+    divides by the product of the denominators, as XLA folds (a / b) / c
+    into a / (b c)."""
+    return (tr_d(wh, ax, ay) * tr_g1(wo, ax, ay) * torch.abs(dot(wo, wh)),
+            torch.clamp(abs_cos_theta(wo), min=1e-12))
+
+
 def tr_pdf(wo, wh, ax, ay):
     """pdf of wh under visible-normal sampling."""
-    return (tr_d(wh, ax, ay) * tr_g1(wo, ax, ay) * torch.abs(dot(wo, wh))
-            / torch.clamp(abs_cos_theta(wo), min=1e-12))
+    num, den = _tr_pdf_parts(wo, wh, ax, ay)
+    return num / den
 
 
 # -------------------------------------------------------------------------
@@ -537,8 +569,8 @@ def _glossy_pdf(mp: MatParams, wo, wi):
     wh = wi + wo
     wh_len = xm.sqrt(dot(wh, wh))
     wh = wh / torch.clamp(wh_len[..., None], min=1e-20)
-    pdf_wh = tr_pdf(wo, wh, mp.ax, mp.ay)
-    pdf = pdf_wh / torch.clamp(4.0 * dot(wo, wh), min=1e-12)
+    num, den = _tr_pdf_parts(wo, wh, mp.ax, mp.ay)
+    pdf = num / (den * torch.clamp(4.0 * dot(wo, wh), min=1e-12))
     # FresnelBlend's pdf: the mean of the cosine and half-vector pdfs
     pdf_sub = 0.5 * (cosine_hemisphere_pdf(abs_cos_theta(wi)) + pdf)
     pdf = torch.where(mp.mtype == MAT_SUBSTRATE, pdf_sub, pdf)
@@ -1173,6 +1205,13 @@ class BSDFSample(NamedTuple):
     is_transmission: torch.Tensor  # (R,) bool
 
 
+def _reflect_fused(wo, wh):
+    """-wo + 2 (wo . wh) wh with the product fused into the sum, as the
+    compiled reference's bsdf_sample rounds its half-vector reflections
+    (vecmath.reflect rounds them apart)."""
+    return xm.fmac(2.0 * dot(wo, wh)[..., None], wh, -wo)
+
+
 def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     """BSDF::Sample_f over the batch: u_lobe picks among the matching
     lobes (pbrt's uniform component choice), u1, u2 drive the chosen one."""
@@ -1192,7 +1231,7 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     wi_d = torch.where(flip_t[..., None], _flip_z(wi_d), wi_d)
     # --- glossy candidate (VNDF half-vector) ------------------------------
     wh = tr_sample_wh(wo, u1, u2, mp.ax, mp.ay)
-    wi_g = reflect(wo, wh)
+    wi_g = _reflect_fused(wo, wh)
     # substrate: half the samples are cosine (FresnelBlend::Sample_f)
     use_cos = (mp.mtype == MAT_SUBSTRATE) & (u_lobe < 0.5)
     wi_g = torch.where(use_cos[..., None], wi_d, wi_g)
@@ -1233,9 +1272,13 @@ def bsdf_sample(mp: MatParams, wo, u_lobe, u1, u2) -> BSDFSample:
     n_loc = torch.stack([torch.zeros_like(ct_o), torch.zeros_like(ct_o),
                          torch.where(entering, one, -one)], dim=-1)
     ci = torch.abs(ct_o)
-    sin2_t = eta_rel * eta_rel * torch.clamp(1.0 - ci * ci, min=0.0)
-    ct_t = xm.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-    wi_refr = eta_rel[..., None] * -wo + (eta_rel * ci - ct_t)[..., None] * n_loc
+    # 1 - ci^2, 1 - sin^2(t), eta ci - cos(t) and the refracted direction's
+    # first product fused into their sums, as compiled
+    e2 = eta_rel * eta_rel
+    ct_t = xm.sqrt(torch.clamp(xm.fmac(-e2, torch.clamp(xm.fmac(-ci, ci, 1.0), min=0.0), 1.0),
+                               min=0.0))
+    wi_refr = xm.fmac(eta_rel[..., None], -wo,
+                      xm.fmac(eta_rel, ci, -ct_t)[..., None] * n_loc)
     f_refl_g = (F / torch.clamp(abs_cos_theta(wi_mirror), min=1e-12))[..., None] * mp.kr
     # radiance transport: the (ei/et)^2 factor
     er = ei / et

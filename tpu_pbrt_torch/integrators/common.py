@@ -1,7 +1,8 @@
 """Shared wavefront-integrator machinery (port of tpu_pbrt/integrators/common.py).
 
-- Scene::Intersect / IntersectP dispatch to the stream tracer (or the
-  brute feature product for scenes of at most BRUTE_MAX_TRIS triangles),
+- Scene::Intersect / IntersectP dispatch to the stream tracer, the
+  packet, wide or binary walker (TORCH_PBRT_BVH), or the brute feature
+  product for scenes of at most BRUTE_MAX_TRIS triangles,
   and the fused camera+shadow closest hit of the 2R wave layout;
 - SurfaceInteraction construction from a Hit, and the material at a hit
   (`textured_mat`: the mix resolution, the row gather and every textured
@@ -32,7 +33,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from tpu_pbrt_torch.accel.traverse import Hit
+from tpu_pbrt_torch.accel.traverse import WALKS, Hit
 from tpu_pbrt_torch.cameras import generate_rays
 from tpu_pbrt_torch.config import cfg
 from tpu_pbrt_torch.core import bxdf
@@ -79,18 +80,27 @@ _JITTER_MAX = float(np.float32(0.9999999))
 CPU_CHUNK = 1 << 17
 #: camera rays per dispatch on a GPU (the reference's accelerator default)
 GPU_CHUNK = 1 << 20
+#: camera rays per GPU dispatch under the packet, wide and binary walkers
+#: (the reference's accelerator default for them: their waves are orders
+#: of magnitude slower than the stream tracer's)
+WALKER_CHUNK = 1 << 13
 
 
 def scene_intersect(dev, o, d, t_max, time=None) -> Hit:
-    """Scene::Intersect over the acceleration structure the compiler chose.
-    time: each ray's shutter time in [0, 1] on a motion scene (dev carries
-    tri_verts1), None for time 0 and the shutter-start vertices."""
+    """Scene::Intersect over the acceleration structure the compiler chose:
+    the stream tracer, the packet, wide or binary walker
+    (TORCH_PBRT_BVH=packet|wide|binary, static: they take no ray time),
+    or the brute feature product. time: each ray's shutter time in [0, 1]
+    on a motion scene (dev carries tri_verts1), None for time 0 and the
+    shutter-start vertices."""
     if "tstream" in dev:
         from tpu_pbrt_torch.accel.stream import stream_intersect
 
         return stream_intersect(dev["tstream"], dev["tri_verts"], o, d, t_max, time=time,
                                 tri_verts1=dev.get("tri_verts1"), tv9T=dev.get("tri_verts9T"),
                                 tv9T1=dev.get("tri_verts1_9T"))
+    if walker_kind(dev) is not None:
+        return _walk(dev, o, d, t_max, any_hit=False)
     from tpu_pbrt_torch.accel.mxu import brute_feature_intersect
 
     bf = dev["bfeat"]
@@ -124,13 +134,50 @@ def scene_intersect_fused(dev, o, d, t_max, n_cam: int, time=None):
 
 def scene_intersect_p(dev, o, d, t_max, time=None):
     """Scene::IntersectP, the shadow-ray predicate: the stream tracer's
-    any-hit traversal at the rays' times, or the brute product's closest
-    hit tested for a hit, at time 0 (as the reference does)."""
+    any-hit traversal at the rays' times, a walker's any-hit walk, or the
+    brute product's closest hit tested for a hit, at time 0 (as the
+    reference does)."""
     if "tstream" in dev:
         from tpu_pbrt_torch.accel.stream import stream_intersect_p
 
         return stream_intersect_p(dev["tstream"], o, d, t_max, time=time)
+    if walker_kind(dev) is not None:
+        return _walk(dev, o, d, t_max, any_hit=True)
     return scene_intersect(dev, o, d, t_max).prim >= 0
+
+
+#: a walker scene's table -> its TORCH_PBRT_BVH name
+WALKER_TABLES = {"tpack": "packet", "wbvh": "wide", "bvh": "binary"}
+
+
+def walker_kind(dev) -> Optional[str]:
+    """The walker the scene traces through ("packet", "wide" or "binary"),
+    or None."""
+    return next((kind for key, kind in WALKER_TABLES.items() if key in dev), None)
+
+
+def device_chunk(scene) -> int:
+    """The default chunk of one device: CPU_CHUNK on the CPU; on the card
+    WALKER_CHUNK where the compiler built a walker's tables, else
+    GPU_CHUNK (a walker knob on a scene it falls back from keeps the
+    stream tracer's or the brute product's chunk)."""
+    if scene.device.type != "cuda":
+        return CPU_CHUNK
+    return GPU_CHUNK if walker_kind(scene.dev) is None else WALKER_CHUNK
+
+
+def _walk(dev, o, d, t_max, any_hit: bool):
+    """The walker scene's closest hit, or its any-hit predicate."""
+    from tpu_pbrt_torch.accel import packet, traverse, wide
+
+    if "tpack" in dev:
+        fn = packet.packet_intersect_p if any_hit else packet.packet_intersect
+        return fn(dev["tpack"], o, d, t_max)
+    if "wbvh" in dev:
+        fn = wide.wide_intersect_p if any_hit else wide.wide_intersect
+        return fn(dev["wbvh"], dev["tri_verts"], o, d, t_max)
+    fn = traverse.bvh_intersect_p if any_hit else traverse.bvh_intersect
+    return fn(dev["bvh"], dev["tri_verts"], o, d, t_max)
 
 
 def unoccluded_tr(dev, o, d, dist, cur_med, px, py, s, salt, segments: int = 1):
@@ -941,7 +988,7 @@ class WavefrontIntegrator:
             # the device default is a rank's share: a pool's cost is per
             # wave, so a rank given a fraction of it would drain its slice
             # in as many waves as the whole chunk takes on one device
-            default = (GPU_CHUNK if scene.device.type == "cuda" else CPU_CHUNK) * n_dev
+            default = device_chunk(scene) * n_dev
             chunk = int(cfg.chunk if cfg.chunk is not None else default)
         chunk = max(min(int(chunk), max(1024 * n_dev, total)), 1)
         chunk = max((chunk // n_dev) * n_dev, n_dev)
@@ -1232,6 +1279,7 @@ class WavefrontIntegrator:
             # the film's scatter-adds accumulate in a fixed order
             torch.use_deterministic_algorithms(True, warn_only=True)
         stream.WAVES.reset()
+        WALKS.reset()
         c = first_chunk
         attempt = 0
         retry_t0 = None  # wall clock of the current failure streak
@@ -1467,6 +1515,11 @@ class WavefrontIntegrator:
         }
         if "tstream" in scene.dev:
             stats["tracer_mode"] = plan.tracer
+        walker = walker_kind(scene.dev)
+        if walker is not None:
+            # the walker's waves, masked steps and the host reads of its
+            # loop tests
+            stats["walker"] = dict(WALKS.stats(), kind=walker)
         if any(recovery.values()):
             stats["recovery"] = dict(recovery)
         wave_counts = []

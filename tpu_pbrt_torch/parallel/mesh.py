@@ -287,14 +287,14 @@ def launch(fn: Callable, n_ranks: int, args: tuple = (), device: str = "cuda",
     results in rank order. A rank that raises, dies or outlasts `timeout`
     fails the launch (RuntimeError with its traceback); every process is
     stopped before this returns. `fn` and `args` must pickle; `threads`
-    sets each rank's torch CPU threads (default: the cores over the
-    ranks). `lead_here=True` runs rank 0 in the calling process (which
+    sets each rank's torch CPU threads (default: the calling process's
+    torch threads shared over the ranks). `lead_here=True` runs rank 0 in the calling process (which
     keeps its standard input: the serving daemon's rank 0 reads it) and
     spawns the others; `timeout` then bounds their wait after rank 0."""
     import multiprocessing as mp
 
     backend = backend or default_backend(device, share_device)
-    threads = threads or max(1, (os.cpu_count() or 1) // n_ranks)
+    threads = threads or max(1, torch.get_num_threads() // n_ranks)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="tpu_pbrt_torch_mesh_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")

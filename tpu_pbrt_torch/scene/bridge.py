@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from tpu_pbrt_torch.accel.treelet import TreeletPack, pack_from_numpy
+from tpu_pbrt_torch.accel.wide import WideBVH, wide_as_device
 from tpu_pbrt_torch.core.bssrdf import BakedBSSRDF
 from tpu_pbrt_torch.core.bxdf import (DISNEY_COLUMNS, HAIR_COLUMNS, MAT_COLUMNS, MIX_COLUMNS,
                                       SUB_COLUMNS)
@@ -44,14 +45,17 @@ def _tensor(a, device):
 
 def upload(tab: dict, device) -> dict:
     """Numpy tables (as compile_scene builds them) -> device tables:
-    arrays become tensors, "tstream" becomes a TreeletPack, "env_distr"
+    arrays become tensors, "tstream" and "tpack" become TreeletPacks,
+    "wbvh" (build_wide_numpy's three tables) a WideBVH, "env_distr"
     (its six tables in field order) a Distribution2D, "media" (its eight
     fields in order) a MediumTable, "bssrdf" (its six) a BakedBSSRDF, a
     FourierTable moves its arrays, nested dicts recurse."""
     out = {}
     for k, v in tab.items():
-        if k == "tstream":
+        if k in ("tstream", "tpack"):
             out[k] = pack_from_numpy(v, device)
+        elif k == "wbvh":
+            out[k] = wide_as_device(v, device)
         elif k == "env_distr":
             out[k] = Distribution2D(*(_tensor(a, device) for a in v))
         elif k == "media":
@@ -102,6 +106,13 @@ def tables_from_numpy(dev_np: dict, device) -> dict:
     tab["light"] = {k: dev_np["light"][k] for k in LIGHT_KEYS}
     if "tstream" in dev_np:
         tab["tstream"] = pack_tables(dev_np["tstream"])
+    if "tpack" in dev_np:
+        tab["tpack"] = pack_tables(dev_np["tpack"])
+    if "wbvh" in dev_np:
+        w = dev_np["wbvh"]
+        tab["wbvh"] = (w.child_bmin, w.child_bmax, w.child_idx)
+    if "bvh" in dev_np:
+        tab["bvh"] = dict(dev_np["bvh"])
     if "bfeat" in dev_np:
         tab["bfeat"] = {"feat": dev_np["bfeat"]["feat"], "center": dev_np["bfeat"]["center"]}
     if "media" in dev_np:
@@ -123,7 +134,7 @@ def flat_tables(dev: dict, prefix: str = "") -> dict:
                 "offset": v.offset, "count": v.count,
             }
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in parts.items()})
-        elif isinstance(v, (Distribution2D, MediumTable, BakedBSSRDF)):
+        elif isinstance(v, (Distribution2D, MediumTable, BakedBSSRDF, WideBVH)):
             out.update({f"{name}.{p}": x.detach().cpu().numpy() for p, x in v._asdict().items()})
         elif isinstance(v, FourierTable):
             out.update({f"{name}.{p}": getattr(v, p).detach().cpu().numpy()

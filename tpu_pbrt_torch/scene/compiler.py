@@ -45,9 +45,10 @@ directive set the port renders:
   every sampler the reference dispatches ("zerotwosequence" and its
   aliases, "random", "stratified", "halton", "sobol"), and the
   integrators of integrators.PORTED ("path", "directlighting",
-  "whitted", "ao", "volpath", "bdpt", "sppm", "mlt").
+  "whitted", "ao", "volpath", "bdpt", "sppm", "mlt") and any
+  registered with integrators.register_integrator.
 
-An integrator outside integrators.PORTED raises PbrtError naming it. The
+Any other integrator raises PbrtError naming the available ones. The
 substitutions are the reference's own, each with its warning where the
 reference gives one: an area light of any name is diffuse, a scene
 without geometry gets one degenerate far-away triangle, an unknown
@@ -1282,12 +1283,34 @@ def compile_scene(api, device=None) -> CompiledScene:
     from tpu_pbrt_torch.accel.mxu import (BRUTE_MAX_TRIS, tri_feature_weights,
                                           tri_feature_weights_motion)
 
-    if len(verts) <= BRUTE_MAX_TRIS:
+    # the reference's selection order: the binary and wide walkers win over
+    # the brute product; the packet walker applies above BRUTE_MAX_TRIS;
+    # the walkers trace the shutter-start keyframe
+    accel_kind = cfg.bvh
+    if verts1 is not None and accel_kind in ("binary", "wide"):
+        Warning("motion blur is only supported on the stream/brute accel paths; this "
+                f"{accel_kind}-walker render is STATIC at shutter start")
+    if accel_kind == "binary":
+        from tpu_pbrt_torch.accel.traverse import bvh_as_device_dict
+
+        tab["bvh"] = bvh_as_device_dict(bvh)
+    elif accel_kind == "wide":
+        from tpu_pbrt_torch.accel.wide import build_wide_numpy
+
+        tab["wbvh"] = build_wide_numpy(bvh)
+    elif len(verts) <= BRUTE_MAX_TRIS:
         tab["bfeat"] = {
             "feat": (tri_feature_weights(verts, wcenter) if verts1 is None
                      else tri_feature_weights_motion(verts, verts1, wcenter)),
             "center": np.asarray(wcenter, np.float32),
         }
+    elif accel_kind == "packet":
+        from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy
+
+        if verts1 is not None:
+            Warning("motion blur is only supported on the stream/brute accel paths; this "
+                    "packet-walker render is STATIC at shutter start")
+        tab["tpack"] = build_treelet_pack_numpy(verts, bvh)
     else:
         from tpu_pbrt_torch.accel.stream import STREAM_LEAF_TRIS
         from tpu_pbrt_torch.accel.treelet import build_treelet_pack_numpy
